@@ -1,0 +1,10 @@
+"""Compute ops for the D2Q9-BGK engine.
+
+``lattice``       — D2Q9 constants (velocities, weights, opposite permutation).
+``reference``     — composable single-purpose ops, the test oracle.
+``fused``         — the single-pass step in plain PyTorch and its run loop.
+``kernel_common`` — the step math of the kernels in plain PyTorch.
+``step_kernel``   — the per-step CUDA kernel's wrapper, plain version and
+                    run loop.
+``_build``        — nvcc build-at-first-use of ``csrc/``, loaded with ctypes.
+"""

@@ -1,0 +1,1 @@
+"""Runtime utilities: I/O codecs, validation checker, timers."""

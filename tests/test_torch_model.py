@@ -1,0 +1,249 @@
+"""The slice as a whole on the CPU: the port's Simulation and CLI against
+the JAX package's on the same decks.
+
+The port's ``auto`` backend runs the step kernel's plain version here (the
+kernel's pre-collision ||u|| reduction); JAX's ``fused`` backend reduces
+over the post-collision moments, so av agrees within rtol 5e-4 over a
+from-rest run, as tests/test_resident.py holds the JAX kernels to it, and f
+within rtol 1e-5.  The port's ``fused`` and ``pipeline`` backends are held
+to JAX's backends of the same names.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from advanced_hpc_lbm_tpu.models.d2q9_bgk import Simulation as JaxSimulation
+from advanced_hpc_lbm_tpu.models.d2q9_bgk import SimulationResult as JaxResult
+from advanced_hpc_lbm_tpu.params import LBMParams as JaxParams
+from advanced_hpc_lbm_tpu.utils import io as jio
+from advanced_hpc_lbm_tpu.utils import native as jnative
+from advanced_hpc_lbm_tpu_torch import LBMParams, Simulation, SimulationResult, cli
+from advanced_hpc_lbm_tpu_torch.models import d2q9_bgk
+from advanced_hpc_lbm_tpu_torch.ops import step_kernel
+from advanced_hpc_lbm_tpu_torch.utils import check, io
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+DECKS = os.path.join(ROOT, "decks")
+MINI = (os.path.join(DECKS, "mini_64x64.params"),
+        os.path.join(DECKS, "mini_64x64.obstacles.dat"))
+MINI_GOLDEN = os.path.join(DECKS, "mini_64x64.golden_av_vels.dat")
+
+
+@pytest.fixture(scope="module")
+def mini_runs():
+    port = Simulation.from_decks(*MINI, backend="auto", device="cpu").run()
+    ref = JaxSimulation.from_decks(*MINI, backend="fused").run()
+    return port, ref
+
+
+def test_mini_deck_auto_matches_jax_fused(mini_runs):
+    port, ref = mini_runs
+    assert port.f_final.shape == (9, 64, 64) and port.av_vels.shape == (500,)
+    assert isinstance(port.f_final, np.ndarray)  # run() fetched by default
+    np.testing.assert_allclose(port.f_final, ref.f_final, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(port.av_vels, ref.av_vels, rtol=5e-4)
+
+
+def test_mini_deck_passes_golden(mini_runs, tmp_path):
+    port, _ = mini_runs
+    io.write_av_vels(tmp_path / "av_vels.dat", port.av_vels)
+    stats = check.check_av_vels_only(MINI_GOLDEN, str(tmp_path / "av_vels.dat"))
+    assert stats.passed(1.0)
+
+
+def _small_deck():
+    params = LBMParams(nx=32, ny=16, max_iters=12, reynolds_dim=10,
+                       density=0.1, accel=0.005, omega=1.85)
+    rng = np.random.RandomState(0)
+    mask = np.zeros((16, 32), dtype=bool)
+    mask[0] = mask[-1] = mask[:, 0] = True
+    mask[5:8, 10:14] = True
+    for _ in range(5):
+        mask[rng.randint(1, 13), rng.randint(1, 31)] = True
+    return params, mask
+
+
+def _jax_params(p):
+    return JaxParams(**dataclasses.asdict(p))
+
+
+@pytest.mark.parametrize("backend", ["fused", "pipeline"])
+def test_plain_backends_match_jax(backend):
+    params, mask = _small_deck()
+    port = Simulation(params, mask, backend=backend, device="cpu").run()
+    ref = JaxSimulation(_jax_params(params), mask, backend=backend).run()
+    np.testing.assert_allclose(port.f_final, ref.f_final, rtol=1e-5, atol=1e-7)
+    # whole-grid sums in another order, on the small velocities of a run
+    # from rest: the trajectory tolerance of tests/test_pallas.py
+    np.testing.assert_allclose(port.av_vels, ref.av_vels, rtol=1e-4)
+
+
+@pytest.mark.parametrize("backend", ["auto", "step", "fused", "pipeline"])
+def test_backends_resolve(backend):
+    params, mask = _small_deck()
+    sim = Simulation(params, mask, backend=backend, device="cpu")
+    assert sim.backend == ("step" if backend == "auto" else backend)
+
+
+@pytest.mark.parametrize("backend", d2q9_bgk.NOT_PORTED)
+def test_unported_backend_raises(backend):
+    params, mask = _small_deck()
+    with pytest.raises(ValueError, match="not yet ported"):
+        Simulation(params, mask, backend=backend, device="cpu")
+
+
+def test_unknown_backend_and_bad_mask_raise():
+    params, mask = _small_deck()
+    with pytest.raises(ValueError, match="unknown backend"):
+        Simulation(params, mask, backend="nope", device="cpu")
+    with pytest.raises(ValueError, match="obstacle mask"):
+        Simulation(params, mask[:-1], device="cpu")
+
+
+def test_run_without_fetch_then_collate():
+    params, mask = _small_deck()
+    sim = Simulation(params, mask, device="cpu")
+    sim.warmup()
+    res = sim.run(n_iters=5, fetch=False, debug=True)
+    assert isinstance(res.f_final, torch.Tensor) and isinstance(res.av_vels, torch.Tensor)
+    assert res.collate() is res
+    assert isinstance(res.f_final, np.ndarray) and res.av_vels.shape == (5,)
+    np.testing.assert_allclose(res.densities, res.densities[0], rtol=1e-5)
+    assert res.collate().av_vels.shape == (5,)  # idempotent
+
+
+def test_reynolds_and_write_match_jax(tmp_path, monkeypatch):
+    """From the same host arrays, both packages print the same Reynolds
+    number and write the same bytes."""
+    monkeypatch.setattr(jnative, "available", lambda: False)
+    params, mask = _small_deck()
+    res = Simulation(params, mask, device="cpu").run(n_iters=4)
+    jres = JaxResult(params=_jax_params(params), f_final=res.f_final, av_vels=res.av_vels)
+    jres._obstacles_cache = mask
+    assert f"{res.reynolds:.12E}" == f"{jres.reynolds:.12E}"
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax").mkdir()
+    res.write(tmp_path / "port")
+    jres.write(tmp_path / "jax")
+    for name in ("final_state.dat", "av_vels.dat"):
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
+
+
+def test_check_finite_gates_nan():
+    params, mask = _small_deck()
+    bad = SimulationResult(params=params, f_final=torch.full((9, 16, 32), float("nan")),
+                           av_vels=torch.zeros(3))
+    bad._obstacles_cache = mask
+    bad._check_finite_pending = True
+    with pytest.raises(FloatingPointError, match="final state"):
+        bad.collate()
+    bad = SimulationResult(params=params, f_final=np.ones((9, 16, 32), np.float32),
+                           av_vels=np.array([0.1, np.inf], np.float32))
+    with pytest.raises(FloatingPointError, match="step 1"):
+        Simulation._assert_finite(bad)
+
+
+# ---- CLI -------------------------------------------------------------------
+
+def run_cli(args, capsys):
+    rc = cli.main([str(a) for a in args])
+    captured = capsys.readouterr()
+    return rc, captured.out, captured.err
+
+
+def test_cli_mini_deck_on_cpu(tmp_path, capsys):
+    rc, out, _ = run_cli([*MINI, "--device", "cpu", "--out-dir", tmp_path], capsys)
+    assert rc == 0
+    lines = out.splitlines()
+    assert lines[0] == "==done=="
+    assert lines[1].startswith("Reynolds number:\t\t")
+    assert np.isfinite(float(lines[1].split("\t")[-1]))
+    for i, phase in enumerate(["Init", "Compute", "Collate", "Total"]):
+        assert lines[2 + i].startswith(f"Elapsed {phase} time:")
+        assert lines[2 + i].endswith("(s)")
+    assert (tmp_path / "final_state.dat").exists()
+    stats = check.check_av_vels_only(MINI_GOLDEN, str(tmp_path / "av_vels.dat"))
+    assert stats.passed(1.0)
+
+
+def test_cli_debug_stream(tmp_path, capsys):
+    rc, out, _ = run_cli([*MINI, "--device", "cpu", "--debug", "--iters", "3",
+                          "--check-finite", "--backend", "fused", "--out-dir", tmp_path],
+                         capsys)
+    assert rc == 0
+    assert out.count("==timestep:") == out.count("tot density:") == 3
+    dens = [float(ln.split()[-1]) for ln in out.splitlines() if "tot density" in ln]
+    np.testing.assert_allclose(dens, dens[0], rtol=1e-5)
+    assert jio.read_av_vels(tmp_path / "av_vels.dat").shape == (3,)
+
+
+def test_cli_cuda_without_a_card_exits_1(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc, out, err = run_cli([*MINI, "--device", "cuda", "--out-dir", tmp_path], capsys)
+    assert rc == 1 and "CUDA" in err and out == ""
+    assert not (tmp_path / "av_vels.dat").exists()
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--backend", "resident"], "not yet ported"),
+    (["--device", "tpu0"], "bad --device"),
+])
+def test_cli_bad_choice_exits_1(tmp_path, capsys, extra, message):
+    rc, _, err = run_cli([*MINI, "--device", "cpu", *extra, "--out-dir", tmp_path], capsys)
+    assert rc == 1 and message in err
+
+
+def test_cli_bad_deck_exits_1(tmp_path, capsys):
+    bad = tmp_path / "bad.params"
+    bad.write_text("not a number\n")
+    rc, _, err = run_cli([bad, MINI[1], "--device", "cpu"], capsys)
+    assert rc == 1 and err.startswith("Error:")
+
+
+@pytest.mark.parametrize("flag", [
+    ["--devices", "2"], ["--mesh", "2x2"], ["--shard-kernel", "jnp"], ["--ca-steps", "2"],
+    ["--checkpoint-every", "5"], ["--resume"], ["--multihost"], ["--profile", "x"],
+])
+def test_cli_rejects_unported_flags(flag, capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main([*MINI, *flag])
+    assert e.value.code == 2
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, importlib, pkgutil, advanced_hpc_lbm_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'advanced_hpc_lbm_tpu.'))"
+        " or m == 'advanced_hpc_lbm_tpu']\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_no_jax_import_in_sources():
+    pkg = os.path.join(ROOT, "advanced_hpc_lbm_tpu_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(dirpath, name)) as fh:
+                    for line in fh:
+                        stripped = line.strip()
+                        if stripped.startswith(("import ", "from ")):
+                            mod = stripped.split()[1]
+                            assert mod.split(".")[0] not in ("jax", "advanced_hpc_lbm_tpu"), (
+                                f"{name}: {stripped}")
+
+
+def test_launch_counter_is_a_plain_int():
+    assert isinstance(step_kernel.launches, int)
