@@ -9,8 +9,9 @@ distribution tensor on an explicit ``torch.device``.
 
 Layout:
   models/  — the simulation "model": state container + end-to-end run
-  ops/     — lattice constants, reference ops, fused step, the CUDA step
-             kernel's wrapper and its build-at-first-use
+  ops/     — lattice constants, reference ops, fused step, the CUDA
+             kernels' wrappers (step, resident, K-step) and their
+             build-at-first-use
   csrc/    — CUDA C++ sources of the kernels
   utils/   — I/O codecs, validation checker, timers
 """

@@ -5,7 +5,8 @@ deck, prints the ``==done==`` / Reynolds / four-timer block and writes
 final_state.dat + av_vels.dat (in the cwd, or ``--out-dir``).
 
 Optional flags:
-  --backend       auto (default) | step | fused | pipeline
+  --backend       auto (default) | step | pallas | resident | pallask |
+                  pallas2 | fused | pipeline
   --device        cuda (default) | cpu | cuda:N
   --debug         per-step av-velocity + total-density prints
   --out-dir       where to write outputs (default: cwd)
@@ -33,8 +34,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("obstaclefile")
     p.add_argument(
         "--backend", default="auto",
-        help=f"one of {', '.join(BACKENDS)}; auto runs the CUDA step kernel "
-             "(its plain PyTorch version on the CPU)",
+        help=f"one of {', '.join(BACKENDS)}; auto runs pallask; the CUDA "
+             "kernels run their plain PyTorch versions on the CPU",
     )
     p.add_argument("--device", default="cuda", help="torch device to run on")
     p.add_argument("--debug", action="store_true")

@@ -1,10 +1,12 @@
 // Shared per-cell step math of the D2Q9-BGK kernels: the forcing guard,
-// the pairwise BGK relaxation with omega folded in, and the bounce-back
-// select.  Counterpart of ops/kernel_common.py (`forced`, `collide`), whose
-// float32 operations these perform in the same order; built with
-// -fmad=false so that no multiply-add is contracted and the kernel agrees
-// bit for bit with that plain PyTorch version.  Never build with
-// --use_fast_math: 1/rho and sqrt must stay IEEE-rounded.
+// the pairwise BGK relaxation with omega folded in, the bounce-back select,
+// and the whole per-cell step (`cell_step`) that the step, resident and
+// K-step kernels all run, so that the three agree bit for bit.
+// Counterpart of ops/kernel_common.py (`forced`, `collide`,
+// `lean_window_step`), whose float32 operations these perform in the same
+// order; built with -fmad=false so that no multiply-add is contracted and
+// the kernels agree bit for bit with those plain PyTorch versions.  Never
+// build with --use_fast_math: 1/rho and sqrt must stay IEEE-rounded.
 //
 // Speed numbering (ops/lattice.py):
 //     6 2 5
@@ -14,7 +16,17 @@
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
+#include <cstdint>
+
 namespace lbm {
+
+// The cell tile of the step and resident kernels: one thread per cell, 32
+// along x so that every plane row is read and written coalesced.  Each
+// tile writes one ||u|| partial; the two kernels share the tile and its
+// reduction order, so their partials agree bit for bit.
+constexpr int kTileX = 32;
+constexpr int kTileY = 8;
 
 // float32 scalars of one step, rounded once on the host
 // (ops/kernel_common.step_constants); device code never recomputes them.
@@ -78,6 +90,125 @@ __device__ __forceinline__ float collide(float s[9], bool obst,
     for (int k = 0; k < 9; ++k) s[k] = o[k];
   }
   return u_sq;
+}
+
+// Pull plane k from source cell (r, c), adding the forcing increment `dv`
+// when the source lies on (an image of) row ny-2 and passes the guard
+// there.  The plain version forces the whole plane before rolling and adds
+// 0 elsewhere (which turns a -0.0 into +0.0); so does this.
+template <class Src>
+__device__ __forceinline__ float forced_pull(const Src& src, int k, int r,
+                                             int c, float dv,
+                                             const StepConsts& cc) {
+  float d = 0.0f;
+  if (src.accel(r) && forcing_ok(src.obst(r, c), src.f(3, r, c),
+                                 src.f(6, r, c), src.f(7, r, c), cc)) {
+    d = dv;
+  }
+  return src.f(k, r, c) + d;
+}
+
+// The whole per-cell step, shared by the step, resident and K-step kernels
+// so that the three agree bit for bit: force at the pull source, pull the
+// 9 values, collide and bounce back.  `Src` is an accessor of the
+// pre-step state:
+//   float f(int k, int r, int c)   value of plane k at row r, column c
+//   bool obst(int r, int c)        the cell is blocked
+//   bool accel(int r)              row r is an image of row ny-2
+// (r, c) is the cell; rn/rs are the rows its north-/south-moving speeds
+// pull from, ce/cw the columns its east-/west-moving speeds pull from.
+// Writes the post-step values to s and returns u_sq of the pre-collision
+// moments (see collide).
+template <class Src>
+__device__ __forceinline__ float cell_step(const Src& src, int r, int c,
+                                           int rn, int rs, int ce, int cw,
+                                           float s[9], bool obst,
+                                           const StepConsts& cc) {
+  const float w1 = cc.accel_w1, w2 = cc.accel_w2;
+  s[0] = src.f(0, r, c);
+  s[1] = forced_pull(src, 1, r, ce, w1, cc);
+  s[2] = src.f(2, rn, c);
+  s[3] = forced_pull(src, 3, r, cw, -w1, cc);
+  s[4] = src.f(4, rs, c);
+  s[5] = forced_pull(src, 5, rn, ce, w2, cc);
+  s[6] = forced_pull(src, 6, rn, cw, -w2, cc);
+  s[7] = forced_pull(src, 7, rs, cw, -w2, cc);
+  s[8] = forced_pull(src, 8, rs, ce, w2, cc);
+  return collide(s, obst, cc);
+}
+
+// The state in device memory: (9, ny, nx) float32 planes and the uint8
+// mask, indexed by global (row, column).  The mask is never written, so it
+// is always read through the read-only data cache (__ldg).  `kReadOnly`
+// reads the planes that way too, which is right only when no thread of the
+// launch writes them: the step kernel (read-only loads of the mask and the
+// planes measured 32.3 us per step at 1024^2 against 33.6 us with plain
+// mask loads, H100 80GB HBM3 at 700 W).  The resident kernel reads buffers
+// that it wrote itself before a grid barrier, so it takes plain loads.
+template <bool kReadOnly>
+struct GlobalState {
+  const float* planes;
+  const uint8_t* mask;
+  size_t plane;  // ny * nx
+  int nx;
+  int accel_row;  // ny - 2
+  __device__ __forceinline__ float f(int k, int r, int c) const {
+    const float* p = planes + k * plane + static_cast<size_t>(r) * nx + c;
+    if constexpr (kReadOnly) {
+      return __ldg(p);
+    } else {
+      return *p;
+    }
+  }
+  __device__ __forceinline__ bool obst(int r, int c) const {
+    return __ldg(mask + static_cast<size_t>(r) * nx + c) != 0;
+  }
+  __device__ __forceinline__ bool accel(int r) const { return r == accel_row; }
+};
+
+// One step of global cell (y, x) of a periodic (ny, nx) grid: reads `src`,
+// writes the 9 new values to `out` and returns ||u|| (0 on obstacles).
+template <bool kReadOnly>
+__device__ __forceinline__ float global_cell_step(const GlobalState<kReadOnly>& src,
+                                                  float* out, int y, int x,
+                                                  int ny,
+                                                  const StepConsts& cc) {
+  const int nx = src.nx;
+  // source columns/rows of the pull, with periodic wrap
+  const int xe = (x == 0) ? nx - 1 : x - 1;  // east-moving speeds pull from x-1
+  const int xw = (x == nx - 1) ? 0 : x + 1;  // west-moving speeds pull from x+1
+  const int yn = (y == 0) ? ny - 1 : y - 1;  // north-moving speeds pull from y-1
+  const int ys = (y == ny - 1) ? 0 : y + 1;  // south-moving speeds pull from y+1
+  const bool obst = src.obst(y, x);
+  float s[9];
+  const float u_sq = cell_step(src, y, x, yn, ys, xe, xw, s, obst, cc);
+  const size_t i = static_cast<size_t>(y) * nx + x;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) out[k * src.plane + i] = s[k];
+  return obst ? 0.0f : sqrtf(u_sq);
+}
+
+// Deterministic block sum of `v` over the block's `n` threads (a power of
+// two) through `red` (n floats of shared memory): every thread must call
+// it, so that the barriers are reached by the whole block.  The result is
+// valid in thread 0.
+__device__ __forceinline__ float block_sum(float v, float* red, int tid,
+                                           int n) {
+  red[tid] = v;
+  __syncthreads();
+  for (int stride = n / 2; stride > 0; stride >>= 1) {
+    if (tid < stride) red[tid] = red[tid] + red[tid + stride];
+    __syncthreads();
+  }
+  return red[0];
+}
+
+// Host side: `err`, or else the runtime's last error, as the int the
+// entry points return.  Either way the last error is cleared, so that a
+// refused launch is not reported again by the next launch's check.
+inline int status(cudaError_t err) {
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 }  // namespace lbm

@@ -39,29 +39,9 @@
 
 namespace {
 
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 8;
+constexpr int kBlockX = lbm::kTileX;
+constexpr int kBlockY = lbm::kTileY;
 constexpr int kThreads = kBlockX * kBlockY;
-
-// Pull plane k from (sy, sx), adding the forcing increment `dv` when the
-// source lies on the forcing row and passes the guard there.  The plain
-// version forces the whole plane before rolling and adds 0 elsewhere; so
-// does this.
-__device__ __forceinline__ float forced_pull(const float* __restrict__ f,
-                                             const uint8_t* __restrict__ mask,
-                                             size_t plane, int k, int sy,
-                                             int sx, int nx, int accel_row,
-                                             float dv,
-                                             const lbm::StepConsts& c) {
-  const size_t i = static_cast<size_t>(sy) * nx + sx;
-  float d = 0.0f;
-  if (sy == accel_row &&
-      lbm::forcing_ok(mask[i] != 0, f[3 * plane + i], f[6 * plane + i],
-                      f[7 * plane + i], c)) {
-    d = dv;
-  }
-  return f[k * plane + i] + d;
-}
 
 __global__ void __launch_bounds__(kThreads)
     step_kernel(const float* __restrict__ f, float* __restrict__ out,
@@ -71,47 +51,15 @@ __global__ void __launch_bounds__(kThreads)
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   const int tid = threadIdx.y * kBlockX + threadIdx.x;
+  const lbm::GlobalState<true> src{f, mask, static_cast<size_t>(ny) * nx, nx,
+                                   ny - 2};
 
   float norm = 0.0f;
-  if (x < nx && y < ny) {
-    const size_t plane = static_cast<size_t>(ny) * nx;
-    const int accel_row = ny - 2;
-    // source columns/rows of the pull, with periodic wrap
-    const int xe = (x == 0) ? nx - 1 : x - 1;  // east-moving speeds pull from x-1
-    const int xw = (x == nx - 1) ? 0 : x + 1;  // west-moving speeds pull from x+1
-    const int yn = (y == 0) ? ny - 1 : y - 1;  // north-moving speeds pull from y-1
-    const int ys = (y == ny - 1) ? 0 : y + 1;  // south-moving speeds pull from y+1
-    const float w1 = c.accel_w1, w2 = c.accel_w2;
+  if (x < nx && y < ny) norm = lbm::global_cell_step(src, out, y, x, ny, c);
 
-    float s[9];
-    s[0] = f[static_cast<size_t>(y) * nx + x];
-    s[1] = forced_pull(f, mask, plane, 1, y, xe, nx, accel_row, w1, c);
-    s[2] = f[2 * plane + static_cast<size_t>(yn) * nx + x];
-    s[3] = forced_pull(f, mask, plane, 3, y, xw, nx, accel_row, -w1, c);
-    s[4] = f[4 * plane + static_cast<size_t>(ys) * nx + x];
-    s[5] = forced_pull(f, mask, plane, 5, yn, xe, nx, accel_row, w2, c);
-    s[6] = forced_pull(f, mask, plane, 6, yn, xw, nx, accel_row, -w2, c);
-    s[7] = forced_pull(f, mask, plane, 7, ys, xw, nx, accel_row, -w2, c);
-    s[8] = forced_pull(f, mask, plane, 8, ys, xe, nx, accel_row, w2, c);
-
-    const size_t i = static_cast<size_t>(y) * nx + x;
-    const bool obst = mask[i] != 0;
-    const float u_sq = lbm::collide(s, obst, c);
-#pragma unroll
-    for (int k = 0; k < 9; ++k) out[k * plane + i] = s[k];
-    norm = obst ? 0.0f : sqrtf(u_sq);
-  }
-
-  // deterministic block sum of ||u||: every thread takes part, so that the
-  // barriers are reached by the whole block
-  red[tid] = norm;
-  __syncthreads();
-#pragma unroll
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) red[tid] = red[tid] + red[tid + stride];
-    __syncthreads();
-  }
-  if (tid == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = red[0];
+  // deterministic block sum of ||u||
+  const float total = lbm::block_sum(norm, red, tid, kThreads);
+  if (tid == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = total;
 }
 
 }  // namespace

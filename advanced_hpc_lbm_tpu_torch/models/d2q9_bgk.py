@@ -5,12 +5,23 @@ backend selection, the main loop on one device, diagnostics (the Reynolds
 number) and output writing.  The argv and timing scaffolding lives in
 :mod:`advanced_hpc_lbm_tpu_torch.cli`.
 
-Backends:
+Backends (each CUDA kernel runs its plain PyTorch version on the CPU):
   step      one launch of the hand-written CUDA step kernel per timestep
-            (ops/step_kernel.py; its plain PyTorch version on the CPU)
+            (ops/step_kernel.py)
+  pallas    the JAX package's name for the per-step kernel: runs ``step``
+  resident  the whole run in one cooperative launch per chunk of steps
+            (ops/resident.py)
+  pallask   K steps per launch on ghost-zone windows, K = best_k(ny, nx),
+            the last iters % K steps on the step kernel (ops/kstep_kernel.py)
+  pallas2   the same at K = 2
   fused     the fused step in plain PyTorch (ops/fused.py)
   pipeline  the 4-op reference pipeline (ops/reference.py)
-  auto      ``step``: the kernel takes any grid shape
+  auto      ``pallask``, the fastest on every grid this port timed on the
+            H100 (see ``AUTO_BACKEND``)
+
+``--debug`` on a whole-run backend (resident, pallask, pallas2) runs the
+step kernel's loop, which collects the per-step densities: the
+counterpart of the JAX package falling back to ``fused`` there.
 """
 
 from __future__ import annotations
@@ -21,13 +32,23 @@ import os
 import numpy as np
 import torch
 
-from advanced_hpc_lbm_tpu_torch.ops import fused, reference, step_kernel
+from advanced_hpc_lbm_tpu_torch.ops import fused, kstep_kernel, reference, resident, step_kernel
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
 from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
 
-BACKENDS = ("auto", "step", "fused", "pipeline")
+BACKENDS = ("auto", "step", "pallas", "resident", "pallask", "pallas2", "fused", "pipeline")
 # backends of the JAX package that this package does not have yet
-NOT_PORTED = ("pallas", "pallas2", "pallask", "resident", "stream", "sharded")
+NOT_PORTED = ("stream", "sharded")
+# the backends that run a whole run per launch (or K steps per launch)
+WHOLE_RUN = ("resident", "pallask", "pallas2")
+
+
+# ``auto``'s backend on every grid, from this port's times on an H100 80GB
+# HBM3 at 700 W (PERF.md, Findings): the K-step kernel was the
+# fastest path measured from 64^2 to 4096^2 in every run (e.g. 3.2-3.6 us
+# per step at 128^2 against 3.6-4.0 for resident and 8-18 for step; 23 us
+# at 1024^2 against 32 for step and 41 for resident).
+AUTO_BACKEND = "pallask"
 
 
 def _to_host(x):
@@ -132,9 +153,10 @@ class Simulation:
         obstacles = lbm_io.load_obstacles(obstaclefile, params)
         return cls(params, obstacles, **kwargs)
 
-    @staticmethod
-    def _resolve_backend(backend: str) -> str:
+    def _resolve_backend(self, backend: str) -> str:
         if backend == "auto":
+            return AUTO_BACKEND
+        if backend == "pallas":
             return "step"
         if backend in BACKENDS:
             return backend
@@ -148,9 +170,18 @@ class Simulation:
     def initial_state(self) -> torch.Tensor:
         return reference.initial_state(self.params, self.device)
 
+    def _k(self) -> int:
+        """K of the K-step backends."""
+        return 2 if self.backend == "pallas2" else kstep_kernel.best_k(self.params.ny, self.params.nx)
+
     def _run_on_device(self, iters: int, debug: bool) -> tuple[torch.Tensor, ...]:
         f0 = self.initial_state()
-        if self.backend == "step":
+        if self.backend == "resident" and not debug:
+            return resident.resident_run(f0, self._mask, self.params, n_iters=iters)
+        if self.backend in ("pallask", "pallas2") and not debug:
+            return kstep_kernel.run(f0, self._mask, self.params, n_iters=iters, k=self._k())
+        if self.backend == "step" or self.backend in WHOLE_RUN:
+            # debug mode needs per-step densities: the step kernel's loop
             return step_kernel.run(
                 f0, self._mask, self.params, n_iters=iters, collect_density=debug
             )
@@ -166,13 +197,18 @@ class Simulation:
 
     def warmup(self) -> None:
         """Pay the one-time costs before the Compute timer starts: build the
-        kernel library and load the kernel onto the card (``step``), and
-        create the CUDA context.  One library serves every run length.  It
-        launches no step kernel, so that ``step_kernel.launches`` counts the
-        run's steps alone; the plain backends run one throwaway step to load
-        PyTorch's kernels."""
-        if self.backend == "step":
+        kernel library, load every kernel the backend launches onto the
+        card (the step kernel too, which runs the K-step backends' tail and
+        ``--debug``), and create the CUDA context.  One library serves every
+        run length.  It launches no kernel, so that the launch counts of
+        the kernel modules count the run alone; the plain backends run one
+        throwaway step to load PyTorch's kernels."""
+        if self.backend == "step" or self.backend in WHOLE_RUN:
             step_kernel.prepare(self.device)
+            if self.backend == "resident":
+                resident.prepare(self.device)
+            elif self.backend in WHOLE_RUN:
+                kstep_kernel.prepare(self.device, self._k())
         else:
             self._run_on_device(1, False)
         self._sync()

@@ -6,5 +6,9 @@
 ``kernel_common`` — the step math of the kernels in plain PyTorch.
 ``step_kernel``   — the per-step CUDA kernel's wrapper, plain version and
                     run loop.
+``resident``      — the whole-run cooperative CUDA kernel's wrapper and
+                    plain version.
+``kstep_kernel``  — the K-steps-per-pass ghost-zone CUDA kernel's wrapper,
+                    plain version and run loop.
 ``_build``        — nvcc build-at-first-use of ``csrc/``, loaded with ctypes.
 """

@@ -1,8 +1,9 @@
 """Build-at-first-use of the CUDA kernels in ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface under ``build/torch_kernels/`` of the checkout, named by a hash
-of the sources and the flags, and the library is loaded with ctypes.  A
+``nvcc`` compiles every ``csrc/*.cu`` (one process per source, all started
+together) and links them into one shared library with a plain C interface
+under ``build/torch_kernels/`` of the checkout, named by a hash of the
+sources and the flags, and the library is loaded with ctypes.  A
 second call (or a second process) finds the library by its hash and does
 not compile again.  Nothing here runs at import time: a host without nvcc
 or a card imports this module freely and fails only when it asks for the
@@ -23,12 +24,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-fmad=false",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = (*ARCH, "-shared")
 
 
 def _nvcc() -> str:
@@ -48,39 +49,53 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     """Where the library built from the current sources lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"liblbm_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[tuple[int, str]]:
+    """Run the commands side by side; (returncode, stdout + stderr) each."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    results = []
+    for p in procs:
+        out, _ = p.communicate()
+        results.append((p.returncode, out))
+    return results
+
+
 def build() -> tuple[Path, bool]:
     """Compile the library unless it is already built.  Returns (path,
-    from_cache).  The compiler's report (registers, spills) is kept beside
-    the library as ``<name>.log``."""
+    from_cache).  One nvcc per source compiles the objects in parallel, a
+    last one links them.  The compiler's report (registers, spills) is kept
+    beside the library as ``<name>.log``."""
     out = library_path()
     if out.exists():
         return out, True
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    units = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    units = sorted(CSRC.glob("*.cu"))
+    tmpdir = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        res = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *units],
-            capture_output=True, text=True,
-        )
-        out.with_suffix(".log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (rc {res.returncode}):\n{res.stderr[-4000:]}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+        objs = [tmpdir / f"{u.stem}.o" for u in units]
+        results = _run_all([
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(u)]
+            for u, o in zip(units, objs)
+        ])
+        if all(rc == 0 for rc, _ in results):
+            results += _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmpdir / "lib.so"),
+                                  *map(str, objs)]])
+        log = "".join(text for _, text in results)
+        out.with_suffix(".log").write_text(log)
+        if any(rc != 0 for rc, _ in results):
+            rc = next(rc for rc, _ in results if rc != 0)
+            raise RuntimeError(f"nvcc failed (rc {rc}):\n{log[-4000:]}")
+        os.replace(tmpdir / "lib.so", out)  # atomic: a concurrent loader sees all or none
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmpdir, ignore_errors=True)
     return out, False
 
 
@@ -91,12 +106,20 @@ def load() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     ptr, f32, i32 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-    lib.lbm_step.argtypes = [ptr, ptr, ptr, ptr, i32, i32, *[f32] * 6, ptr]
-    lib.lbm_step.restype = i32
-    lib.lbm_step_prepare.argtypes = []
-    lib.lbm_step_prepare.restype = i32
-    lib.lbm_step_block_shape.argtypes = [ctypes.POINTER(i32), ctypes.POINTER(i32)]
-    lib.lbm_step_block_shape.restype = None
-    lib.lbm_error_string.argtypes = [i32]
-    lib.lbm_error_string.restype = ctypes.c_char_p
+    consts = [f32] * 6  # StepConsts, field by field
+    signatures = {
+        # name: (argtypes, restype)
+        "lbm_step": ([ptr, ptr, ptr, ptr, i32, i32, *consts, ptr], i32),
+        "lbm_step_prepare": ([], i32),
+        "lbm_step_block_shape": ([ctypes.POINTER(i32)] * 2, None),
+        "lbm_resident_chunk": ([ptr, ptr, ptr, ptr, i32, i32, i32, i32, *consts, ptr], i32),
+        "lbm_resident_prepare": ([], i32),
+        "lbm_kstep": ([ptr, ptr, ptr, ptr, i32, i32, i32, *consts, ptr], i32),
+        "lbm_kstep_prepare": ([i32], i32),
+        "lbm_kstep_tile_shape": ([ctypes.POINTER(i32)] * 2, None),
+        "lbm_error_string": ([i32], ctypes.c_char_p),
+    }
+    for name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
     return lib

@@ -1,15 +1,18 @@
-"""The CUDA step kernel on the card, against its plain PyTorch version on
-the same card.  Skipped where PyTorch sees no CUDA device.
+"""The CUDA kernels on the card (step, resident, K-step), against their
+plain PyTorch versions on the same card and against each other.  Skipped
+where PyTorch sees no CUDA device.
 
 This file imports no JAX, so that the card's host, which has none, can run
 it without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Built with -fmad=false and the plain version's op order, the kernel is
+Built with -fmad=false and the plain version's op order, the kernels are
 expected to match bit for bit; the stated tolerance is f within rtol 1e-6 /
 atol 1e-8, and av within rtol 1e-5 (the kernel sums ||u|| by a block tree,
-PyTorch by its own reduction order).
+PyTorch by its own reduction order).  The resident and K-step kernels run
+the step kernel's per-cell code, so their state equals the step kernel's
+with 0 differing values.
 """
 
 import numpy as np
@@ -17,7 +20,7 @@ import pytest
 import torch
 
 from advanced_hpc_lbm_tpu_torch import Simulation
-from advanced_hpc_lbm_tpu_torch.ops import reference, step_kernel
+from advanced_hpc_lbm_tpu_torch.ops import kstep_kernel, reference, resident, step_kernel
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
 
 pytestmark = [
@@ -84,3 +87,75 @@ def test_simulation_on_card_matches_cpu():
     cpu = Simulation(params, mask_np, device="cpu").run()
     np.testing.assert_allclose(gpu.f_final, cpu.f_final, rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(gpu.av_vels, cpu.av_vels, rtol=1e-5)
+
+
+def _on_card(ny, nx, seed):
+    params, mask_np, f0 = make_case(ny, nx, seed)
+    return params, torch.from_numpy(mask_np).cuda(), torch.from_numpy(f0).cuda()
+
+
+@pytest.mark.parametrize("ny,nx", [(64, 64), (100, 130), (17, 23), (256, 512)])
+def test_resident_matches_step_and_plain_on_card(ny, nx):
+    params, mask, f = _on_card(ny, nx, seed=3)
+    before = resident.launches
+    fr, avr = resident.resident_run(f, mask, params, n_iters=17, chunk=6)
+    torch.cuda.synchronize()
+    assert resident.launches - before == 3  # chunks of 6, 6 and 5 steps
+    fs, avs = step_kernel.run(f, mask, params, n_iters=17)
+    assert int((fr != fs).sum()) == 0
+    torch.testing.assert_close(avr, avs, rtol=1e-5, atol=0.0)
+    fp, avp = resident.resident_run(f.cpu(), mask.cpu(), params, n_iters=17, chunk=6)
+    torch.testing.assert_close(fr.cpu(), fp, rtol=1e-6, atol=1e-8)
+    torch.testing.assert_close(avr.cpu(), avp, rtol=1e-5, atol=0.0)
+
+
+def test_oversized_cooperative_grid_raises():
+    """10**6 blocks exceed any card's co-resident limit (132 SMs x at most
+    32 blocks): the launch is refused, and the wrapper raises."""
+    params, mask, f = _on_card(64, 64, seed=4)
+    mask = step_kernel.prepare_obstacles(mask)
+    part = torch.empty(2, step_kernel.num_partials(64, 64), device="cuda")
+    run_chunk = resident._chunk_launcher(f, mask, params, blocks=10**6)
+    with pytest.raises(RuntimeError, match="resident kernel launch failed"):
+        run_chunk((f.clone(), torch.empty_like(f)), 2, part)
+    # the refusal is not reported again by the next launch
+    step_kernel.run(f, mask, params, n_iters=2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k", [2, 4, 6, 8])
+@pytest.mark.parametrize("ny,nx", [(64, 64), (64, 128), (100, 130), (17, 23)])
+def test_kstep_matches_step_and_plain_on_card(ny, nx, k):
+    params, mask, f = _on_card(ny, nx, seed=k)
+    n = 3 * k + 1  # three passes and a 1-step tail
+    before = (kstep_kernel.launches, step_kernel.launches)
+    fk, avk = kstep_kernel.run(f, mask, params, n_iters=n, k=k)
+    torch.cuda.synchronize()
+    assert (kstep_kernel.launches - before[0], step_kernel.launches - before[1]) == (3, 1)
+    fs, avs = step_kernel.run(f, mask, params, n_iters=n)
+    assert int((fk != fs).sum()) == 0
+    torch.testing.assert_close(avk, avs, rtol=1e-5, atol=0.0)
+    fp, avp = kstep_kernel.run(f.cpu(), mask.cpu(), params, n_iters=n, k=k)
+    torch.testing.assert_close(fk.cpu(), fp, rtol=1e-6, atol=1e-8)
+    torch.testing.assert_close(avk.cpu(), avp, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("backend,counts", [
+    ("resident", (0, 1, 0)), ("pallas2", (1, 0, 12)), ("pallas", (25, 0, 0)),
+    ("pallask", (1, 0, 4)),
+])
+def test_simulation_launch_counts(backend, counts):
+    """Exact launches per kernel module for a 25-step run: (step,
+    resident, K-step); warmup launches nothing.  pallask runs at
+    best_k(48, 80) = 6: 4 passes and a 1-step tail."""
+    params, mask_np, _ = make_case(48, 80, seed=5)
+    assert kstep_kernel.best_k(48, 80) == 6
+    sim = Simulation(params, mask_np, backend=backend, device="cuda")
+    sim.warmup()
+    before = (step_kernel.launches, resident.launches, kstep_kernel.launches)
+    res = sim.run(n_iters=25)
+    after = (step_kernel.launches, resident.launches, kstep_kernel.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == counts
+    cpu = Simulation(params, mask_np, backend=backend, device="cpu").run(n_iters=25)
+    np.testing.assert_allclose(res.f_final, cpu.f_final, rtol=1e-6, atol=1e-8)
+    np.testing.assert_allclose(res.av_vels, cpu.av_vels, rtol=1e-5)

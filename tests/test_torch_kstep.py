@@ -1,0 +1,252 @@
+"""The K-step kernel's wrapper on the CPU (its plain PyTorch version, the
+port's ``lean_window_step`` on ghosted windows) against the JAX package's
+K-step and 2-step Pallas kernels in interpret mode, and against the port's
+own step run.
+
+Tolerances: f within rtol 1e-5 / atol 1e-7 and av within rtol 1e-5 against
+the JAX kernels (both reduce ||u|| over the pre-collision moments, in
+another summation order); bitwise against the port's step run, which runs
+the same float32 operations in the same order on every cell.  The card
+itself is covered by tests/test_torch_cuda.py and chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from advanced_hpc_lbm_tpu.ops import kernel_common as jkc
+from advanced_hpc_lbm_tpu.ops import pallas_k, pallas_multi
+from advanced_hpc_lbm_tpu.ops import reference as jref
+from advanced_hpc_lbm_tpu.params import LBMParams as JaxParams
+from advanced_hpc_lbm_tpu_torch.ops import kernel_common, kstep_kernel, step_kernel
+from advanced_hpc_lbm_tpu_torch.params import LBMParams
+
+F_TOL = dict(rtol=1e-5, atol=1e-7)
+AV_RTOL = 1e-5
+
+
+def make_case(ny, nx, seed=5, guard_fail=False):
+    """As tests/test_pallas_k.py:make_deck, with a perturbed state made in
+    numpy: equilibrium x uniform(0.8, 1.2)."""
+    jp = JaxParams(nx=nx, ny=ny, max_iters=32, reynolds_dim=10,
+                   density=0.1, accel=0.005, omega=1.85)
+    rng = np.random.RandomState(seed)
+    mask = np.zeros((ny, nx), dtype=bool)
+    mask[0] = mask[-1] = True
+    mask[ny // 2: ny // 2 + 2, nx // 5: nx // 2] = True
+    for _ in range(6):
+        mask[rng.randint(1, ny - 1), rng.randint(0, nx)] = True
+    f0 = np.asarray(jref.initial_state(jp)) * rng.uniform(
+        0.8, 1.2, (9, ny, nx)).astype(np.float32)
+    if guard_fail:
+        f0[3, ny - 2, : nx // 2] = jp.accel_w1 * np.float32(0.5)
+    return jp, mask, f0
+
+
+def port_run(jp, mask, f0, n, k, **kw):
+    f, av = kstep_kernel.run(torch.from_numpy(f0.copy()), torch.from_numpy(mask),
+                             LBMParams.from_jax(jp), n_iters=n, k=k, **kw)
+    return f.numpy(), av.numpy()
+
+
+# ---- lean_window_step, the plain version's step --------------------------------
+
+def jax_lean_window_step(jp, f, obst, accel):
+    """JAX ``lean_window_step`` on whole (T, nx) windows, in a Pallas call
+    run in interpret mode (its rolls are Pallas TPU primitives)."""
+    _, T, nx = f.shape
+
+    def kernel(f_ref, o_ref, a_ref, out_ref, usq_ref):
+        usq_ref[...] = jkc.lean_window_step(
+            f_ref, out_ref, o_ref[...] != 0.0, a_ref[...] != 0.0, jp, T, nx)
+
+    out, u_sq = pl.pallas_call(
+        kernel,
+        out_shape=[jax.ShapeDtypeStruct((9, T, nx), jnp.float32),
+                   jax.ShapeDtypeStruct((T, nx), jnp.float32)],
+        interpret=True,
+    )(jnp.asarray(f), jnp.asarray(obst, jnp.float32), jnp.asarray(accel, jnp.float32))
+    return np.asarray(out), np.asarray(u_sq)
+
+
+@pytest.mark.parametrize("T,nx,accel_rows", [(24, 40, (3, 22)), (16, 128, (14,))])
+def test_lean_window_step_matches_jax(T, nx, accel_rows):
+    jp, mask, f = make_case(T, nx, seed=2)
+    accel = np.zeros((T, nx), dtype=bool)
+    for r in accel_rows:
+        accel[r] = True
+        f[3, r, : nx // 3] = jp.accel_w1 * np.float32(0.5)  # some cells fail the guard
+    want, want_usq = jax_lean_window_step(jp, f, mask, accel)
+    dst = torch.empty(f.shape)
+    u_sq = kernel_common.lean_window_step(
+        torch.from_numpy(f), dst, torch.from_numpy(mask), torch.from_numpy(accel),
+        LBMParams.from_jax(jp), T, nx)
+    np.testing.assert_allclose(dst.numpy(), want, **F_TOL)
+    np.testing.assert_allclose(u_sq.numpy(), want_usq, **F_TOL)
+
+
+def test_lean_window_step_on_the_whole_grid_is_one_plain_step():
+    jp, mask, f = make_case(17, 23, seed=3, guard_fail=True)
+    p = LBMParams.from_jax(jp)
+    accel = (np.arange(17) == 15)[:, None]
+    dst = torch.empty(f.shape)
+    kernel_common.lean_window_step(torch.from_numpy(f), dst, torch.from_numpy(mask),
+                                   torch.from_numpy(accel), p, 17, 23)
+    out = torch.empty(f.shape)
+    step_kernel.plain_step(torch.from_numpy(f), step_kernel.prepare_obstacles(
+        torch.from_numpy(mask)), p, out=out,
+        partials=torch.empty(step_kernel.num_partials(17, 23)))
+    np.testing.assert_array_equal(dst.numpy(), out.numpy())
+
+
+# ---- multi_step against the JAX K-step kernel ------------------------------------
+
+@pytest.fixture(scope="module")
+def deck64():
+    return make_case(64, 128)
+
+
+@pytest.fixture(scope="module")
+def port_passes(deck64):
+    """One port pass per K from the 64x128 deck, computed once."""
+    jp, mask, f0 = deck64
+    obst = torch.from_numpy(mask)
+    n_fluid = torch.sum(~obst).to(torch.float32)
+    return {k: kstep_kernel.multi_step(torch.from_numpy(f0), obst, n_fluid,
+                                       LBMParams.from_jax(jp), k)
+            for k in (2, 3, 4, 8)}
+
+
+@pytest.mark.parametrize("lean", [False, True], ids=["naive", "lean"])
+@pytest.mark.parametrize("k", [2, 3, 4, 8])
+def test_multi_step_matches_jax_kernel(k, lean, deck64, port_passes, monkeypatch):
+    jp, mask, f0 = deck64
+    monkeypatch.setenv("LBM_PALLASK_TY", "16")
+    n_fluid = jnp.sum(~jnp.asarray(mask)).astype(jnp.float32)
+    fa, ava = pallas_k.multi_step(jnp.asarray(f0), pallas_k.prepare_obstacles(jnp.asarray(mask)),
+                                  n_fluid, jp, k, interpret=True, lean=lean)
+    fb, avb = port_passes[k]
+    assert avb.shape == (k,)
+    np.testing.assert_allclose(fb.numpy(), np.asarray(fa), **F_TOL)
+    np.testing.assert_allclose(avb.numpy(), np.asarray(ava), rtol=AV_RTOL)
+
+
+def test_run_with_tail_matches_jax(monkeypatch):
+    """iters = 2k+1: two K-step passes and a 1-step tail on each side."""
+    k = 3
+    jp, mask, f0 = make_case(32, 128, seed=9)
+    monkeypatch.setenv("LBM_PALLASK_TY", "16")
+    fa, ava = pallas_k.run(jnp.asarray(f0), jnp.asarray(mask), jp, n_iters=2 * k + 1, k=k,
+                           interpret=True)
+    fb, avb = port_run(jp, mask, f0, 2 * k + 1, k)
+    np.testing.assert_allclose(fb, np.asarray(fa), **F_TOL)
+    np.testing.assert_allclose(avb, np.asarray(ava), rtol=AV_RTOL)
+
+
+@pytest.mark.parametrize("iters", [4, 6, 7])
+def test_pallas2_run_matches_jax(iters):
+    jp, mask, f0 = make_case(32, 128, seed=1)
+    fa, ava = pallas_multi.run(jnp.asarray(f0), jnp.asarray(mask), jp, n_iters=iters,
+                               interpret=True)
+    fb, avb = port_run(jp, mask, f0, iters, 2)
+    np.testing.assert_allclose(fb, np.asarray(fa), **F_TOL)
+    np.testing.assert_allclose(avb, np.asarray(ava), rtol=AV_RTOL)
+
+
+def test_double_step_is_multi_step_at_k2():
+    jp, mask, f0 = make_case(32, 64, seed=4)
+    obst = torch.from_numpy(mask)
+    n_fluid = torch.sum(~obst).to(torch.float32)
+    p = LBMParams.from_jax(jp)
+    f2, av1, av2 = kstep_kernel.double_step(torch.from_numpy(f0), obst, n_fluid, p)
+    fk, avk = kstep_kernel.multi_step(torch.from_numpy(f0), obst, n_fluid, p, 2)
+    np.testing.assert_array_equal(f2.numpy(), fk.numpy())
+    assert (float(av1), float(av2)) == tuple(avk.tolist())
+
+
+# ---- shapes the JAX tiles refuse, against the port's step run ----------------------
+
+@pytest.mark.parametrize("ny,nx", [(17, 23), (100, 130)])
+@pytest.mark.parametrize("k", [2, 5, 8])
+def test_odd_shapes_match_step_run_bitwise(ny, nx, k):
+    """Windows wrap more than once at 17x23 (a K=8 window is 32x48) and
+    tiles are ragged at 100x130; the state equals the step run's bit for
+    bit, av within the summation-order tolerance."""
+    jp, mask, f0 = make_case(ny, nx, seed=k, guard_fail=True)
+    n = 2 * k + 1
+    fb, avb = port_run(jp, mask, f0, n, k)
+    fs, avs = step_kernel.run(torch.from_numpy(f0), torch.from_numpy(mask),
+                              LBMParams.from_jax(jp), n_iters=n)
+    np.testing.assert_array_equal(fb, fs.numpy())
+    np.testing.assert_allclose(avb, avs.numpy(), rtol=AV_RTOL)
+
+
+@pytest.mark.parametrize("ny,nx", [(16, 32), (17, 23), (40, 70)])
+def test_partials_are_per_tile_sums(ny, nx):
+    """partials[s, tile]: own fluid cells of each 32x16 tile, row-major;
+    their total is the step's ||u|| sum."""
+    jp, mask, f0 = make_case(ny, nx, seed=6)
+    p = LBMParams.from_jax(jp)
+    f, m = torch.from_numpy(f0), step_kernel.prepare_obstacles(torch.from_numpy(mask))
+    part = torch.empty(3, kstep_kernel.num_tiles(ny, nx))
+    kstep_kernel.kstep(f, m, p, 3, out=torch.empty_like(f), partials=part)
+    assert part.shape[1] == -(-ny // 16) * -(-nx // 32)
+    # step 0's partials against the step kernel's plain version, per tile
+    out, sp = torch.empty_like(f), torch.empty(step_kernel.num_partials(ny, nx))
+    step_kernel.plain_step(f, m, p, out=out, partials=sp)
+    rho = out.sum(0)
+    u_x = (out[1] + out[5] + out[8] - out[3] - out[6] - out[7]) / rho
+    u_y = (out[2] + out[5] + out[6] - out[4] - out[7] - out[8]) / rho
+    norm = torch.where(torch.from_numpy(mask), 0.0, torch.sqrt(u_x * u_x + u_y * u_y)).numpy()
+    want = [norm[ty * 16:(ty + 1) * 16, tx * 32:(tx + 1) * 32].sum(dtype=np.float64)
+            for ty in range(-(-ny // 16)) for tx in range(-(-nx // 32))]
+    np.testing.assert_allclose(part[0].numpy(), want, rtol=1e-5)
+    np.testing.assert_allclose(float(part[0].sum()), float(sp.sum()), rtol=1e-6)
+
+
+# ---- the wrapper's own contract ----------------------------------------------------
+
+def test_cpu_run_counts_no_launch():
+    jp, mask, f0 = make_case(16, 32)
+    before = (kstep_kernel.launches, step_kernel.launches)
+    port_run(jp, mask, f0, 5, 2)
+    assert (kstep_kernel.launches, step_kernel.launches) == before
+
+
+@pytest.mark.parametrize("iters,chunk", [(9, 4), (8, 8), (3, 1000), (0, 1000)])
+def test_run_chunks_match_stepwise(iters, chunk):
+    """Several chunks of passes, a single one, a run shorter than K and no
+    steps at all."""
+    jp, mask, f0 = make_case(17, 23, seed=7)
+    f_in = torch.from_numpy(f0.copy())
+    fb, avb = kstep_kernel.run(f_in, torch.from_numpy(mask), LBMParams.from_jax(jp),
+                               n_iters=iters, k=4, chunk=chunk)
+    fs, avs = step_kernel.run(torch.from_numpy(f0), torch.from_numpy(mask),
+                              LBMParams.from_jax(jp), n_iters=iters)
+    assert avb.shape == (iters,)
+    np.testing.assert_array_equal(fb.numpy(), fs.numpy())
+    np.testing.assert_allclose(avb.numpy(), avs.numpy(), rtol=AV_RTOL)
+    np.testing.assert_array_equal(f_in.numpy(), f0)  # f0 is not modified
+
+
+@pytest.mark.parametrize("bad", ["k1", "k9", "partials_shape", "alias"])
+def test_kstep_rejects_bad_arguments(bad):
+    jp, mask, f0 = make_case(16, 32)
+    f = torch.from_numpy(f0)
+    k = {"k1": 1, "k9": 9}.get(bad, 4)
+    args = dict(out=torch.empty_like(f), partials=torch.empty(k, kstep_kernel.num_tiles(16, 32)))
+    if bad == "partials_shape":
+        args["partials"] = torch.empty(3, 1)
+    elif bad == "alias":
+        args["out"] = f
+    with pytest.raises(ValueError):
+        kstep_kernel.kstep(f, step_kernel.prepare_obstacles(torch.from_numpy(mask)),
+                           LBMParams.from_jax(jp), k, **args)
+
+
+@pytest.mark.parametrize("ny,nx", [(17, 23), (64, 64), (256, 256), (1024, 1024), (4096, 4096)])
+def test_best_k_is_a_built_k(ny, nx):
+    assert kstep_kernel.best_k(ny, nx) in kstep_kernel.K_RANGE

@@ -1,12 +1,15 @@
 """The slice as a whole on the CPU: the port's Simulation and CLI against
 the JAX package's on the same decks.
 
-The port's ``auto`` backend runs the step kernel's plain version here (the
-kernel's pre-collision ||u|| reduction); JAX's ``fused`` backend reduces
-over the post-collision moments, so av agrees within rtol 5e-4 over a
-from-rest run, as tests/test_resident.py holds the JAX kernels to it, and f
-within rtol 1e-5.  The port's ``fused`` and ``pipeline`` backends are held
-to JAX's backends of the same names.
+The port's ``auto`` backend runs ``pallask``, whose plain version on the
+CPU (ghosted windows of the lean window step) reduces ||u|| over the
+pre-collision moments as the kernels do; JAX's ``fused`` backend reduces
+over the post-collision
+moments, so av agrees within rtol 5e-4 over a from-rest run, as
+tests/test_resident.py holds the JAX kernels to it, and f within rtol 1e-5.
+The port's ``fused`` and ``pipeline`` backends are held to JAX's backends of
+the same names; its kernel backends (``step``/``pallas``, ``resident``,
+``pallask``, ``pallas2``) to JAX's ``fused`` and to each other.
 """
 
 import dataclasses
@@ -25,7 +28,7 @@ from advanced_hpc_lbm_tpu.utils import io as jio
 from advanced_hpc_lbm_tpu.utils import native as jnative
 from advanced_hpc_lbm_tpu_torch import LBMParams, Simulation, SimulationResult, cli
 from advanced_hpc_lbm_tpu_torch.models import d2q9_bgk
-from advanced_hpc_lbm_tpu_torch.ops import step_kernel
+from advanced_hpc_lbm_tpu_torch.ops import kstep_kernel, resident, step_kernel
 from advanced_hpc_lbm_tpu_torch.utils import check, io
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -84,11 +87,69 @@ def test_plain_backends_match_jax(backend):
     np.testing.assert_allclose(port.av_vels, ref.av_vels, rtol=1e-4)
 
 
-@pytest.mark.parametrize("backend", ["auto", "step", "fused", "pipeline"])
+@pytest.mark.parametrize("backend", ["auto", "step", "pallas", "resident", "pallask",
+                                     "pallas2", "fused", "pipeline"])
 def test_backends_resolve(backend):
     params, mask = _small_deck()
     sim = Simulation(params, mask, backend=backend, device="cpu")
-    assert sim.backend == ("step" if backend == "auto" else backend)
+    want = {"auto": d2q9_bgk.AUTO_BACKEND, "pallas": "step"}.get(backend, backend)
+    assert sim.backend == want
+
+
+def test_pallas_backend_runs_the_step_kernel(tmp_path, capsys):
+    """``pallas`` is the JAX package's name for the per-step kernel: the
+    port runs its step kernel for it, from the library and the CLI."""
+    params, mask = _small_deck()
+    port = Simulation(params, mask, backend="pallas", device="cpu").run()
+    step = Simulation(params, mask, backend="step", device="cpu").run()
+    np.testing.assert_array_equal(port.f_final, step.f_final)
+    np.testing.assert_array_equal(port.av_vels, step.av_vels)
+    rc, _, err = run_cli([*MINI, "--device", "cpu", "--backend", "pallas", "--iters", "20",
+                          "--out-dir", tmp_path], capsys)
+    assert rc == 0, err
+
+
+@pytest.mark.parametrize("backend", d2q9_bgk.WHOLE_RUN)
+def test_whole_run_backends_match_jax_fused(backend):
+    params, mask = _small_deck()
+    port = Simulation(params, mask, backend=backend, device="cpu").run()
+    ref = JaxSimulation(_jax_params(params), mask, backend="fused").run()
+    np.testing.assert_allclose(port.f_final, ref.f_final, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(port.av_vels, ref.av_vels, rtol=1e-4)
+    # and the kernels' own state equals the step kernel's bit for bit
+    step = Simulation(params, mask, backend="step", device="cpu").run()
+    np.testing.assert_array_equal(port.f_final, step.f_final)
+
+
+@pytest.mark.parametrize("backend", d2q9_bgk.WHOLE_RUN)
+def test_whole_run_backends_pass_mini_golden(backend, tmp_path):
+    port = Simulation.from_decks(*MINI, backend=backend, device="cpu").run()
+    io.write_av_vels(tmp_path / "av_vels.dat", port.av_vels)
+    stats = check.check_av_vels_only(MINI_GOLDEN, str(tmp_path / "av_vels.dat"))
+    assert stats.passed(1.0)
+
+
+@pytest.mark.parametrize("backend", d2q9_bgk.WHOLE_RUN)
+def test_debug_on_whole_run_backend_collects_densities(backend):
+    """--debug needs per-step densities: the whole-run backends run the
+    step kernel's loop for it, as JAX falls back to ``fused``."""
+    params, mask = _small_deck()
+    sim = Simulation(params, mask, backend=backend, device="cpu")
+    res = sim.run(n_iters=5, debug=True)
+    plain = sim.run(n_iters=5)
+    assert res.densities.shape == (5,)
+    np.testing.assert_allclose(res.densities, res.densities[0], rtol=1e-5)
+    np.testing.assert_array_equal(res.f_final, plain.f_final)
+
+
+@pytest.mark.parametrize("ny,nx", [(17, 23), (128, 128), (128, 256), (1024, 1024)])
+def test_auto_rule(ny, nx):
+    """auto runs the K-step kernel on every grid, at best_k's K."""
+    params = LBMParams(nx=nx, ny=ny, max_iters=1, reynolds_dim=10,
+                       density=0.1, accel=0.005, omega=1.85)
+    sim = Simulation(params, np.zeros((ny, nx), dtype=bool), device="cpu")
+    assert sim.backend == "pallask"
+    assert sim._k() == (6 if ny * nx <= 256 * 256 else 4)
 
 
 @pytest.mark.parametrize("backend", d2q9_bgk.NOT_PORTED)
@@ -191,7 +252,7 @@ def test_cli_cuda_without_a_card_exits_1(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--backend", "resident"], "not yet ported"),
+    (["--backend", "stream"], "not yet ported"),
     (["--device", "tpu0"], "bad --device"),
 ])
 def test_cli_bad_choice_exits_1(tmp_path, capsys, extra, message):
@@ -246,4 +307,5 @@ def test_no_jax_import_in_sources():
 
 
 def test_launch_counter_is_a_plain_int():
-    assert isinstance(step_kernel.launches, int)
+    for module in (step_kernel, resident, kstep_kernel):
+        assert isinstance(module.launches, int)

@@ -1,0 +1,120 @@
+"""The resident kernel's wrapper on the CPU (its plain PyTorch version, a
+loop of the step kernel's plain step) against the JAX package's
+VMEM-resident whole-run kernel in interpret mode, and against the port's
+own step run.
+
+Tolerances: f within rtol 1e-5 / atol 1e-7 and av within rtol 1e-5 against
+the JAX kernel (both reduce ||u|| over the pre-collision moments, in
+another summation order).  From rest, u is a difference of nearly equal
+values, which turns the last-place differences of XLA's CPU arithmetic
+into ~2e-5 of av: there av is held to rtol 1e-4, the trajectory tolerance
+of tests/test_pallas.py.  Bitwise against the port's step run, whose
+per-cell math and per-tile partials the resident kernel shares.  The card
+itself is covered by tests/test_torch_cuda.py and chip_smoke.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from advanced_hpc_lbm_tpu.ops import reference as jref
+from advanced_hpc_lbm_tpu.ops import resident as jresident
+from advanced_hpc_lbm_tpu.params import LBMParams as JaxParams
+from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel
+from advanced_hpc_lbm_tpu_torch.params import LBMParams
+
+F_TOL = dict(rtol=1e-5, atol=1e-7)
+AV_RTOL = 1e-5
+
+
+def make_deck(ny=32, nx=128, seed=5, perturb=False, guard_fail=False):
+    """tests/test_resident.py's 32x128 deck (from rest), or any shape with
+    a state perturbed in numpy: equilibrium x uniform(0.8, 1.2)."""
+    jp = JaxParams(nx=nx, ny=ny, max_iters=17, reynolds_dim=10,
+                   density=0.1, accel=0.005, omega=1.85)
+    rng = np.random.RandomState(seed)
+    mask = np.zeros((ny, nx), dtype=bool)
+    mask[0] = mask[-1] = True
+    mask[ny // 3: ny // 3 + 2, nx // 3: nx // 2] = True
+    for _ in range(4):
+        mask[rng.randint(1, ny - 1), rng.randint(0, nx)] = True
+    f0 = np.asarray(jref.initial_state(jp))
+    if perturb:
+        f0 = f0 * rng.uniform(0.8, 1.2, (9, ny, nx)).astype(np.float32)
+    if guard_fail:
+        f0[3, ny - 2, : nx // 2] = jp.accel_w1 * np.float32(0.5)
+    return jp, mask, f0
+
+
+def port_run(jp, mask, f0, n, **kw):
+    f, av = resident.resident_run(torch.from_numpy(f0.copy()), torch.from_numpy(mask),
+                                  LBMParams.from_jax(jp), n_iters=n, **kw)
+    return f.numpy(), av.numpy()
+
+
+@pytest.mark.parametrize("n,chunk", [(17, 6), (8, 8)], ids=["chunks-odd-tail", "one-chunk"])
+@pytest.mark.parametrize("perturb", [False, True], ids=["from-rest", "perturbed"])
+def test_matches_jax_resident_kernel(n, chunk, perturb):
+    jp, mask, f0 = make_deck(perturb=perturb)
+    fa, ava = jresident.resident_run(jnp.asarray(f0), jnp.asarray(mask), jp, n_iters=n,
+                                     chunk=chunk, interpret=True)
+    fb, avb = port_run(jp, mask, f0, n, chunk=chunk)
+    assert avb.shape == (n,)
+    np.testing.assert_allclose(fb, np.asarray(fa), **F_TOL)
+    np.testing.assert_allclose(avb, np.asarray(ava), rtol=AV_RTOL if perturb else 1e-4)
+
+
+@pytest.mark.parametrize("ny,nx", [(17, 23), (100, 130), (8, 32)])
+@pytest.mark.parametrize("n,chunk", [(17, 6), (5, 1000)])
+def test_any_shape_matches_step_run_bitwise(ny, nx, n, chunk):
+    """Shapes the JAX kernel refuses: f and the av history equal the step
+    run's bit for bit (same per-cell code, same per-tile partials, summed
+    per chunk of the same length)."""
+    jp, mask, f0 = make_deck(ny, nx, seed=ny, perturb=True, guard_fail=True)
+    fb, avb = port_run(jp, mask, f0, n, chunk=chunk)
+    fs, avs = step_kernel.run(torch.from_numpy(f0), torch.from_numpy(mask),
+                              LBMParams.from_jax(jp), n_iters=n, chunk=chunk)
+    np.testing.assert_array_equal(fb, fs.numpy())
+    np.testing.assert_array_equal(avb, avs.numpy())
+
+
+def test_plain_run_ping_pongs_and_writes_step_partials():
+    jp, mask, f0 = make_deck(17, 23, perturb=True)
+    p = LBMParams.from_jax(jp)
+    m = step_kernel.prepare_obstacles(torch.from_numpy(mask))
+    bufs = (torch.from_numpy(f0.copy()), torch.empty(f0.shape))
+    part = torch.empty(3, step_kernel.num_partials(17, 23))
+    resident.plain_run(bufs, m, p, 3, part)
+    f, want = torch.from_numpy(f0.copy()), []
+    for _ in range(3):
+        out, sp = torch.empty(f0.shape), torch.empty(step_kernel.num_partials(17, 23))
+        step_kernel.plain_step(f, m, p, out=out, partials=sp)
+        f = out
+        want.append(sp)
+    np.testing.assert_array_equal(bufs[1].numpy(), f.numpy())  # 3 steps end in bufs[1]
+    np.testing.assert_array_equal(part.numpy(), torch.stack(want).numpy())
+
+
+def test_zero_steps_and_f0_untouched():
+    jp, mask, f0 = make_deck(16, 32, perturb=True)
+    f_in = torch.from_numpy(f0.copy())
+    f, av = resident.resident_run(f_in, torch.from_numpy(mask), LBMParams.from_jax(jp),
+                                  n_iters=0)
+    assert av.shape == (0,)
+    np.testing.assert_array_equal(f.numpy(), f0)
+    port_run(jp, mask, f0, 4)
+    np.testing.assert_array_equal(f_in.numpy(), f0)
+
+
+def test_cpu_run_counts_no_launch():
+    jp, mask, f0 = make_deck(16, 32)
+    before = resident.launches
+    port_run(jp, mask, f0, 3)
+    assert resident.launches == before
+
+
+def test_prepare_builds_nothing_on_cpu(monkeypatch):
+    from advanced_hpc_lbm_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "build", lambda: pytest.fail("built on the CPU"))
+    resident.prepare("cpu")
