@@ -6,8 +6,13 @@ final_state.dat + av_vels.dat (in the cwd, or ``--out-dir``).
 
 Optional flags:
   --backend       auto (default) | step | pallas | resident | pallask |
-                  pallas2 | stream | fused | pipeline
+                  pallas2 | stream | fused | pipeline | sharded
   --device        cuda (default) | cpu | cuda:N
+  --devices       shard over N devices (1-D ring): the visible cards on
+                  CUDA, N shards on the CPU with --device cpu
+  --mesh          MYxMX: shard over a 2-D torus of devices instead
+  --shard-kernel  auto (default) | jnp | pallas | stream: the shards' kernel
+  --ca-steps      K: steps per halo exchange on the sharded path
   --debug         per-step av-velocity + total-density prints
   --out-dir       where to write outputs (default: cwd)
   --iters         override maxIters from the deck
@@ -22,6 +27,7 @@ import sys
 import torch
 
 from advanced_hpc_lbm_tpu_torch.models.d2q9_bgk import BACKENDS, Simulation
+from advanced_hpc_lbm_tpu_torch.parallel.halo import SHARD_KERNELS
 from advanced_hpc_lbm_tpu_torch.utils.timers import PhaseTimers
 
 
@@ -46,7 +52,40 @@ def build_parser() -> argparse.ArgumentParser:
         "--check-finite", action="store_true",
         help="fail loudly if the run produced NaN/Inf (numerical sanitizer)",
     )
+    p.add_argument(
+        "--devices", type=int, default=None,
+        help="shard over N devices (1-D y ring); with --device cpu every shard "
+             "lies on the CPU, on CUDA the shards take the visible cards",
+    )
+    p.add_argument(
+        "--shard-kernel", default="auto", choices=SHARD_KERNELS,
+        help="the shards' local step on the sharded path: auto (jnp on the CPU, "
+             "pallas on CUDA; parallel/halo.resolve_shard_kernel), jnp (plain "
+             "PyTorch), pallas (the hand-written local kernels, with --ca-steps K "
+             "the K-step one), stream (the stream kernel on ghost windows, 8 steps "
+             "per exchange)",
+    )
+    p.add_argument(
+        "--mesh", default=None, metavar="MYxMX", type=_parse_mesh,
+        help="2-D torus decomposition for the sharded path, e.g. 2x4 (rows x "
+             "columns of devices)",
+    )
+    p.add_argument(
+        "--ca-steps", type=int, default=1, metavar="K",
+        help="steps per halo exchange on the sharded path (communication-"
+             "avoiding ghost zones; 1-D ring or 2-D torus; with --shard-kernel "
+             "pallas the K-step local kernel, 1-D only)",
+    )
     return p
+
+
+def _parse_mesh(text: str) -> tuple[int, int]:
+    """``MYxMX`` as (my, mx)."""
+    try:
+        my, mx = (int(v) for v in text.lower().split("x"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"--mesh wants MYxMX, e.g. 2x4, got {text!r}") from None
+    return my, mx
 
 
 def _device(name: str) -> torch.device:
@@ -66,6 +105,8 @@ def _device(name: str) -> torch.device:
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     timers = PhaseTimers()
+    sharding = dict(n_iters=args.iters, debug=args.debug, devices=args.devices,
+                    shard_kernel=args.shard_kernel, mesh=args.mesh, ca_steps=args.ca_steps)
 
     with timers.phase("init"):
         try:
@@ -74,8 +115,9 @@ def main(argv: list[str] | None = None) -> int:
                 backend=args.backend, device=_device(args.device),
             )
             # build and load the kernel here, so Compute times the steps
-            # alone; a grid that does not fit on the card stops here
-            sim.warmup()
+            # alone; a grid that does not fit on the card, or a bad
+            # decomposition, stops here
+            sim.warmup(**sharding)
         except (OSError, ValueError) as e:  # DeckError is a ValueError
             print(f"Error: {e}", file=sys.stderr)
             return 1
@@ -84,10 +126,7 @@ def main(argv: list[str] | None = None) -> int:
         # leave results on the device: the CLI times the device->host
         # transfer as the Collate phase
         try:
-            result = sim.run(
-                n_iters=args.iters, debug=args.debug,
-                check_finite=args.check_finite, fetch=False,
-            )
+            result = sim.run(check_finite=args.check_finite, fetch=False, **sharding)
         except ValueError as e:  # the device-memory gate, or a refused tail
             print(f"Error: {e}", file=sys.stderr)
             return 1

@@ -23,10 +23,18 @@ Backends (each CUDA kernel runs its plain PyTorch version on the CPU):
   auto      ``pallask``, the fastest on every grid this port timed on the
             H100, or ``stream`` where pallask's two state buffers do not
             fit on the card (see ``AUTO_BACKEND``)
+  sharded   the grid cut over a device mesh, halos exchanged between the
+            shards (parallel/halo.py): a ring of ``devices`` shards or a
+            ``mesh`` = (my, mx) torus, each shard on the shard kernel
+            ``shard_kernel`` (auto, jnp, pallas, stream) with ``ca_steps``
+            steps per exchange; ``devices`` > 1 or a ``mesh`` selects it
+            whatever the backend, as in the JAX package
 
 ``--debug`` on a whole-run backend (resident, pallask, pallas2, stream)
 runs the step kernel's loop, which collects the per-step densities: the
-counterpart of the JAX package falling back to ``fused`` there.
+counterpart of the JAX package falling back to ``fused`` there.  On the
+sharded path the densities are each step's shard sums, added in shard
+order.
 
 Before it allocates a state, a run checks that the backend's device
 memory fits in 0.9 of the card's (``_check_single_chip_fit``), as the JAX
@@ -45,13 +53,12 @@ import torch
 from advanced_hpc_lbm_tpu_torch.ops import (
     fused, kstep_kernel, reference, resident, step_kernel, stream_kernel,
 )
+from advanced_hpc_lbm_tpu_torch.parallel import halo
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
 from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
 
 BACKENDS = ("auto", "step", "pallas", "resident", "pallask", "pallas2", "stream",
-            "fused", "pipeline")
-# backends of the JAX package that this package does not have yet
-NOT_PORTED = ("sharded",)
+            "fused", "pipeline", "sharded")
 # the backends that run a whole run per launch (or K steps per launch)
 WHOLE_RUN = ("resident", "pallask", "pallas2", "stream")
 
@@ -86,7 +93,10 @@ def _device_memory_bytes(device: torch.device | str) -> int | None:
 
 def _to_host(x):
     """A tensor as a numpy array; a state on the card plane by plane, so
-    that the copy needs no device memory of its own."""
+    that the copy needs no device memory of its own; a sharded state plane
+    by plane and shard by shard."""
+    if isinstance(x, halo.ShardedState):
+        return x.numpy()
     if not isinstance(x, torch.Tensor):
         return x
     if x.dim() == 3 and x.is_cuda:
@@ -102,7 +112,7 @@ class SimulationResult:
     """Results of one run: on the run's device until :meth:`collate`."""
 
     params: LBMParams
-    f_final: np.ndarray | torch.Tensor  # (9, ny, nx) float32
+    f_final: np.ndarray | torch.Tensor | halo.ShardedState  # (9, ny, nx) float32
     av_vels: np.ndarray | torch.Tensor  # (max_iters,) float32
     densities: np.ndarray | torch.Tensor | None = None  # per step (debug mode)
 
@@ -181,6 +191,7 @@ class Simulation:
         self.obstacles = np.asarray(obstacles, dtype=bool)
         self.device = torch.device(device)
         self.backend = self._resolve_backend(backend)
+        self._runners: dict = {}
 
     # the masks on the device, made at first use, so that a run holds only
     # the one its backend reads
@@ -221,11 +232,6 @@ class Simulation:
             return "step"
         if backend in BACKENDS:
             return backend
-        if backend in NOT_PORTED:
-            raise ValueError(
-                f"backend {backend!r} is not yet ported to the PyTorch package; "
-                f"use one of {', '.join(BACKENDS)}"
-            )
         raise ValueError(f"unknown backend: {backend!r}")
 
     def initial_state(self) -> torch.Tensor:
@@ -295,6 +301,43 @@ class Simulation:
                else "; no single-card backend of this port fits it")
         )
 
+    def _is_sharded(self, devices: int | None, mesh: tuple[int, int] | None) -> bool:
+        """One definition of "this run is sharded" for warmup() and run()."""
+        return self.backend == "sharded" or (devices is not None and devices > 1) \
+            or mesh is not None
+
+    @staticmethod
+    def _validate_flags(sharded: bool, *, ca_steps: int) -> None:
+        """Flag-composition errors, raised from both warmup() and run()."""
+        if ca_steps > 1 and not sharded:
+            raise ValueError(
+                "ca_steps > 1 is a property of the halo exchange and needs the sharded "
+                "backend (--devices N or --mesh MYxMX); on one device use the pallask "
+                "backend for time tiling instead"
+            )
+
+    def _sharded_runner(self, iters: int, devices: int | None, shard_kernel: str,
+                        mesh: tuple[int, int] | None, ca_steps: int, debug: bool,
+                        shard_devices) -> halo.ShardedRunner:
+        """The runner of a sharded configuration, cached under its resolved
+        shard kernel so that run() reuses the device masks warmup() built
+        in it.  The mesh takes
+        ``shard_devices`` (a device may repeat); by default on the CPU
+        every shard on the CPU, on CUDA the visible cards."""
+        if shard_devices is None and self.device.type == "cpu":
+            n = mesh[0] * mesh[1] if mesh is not None else (devices or 1)
+            shard_devices = [self.device] * n
+        if mesh is not None:
+            runner = halo.prepare_sharded_2d(self.params, iters, mesh, devices=shard_devices,
+                                             kernel=shard_kernel, ca_steps=ca_steps,
+                                             collect_density=debug)
+        else:
+            runner = halo.prepare_sharded(self.params, iters, n_devices=devices,
+                                          devices=shard_devices, kernel=shard_kernel,
+                                          ca_steps=ca_steps, collect_density=debug)
+        key = (iters, runner.mesh, runner.kernel, runner.ca_steps, debug)
+        return self._runners.setdefault(key, runner)
+
     def _run_on_device(self, iters: int, debug: bool) -> tuple[torch.Tensor, ...]:
         # the loops start in f0's own buffer (donate), so a run holds two
         # states at most, and stream without a tail one
@@ -319,11 +362,22 @@ class Simulation:
             collect_density=debug,
         )
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _sync(self, devices=None) -> None:
+        for d in dict.fromkeys(devices or (self.device,)):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
-    def warmup(self) -> None:
+    def warmup(
+        self,
+        *,
+        n_iters: int | None = None,
+        debug: bool = False,
+        devices: int | None = None,
+        shard_kernel: str = "auto",
+        mesh: tuple[int, int] | None = None,
+        ca_steps: int = 1,
+        shard_devices=None,
+    ) -> None:
         """Pay the one-time costs before the Compute timer starts: build the
         kernel library, load every kernel the backend launches onto the
         card (the step kernel too, which runs the K-step backends' tail and
@@ -331,7 +385,18 @@ class Simulation:
         run length.  It launches no kernel, so that the launch counts of
         the kernel modules count the run alone; the plain backends run one
         throwaway step to load PyTorch's kernels.  A grid that does not
-        fit on the card raises here, before anything is allocated."""
+        fit on the card raises here, before anything is allocated.  Pass
+        the sharded arguments the run will take (see :meth:`run`): a bad
+        decomposition raises here."""
+        sharded = self._is_sharded(devices, mesh)
+        self._validate_flags(sharded, ca_steps=ca_steps)
+        if sharded:
+            iters = self.params.max_iters if n_iters is None else n_iters
+            runner = self._sharded_runner(iters, devices, shard_kernel, mesh, ca_steps, debug,
+                                          shard_devices)
+            runner.prepare(self.obstacles)
+            self._sync(runner.mesh.devices)
+            return
         self._check_single_chip_fit()
         if self.backend == "step" or self.backend in WHOLE_RUN:
             step_kernel.prepare(self.device)
@@ -352,6 +417,11 @@ class Simulation:
         debug: bool = False,
         check_finite: bool = False,
         fetch: bool = True,
+        devices: int | None = None,
+        shard_kernel: str = "auto",
+        mesh: tuple[int, int] | None = None,
+        ca_steps: int = 1,
+        shard_devices=None,
     ) -> SimulationResult:
         """Execute the main loop on the device.
 
@@ -359,13 +429,28 @@ class Simulation:
         waits for the device to finish but leaves the result tensors on it;
         ``result.collate()`` brings them to the host (the CLI times that as
         the Collate phase, and a deferred ``check_finite`` runs there).
+        ``devices`` > 1 selects the sharded path over a 1-D ring, ``mesh`` =
+        (my, mx) over a torus (parallel/halo.py); ``shard_kernel`` and
+        ``ca_steps`` (steps per halo exchange) choose its schedule, and
+        ``shard_devices`` the devices of its mesh (a device may repeat;
+        default: every shard on the CPU for a CPU run, the visible cards
+        for a CUDA one).  The sharded state stays on the mesh until
+        ``collate()``, which gathers it plane by plane.
         """
         iters = self.params.max_iters if n_iters is None else n_iters
-        self._check_single_chip_fit(debug, iters)
-        out = self._run_on_device(iters, debug)
+        sharded = self._is_sharded(devices, mesh)
+        self._validate_flags(sharded, ca_steps=ca_steps)
+        if sharded:
+            runner = self._sharded_runner(iters, devices, shard_kernel, mesh, ca_steps, debug,
+                                          shard_devices)
+            out = runner(None, self.obstacles)
+            self._sync(runner.mesh.devices)
+        else:
+            self._check_single_chip_fit(debug, iters)
+            out = self._run_on_device(iters, debug)
+            self._sync()
         f_final, av_vels = out[0], out[1]
         densities = out[2] if debug else None
-        self._sync()
         result = SimulationResult(
             params=self.params,
             f_final=f_final,

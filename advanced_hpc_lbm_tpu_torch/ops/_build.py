@@ -105,7 +105,7 @@ def load() -> ctypes.CDLL:
     point's argument types declared."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    ptr, f32, i32 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+    ptr, f32, i32, i64 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
     consts = [f32] * 6  # StepConsts, field by field
     signatures = {
         # name: (argtypes, restype)
@@ -117,6 +117,11 @@ def load() -> ctypes.CDLL:
         "lbm_kstep": ([ptr, ptr, ptr, ptr, i32, i32, i32, *consts, ptr], i32),
         "lbm_kstep_prepare": ([i32], i32),
         "lbm_kstep_tile_shape": ([ctypes.POINTER(i32)] * 2, None),
+        "lbm_local_ca": ([ptr, i64, ptr, i64, ptr, ptr, i32, i32, i32, *consts, ptr], i32),
+        "lbm_local_step": ([ptr, i64, i32, ptr, i32, ptr, ptr, i64, i32, ptr, i32, i32,
+                            i32, *consts, ptr], i32),
+        "lbm_local_prepare": ([], i32),
+        "lbm_local_block_shape": ([ctypes.POINTER(i32)] * 2, None),
         "lbm_stream": ([ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, *consts, ptr], i32),
         "lbm_stream_snapshot": ([ptr, ptr, ptr, i32, i32, ptr], i32),
         "lbm_stream_prepare": ([], i32),

@@ -51,12 +51,13 @@ def prepare_obstacles(obstacles: torch.Tensor) -> torch.Tensor:
     return obstacles.to(torch.uint8).contiguous()
 
 
-def _block_sums(norm: torch.Tensor) -> torch.Tensor:
-    """Sum a (ny, nx) plane over the kernel's thread blocks, row-major."""
+def _block_sums(norm: torch.Tensor, by: int = BLOCK_Y, bx: int = BLOCK_X) -> torch.Tensor:
+    """Sum a (ny, nx) plane over tiles of by x bx cells (the kernel's
+    thread blocks by default), row-major."""
     ny, nx = norm.shape
-    gy, gx = -(-ny // BLOCK_Y), -(-nx // BLOCK_X)
-    padded = F.pad(norm, (0, gx * BLOCK_X - nx, 0, gy * BLOCK_Y - ny))
-    return padded.reshape(gy, BLOCK_Y, gx, BLOCK_X).sum(dim=(1, 3)).reshape(-1)
+    gy, gx = -(-ny // by), -(-nx // bx)
+    padded = F.pad(norm, (0, gx * bx - nx, 0, gy * by - ny))
+    return padded.reshape(gy, by, gx, bx).sum(dim=(1, 3)).reshape(-1)
 
 
 def plain_step(

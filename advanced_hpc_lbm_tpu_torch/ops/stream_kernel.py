@@ -3,7 +3,8 @@ streaming CUDA kernel, its wrapper and its plain PyTorch version.
 
 The port's counterpart of ``advanced_hpc_lbm_tpu.ops.pallas_stream``
 (``multi_step``, ``run``, ``make_padded_runner``, ``encode_masks``,
-``mark_reduction_excluded`` and the kernel ``_kernel``, whose step body is
+``mark_reduction_excluded``, ``window_ca_steps``, ``window_ca_steps_2d``
+and the kernel ``_kernel``, whose step body is
 ``kernel_common.lean_window_step_rows``).  The TPU kernel's wrap-row
 padded state and its tile-size search work around Mosaic's DMA and tiling
 rules and have no counterpart: the CUDA kernel indexes any (ny, nx)
@@ -270,6 +271,48 @@ def stream_pass(
     _validate(f, mask, out, partials)
     with torch.cuda.device(f.device) if f.is_cuda else contextlib.nullcontext():
         _launcher(f, mask, params)(f, out, partials)
+
+
+def window_ca_steps(
+    window: torch.Tensor,
+    enc_ext: torch.Tensor,
+    params: LBMParams,
+    *,
+    out: torch.Tensor,
+    partials: torch.Tensor,
+) -> torch.Tensor:
+    """K steps of one shard of a 1-D ring from its (9, ly+2K, nx) ghost
+    window (own rows [K, K+ly), K neighbour rows each side): one pass of
+    the kernel out of place into ``out`` (a tensor shaped like the window),
+    the window taken as a periodic grid.  Its y-wrap spoils only rows that
+    the K steps give up, so the own rows of ``out`` are the shard's next
+    state; the function returns them (a view).  ``enc_ext`` is the
+    window's encoded mask with the ghost rows +4 (:data:`EXCLUDED`), so
+    that ``partials`` ((K, num_tiles(ly+2K, nx))) sums own cells only.
+    The counterpart of the JAX ``window_ca_steps``, which returns the
+    summed partials where this one fills ``partials`` as every wrapper of
+    the port does."""
+    stream_pass(window, enc_ext, params, out=out, partials=partials)
+    return out[:, K:-K]
+
+
+def window_ca_steps_2d(
+    window: torch.Tensor,
+    enc_ext: torch.Tensor,
+    params: LBMParams,
+    *,
+    out: torch.Tensor,
+    partials: torch.Tensor,
+) -> torch.Tensor:
+    """:func:`window_ca_steps` on a shard of a 2-D torus: the (9, ly+2K,
+    lx+2K) window also holds K ghost columns each side, which the x-wrap
+    spoils only as deep as the steps give up.  On this card the ghost
+    columns need no more than K: the JAX kernel's 64 ghost columns
+    (``X_GHOST``) keep its window lane-aligned.  The ghost columns carry
+    the neighbours' true +1/+2 bits and +4.  Returns the own block of
+    ``out``."""
+    stream_pass(window, enc_ext, params, out=out, partials=partials)
+    return out[:, K:-K, K:-K]
 
 
 def multi_step(

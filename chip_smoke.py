@@ -51,10 +51,28 @@ non-zero and prints no result:
              Simulation(backend="auto") for 64 steps: auto picks stream, the
              gate refuses pallask before allocating, the in-place tier's
              peak device memory against tier_bytes, finite, mass conserved
+  3l. local  the sharded path's kernels (the 1-D and 2-D local step and
+             the K-step kernel's local form) against their plain versions
+             on seeded shard windows, ly = 2 to 2048, 17x23 blocks, the
+             forcing row on a halo row, an own row and twice in a K-step
+             window (K = 2, 3, 4, 8); then their times at the main path's
+             shard shapes
+  8. sharded the main path on a device mesh: decks/mini_64x64 through the
+             CLI with --backend sharded (the ring of the one visible card:
+             pallas, --ca-steps 4, --shard-kernel stream; exact launches,
+             golden at 1%), the 1024x1024 deck through the CLI and the
+             library with --backend sharded (the same state as auto's, 0
+             differing values), and an 8192x8192 deck for 200 steps on 4
+             shards of the card (a ring: pallas, pallas with ca_steps 4,
+             stream; a 2x2 torus: pallas, stream) against single-device
+             pallask (0 differing values, av within rtol 1e-5, exact
+             launches, mass conserved); then 4 shards of pallas, pallas
+             K = 4 and stream beside single-device pallask from 2048^2 to
+             8192^2
   result     a JSON line of the kernels, then the device JSON line last
 
 Launch counts: every kernel module counts its launches; each run of
-phases 4-7 (the main path) sets the counts to 0 just before it and reads
+phases 4-8 (the main path) sets the counts to 0 just before it and reads
 them just after, and the kernels line reports their sum.  Times in the
 kernels line are per step; ``bound_ms`` is the least time of the same
 work on an H100 (bytes of each input read once and each output written
@@ -105,14 +123,20 @@ MAIN_LAUNCHES: collections.Counter = collections.Counter()
 
 def kernel_counters() -> dict:
     """name -> (module, counter attribute) of every kernel's launch count;
-    the stream module also counts the ghost snapshots before its passes."""
-    from advanced_hpc_lbm_tpu_torch.ops import kstep_kernel, resident, step_kernel, stream_kernel
+    the stream module also counts the ghost snapshots before its passes,
+    the local module its 1-D, 2-D and K-step forms apart."""
+    from advanced_hpc_lbm_tpu_torch.ops import (
+        kstep_kernel, local_kernel, resident, step_kernel, stream_kernel,
+    )
 
     return {"step_kernel": (step_kernel, "launches"),
             "resident_kernel": (resident, "launches"),
             "kstep_kernel": (kstep_kernel, "launches"),
             "stream_kernel": (stream_kernel, "launches"),
-            "stream_snapshot": (stream_kernel, "snapshot_launches")}
+            "stream_snapshot": (stream_kernel, "snapshot_launches"),
+            "local_kernel": (local_kernel, "launches"),
+            "local2d_kernel": (local_kernel, "launches_2d"),
+            "local_ca_kernel": (local_kernel, "ca_launches")}
 
 
 @contextlib.contextmanager
@@ -159,15 +183,14 @@ def phase_card() -> str:
 
 def phase_build() -> None:
     from advanced_hpc_lbm_tpu_torch.ops import _build, kstep_kernel, resident, step_kernel
-    from advanced_hpc_lbm_tpu_torch.ops import stream_kernel
+    from advanced_hpc_lbm_tpu_torch.ops import local_kernel, stream_kernel
 
     t0 = time.perf_counter()
     path, cached = _build.build()
     step_kernel.prepare("cuda")
     resident.prepare("cuda")
     stream_kernel.prepare("cuda")
-    for k in kstep_kernel.K_RANGE:
-        kstep_kernel.prepare("cuda", k)
+    local_kernel.prepare("cuda", tuple(kstep_kernel.K_RANGE))
     dt = time.perf_counter() - t0
     log = path.with_suffix(".log")
     report, name = [], "?"
@@ -178,8 +201,9 @@ def phase_build() -> None:
             report.append(f"{name}: {ln.split(':', 1)[1].strip()}")
         elif "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill"):
             report.append(f"{name}: {ln.strip()}")
-    if not any("stream_kernel" in r for r in report):
-        fail("[2 build] the stream kernel is not in the ptxas report")
+    for kernel in ("stream_kernel", "local_step_kernel"):
+        if not any(kernel in r for r in report):
+            fail(f"[2 build] {kernel} is not in the ptxas report")
     report = " | ".join(report)
     say(f"[2 build] {path.name} {'from cache' if cached else 'built by nvcc'} "
         f"in {dt:.2f} s | ptxas: {report or 'no report'}")
@@ -919,6 +943,323 @@ def bound(cells: int, steps_per_launch: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+# ---- 3l. the local kernels of the sharded path ----------------------------------
+
+def window_case(h: int, w: int, seed: int, accel_rows: tuple[int, ...]):
+    """A seeded (9, h, w) shard window on the card and its encoded mask
+    window, forced on ``accel_rows`` (window rows), where W is starved on
+    half of each forced row so that the guard fails there."""
+    from advanced_hpc_lbm_tpu_torch.ops import stream_kernel as sk
+
+    params, mask_np, f0 = seeded_case(h, w, seed)
+    for r in accel_rows:
+        f0[3, r, : w // 2] = params.accel_w1 * np.float32(0.5)
+    accel = np.zeros(h, dtype=bool)
+    accel[list(accel_rows)] = True
+    enc = sk.encode_masks(torch.from_numpy(mask_np), torch.from_numpy(accel))
+    return params, torch.from_numpy(f0).cuda(), enc.cuda()
+
+
+def local_launch(kind: str, k: int, params, win, enc, plain: bool = False):
+    """(run, out, partials) of one launch of a local kernel (``kind`` "1d",
+    "2d" or "ca") or its plain version on a window."""
+    from advanced_hpc_lbm_tpu_torch.ops import local_kernel as lk
+
+    _, h, w = win.shape
+    if kind == "ca":
+        ly, lx = h - 2 * k, w
+        part = torch.empty(k, lk.num_tiles(ly, lx), device=win.device)
+    else:
+        ly, lx = h - 2, (w - 2 if kind == "2d" else w)
+        part = torch.empty(lk.num_partials(ly, lx), device=win.device)
+    out = torch.empty(9, ly, lx, device=win.device)
+    if kind == "ca":
+        fn = lk.plain_local_ca_steps if plain else lk.local_ca_steps
+        return (lambda: fn(win, enc, params, k, out=out, partials=part)), out, part
+    if plain:
+        return (lambda: lk.plain_local_step(win, enc, params, out=out, partials=part,
+                                            torus=kind == "2d")), out, part
+    fn = lk.local_step_2d if kind == "2d" else lk.local_step
+    return (lambda: fn(win, enc, params, out=out, partials=part)), out, part
+
+
+# (kind, K, own rows, own columns, forced window rows, what the case holds)
+LOCAL_CASES = (
+    ("1d", 1, 2, 64, (3,), "ly = 2, the bottom halo row is row ny-2"),
+    ("1d", 1, 17, 23, (0,), "17x23, the top halo row forced"),
+    ("1d", 1, 64, 64, (63,), "the mini deck's shard, an own row forced"),
+    ("1d", 1, 2048, 8192, (2047,), "an 8192^2 ring shard of 4"),
+    ("2d", 1, 2, 3, (3,), "2x3 block, the bottom halo row forced across the halo columns"),
+    ("2d", 1, 17, 23, (1,), "17x23 block"),
+    ("2d", 1, 64, 64, (0, 64), "both halo rows forced"),
+    ("2d", 1, 4096, 4096, (4095,), "an 8192^2 torus shard of 2x2"),
+    ("ca", 2, 4, 64, (1, 5), "K = 2, forcing row twice: ghost and own"),
+    ("ca", 3, 16, 100, (7,), "K = 3"),
+    ("ca", 4, 2048, 8192, (2049,), "K = 4, an 8192^2 ring shard of 4"),
+    ("ca", 8, 17, 23, (1, 20), "K = 8, 17x23, forcing row twice"),
+)
+
+# the main path's shard shape of each kind, timed
+LOCAL_TIMED = {"1d": (1, 2048, 8192), "2d": (1, 4096, 4096), "ca": (4, 2048, 8192)}
+
+
+def local_bound(kind: str, k: int, ly: int, lx: int) -> tuple[float, str]:
+    """(ms per step, bound_by) of a local kernel's launch on a (ly, lx)
+    shard: each input read once (window, mask), each output written once;
+    operations FLOPS_PER_CELL_STEP per own cell and step."""
+    if kind == "ca":
+        bytes_ = (9 * 4 + 1) * (ly + 2 * k) * lx + 9 * 4 * ly * lx
+    else:
+        h, w = ly + 2, (lx + 2 if kind == "2d" else lx)
+        bytes_ = (9 * 4 + 1) * h * w + 9 * 4 * ly * lx
+    t_bytes = bytes_ / HBM_BYTES_PER_S / k
+    t_ops = FLOPS_PER_CELL_STEP * ly * lx / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_local(card: str) -> tuple[dict, dict]:
+    """Each local kernel against its plain version; returns (worst max
+    |df| per kind, (kernel ms, plain ms) per step per kind)."""
+    worst = {"1d": 0.0, "2d": 0.0, "ca": 0.0}
+    for seed, (kind, k, ly, lx, rows, what) in enumerate(LOCAL_CASES):
+        g = k if kind == "ca" else 1
+        h, w = ly + 2 * g, (lx + 2 if kind == "2d" else lx)
+        params, win, enc = window_case(h, w, 700 + seed, rows)
+        run_k, fk, pk = local_launch(kind, k, params, win, enc)
+        run_p, fp, pp = local_launch(kind, k, params, win, enc, plain=True)
+        run_k()
+        run_p()
+        torch.cuda.synchronize()
+        tag = f"[3l local] {kind} K={k} {ly}x{lx} ({what})"
+        df, n_diff = diff_line(fk, fp)
+        worst[kind] = max(worst[kind], df)
+        sk, sp = pk.reshape(k if kind == "ca" else 1, -1).sum(1), pp.reshape(
+            k if kind == "ca" else 1, -1).sum(1)
+        dsum = ((sk - sp).abs() / sp.abs()).max().item()
+        if not bool(torch.isfinite(fk).all().item()):
+            fail(f"{tag}: non-finite output")
+        if not torch.allclose(fk, fp, rtol=F_RTOL, atol=F_ATOL):
+            fail(f"{tag}: f differs from the plain version beyond rtol {F_RTOL} atol {F_ATOL}")
+        if not torch.allclose(sk, sp, rtol=AV_RTOL, atol=0.0):
+            fail(f"{tag}: ||u|| sums differ from the plain version beyond rtol {AV_RTOL}")
+        say(f"{tag}: {n_diff} of {fk.numel()} values differ from the plain version, "
+            f"max|df| {df:.3e}, max rel d(||u|| sum) {dsum:.3e}")
+        del win, enc, fk, fp
+    times = {}
+    for seed, (kind, (k, ly, lx)) in enumerate(LOCAL_TIMED.items()):
+        g = k if kind == "ca" else 1
+        params, win, enc = window_case(ly + 2 * g, lx + 2 if kind == "2d" else lx,
+                                       800 + seed, (ly,))
+        k_ms = time_ms(local_launch(kind, k, params, win, enc)[0], 50) / k
+        p_ms = time_ms(local_launch(kind, k, params, win, enc, plain=True)[0], 3) / k
+        b_ms, b_by = local_bound(kind, k, ly, lx)
+        times[kind] = (k_ms, p_ms)
+        say(f"[3l local] {kind} K={k} {ly}x{lx} time per step: kernel {k_ms * 1e3:.2f} us "
+            f"({ly * lx / k_ms / 1e6:.3f} GLUPS), plain {p_ms * 1e3:.2f} us, bound "
+            f"{b_ms * 1e3:.2f} us ({b_by}) | {card}")
+        del win, enc
+    return worst, times
+
+
+# ---- 8. the sharded path ----------------------------------------------------------
+
+def sharded_expected(kernel: str, shards: int, torus: bool, iters: int, k: int = 1) -> dict:
+    """Launches per kernel of a sharded run of ``iters`` steps."""
+    from advanced_hpc_lbm_tpu_torch.ops import stream_kernel
+
+    want = dict.fromkeys(kernel_counters(), 0)
+    one = "local2d_kernel" if torus else "local_kernel"
+    if kernel == "stream":
+        passes, tail = divmod(iters, stream_kernel.K)
+        want["stream_kernel"] = want["stream_snapshot"] = passes * shards
+        want[one] = tail * shards
+    elif k > 1:
+        passes, tail = divmod(iters, k)
+        want["local_ca_kernel"], want[one] = passes * shards, tail * shards
+    else:
+        want[one] = iters * shards
+    return want
+
+
+def phase_sharded_mini() -> None:
+    from advanced_hpc_lbm_tpu_torch.utils import check
+
+    decks = ROOT / "decks"
+    for flags, kernel, k in ((["--backend", "sharded"], "pallas", 1),
+                             (["--backend", "sharded", "--ca-steps", "4"], "pallas", 4),
+                             (["--backend", "sharded", "--shard-kernel", "stream"], "stream", 8)):
+        tag = f"[8 sharded mini] {' '.join(flags)}:"
+        with tempfile.TemporaryDirectory() as tmp:
+            rc, lines, n = run_cli([str(decks / "mini_64x64.params"),
+                                    str(decks / "mini_64x64.obstacles.dat"), *flags,
+                                    "--out-dir", tmp])
+            if rc != 0:
+                fail(f"{tag} CLI exited {rc}")
+            want = sharded_expected(kernel, torch.cuda.device_count(), False, 500, k)
+            if n != want:
+                fail(f"{tag} launches {n}, expected {want}")
+            block = check_block(lines, tag)
+            stats = check.check_av_vels_only(
+                str(decks / "mini_64x64.golden_av_vels.dat"), str(Path(tmp) / "av_vels.dat"))
+            if not stats.passed(1.0):
+                fail(f"{tag} av_vels fail the golden: {stats.max_diff_pcnt:.4g}%")
+        say(f"{tag} 64x64, 500 steps on {torch.cuda.device_count()} shard(s): launches "
+            f"{ {a: b for a, b in n.items() if b} }, Reynolds {block['reynolds']:.6E}, golden "
+            f"max diff {stats.max_diff_pcnt:.4g}% (limit 1%), Compute {block['compute']:.4f} s")
+
+
+def phase_sharded_full(card: str) -> None:
+    """The 1024^2 deck of phase 5 on --backend sharded, through the CLI
+    (the same output files as auto's) and the library (the same state as
+    auto's, 0 differing values)."""
+    from advanced_hpc_lbm_tpu_torch import Simulation
+    from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
+
+    nx = ny = 1024
+    iters = 20_000
+    tag = "[8 sharded full] --backend sharded:"
+    with tempfile.TemporaryDirectory() as tmp:
+        params_f, obst_f = write_full_deck(Path(tmp), nx, ny, iters)
+        outs = {}
+        for backend in ("auto", "sharded"):
+            d = Path(tmp) / backend
+            d.mkdir()
+            rc, lines, n = run_cli([str(params_f), str(obst_f), "--backend", backend,
+                                    "--out-dir", str(d)])
+            if rc != 0:
+                fail(f"{tag} CLI --backend {backend} exited {rc}")
+            outs[backend] = (n, check_block(lines, tag), d)
+        n, block, d = outs["sharded"]
+        want = sharded_expected("pallas", torch.cuda.device_count(), False, iters)
+        if n != want:
+            fail(f"{tag} launches {n}, expected {want}")
+        if (d / "final_state.dat").read_bytes() != (
+                outs["auto"][2] / "final_state.dat").read_bytes():
+            fail(f"{tag} final_state.dat differs from --backend auto's")
+        av_s, av_a = (lbm_io.read_av_vels(outs[b][2] / "av_vels.dat") for b in ("sharded", "auto"))
+        if not np.allclose(av_s, av_a, rtol=AV_RTOL, atol=0.0):
+            fail(f"{tag} av_vels.dat differs from --backend auto's beyond rtol {AV_RTOL}")
+        ref = Simulation.from_decks(params_f, obst_f, device="cuda").run(fetch=False)
+        sim = Simulation.from_decks(params_f, obst_f, backend="sharded", device="cuda")
+        sim.warmup()
+        counts: dict = {}
+        with counted(counts):
+            res = sim.run(fetch=False)
+    diffs = sum(int((blk != ref.f_final[:, rows, cols]).sum().item())
+                for rows, cols, blk in res.f_final.blocks())
+    if diffs or counts != want:
+        fail(f"{tag} library run: {diffs} values differ from auto's state, launches {counts}")
+    if not torch.allclose(res.av_vels, ref.av_vels, rtol=AV_RTOL, atol=0.0):
+        fail(f"{tag} library av differs from auto's beyond rtol {AV_RTOL}")
+    say(f"{tag} {ny}x{nx}, {iters} steps on {torch.cuda.device_count()} shard(s): launches "
+        f"{ {a: b for a, b in n.items() if b} }, final_state.dat equal to auto's, av_vels.dat "
+        f"within rtol {AV_RTOL}, "
+        f"Compute {block['compute']:.4f} s = {iters * nx * ny / block['compute'] / 1e9:.3f} "
+        f"GLUPS (auto: {outs['auto'][1]['compute']:.4f} s); library run: 0 of "
+        f"{ref.f_final.numel()} values differ from auto's state | {card}")
+
+
+SHARDED_BIG = (  # (label, run keywords, kernel, K)
+    ("ring pallas", {"devices": 4, "shard_kernel": "pallas"}, "pallas", 1),
+    ("ring pallas K=4", {"devices": 4, "shard_kernel": "pallas", "ca_steps": 4}, "pallas", 4),
+    ("ring stream", {"devices": 4, "shard_kernel": "stream"}, "stream", 8),
+    ("2x2 torus pallas", {"mesh": (2, 2), "shard_kernel": "pallas"}, "pallas", 1),
+    ("2x2 torus stream", {"mesh": (2, 2), "shard_kernel": "stream"}, "stream", 8),
+)
+
+
+def phase_sharded_big(card: str) -> dict:
+    """An 8192^2 deck for 200 steps on 4 shards of the card against
+    single-device pallask; returns us per step per label."""
+    from advanced_hpc_lbm_tpu_torch import Simulation
+
+    n, iters = 8192, 200
+    four = [torch.device("cuda", 0)] * 4
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        params_f, obst_f = write_full_deck(Path(tmp), n, n, iters)
+        ref_sim = Simulation.from_decks(params_f, obst_f, backend="pallask", device="cuda")
+        ref_sim.warmup()
+        t0 = time.perf_counter()
+        ref = ref_sim.run(fetch=False)
+        times["single-device pallask"] = (time.perf_counter() - t0) / iters
+        mass0 = rest_mass(ref_sim.params)
+        for label, kw, kernel, k in SHARDED_BIG:
+            tag = f"[8 sharded big] {n}x{n} {label}:"
+            sim = Simulation.from_decks(params_f, obst_f, backend="sharded", device="cuda")
+            sim.warmup(shard_devices=four, **kw)
+            counts: dict = {}
+            with counted(counts):
+                t0 = time.perf_counter()
+                res = sim.run(fetch=False, shard_devices=four, **kw)
+                dt = time.perf_counter() - t0
+            want = sharded_expected(kernel, 4, "mesh" in kw, iters, k)
+            if counts != want:
+                fail(f"{tag} launches {counts}, expected {want}")
+            diffs = 0
+            mass = 0.0
+            for rows, cols, blk in res.f_final.blocks():
+                if not bool(torch.isfinite(blk).all().item()):
+                    fail(f"{tag} non-finite state")
+                diffs += int((blk != ref.f_final[:, rows, cols]).sum().item())
+                mass += device_mass(blk)
+            drift = abs(mass - mass0) / mass0
+            dav = ((res.av_vels - ref.av_vels).abs() / ref.av_vels.abs()).max().item()
+            if diffs:
+                fail(f"{tag} {diffs} values differ from single-device pallask")
+            if not torch.allclose(res.av_vels, ref.av_vels, rtol=AV_RTOL, atol=0.0):
+                fail(f"{tag} av differs from single-device pallask beyond rtol {AV_RTOL}")
+            if drift > 1e-4:
+                fail(f"{tag} total density drifted by {drift:.3e} (limit 1e-4)")
+            times[label] = dt / iters
+            say(f"{tag} {iters} steps on 4 shards of one card: launches "
+                f"{ {a: b for a, b in counts.items() if b} }, 0 of {9 * n * n} values differ "
+                f"from single-device pallask, max rel dav {dav:.3e}, mass drift {drift:.3e}, "
+                f"{dt / iters * 1e6:.2f} us per step (host clock, run synchronised; "
+                f"pallask {times['single-device pallask'] * 1e6:.2f}) | {card}")
+            del res, sim
+    return times
+
+
+def phase_sharded_sweep(card: str) -> dict:
+    """us per step of 4 ring shards of one card on pallas, pallas K = 4 and
+    stream beside single-device pallask, 96 steps from the rest state, for
+    the choice of ``auto``."""
+    from advanced_hpc_lbm_tpu_torch import Simulation
+
+    from advanced_hpc_lbm_tpu_torch import LBMParams
+
+    four = [torch.device("cuda", 0)] * 4
+    steps = 96
+    times = {}
+    for n in (2048, 4096, 8192):
+        params = LBMParams(nx=n, ny=n, max_iters=steps, reynolds_dim=10,
+                           density=0.1, accel=0.01, omega=1.85)
+        obst = np.zeros((n, n), dtype=bool)  # write_full_deck's geometry, in memory
+        obst[0] = obst[-1] = True
+        obst[:, 0] = obst[:, -1] = True
+        obst[: n // 2, n // 3] = True
+        row = {}
+        for label, backend, kw in (
+                ("pallask", "pallask", {}),
+                ("pallas", "sharded", {"devices": 4, "shard_kernel": "pallas"}),
+                ("pallas K=4", "sharded", {"devices": 4, "shard_kernel": "pallas", "ca_steps": 4}),
+                ("stream", "sharded", {"devices": 4, "shard_kernel": "stream"})):
+            sim = Simulation(params, obst, backend=backend, device="cuda")
+            extra = {"shard_devices": four} if backend == "sharded" else {}
+            sim.warmup(**kw, **extra)
+            sim.run(n_iters=8, fetch=False, **kw, **extra)  # first-touch allocations
+            t0 = time.perf_counter()
+            sim.run(n_iters=steps, fetch=False, **kw, **extra)
+            row[label] = (time.perf_counter() - t0) / steps
+            del sim
+        times[n] = row
+        say(f"[8 sharded sweep] {n}x{n}, 4 ring shards of one card, {steps} steps: " + ", ".join(
+            f"{label} {t * 1e6:.2f} us" for label, t in row.items())
+            + f" per step (host clock, run synchronised) | {card}")
+    return times
+
+
 # ---- main -------------------------------------------------------------------
 
 def main() -> int:
@@ -930,12 +1271,17 @@ def main() -> int:
     worst_k, k_times = phase_kstep(card, res_times)
     retime(card, res_times, k_times)
     worst_s, s_times = phase_stream(card)
+    worst_l, l_times = phase_local(card)
     phase_mini()
     phase_full(card, res_times)
     phase_cli_big(card)
     phase_big(card, "6 big", 4096, ("pallask", "step"))
     phase_big(card, "6s big stream", 8192, ("stream", "pallask"))
     phase_capacity(card)
+    phase_sharded_mini()
+    phase_sharded_full(card)
+    phase_sharded_big(card)
+    phase_sharded_sweep(card)
     say(f"[result] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"main-path launches {dict(MAIN_LAUNCHES)}")
     for name in kernel_counters():
@@ -965,6 +1311,17 @@ def main() -> int:
          {"also_replaces": ["advanced_hpc_lbm_tpu/ops/kernel_common.py:207"]},
          worst_s, st["stream"], st["plain"], bound(4096 * 4096, stream_kernel.K)),
     ]
+    # the local kernels per step at the main path's shard shapes (8192^2 over
+    # 4 shards: 2048x8192 ring shards, 4096x4096 torus shards)
+    for name, source, replaces, kind in (
+            ("local_kernel", "local_kernel.cu", "advanced_hpc_lbm_tpu/ops/pallas_local.py:53", "1d"),
+            ("local2d_kernel", "local_kernel.cu", "advanced_hpc_lbm_tpu/ops/pallas_local.py:189",
+             "2d"),
+            ("local_ca_kernel", "kstep_kernel.cu", "advanced_hpc_lbm_tpu/ops/pallas_local.py:401",
+             "ca")):
+        k, ly, lx = LOCAL_TIMED[kind]
+        entries.append((name, source, replaces, {}, worst_l[kind], *l_times[kind],
+                        local_bound(kind, k, ly, lx)))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source, "replaces": replaces, **extra,
          "launches": MAIN_LAUNCHES[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

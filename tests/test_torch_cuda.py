@@ -1,6 +1,6 @@
-"""The CUDA kernels on the card (step, resident, K-step, stream), against their
-plain PyTorch versions and against each other.  Skipped
-where PyTorch sees no CUDA device.
+"""The CUDA kernels on the card (step, resident, K-step, stream, and the
+sharded path's local kernels), against their plain PyTorch versions and
+against each other.  Skipped where PyTorch sees no CUDA device.
 
 This file imports no JAX, so that the card's host, which has none, can run
 it without the suite's conftest:
@@ -12,7 +12,8 @@ expected to match bit for bit; the stated tolerance is f within rtol 1e-6 /
 atol 1e-8, and av within rtol 1e-5 (the kernel sums ||u|| by a block tree,
 PyTorch by its own reduction order).  The resident, K-step and stream
 kernels run the step kernel's per-cell code, so their state equals the step
-kernel's with 0 differing values.
+kernel's with 0 differing values; so does the state of a sharded run on
+four shards of the one card.
 """
 
 import numpy as np
@@ -22,8 +23,9 @@ import torch
 from advanced_hpc_lbm_tpu_torch import Simulation
 from advanced_hpc_lbm_tpu_torch.models import d2q9_bgk
 from advanced_hpc_lbm_tpu_torch.ops import (
-    kstep_kernel, reference, resident, step_kernel, stream_kernel,
+    kstep_kernel, local_kernel, reference, resident, step_kernel, stream_kernel,
 )
+from advanced_hpc_lbm_tpu_torch.parallel import halo
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
 
 pytestmark = [
@@ -227,3 +229,80 @@ def test_gate_refuses_a_grid_beyond_the_card_before_allocating():
         sim.warmup()
     assert torch.cuda.max_memory_allocated() < 2**20
     assert d2q9_bgk._device_memory_bytes("cuda") > 0
+
+
+# ---- the sharded path -----------------------------------------------------------
+
+def _local_window(h, w, seed, accel_rows):
+    params, mask_np, f0 = make_case(h, w, seed)
+    accel = torch.zeros(h, dtype=torch.bool)
+    accel[list(accel_rows)] = True
+    enc = stream_kernel.encode_masks(torch.from_numpy(mask_np), accel)
+    return params, torch.from_numpy(f0).cuda(), enc.cuda()
+
+
+@pytest.mark.parametrize("kind,k,ly,lx,rows", [
+    ("1d", 1, 2, 64, (3,)), ("1d", 1, 17, 23, (0,)), ("1d", 1, 100, 130, (50,)),
+    ("2d", 1, 2, 3, (3,)), ("2d", 1, 17, 23, (1,)), ("2d", 1, 64, 64, (0, 64)),
+    ("ca", 2, 4, 64, (1, 5)), ("ca", 4, 40, 130, (43,)), ("ca", 8, 17, 23, (1, 20)),
+])
+def test_local_kernels_match_plain_on_card(kind, k, ly, lx, rows):
+    """Each local kernel against its plain version: the forcing row on a
+    halo row, an own row, and twice in a K-step window."""
+    g = k if kind == "ca" else 1
+    params, win, enc = _local_window(ly + 2 * g, lx + 2 if kind == "2d" else lx, ly + k, rows)
+    outs = []
+    for plain in (False, True):
+        out = torch.empty(9, ly, lx, device="cuda")
+        if kind == "ca":
+            part = torch.empty(k, local_kernel.num_tiles(ly, lx), device="cuda")
+            fn = local_kernel.plain_local_ca_steps if plain else local_kernel.local_ca_steps
+            fn(win, enc, params, k, out=out, partials=part)
+        else:
+            part = torch.empty(local_kernel.num_partials(ly, lx), device="cuda")
+            if plain:
+                local_kernel.plain_local_step(win, enc, params, out=out, partials=part,
+                                              torus=kind == "2d")
+            else:
+                fn = local_kernel.local_step_2d if kind == "2d" else local_kernel.local_step
+                fn(win, enc, params, out=out, partials=part)
+        outs.append((out, part.reshape(k, -1).sum(dim=1)))
+    torch.cuda.synchronize()
+    assert int((outs[0][0] != outs[1][0]).sum()) == 0
+    torch.testing.assert_close(outs[0][1], outs[1][1], rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("shape,kw,counts", [
+    (4, {"kernel": "pallas"}, {"local": 4 * 37}),
+    (4, {"kernel": "pallas", "ca_steps": 4}, {"ca": 4 * 9, "local": 4}),
+    (4, {"kernel": "stream"}, {"stream": 4 * 4, "local": 4 * 5}),
+    ((2, 2), {"kernel": "pallas"}, {"local2d": 4 * 37}),
+    ((2, 2), {"kernel": "stream"}, {"stream": 4 * 4, "local2d": 4 * 5}),
+])
+def test_four_shards_of_one_card_equal_pallask(monkeypatch, shape, kw, counts):
+    """Four shards on cuda:0, real halo copies between separate
+    allocations: the state of single-device pallask with 0 differing
+    values, exact launches per kernel, and no plain version reached."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    for mod, name in ((local_kernel, "plain_local_step"), (local_kernel, "plain_local_ca_steps"),
+                      (stream_kernel, "plain_multi_step")):
+        monkeypatch.setattr(mod, name, refuse)
+    params, mask_np, f0 = make_case(256, 256, seed=8)
+    ref_f, ref_av = kstep_kernel.run(torch.from_numpy(f0).cuda(), torch.from_numpy(mask_np).cuda(),
+                                     params, n_iters=37, k=4)
+    names = {"local": "launches", "local2d": "launches_2d", "ca": "ca_launches"}
+    before = {n: getattr(local_kernel, a) for n, a in names.items()}
+    before["stream"] = stream_kernel.launches
+    four = ["cuda:0"] * 4
+    if isinstance(shape, tuple):
+        f, av = halo.run_sharded_2d(f0, mask_np, params, shape, n_iters=37, devices=four, **kw)
+    else:
+        f, av = halo.run_sharded(f0, mask_np, params, n_iters=37, devices=four, **kw)
+    torch.cuda.synchronize()
+    after = {n: getattr(local_kernel, a) for n, a in names.items()}
+    after["stream"] = stream_kernel.launches
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == counts
+    for rows, cols, blk in f.blocks():
+        assert int((blk != ref_f[:, rows, cols]).sum()) == 0
+    torch.testing.assert_close(av, ref_av, rtol=1e-5, atol=0.0)

@@ -29,6 +29,7 @@ from advanced_hpc_lbm_tpu.utils import native as jnative
 from advanced_hpc_lbm_tpu_torch import LBMParams, Simulation, SimulationResult, cli
 from advanced_hpc_lbm_tpu_torch.models import d2q9_bgk
 from advanced_hpc_lbm_tpu_torch.ops import kstep_kernel, resident, step_kernel, stream_kernel
+from advanced_hpc_lbm_tpu_torch.parallel import halo, mesh
 from advanced_hpc_lbm_tpu_torch.utils import check, io
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -152,11 +153,15 @@ def test_auto_rule(ny, nx):
     assert sim._k() == (6 if ny * nx <= 256 * 256 else 4)
 
 
-@pytest.mark.parametrize("backend", d2q9_bgk.NOT_PORTED)
+@pytest.mark.parametrize("backend", ["sharded"])
 def test_unported_backend_raises(backend):
+    """Every backend of the JAX package is ported; what stays unported of
+    ``sharded`` (the overlapped 1-step schedule) raises."""
     params, mask = _small_deck()
+    assert backend in d2q9_bgk.BACKENDS
+    Simulation(params, mask, backend=backend, device="cpu")
     with pytest.raises(ValueError, match="not yet ported"):
-        Simulation(params, mask, backend=backend, device="cpu")
+        halo.make_sharded_runner(mesh.make_y_mesh(2, ["cpu"] * 2), params, 1, overlap=True)
 
 
 def test_unknown_backend_and_bad_mask_raise():
@@ -252,7 +257,7 @@ def test_cli_cuda_without_a_card_exits_1(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--backend", "sharded"], "not yet ported"),
+    (["--backend", "sharded", "--devices", "3"], "not divisible"),
     (["--device", "tpu0"], "bad --device"),
 ])
 def test_cli_bad_choice_exits_1(tmp_path, capsys, extra, message):
@@ -268,7 +273,8 @@ def test_cli_bad_deck_exits_1(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--devices", "2"], ["--mesh", "2x2"], ["--shard-kernel", "jnp"], ["--ca-steps", "2"],
+    # the sharded flags are ported: malformed values of them are refused
+    ["--devices", "two"], ["--mesh", "2by2"], ["--shard-kernel", "cuda"], ["--ca-steps", "x"],
     ["--checkpoint-every", "5"], ["--resume"], ["--multihost"], ["--profile", "x"],
 ])
 def test_cli_rejects_unported_flags(flag, capsys):
