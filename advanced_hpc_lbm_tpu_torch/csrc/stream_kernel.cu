@@ -9,49 +9,69 @@
 //
 // Mask.  One uint8 per cell: +1 obstacle, +2 forcing cell, +4 left out of
 // the ||u|| sums (the cell keeps its true dynamics).  Forcing is read from
-// the mask, per cell, not from "row == ny-2".
+// the mask, per cell, on the window rows that hold a +2 cell.
 //
 // In place (out == f), one state buffer.  The TPU kernel is safe in place
 // because its grid runs tiles in order; here blocks run concurrently and
 // in no order, so the pass is made hazard-free by construction:
 //
-// * Ownership.  A block owns the cells of one slab of kSlab rows and one
-//   segment of kSeg columns (the last slab and segment may be shorter).  It
-//   writes only those cells, and it is the only reader of them in f.
-// * Snapshot.  Every ghost value a block needs from outside its own cells
-//   comes from a snapshot of the old state, taken by `snapshot_kernel` just
-//   before the pass in the same stream: for each slab the K rows above and
-//   the K rows below it (all columns), and for each segment the K columns
-//   left and right of it (all rows).  That side buffer is 2K/kSlab +
-//   2K/kSeg of a state (20% + 1.6%); no block writes it during the pass.
-// * Chunks.  A block walks its segment along x in chunks of kChunk
-//   columns.  Chunk j's window (its cells with a ghost ring K deep) is
-//   loaded, chunk j-1's result is written, and only then are chunk j's K
-//   steps run.  The only own cells of the block that chunk j reads are
-//   those of chunks j-1, j, j+1 (kChunk >= K); chunk j-1's and chunk j's
-//   are written after chunk j and chunk j+1 have loaded, so every read of
-//   f sees the old value.  (The TPU kernel's "egress(i) after
-//   ingress(i+1)", turned 90 degrees and kept inside one block.)
+// * Ownership.  The grid is cut into work items: slabs of kSlab rows times
+//   segments of kSeg columns (the last slab and segment may be shorter).
+//   A persistent grid (one block per SM) walks them: block b takes items
+//   b, b + grid, ...  Only the block of an item writes its cells, and only
+//   it reads them from f.
+// * Snapshot.  Every ghost value a block needs from outside an item's
+//   cells comes from a snapshot of the old state, taken by
+//   `snapshot_kernel` just before the pass in the same stream: for each
+//   slab the K rows above and the K rows below it (all columns), and for
+//   each segment the K columns left and right of it (all rows).  That side
+//   buffer is 2K/kSlab + 2K/kSeg of a state (20% + 1.6%); no block writes
+//   it during the pass.
+// * Chunks and the pipeline.  A block walks an item along x in chunks of
+//   kChunk columns, and its items one after another; each chunk's window
+//   (its cells with a ghost ring K deep) is stepped in one of two window
+//   buffers while the next chunk's window arrives in the other by cp.async:
+//
+//     issue load(j+1) ... steps of chunk j ... wait for load(j+1) and a
+//     barrier ... write chunk j ... barrier ... issue load(j+2) ...
+//
+//   "Loaded" means completed: every thread has waited for its copies of
+//   load(j+1) (cp.async.wait_group 0) and the block has met at a barrier
+//   before any thread writes chunk j.  The only own cells of an item that
+//   chunk j's window reads are those of chunks j-1, j, j+1 (kChunk >= K),
+//   and a chunk is written only after the next chunk's load completed, so
+//   every read of f sees the old value: chunk j-1 and chunk j are written
+//   after loads j and j+1, and load j+2, issued after chunk j is written,
+//   reads no cell of chunk j.  Chunks of the next item are other cells.
+//   (The TPU kernel's "egress(i) after ingress(i+1)", turned 90 degrees and
+//   kept inside one block.)
 //
 // Out of place the same schedule runs with out != f.
 //
-// Steps.  K steps in shared memory, ping-ponging two window buffers; step s
-// computes rows [s, H - s) and columns [s, W - s) of the window, each cell
+// Steps.  K steps in place in the window (window_common.cuh): step s
+// computes rows [s, kH - s) and columns [s, kW - s) of the window, each cell
 // by step_common.cuh:cell_step, so the state equals the step kernel's bit
-// for bit.  Windows wrap with mod ny / mod nx: a window is a periodic image
-// of the grid, also on grids smaller than a window.
+// for bit.  The rectangle is the full window's whatever the chunk's size:
+// in a short last slab or chunk the cells past the loaded ones hold stale
+// values, which reach no own cell in K steps (they spread one cell per
+// step from outside the ghost ring).  Windows wrap with mod ny / mod nx: a
+// window is a periodic image of the grid, also on grids smaller than a
+// window; where ny, nx >= K and nx % 4 == 0 the window loads 16-byte groups
+// at plain offsets (wrapped by one add at the grid's edge), else cell by
+// cell with mod.
 //
-// Partials.  One ||u|| sum per step and block (own cells with neither +1
+// Partials.  One ||u|| sum per step and item (own cells with neither +1
 // nor +4): partials[s, slab * segments + segment].  Each warp adds its
-// step sums into its own shared slot across chunks; thread s then adds
-// the slots in warp order, so the sums are deterministic.
+// step sums into its own shared slot across an item's chunks; thread s
+// then adds the slots in warp order, so the sums are deterministic.
 //
-// Shared memory: two windows of 9 x 96 x 32 floats and the mask window,
-// 219 KiB, so one block of 1024 threads per SM.  Loads are synchronous;
-// the block waits on each chunk's load, which is what bounds the kernel
-// (1.9x pallask's K = 4 time per step at 8192^2 with 512 threads, 1.4x
-// with 1024; H100 80GB HBM3 at 700 W, PERF.md).  A cp.async/TMA pipeline that overlaps the next chunk's load
-// with this chunk's steps is later work.
+// Bound on this card: device memory moves (36 + 1 + 36) B per cell per
+// pass and the snapshot 2 x 21.6% of the state, 10.9 B per cell and step
+// (45.70 us per step at 4096^2 at 3.35 TB/s).  What is left is instruction
+// issue: a chunk steps 16176 cells for 10240 own cell steps (1.58x), ~150
+// instructions each, with one block of 512 threads per SM (two 96 x 32
+// windows fill its shared memory).  Measured time per step: PERF.md
+// (chip_smoke.py 3s, H100 80GB HBM3).
 //
 // Build (ops/_build.py): nvcc -gencode arch=compute_90a,code=sm_90a
 //   -std=c++17 -O3 -fmad=false -shared -Xcompiler -fPIC
@@ -59,48 +79,31 @@
 #include <cstdint>
 
 #include "step_common.cuh"
+#include "window_common.cuh"
 
 namespace {
 
 constexpr int K = 8;          // steps per pass = ghost depth
-constexpr int kSlab = 80;     // own rows of a block
-constexpr int kSeg = 1024;    // own columns of a block
+constexpr int kSlab = 80;     // own rows of an item
+constexpr int kSeg = 1024;    // own columns of an item
 constexpr int kChunk = 16;    // own columns of one window
-constexpr int kThreads = 1024;  // 32 warps: more of each load's wait hidden
+constexpr int kThreads = 768;
 constexpr int kWarps = kThreads / 32;
 constexpr int kH = kSlab + 2 * K;   // window rows
-constexpr int kW = kChunk + 2 * K;  // window columns
-constexpr int kPlane = kH * kW;
-constexpr size_t kSmemBytes = 2 * 9 * kPlane * sizeof(float) + kPlane;
+constexpr int kW = kChunk + 2 * K;  // window columns = row pitch
+constexpr int kGroups = kW / 4;     // 16-byte groups per window row
+using Geo = lbm::WinGeo<kH, kW>;
+constexpr size_t kSmemBytes = 2 * static_cast<size_t>(Geo::kBytes);
 static_assert(kChunk >= K, "a chunk's ghost ring must lie in its neighbours");
-
-// A window in shared memory with its encoded mask.
-struct Window {
-  const float* planes;
-  const uint8_t* mask;
-  __device__ __forceinline__ float f(int k, int r, int c) const {
-    return planes[k * kPlane + r * kW + c];
-  }
-  __device__ __forceinline__ bool obst(int r, int c) const {
-    return (mask[r * kW + c] & 1) != 0;
-  }
-  __device__ __forceinline__ bool accel(int r, int c) const {
-    return (mask[r * kW + c] & 2) != 0;
-  }
-};
-
-__device__ __forceinline__ int wrap(int v, int n) {
-  const int m = v % n;
-  return m < 0 ? m + n : m;
-}
+static_assert(kChunk % 4 == 0 && kSeg % kChunk == 0, "16-byte groups of a chunk");
 
 // Global row of snapshot row i (0..2K) of a slab starting at y0 with h rows:
 // the K rows above it, then the K rows below it.
 __device__ __forceinline__ int snap_row(int i, int y0, int h, int ny) {
-  return wrap(i < K ? y0 - K + i : y0 + h + i - K, ny);
+  return lbm::wrap(i < K ? y0 - K + i : y0 + h + i - K, ny);
 }
 
-// The old ghost values of every block: rows_snap (9, slabs, 2K, nx) and
+// The old ghost values of every item: rows_snap (9, slabs, 2K, nx) and
 // cols_snap (9, segments, ny, 2K).
 __global__ void __launch_bounds__(256)
     snapshot_kernel(const float* __restrict__ f, float* __restrict__ rows_snap,
@@ -129,7 +132,7 @@ __global__ void __launch_bounds__(256)
       const int y = rem / (2 * K), c = rem % (2 * K);
       const int xs = seg * kSeg, sw = min(kSeg, nx - xs);
       src = static_cast<size_t>(y) * nx +
-            wrap(c < K ? xs - K + c : xs + sw + c - K, nx);
+            lbm::wrap(c < K ? xs - K + c : xs + sw + c - K, nx);
       dst = cols_snap + j;
       dst_plane = cols_n;
     }
@@ -138,124 +141,235 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// Write a finished chunk (window `win`, own columns [x0, x0 + w)) to out.
-__device__ __forceinline__ void write_chunk(const float* win, float* out,
-                                            int y0, int h, int x0, int w,
-                                            int nx, size_t plane, int tid) {
-  for (int i = tid; i < h * w; i += kThreads) {
-    const int r = i / w, c = i % w;
-    const size_t g = static_cast<size_t>(y0 + r) * nx + x0 + c;
-    const int j = (r + K) * kW + c + K;
-#pragma unroll
-    for (int k = 0; k < 9; ++k) out[k * plane + g] = win[k * kPlane + j];
+// The kernel's arguments, a __grid_constant__ parameter: they stay in the
+// constant bank (the out-of-line window load and write below read them by
+// reference, without a local copy), so the steps keep none of them in
+// registers.
+struct Args {
+  const float* f;
+  float* out;
+  const uint8_t* mask;
+  const float* rows_snap;
+  const float* cols_snap;
+  float* partials;
+  int ny, nx;
+  int vec;  // 16-byte window rows: nx % 4 == 0, ny, nx >= K, aligned buffers
+  lbm::StepConsts c;
+  __device__ __forceinline__ int segs() const { return (nx + kSeg - 1) / kSeg; }
+  __device__ __forceinline__ int slabs() const { return (ny + kSlab - 1) / kSlab; }
+  __device__ __forceinline__ int items() const { return slabs() * segs(); }
+  __device__ __forceinline__ size_t plane() const { return static_cast<size_t>(ny) * nx; }
+};
+
+// Chunk j of item `item`: own rows [y0, y0 + h), own columns [x0, x0 + w)
+// of the segment [xs, xs + sw) of slab `slab`.
+struct Chunk {
+  int slab, seg, y0, h, xs, sw, x0, w;
+  __device__ __forceinline__ Chunk(const Args& a, int item, int j) {
+    slab = item / a.segs();
+    seg = item - slab * a.segs();
+    y0 = slab * kSlab;
+    h = min(kSlab, a.ny - y0);
+    xs = seg * kSeg;
+    sw = min(kSeg, a.nx - xs);
+    x0 = xs + j * kChunk;
+    w = min(kChunk, xs + sw - x0);
+  }
+  __device__ __forceinline__ bool last_of_item() const { return x0 + w >= xs + sw; }
+};
+
+// The chunk after (item, j) in a block's walk (item >= items: none).
+__device__ __forceinline__ void next_chunk(const Args& a, int& item, int& j) {
+  if (Chunk(a, item, j).last_of_item()) {
+    item += gridDim.x;
+    j = 0;
+  } else {
+    ++j;
   }
 }
 
-// f and out may be one buffer: neither is __restrict__, and f is never
-// read through the read-only cache.
-__global__ void __launch_bounds__(kThreads, 1)
-    stream_kernel(const float* f, float* out, const uint8_t* __restrict__ mask,
-                  const float* __restrict__ rows_snap,
-                  const float* __restrict__ cols_snap,
-                  float* __restrict__ partials, int ny, int nx,
-                  lbm::StepConsts c) {
+// Issue the copies of chunk (item, j)'s window into `buf` (no wait).
+// Window cell (r, cc) is global cell (y0 - K + r, x0 - K + cc), taken from
+// the slab's row snapshot (r < K or r >= K + h), the segment's column
+// snapshot (columns outside the segment), or f (the item's own cells).
+__device__ __noinline__ void load_window(uint8_t* buf, const Args& a, int item, int j,
+                                         int tid) {
+  const Chunk c(a, item, j);
+  float* const wf = reinterpret_cast<float*>(buf);
+  uint8_t* const wm = buf + 4 * Geo::kFloats;
+  const size_t rows_n = static_cast<size_t>(a.slabs()) * 2 * K * a.nx;
+  const size_t cols_n = static_cast<size_t>(a.segs()) * a.ny * 2 * K;
+  const float* const rsnap = a.rows_snap + static_cast<size_t>(c.slab) * 2 * K * a.nx;
+  const float* const csnap = a.cols_snap + static_cast<size_t>(c.seg) * a.ny * 2 * K;
+  const int H = c.h + 2 * K, W = c.w + 2 * K;
+  // source of global column gx of window row r: (pointer, plane stride)
+  auto source = [&](int r, int gx, int gxw, size_t& stride) -> const float* {
+    if (r < K || r >= K + c.h) {  // ghost rows: the slab's row snapshot
+      stride = rows_n;
+      return rsnap + static_cast<size_t>(r < K ? r : r - c.h) * a.nx + gxw;
+    }
+    const int y = c.y0 + r - K;
+    if (gx < c.xs || gx >= c.xs + c.sw) {  // ghost columns: the segment's
+      stride = cols_n;
+      return csnap + static_cast<size_t>(y) * 2 * K +
+             (gx < c.xs ? gx - (c.xs - K) : K + gx - (c.xs + c.sw));
+    }
+    stride = a.plane();  // own cells of this item, not yet written
+    return a.f + static_cast<size_t>(y) * a.nx + gx;
+  };
+  if (a.vec) {
+    for (int i = tid; i < kH * kGroups; i += kThreads) {
+      const int r = i / kGroups, q = i - r * kGroups;
+      if (r >= H || 4 * q >= W) continue;
+      const int gx = c.x0 - K + 4 * q;
+      const int gxw = gx < 0 ? gx + a.nx : (gx >= a.nx ? gx - a.nx : gx);
+      int gy = c.y0 - K + r;
+      gy = gy < 0 ? gy + a.ny : (gy >= a.ny ? gy - a.ny : gy);
+      size_t stride;
+      const float* const p = source(r, gx, gxw, stride);
+      const int jw = r * kW + 4 * q;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) lbm::cp_async16(wf + k * Geo::kPlane + jw, p + k * stride);
+      lbm::cp_async4(wm + jw, a.mask + static_cast<size_t>(gy) * a.nx + gxw);
+    }
+  } else {
+    for (int i = tid; i < kH * kW; i += kThreads) {
+      const int r = i / kW, cc = i - r * kW;
+      if (r >= H || cc >= W) continue;
+      const int gx = c.x0 - K + cc, gxw = lbm::wrap(gx, a.nx);
+      size_t stride;
+      const float* const p = source(r, gx, gxw, stride);
+#pragma unroll
+      for (int k = 0; k < 9; ++k) lbm::cp_async4(wf + k * Geo::kPlane + i, p + k * stride);
+      // read only after the wait and barrier, like the copies
+      wm[i] = a.mask[static_cast<size_t>(lbm::wrap(c.y0 - K + r, a.ny)) * a.nx + gxw];
+    }
+  }
+}
+
+// Write chunk (item, j)'s own cells from its window `planes` to out, and
+// at an item's last chunk its ||u|| partials (threads s < K).
+__device__ __noinline__ void write_chunk(const float* planes, float (*wsum)[kWarps],
+                                         const Args& a, int item, int j, int tid) {
+  const Chunk c(a, item, j);
+  const size_t plane = a.plane();
+  for (int i = tid; i < kSlab * kChunk; i += kThreads) {
+    const int r = i / kChunk, col = i % kChunk;
+    if (r < c.h && col < c.w) {
+      const size_t gi = static_cast<size_t>(c.y0 + r) * a.nx + c.x0 + col;
+      const int jw = (r + K) * kW + col + K;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) a.out[k * plane + gi] = planes[k * Geo::kPlane + jw];
+    }
+  }
+  if (c.last_of_item() && tid < K) {
+    float total = 0.0f;
+#pragma unroll
+    for (int wi = 0; wi < kWarps; ++wi) {
+      total = total + wsum[tid][wi];
+      wsum[tid][wi] = 0.0f;
+    }
+    a.partials[static_cast<size_t>(tid) * a.items() + item] = total;
+  }
+}
+
+// Steps s = S..K of one window, in place; warp sums added into wsum[s-1].
+template <int S, bool kForce, class Counted>
+__device__ __forceinline__ void steps(const lbm::Window<kH, kW, kForce, true>& win,
+                                      float* planes, const lbm::StepConsts& c,
+                                      Counted counted, float (*wsum)[kWarps], int warp) {
+  lbm::step_in_place<kThreads, S, kH - 2 * S, S, kW - 2 * S>(
+      win, planes, c, counted, [&](float v) { wsum[S - 1][warp] = wsum[S - 1][warp] + v; });
+  if constexpr (S < K) steps<S + 1, kForce>(win, planes, c, counted, wsum, warp);
+}
+
+// f and out may be one buffer: neither is __restrict__.
+__global__ void __launch_bounds__(kThreads, 1) stream_kernel(const __grid_constant__ Args a) {
   extern __shared__ float4 smem_raw[];
-  float* const buf0 = reinterpret_cast<float*>(smem_raw);
-  float* const buf1 = buf0 + 9 * kPlane;
-  uint8_t* const wmask = reinterpret_cast<uint8_t*>(buf1 + 9 * kPlane);
+  uint8_t* const smem = reinterpret_cast<uint8_t*>(smem_raw);
   __shared__ float wsum[K][kWarps];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int seg = blockIdx.x, slab = blockIdx.y;
-  const int y0 = slab * kSlab, h = min(kSlab, ny - y0);
-  const int xs = seg * kSeg, sw = min(kSeg, nx - xs);
-  const int H = h + 2 * K;
-  const size_t plane = static_cast<size_t>(ny) * nx;
-  const size_t rows_n = static_cast<size_t>(gridDim.y) * 2 * K * nx;
-  const size_t cols_n = static_cast<size_t>(gridDim.x) * ny * 2 * K;
-  const float* const rsnap = rows_snap + static_cast<size_t>(slab) * 2 * K * nx;
-  const float* const csnap = cols_snap + static_cast<size_t>(seg) * ny * 2 * K;
-  if (tid < K * kWarps) wsum[tid / kWarps][tid % kWarps] = 0.0f;
+  if (tid < K * kWarps) (&wsum[0][0])[tid] = 0.0f;  // first read after a barrier
 
-  const int chunks = (sw + kChunk - 1) / kChunk;
-  const float* prev = nullptr;  // the chunk whose result awaits its write
-  int px0 = 0, pw = 0;
-  for (int j = 0; j < chunks; ++j) {
-    const int x0 = xs + j * kChunk, w = min(kChunk, xs + sw - x0);
-    const int W = w + 2 * K;
-    float* const win = (j & 1) ? buf1 : buf0;
+  // the chunk that steps and the one whose window loads meanwhile
+  int item = blockIdx.x, j = 0;  // the grid has at most `items` blocks
+  load_window(smem, a, item, j, tid);
+  lbm::cp_async_commit();
+  int next_item = item, next_j = j;
+  next_chunk(a, next_item, next_j);
+  if (next_item < a.items()) load_window(smem + Geo::kBytes, a, next_item, next_j, tid);
+  lbm::cp_async_commit();
 
-    // load the window: window cell (r, cc) is global cell
-    // ((y0 - K + r) mod ny, (x0 - K + cc) mod nx)
-    for (int i = tid; i < H * W; i += kThreads) {
-      const int r = i / W, cc = i % W;
-      const int gx = x0 - K + cc, gxw = wrap(gx, nx);
-      const int jw = r * kW + cc;
-      wmask[jw] = __ldg(mask + static_cast<size_t>(wrap(y0 - K + r, ny)) * nx + gxw);
-      if (r < K || r >= K + h) {  // ghost rows: the slab's row snapshot
-        const float* p = rsnap + static_cast<size_t>(r < K ? r : r - h) * nx + gxw;
-#pragma unroll
-        for (int k = 0; k < 9; ++k) win[k * kPlane + jw] = __ldg(p + k * rows_n);
-      } else if (gx < xs || gx >= xs + sw) {  // ghost columns: the segment's
-        const int ci = gx < xs ? gx - (xs - K) : K + gx - (xs + sw);
-        const float* p = csnap + static_cast<size_t>(y0 + r - K) * 2 * K + ci;
-#pragma unroll
-        for (int k = 0; k < 9; ++k) win[k * kPlane + jw] = __ldg(p + k * cols_n);
-      } else {  // own cells of this block, not yet written
-        const float* p = f + static_cast<size_t>(y0 + r - K) * nx + gx;
-#pragma unroll
-        for (int k = 0; k < 9; ++k) win[k * kPlane + jw] = p[k * plane];
+  for (int b = 0; item < a.items(); b ^= 1) {
+    uint8_t* const buf = smem + b * Geo::kBytes;
+    float* const planes = reinterpret_cast<float*>(buf);
+    const uint8_t* const wm = buf + 4 * Geo::kFloats;
+    lbm::cp_async_wait<1>();  // this chunk's copies have landed
+    __syncthreads();          // ... everyone's
+
+    {
+      const Chunk c(a, item, j);
+      const unsigned h = c.h, w = c.w;
+      auto counted = [h, w](int r, int col, uint8_t bits, bool) {
+        return (bits & 5) == 0 && static_cast<unsigned>(r - K) < h &&
+               static_cast<unsigned>(col - K) < w;
+      };
+      const auto frow = lbm::forcing_rows<kH, kW>(wm, lane);
+      if (frow.any()) {
+        const lbm::Window<kH, kW, true, true> win{planes, wm, frow};
+        steps<1, true>(win, planes, a.c, counted, wsum, warp);
+      } else {
+        const lbm::Window<kH, kW, false, true> win{planes, wm, frow};
+        steps<1, false>(win, planes, a.c, counted, wsum, warp);
       }
     }
-    __syncthreads();
-    // chunk j has read its old values: chunk j-1 may now be written
-    if (prev != nullptr) write_chunk(prev, out, y0, h, px0, pw, nx, plane, tid);
-    __syncthreads();
 
-    float* cur = win;
-    float* nxt = (j & 1) ? buf0 : buf1;
-    for (int s = 1; s <= K; ++s) {
-      const Window src{cur, wmask};
-      const int rows = H - 2 * s, cols = W - 2 * s;
-      float norm = 0.0f;
-      for (int i = tid; i < rows * cols; i += kThreads) {
-        const int r = s + i / cols, col = s + i % cols;
-        const bool obst = src.obst(r, col);
-        float v[9];
-        const float u_sq =
-            lbm::cell_step(src, r, col, r - 1, r + 1, col - 1, col + 1, v, obst, c);
-        const int jw = r * kW + col;
-#pragma unroll
-        for (int k = 0; k < 9; ++k) nxt[k * kPlane + jw] = v[k];
-        if (r >= K && r < K + h && col >= K && col < K + w &&
-            (wmask[jw] & 5) == 0) {
-          norm = norm + sqrtf(u_sq);
-        }
-      }
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1) norm = norm + __shfl_down_sync(0xffffffffu, norm, d);
-      if (lane == 0) wsum[s - 1][warp] = wsum[s - 1][warp] + norm;
-      __syncthreads();  // publishes nxt for the next step
-      float* const t = cur;
-      cur = nxt;
-      nxt = t;
+    lbm::cp_async_wait<0>();  // the next chunk's copies have landed
+    __syncthreads();          // ... everyone's: this chunk may be written
+    write_chunk(planes, wsum, a, item, j, tid);
+    __syncthreads();  // this window is free for the chunk after next
+    item = next_item;
+    j = next_j;
+    if (next_item < a.items()) {
+      next_chunk(a, next_item, next_j);
+      if (next_item < a.items()) load_window(buf, a, next_item, next_j, tid);
     }
-    // K is even: the result is back in `win`
-    prev = win;
-    px0 = x0;
-    pw = w;
+    lbm::cp_async_commit();
   }
-  if (prev != nullptr) write_chunk(prev, out, y0, h, px0, pw, nx, plane, tid);
-  __syncthreads();
-  if (tid < K) {
-    float total = 0.0f;
-    for (int wi = 0; wi < kWarps; ++wi) total = total + wsum[tid][wi];
-    partials[static_cast<size_t>(tid) * gridDim.x * gridDim.y +
-             static_cast<size_t>(slab) * gridDim.x + seg] = total;
-  }
+  lbm::cp_async_wait<0>();
 }
 
-static_assert(K % 2 == 0, "the result must end in the window it was loaded to");
+static_assert(K % 2 == 0, "K steps per pass of the stream tier");
+
+// Blocks of the persistent grid per device (0: not prepared).
+constexpr int kMaxDevices = 64;
+int g_grid[kMaxDevices];
+
+cudaError_t prepare_on(int dev) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, snapshot_kernel);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSmemBytes));
+  }
+  int per_sm = 0, sms = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stream_kernel, kThreads,
+                                                        kSmemBytes);
+  }
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;  // a block does not fit on an SM
+  g_grid[dev] = per_sm * sms;
+  return cudaSuccess;
+}
+
+cudaError_t current_device(int* dev) {
+  const cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  return *dev < kMaxDevices ? cudaSuccess : cudaErrorInvalidDevice;
+}
 
 }  // namespace
 
@@ -267,17 +381,23 @@ extern "C" void lbm_stream_geometry(int* k, int* slab, int* seg) {
   *seg = kSeg;
 }
 
-// Loads both kernels onto the current device and sets the stream kernel's
-// shared-memory limit, without launching either.
+// Loads both kernels onto the current device, sets the stream kernel's
+// shared-memory limit and sizes its persistent grid, without launching
+// either.  A launch on a device not yet prepared prepares it first.
 extern "C" int lbm_stream_prepare(void) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, snapshot_kernel);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(stream_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kSmemBytes));
-  }
+  int dev = 0;
+  cudaError_t err = current_device(&dev);
+  if (err == cudaSuccess) err = prepare_on(dev);
   return lbm::status(err);
+}
+
+// Blocks per SM of the stream kernel on the current device, from the
+// occupancy query; 0 if a block does not fit.
+extern "C" int lbm_stream_blocks_per_sm(void) {
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stream_kernel, kThreads, kSmemBytes);
+  lbm::status(cudaSuccess);
+  return per_sm;
 }
 
 // The ghost snapshot of state f into rows_snap / cols_snap (sized by the
@@ -304,12 +424,17 @@ extern "C" int lbm_stream(const float* f, float* out, const uint8_t* mask,
                           float accel_w1, float accel_w2, void* stream) {
   const lbm::StepConsts c{w0_omega,        w1_omega, w2_omega,
                           one_minus_omega, accel_w1, accel_w2};
-  const cudaError_t err = cudaFuncSetAttribute(
-      stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+  int dev = 0;
+  cudaError_t err = current_device(&dev);
+  if (err == cudaSuccess && g_grid[dev] == 0) err = prepare_on(dev);
   if (err != cudaSuccess) return lbm::status(err);
-  const dim3 grid((nx + kSeg - 1) / kSeg, (ny + kSlab - 1) / kSlab);
-  stream_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      f, out, mask, rows_snap, cols_snap, partials, ny, nx, c);
+  const int items = ((ny + kSlab - 1) / kSlab) * ((nx + kSeg - 1) / kSeg);
+  const int grid = items < g_grid[dev] ? items : g_grid[dev];
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = nx % 4 == 0 && nx >= K && ny >= K && aligned(f) && aligned(out) &&
+                   aligned(rows_snap) && aligned(cols_snap) &&
+                   reinterpret_cast<uintptr_t>(mask) % 4 == 0;
+  const Args args{f, out, mask, rows_snap, cols_snap, partials, ny, nx, vec ? 1 : 0, c};
+  stream_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(args);
   return lbm::status(cudaSuccess);
 }

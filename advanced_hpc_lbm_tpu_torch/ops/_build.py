@@ -25,8 +25,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+# --split-compile=0: the optimiser runs on as many threads as there are
+# cores (the K-step source holds 28 kernel bodies)
 NVCC_FLAGS = (
-    *ARCH, "-std=c++17", "-O3", "-fmad=false",
+    *ARCH, "-std=c++17", "-O3", "-fmad=false", "--split-compile=0",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LINK_FLAGS = (*ARCH, "-shared")
@@ -117,6 +119,7 @@ def load() -> ctypes.CDLL:
         "lbm_kstep": ([ptr, ptr, ptr, ptr, i32, i32, i32, *consts, ptr], i32),
         "lbm_kstep_prepare": ([i32], i32),
         "lbm_kstep_tile_shape": ([ctypes.POINTER(i32)] * 2, None),
+        "lbm_kstep_blocks_per_sm": ([i32, i32], i32),
         "lbm_local_ca": ([ptr, i64, ptr, i64, ptr, ptr, i32, i32, i32, *consts, ptr], i32),
         "lbm_local_step": ([ptr, i64, i32, ptr, i32, ptr, ptr, i64, i32, ptr, i32, i32,
                             i32, *consts, ptr], i32),
@@ -126,6 +129,7 @@ def load() -> ctypes.CDLL:
         "lbm_stream_snapshot": ([ptr, ptr, ptr, i32, i32, ptr], i32),
         "lbm_stream_prepare": ([], i32),
         "lbm_stream_geometry": ([ctypes.POINTER(i32)] * 3, None),
+        "lbm_stream_blocks_per_sm": ([], i32),
         "lbm_error_string": ([i32], ctypes.c_char_p),
     }
     for name, (argtypes, restype) in signatures.items():

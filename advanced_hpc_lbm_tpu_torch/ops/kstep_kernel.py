@@ -10,12 +10,14 @@ on a CUDA tensor it launches ``csrc/kstep_kernel.cu`` and adds one to
 tensor never falls back to the plain version: the launch happens or the
 wrapper raises.
 
-Each block of the kernel owns a TILE_X x TILE_Y tile, loads it with a
-ghost ring K deep on every side (periodic wrap) and runs K steps on that
-window; the plain version builds the same windows with periodic index
-gathers and runs K calls of :func:`kernel_common.lean_window_step` on them.
-A pass writes the next state out of place and one ||u|| partial per step
-and tile, ``partials[s, tile]``, tiles in row-major order.
+The kernel cuts the grid into TILE_X x TILE_Y tiles; a persistent grid of
+blocks walks them, each tile loaded with a ghost ring K deep on every side
+(periodic wrap) into a window in shared memory, stepped K times in place
+while the next tile's window loads; the plain version builds the same
+windows with periodic index gathers and runs K calls of
+:func:`kernel_common.lean_window_step` on them.  A pass writes the next
+state out of place and one ||u|| partial per step and tile,
+``partials[s, tile]``, tiles in row-major order.
 """
 
 from __future__ import annotations

@@ -113,9 +113,14 @@ FLOPS_PER_CELL_STEP = 94
 # bytes of one cell per launch of a kernel: 9 float32 read and written,
 # the uint8 mask read
 CELL_BYTES = 9 * 4 * 2 + 1
-# µs per step of the step and K-step kernels in PERF.md (PR 2's timing
-# run on an H100 80GB HBM3 at 700 W), to re-time beside
-PR2_US = {"step 1024^2": 32.81, "K=4 4096^2": 294.68, "K=4 1024^2": 23.20}
+# µs per step in PERF.md's table before the K-step and stream kernels were
+# redesigned (PR 4's final call, K=2 PR 3's, K=4 at 1024^2 PR 2's; H100
+# 80GB HBM3 at 700 W), to re-time beside: the untouched step kernel as the
+# yardstick, the K-step kernel (both forms) and the stream kernel in place
+BEFORE_US = {"step 1024^2": 32.37, "K=4 4096^2": 303.93, "K=4 1024^2": 23.20,
+             "K=2 4096^2": 361.50, "local K=4 2048x8192": 309.43,
+             "stream 4096^2": 476.92, "stream 8192^2": 1665.38,
+             "stream 16384^2": 5945.41}
 
 # launches of each kernel over the main-path runs of phases 4-6
 MAIN_LAUNCHES: collections.Counter = collections.Counter()
@@ -201,12 +206,23 @@ def phase_build() -> None:
             report.append(f"{name}: {ln.split(':', 1)[1].strip()}")
         elif "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill"):
             report.append(f"{name}: {ln.strip()}")
-    for kernel in ("stream_kernel", "local_step_kernel"):
+    for kernel in ("stream_kernel", "local_step_kernel", "kstep_kernel"):
         if not any(kernel in r for r in report):
             fail(f"[2 build] {kernel} is not in the ptxas report")
     report = " | ".join(report)
     say(f"[2 build] {path.name} {'from cache' if cached else 'built by nvcc'} "
         f"in {dt:.2f} s | ptxas: {report or 'no report'}")
+    # the persistent grids' blocks per SM, from the occupancy query
+    lib = _build.load()
+    per_sm = {f"K={k}": (lib.lbm_kstep_blocks_per_sm(k, 0), lib.lbm_kstep_blocks_per_sm(k, 1))
+              for k in kstep_kernel.K_RANGE}
+    stream_per_sm = lib.lbm_stream_blocks_per_sm()
+    if min(min(v) for v in per_sm.values()) < 1 or stream_per_sm < 1:
+        fail(f"[2 build] a kernel fits no block on an SM: {per_sm}, stream {stream_per_sm}")
+    say("[2 build] blocks per SM (global, local form): " + ", ".join(
+        f"{k} {g}, {loc}" for k, (g, loc) in per_sm.items())
+        + f"; stream {stream_per_sm} | {torch.cuda.get_device_name(0)}, "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
 
 # ---- 3. kernel vs plain ------------------------------------------------------
@@ -501,14 +517,17 @@ def check_auto(card: str, res_times: dict, k_times: dict) -> None:
             f"{'the fastest' if auto == fastest else 'fastest was ' + fastest} | {card}")
 
 
-def retime(card: str, res_times: dict, k_times: dict) -> None:
-    """The step and K-step kernels after the per-cell forcing accessor
-    changed, beside PERF.md's times from before the change."""
-    now = {"step 1024^2": res_times[(1024, 1024)][1], "K=4 4096^2": k_times[(4096, 4096)][4],
-           "K=4 1024^2": k_times[(1024, 1024)][4]}
-    say("[3 retime] us per step now vs PERF.md (PR 2): " + ", ".join(
-        f"{name} {now[name] * 1e3:.2f} vs {PR2_US[name]:.2f} ({now[name] * 1e3 / PR2_US[name] - 1:+.1%})"
-        for name in PR2_US) + f" | {card}")
+def retime(card: str, step_times: dict, k_times: dict, s_times: dict, l_times: dict) -> None:
+    """The redesigned K-step and stream kernels and the untouched step
+    kernel (the yardstick that the card matches the earlier one), beside
+    PERF.md's times from before the redesign."""
+    now = {"step 1024^2": step_times[(1024, 1024)][0], "K=4 4096^2": k_times[(4096, 4096)][4],
+           "K=4 1024^2": k_times[(1024, 1024)][4], "K=2 4096^2": k_times[(4096, 4096)][2],
+           "local K=4 2048x8192": l_times["ca"][0],
+           **{f"stream {n}^2": s_times[(n, n)]["stream"] for n in (4096, 8192, 16384)}}
+    say("[3 retime] us per step now vs before the redesign (PERF.md): " + ", ".join(
+        f"{name} {now[name] * 1e3:.2f} vs {BEFORE_US[name]:.2f} "
+        f"({now[name] * 1e3 / BEFORE_US[name] - 1:+.1%})" for name in BEFORE_US) + f" | {card}")
 
 
 # ---- 3s. stream kernel ----------------------------------------------------------
@@ -1269,9 +1288,9 @@ def main() -> int:
     worst_step, step_times = phase_kernel(card)
     worst_res, res_times = phase_resident(card)
     worst_k, k_times = phase_kstep(card, res_times)
-    retime(card, res_times, k_times)
     worst_s, s_times = phase_stream(card)
     worst_l, l_times = phase_local(card)
+    retime(card, step_times, k_times, s_times, l_times)
     phase_mini()
     phase_full(card, res_times)
     phase_cli_big(card)

@@ -145,6 +145,69 @@ def test_kstep_matches_step_and_plain_on_card(ny, nx, k):
     torch.testing.assert_close(avk.cpu(), avp, rtol=1e-5, atol=0.0)
 
 
+def _persistent_blocks(per_sm: int) -> int:
+    return per_sm * torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.parametrize("k", [3, 4, 8])
+@pytest.mark.parametrize("ny,nx", [(1024, 1024), (64, 64)])
+def test_kstep_persistent_grid_matches_step_on_card(ny, nx, k):
+    """The persistent grid walks more tiles than it has blocks (1024^2:
+    2048 tiles, several per block, the next window loading while one
+    steps) and fewer (64^2: 8 tiles): 0 differing values against the step
+    kernel over two passes and a tail."""
+    params, mask, f = _on_card(ny, nx, seed=20 + k)
+    blocks = _persistent_blocks(kstep_kernel._library().lbm_kstep_blocks_per_sm(k, 0))
+    tiles = kstep_kernel.num_tiles(ny, nx)
+    assert (tiles > blocks) == (ny == 1024) and blocks >= 132
+    n = 2 * k + 1
+    fk, avk = kstep_kernel.run(f, mask, params, n_iters=n, k=k)
+    fs, avs = step_kernel.run(f, mask, params, n_iters=n)
+    torch.cuda.synchronize()
+    assert int((fk != fs).sum()) == 0
+    torch.testing.assert_close(avk, avs, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_local_ca_persistent_grid_matches_plain_on_card(k):
+    """The local form on a 512 x 2048 shard (2048 tiles, more than the
+    persistent grid's blocks), forcing row an own row: 0 differing values
+    against its plain version."""
+    ly, nx = 512, 2048
+    params, win, enc = _local_window(ly + 2 * k, nx, 30 + k, (ly + k - 3,))
+    assert local_kernel.num_tiles(ly, nx) > _persistent_blocks(
+        kstep_kernel._library().lbm_kstep_blocks_per_sm(k, 1))
+    outs = []
+    for fn in (local_kernel.local_ca_steps, local_kernel.plain_local_ca_steps):
+        out = torch.empty(9, ly, nx, device="cuda")
+        part = torch.empty(k, local_kernel.num_tiles(ly, nx), device="cuda")
+        fn(win, enc, params, k, out=out, partials=part)
+        outs.append((out, part.sum(dim=1)))
+    torch.cuda.synchronize()
+    assert int((outs[0][0] != outs[1][0]).sum()) == 0
+    torch.testing.assert_close(outs[0][1], outs[1][1], rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("ny,nx", [(330, 2100), (11000, 1100)])
+def test_stream_pipeline_in_place_matches_step_on_card(ny, nx):
+    """In place, where a chunk is written only after the next chunk's
+    window has loaded: 330 x 2100 has 3 segments of 64, 64 and 4 chunks
+    over 5 slabs (fewer items than the persistent grid's blocks), 11000 x
+    1100 has 138 slabs of 2 segments, 276 items (more than its blocks,
+    several per block).  Two passes: 0 differing values against the step
+    kernel."""
+    params, mask, f = _on_card(ny, nx, seed=40)
+    items = stream_kernel.num_tiles(ny, nx)
+    blocks = _persistent_blocks(stream_kernel._library().lbm_stream_blocks_per_sm())
+    assert (items > blocks) == (ny == 11000)
+    n = 2 * stream_kernel.K
+    fk, avk = stream_kernel.run(f, mask, params, n_iters=n, inplace=True)
+    fs, avs = step_kernel.run(f, mask, params, n_iters=n)
+    torch.cuda.synchronize()
+    assert int((fk != fs).sum()) == 0
+    torch.testing.assert_close(avk, avs, rtol=1e-5, atol=0.0)
+
+
 @pytest.mark.parametrize("backend,counts", [
     ("resident", (0, 1, 0)), ("pallas2", (1, 0, 12)), ("pallas", (25, 0, 0)),
     ("pallask", (1, 0, 4)),

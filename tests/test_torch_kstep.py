@@ -117,11 +117,11 @@ def port_passes(deck64):
     n_fluid = torch.sum(~obst).to(torch.float32)
     return {k: kstep_kernel.multi_step(torch.from_numpy(f0), obst, n_fluid,
                                        LBMParams.from_jax(jp), k)
-            for k in (2, 3, 4, 8)}
+            for k in kstep_kernel.K_RANGE}
 
 
 @pytest.mark.parametrize("lean", [False, True], ids=["naive", "lean"])
-@pytest.mark.parametrize("k", [2, 3, 4, 8])
+@pytest.mark.parametrize("k", [2, 3, 4, 8, 5, 6, 7])
 def test_multi_step_matches_jax_kernel(k, lean, deck64, port_passes, monkeypatch):
     jp, mask, f0 = deck64
     monkeypatch.setenv("LBM_PALLASK_TY", "16")
@@ -169,12 +169,13 @@ def test_double_step_is_multi_step_at_k2():
 
 # ---- shapes the JAX tiles refuse, against the port's step run ----------------------
 
-@pytest.mark.parametrize("ny,nx", [(17, 23), (100, 130)])
-@pytest.mark.parametrize("k", [2, 5, 8])
+@pytest.mark.parametrize("ny,nx", [(17, 23), (100, 130), (5, 3)])
+@pytest.mark.parametrize("k", [2, 5, 8, 3, 4, 6, 7])
 def test_odd_shapes_match_step_run_bitwise(ny, nx, k):
-    """Windows wrap more than once at 17x23 (a K=8 window is 32x48) and
-    tiles are ragged at 100x130; the state equals the step run's bit for
-    bit, av within the summation-order tolerance."""
+    """Every built K.  Windows wrap more than once at 17x23 (a K=8 window
+    is 32x48) and at 5x3, a grid narrower than one window in both
+    directions, and tiles are ragged at 100x130; the state equals the step
+    run's bit for bit, av within the summation-order tolerance."""
     jp, mask, f0 = make_case(ny, nx, seed=k, guard_fail=True)
     n = 2 * k + 1
     fb, avb = port_run(jp, mask, f0, n, k)
@@ -186,14 +187,15 @@ def test_odd_shapes_match_step_run_bitwise(ny, nx, k):
 
 @pytest.mark.parametrize("ny,nx", [(16, 32), (17, 23), (40, 70)])
 def test_partials_are_per_tile_sums(ny, nx):
-    """partials[s, tile]: own fluid cells of each 32x16 tile, row-major;
-    their total is the step's ||u|| sum."""
+    """partials[s, tile]: own fluid cells of each TILE_X x TILE_Y tile,
+    row-major; their total is the step's ||u|| sum."""
     jp, mask, f0 = make_case(ny, nx, seed=6)
     p = LBMParams.from_jax(jp)
     f, m = torch.from_numpy(f0), step_kernel.prepare_obstacles(torch.from_numpy(mask))
     part = torch.empty(3, kstep_kernel.num_tiles(ny, nx))
     kstep_kernel.kstep(f, m, p, 3, out=torch.empty_like(f), partials=part)
-    assert part.shape[1] == -(-ny // 16) * -(-nx // 32)
+    ty, tx = kstep_kernel.TILE_Y, kstep_kernel.TILE_X
+    assert part.shape[1] == -(-ny // ty) * -(-nx // tx)
     # step 0's partials against the step kernel's plain version, per tile
     out, sp = torch.empty_like(f), torch.empty(step_kernel.num_partials(ny, nx))
     step_kernel.plain_step(f, m, p, out=out, partials=sp)
@@ -201,8 +203,8 @@ def test_partials_are_per_tile_sums(ny, nx):
     u_x = (out[1] + out[5] + out[8] - out[3] - out[6] - out[7]) / rho
     u_y = (out[2] + out[5] + out[6] - out[4] - out[7] - out[8]) / rho
     norm = torch.where(torch.from_numpy(mask), 0.0, torch.sqrt(u_x * u_x + u_y * u_y)).numpy()
-    want = [norm[ty * 16:(ty + 1) * 16, tx * 32:(tx + 1) * 32].sum(dtype=np.float64)
-            for ty in range(-(-ny // 16)) for tx in range(-(-nx // 32))]
+    want = [norm[i * ty:(i + 1) * ty, j * tx:(j + 1) * tx].sum(dtype=np.float64)
+            for i in range(-(-ny // ty)) for j in range(-(-nx // tx))]
     np.testing.assert_allclose(part[0].numpy(), want, rtol=1e-5)
     np.testing.assert_allclose(float(part[0].sum()), float(sp.sum()), rtol=1e-6)
 

@@ -264,6 +264,28 @@ def test_local_ca_steps_matches_jax_kernel(k):
     np.testing.assert_allclose(part.sum(dim=1).numpy(), np.asarray(tots_j), rtol=AV_RTOL)
 
 
+@pytest.mark.parametrize("ly,lo,k,images", [(2, 13, 2, 1), (2, 13, 4, 1), (2, 5, 8, 2),
+                                             (16, 0, 8, 2), (5, 11, 3, 1)])
+def test_local_ca_steps_thin_shards_match_jax_kernel(ly, lo, k, images):
+    """Shards of ly own rows from row lo of a 16-row grid: at ly = 2 the
+    forcing row (14) is an own row (lo = 13) or, at lo = 5 and K = 8, a
+    ghost row twice in one window; at ly = 16, K = 8 an own row and a ghost
+    row; ly = 5 leaves the tile ragged.  The K-step local form against the
+    JAX kernel."""
+    jp, mask, f0 = make_case(16, 32, seed=53 + ly + k)
+    nx = 32
+    rows = np.arange(lo - k, lo + ly + k) % 16
+    win, enc = window_and_mask(f0, mask, rows, np.arange(nx), [14])
+    assert np.count_nonzero(rows == 14) == images
+    out, part = torch.empty(9, ly, nx), torch.empty(k, local_kernel.num_tiles(ly, nx))
+    local_kernel.local_ca_steps(win, enc, LBMParams.from_jax(jp), k, out=out, partials=part)
+    f_j, tots_j = jpl.local_ca_steps(
+        jnp.asarray(win.numpy()), jnp.asarray((enc & 1).numpy(), jnp.float32),
+        jnp.asarray(((enc & 2) >> 1).numpy(), jnp.float32), jp, k, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(f_j), **F_TOL)
+    np.testing.assert_allclose(part.sum(dim=1).numpy(), np.asarray(tots_j), rtol=AV_RTOL)
+
+
 # ---- refusals, meshes, the model and the CLI -------------------------------------------
 
 @pytest.mark.parametrize("shape,kw,message", [

@@ -230,11 +230,12 @@ def test_run_with_tail_matches_jax(monkeypatch, n_iters):
 
 
 @pytest.mark.parametrize("inplace", [False, True], ids=["out", "inplace"])
-@pytest.mark.parametrize("ny,nx", [(17, 23), (100, 130), (5, 3), (170, 1100)])
+@pytest.mark.parametrize("ny,nx", [(17, 23), (100, 130), (5, 3), (170, 1100), (24, 2100)])
 def test_odd_shapes_match_step_run_bitwise(ny, nx, inplace):
     """Windows wrap more than once at 17x23 and 5x3, slabs are ragged at
-    100 and 170 rows, and 1100 columns make two segments; the state equals
-    the step run's bit for bit, av within the summation-order tolerance."""
+    100 and 170 rows, 1100 columns make two segments and 2100 three (the
+    last one 52 columns: 4 chunks, the last ragged); the state equals the
+    step run's bit for bit, av within the summation-order tolerance."""
     jp, mask, f0 = make_case(ny, nx, seed=ny, guard_fail=ny > 2)
     p = LBMParams.from_jax(jp)
     n = 2 * K + 3
@@ -316,6 +317,17 @@ def test_fluid_cells_counted_by_blocks(block_cells):
         torch.ones(17, 23, dtype=torch.bool))
     got = stream_kernel.fluid_cells(enc, block_cells)
     assert got.dtype == torch.float32 and got.item() == np.count_nonzero(~mask)
+
+
+@pytest.mark.parametrize("n", [4096, 8192, 16384, 36864])
+def test_side_buffer_keeps_its_share_of_the_state(n):
+    """2K/SLAB + 2K/SEGMENT of a state (21.5625%, plus a ragged last slab's
+    and segment's share): the geometry the in-place tier was sized with."""
+    share = stream_kernel.side_bytes(n, n) / (4 * 9 * n * n)
+    full = 2 * K / stream_kernel.SLAB + 2 * K / stream_kernel.SEGMENT
+    assert full <= 0.215625
+    assert share == pytest.approx(
+        2 * K * (stream_kernel.num_slabs(n) / n + stream_kernel.num_segments(n) / n))
 
 
 @pytest.mark.parametrize("n", [8192, 16384, 36864])
