@@ -60,7 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--shard-kernel", default="auto", choices=SHARD_KERNELS,
         help="the shards' local step on the sharded path: auto (jnp on the CPU, "
-             "pallas on CUDA; parallel/halo.resolve_shard_kernel), jnp (plain "
+             "pallas on CUDA, stream on CUDA shards of 2^24 cells or more; "
+             "parallel/halo.resolve_shard_kernel), jnp (plain "
              "PyTorch), pallas (the hand-written local kernels, with --ca-steps K "
              "the K-step one), stream (the stream kernel on ghost windows, 8 steps "
              "per exchange)",

@@ -39,14 +39,19 @@
 //   in warp order) goes to partials[s, tile].
 //
 // Bound on this card: device memory moves (9 x 4 + 1) B per cell in and
-// 36 B out per pass, 18.25 B per cell and step at K = 4 (91.40 us per step
-// at 4096^2 at 3.35 TB/s); a pass reads its windows, (kTy+2K)(kTx+2kA) /
-// (kTy kTx) = 1.875x the state at K = 4, much of it from L2.  What is left
-// is instruction issue: a cell step is ~150 instructions (94 float32
+// 36 B out per pass, 24.3 B per cell and step at K = 3 and 18.25 at K = 4
+// (121.87 and 91.40 us per step at 4096^2 at 3.35 TB/s).  What binds is
+// instruction issue: a cell step is ~145 instructions (94 float32
 // operations, an IEEE 1/rho and sqrt, 10 shared-memory loads and 9
-// stores), and the ghost ring is stepped redundantly (2680 cell steps per
-// 2048 own ones at K = 4).  Measured time per step: PERF.md (chip_smoke.py
-// 3k, H100 80GB HBM3).
+// stores; SASS), the ghost ring is stepped redundantly (1844 cell steps
+// per 1536 own ones at K = 3, 2680 per 2048 at K = 4), and the kernel
+// issues at ~40% of the card's rate.  Registers decide the blocks per SM:
+// up to K = 3 a block's staged cells fit 80 registers and 3 blocks run
+// per SM; from K = 4 a block takes up to 128 and 2 run (at 80, K = 4
+// spilled and ran 11% slower).  Measured on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py 3k): 236.85 us per step at 4096^2 at K = 3 (PR 4's
+// kernel: 303.93 at K = 4), 19.26 at 1024^2; above 4096^2 K = 4 is the
+// faster (964 us per step at 8192^2).
 //
 // The local form (kLocal, `lbm_local_ca`) replaces
 // advanced_hpc_lbm_tpu/ops/pallas_local.py `_local_ca_kernel`, behind
@@ -97,9 +102,10 @@ struct Shape {
   using Geo = lbm::WinGeo<kH, kW>;
   // two windows: the one that steps and the one being loaded
   static constexpr size_t kSmemBytes = 2 * static_cast<size_t>(Geo::kBytes);
-  // blocks per SM the register budget is set for: 3 fit in shared memory
-  // up to K = 4, 2 above
-  static constexpr int kMinBlocks = K <= 4 ? 3 : 2;
+  // blocks per SM the register budget is set for: 3 (80 registers) up to
+  // K = 3, where a thread's staged cells fit them without spilling and 3
+  // pairs of windows fit in shared memory; else 2 (128 registers)
+  static constexpr int kMinBlocks = K <= 3 ? 3 : 2;
 };
 
 // The kernel's arguments, a __grid_constant__ parameter: they stay in the
@@ -199,7 +205,7 @@ __device__ __forceinline__ void steps(const lbm::Window<Shape<K>::kH, Shape<K>::
                                       float* planes, const lbm::StepConsts& c,
                                       Counted counted, float (*wsum)[kWarps], int warp) {
   using Sh = Shape<K>;
-  lbm::step_in_place<kThreads, S, Sh::kH - 2 * S, Sh::kA - K + S, kTx + 2 * (K - S)>(
+  lbm::step<kThreads, S, Sh::kH - 2 * S, Sh::kA - K + S, kTx + 2 * (K - S), true>(
       win, planes, c, counted, [&](float v) { wsum[S - 1][warp] = v; });
   if constexpr (S < K) steps<K, S + 1, kLocal, kForce>(win, planes, c, counted, wsum, warp);
 }
@@ -262,9 +268,17 @@ __global__ void __launch_bounds__(kThreads, Shape<K>::kMinBlocks)
   lbm::cp_async_wait<0>();
 }
 
-// Blocks of the persistent grid per device, K and form (0: not prepared).
+// Blocks per SM of the persistent grid per device, K and form (0: not
+// prepared), and the device's SMs.
 constexpr int kMaxDevices = 64;
-int g_grid[kMaxDevices][9][2];
+int g_per_sm[kMaxDevices][9][2];
+int g_sms[kMaxDevices];
+
+cudaError_t current_device(int* dev) {
+  const cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  return *dev < kMaxDevices ? cudaSuccess : cudaErrorInvalidDevice;
+}
 
 // Sets the kernel's shared-memory limit on device `dev` (the current
 // device) and sizes its persistent grid from the occupancy query.
@@ -281,14 +295,17 @@ cudaError_t prepare_on(int dev) {
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;  // a block does not fit on an SM
-  g_grid[dev][K][kLocal] = per_sm * sms;
+  g_sms[dev] = sms;
+  g_per_sm[dev][K][kLocal] = per_sm;
   return cudaSuccess;
 }
 
-cudaError_t current_device(int* dev) {
-  const cudaError_t err = cudaGetDevice(dev);
-  if (err != cudaSuccess) return err;
-  return *dev < kMaxDevices ? cudaSuccess : cudaErrorInvalidDevice;
+// Prepares the kernel on the current device unless it is; sets *dev.
+template <int K, bool kLocal>
+cudaError_t prepared(int* dev) {
+  cudaError_t err = current_device(dev);
+  if (err == cudaSuccess && g_per_sm[*dev][K][kLocal] == 0) err = prepare_on<K, kLocal>(*dev);
+  return err;
 }
 
 template <int K, bool kLocal>
@@ -297,11 +314,11 @@ cudaError_t launch(const float* f, long long f_plane, int src_rows, float* out,
                    int rows, int nx, const lbm::StepConsts& c,
                    cudaStream_t stream) {
   int dev = 0;
-  cudaError_t err = current_device(&dev);
-  if (err == cudaSuccess && g_grid[dev][K][kLocal] == 0) err = prepare_on<K, kLocal>(dev);
+  const cudaError_t err = prepared<K, kLocal>(&dev);
   if (err != cudaSuccess) return err;
   const int tiles = ((nx + kTx - 1) / kTx) * ((rows + kTy - 1) / kTy);
-  const int grid = tiles < g_grid[dev][K][kLocal] ? tiles : g_grid[dev][K][kLocal];
+  const int blocks = g_per_sm[dev][K][kLocal] * g_sms[dev];
+  const int grid = tiles < blocks ? tiles : blocks;
   const bool vec = nx % 4 == 0 && f_plane % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(f) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(mask) % 4 == 0;
@@ -342,23 +359,20 @@ extern "C" int lbm_kstep_prepare(int k) {
   return lbm::status(with_k(k, [](auto kk) {
     constexpr int K = decltype(kk)::value;
     int dev = 0;
-    cudaError_t err = current_device(&dev);
-    if (err == cudaSuccess) err = prepare_on<K, false>(dev);
-    return err != cudaSuccess ? err : prepare_on<K, true>(dev);
+    const cudaError_t err = prepared<K, false>(&dev);
+    return err != cudaSuccess ? err : prepared<K, true>(&dev);
   }));
 }
 
-// Blocks per SM of the kernel for K (form `local`) on the current device,
-// from the occupancy query; 0 if a block does not fit.
+// Blocks per SM of the persistent grid of the kernel for K (form `local`)
+// on the current device, preparing it first; 0 if it cannot run there.
 extern "C" int lbm_kstep_blocks_per_sm(int k, int local) {
   int per_sm = 0;
   with_k(k, [&](auto kk) {
     constexpr int K = decltype(kk)::value;
-    const cudaError_t err =
-        local ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &per_sm, kstep_kernel<K, true>, kThreads, Shape<K>::kSmemBytes)
-              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &per_sm, kstep_kernel<K, false>, kThreads, Shape<K>::kSmemBytes);
+    int dev = 0;
+    const cudaError_t err = local ? prepared<K, true>(&dev) : prepared<K, false>(&dev);
+    if (err == cudaSuccess) per_sm = g_per_sm[dev][K][local != 0];
     return err;
   });
   lbm::status(cudaSuccess);

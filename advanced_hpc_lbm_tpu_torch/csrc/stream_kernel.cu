@@ -27,38 +27,40 @@
 //   each segment the K columns left and right of it (all rows).  That side
 //   buffer is 2K/kSlab + 2K/kSeg of a state (20% + 1.6%); no block writes
 //   it during the pass.
-// * Chunks and the pipeline.  A block walks an item along x in chunks of
-//   kChunk columns, and its items one after another; each chunk's window
-//   (its cells with a ghost ring K deep) is stepped in one of two window
-//   buffers while the next chunk's window arrives in the other by cp.async:
+// * Chunks and the schedule.  A block walks an item along x in chunks of
+//   kChunk columns, and its items one after another.  A chunk's window
+//   (its cells with a ghost ring K deep) steps ping-pong between the
+//   block's two window buffers, and K is even, so the result ends in the
+//   buffer it was loaded into; the other buffer is then free and the next
+//   chunk's window is copied into it by cp.async:
 //
-//     issue load(j+1) ... steps of chunk j ... wait for load(j+1) and a
-//     barrier ... write chunk j ... barrier ... issue load(j+2) ...
+//     ... steps of chunk j ... issue load(j+1) ... wait for it
+//     (cp.async.wait_group 0) and a barrier ... write chunk j ... barrier
+//     ... steps of chunk j+1
 //
-//   "Loaded" means completed: every thread has waited for its copies of
-//   load(j+1) (cp.async.wait_group 0) and the block has met at a barrier
-//   before any thread writes chunk j.  The only own cells of an item that
-//   chunk j's window reads are those of chunks j-1, j, j+1 (kChunk >= K),
-//   and a chunk is written only after the next chunk's load completed, so
-//   every read of f sees the old value: chunk j-1 and chunk j are written
-//   after loads j and j+1, and load j+2, issued after chunk j is written,
-//   reads no cell of chunk j.  Chunks of the next item are other cells.
-//   (The TPU kernel's "egress(i) after ingress(i+1)", turned 90 degrees and
-//   kept inside one block.)
+//   A chunk is written only after the next chunk's load has completed:
+//   every thread has waited for its own copies and the block has met at a
+//   barrier, not merely issued them.  The only own cells of an item that
+//   chunk j's window reads are those of chunks j-1, j, j+1 (kChunk >= K):
+//   chunk j-1 is written after load(j) completed and chunk j after
+//   load(j+1), so every read of f sees the old value.  Chunks of the next
+//   item are other cells.  (The TPU kernel's "egress(i) after
+//   ingress(i+1)", turned 90 degrees and kept inside one block.)
 //
 // Out of place the same schedule runs with out != f.
 //
-// Steps.  K steps in place in the window (window_common.cuh): step s
-// computes rows [s, kH - s) and columns [s, kW - s) of the window, each cell
-// by step_common.cuh:cell_step, so the state equals the step kernel's bit
-// for bit.  The rectangle is the full window's whatever the chunk's size:
-// in a short last slab or chunk the cells past the loaded ones hold stale
+// Steps.  K steps ping-pong (window_common.cuh): step s computes rows
+// [s, kH - s) and columns [s, kW - s) of the window, each cell by
+// step_common.cuh:cell_step, so the state equals the step kernel's bit for
+// bit.  The rectangle is the full window's whatever the chunk's size: in a
+// short last slab or chunk the cells past the loaded ones hold stale
 // values, which reach no own cell in K steps (they spread one cell per
 // step from outside the ghost ring).  Windows wrap with mod ny / mod nx: a
 // window is a periodic image of the grid, also on grids smaller than a
 // window; where ny, nx >= K and nx % 4 == 0 the window loads 16-byte groups
 // at plain offsets (wrapped by one add at the grid's edge), else cell by
-// cell with mod.
+// cell with mod.  Forcing is tested only on the rows whose mask holds a +2
+// cell.
 //
 // Partials.  One ||u|| sum per step and item (own cells with neither +1
 // nor +4): partials[s, slab * segments + segment].  Each warp adds its
@@ -68,9 +70,13 @@
 // Bound on this card: device memory moves (36 + 1 + 36) B per cell per
 // pass and the snapshot 2 x 21.6% of the state, 10.9 B per cell and step
 // (45.70 us per step at 4096^2 at 3.35 TB/s).  What is left is instruction
-// issue: a chunk steps 16176 cells for 10240 own cell steps (1.58x), ~150
-// instructions each, with one block of 512 threads per SM (two 96 x 32
-// windows fill its shared memory).  Measured time per step: PERF.md
+// issue: a chunk steps 16176 cells for 10240 own cell steps (1.58x), ~145
+// instructions each, with one block of 1024 threads per SM (two 96 x 32
+// windows fill its shared memory).  Stepping in place with the cells
+// staged in registers (one window per chunk, the other free for the next
+// chunk's copy during the steps) spilled at 512, 768 and 1024 threads and
+// was slower; an L2 prefetch of the next chunk's window during the steps
+// cost more than it saved.  Measured time per step: PERF.md
 // (chip_smoke.py 3s, H100 80GB HBM3).
 //
 // Build (ops/_build.py): nvcc -gencode arch=compute_90a,code=sm_90a
@@ -87,7 +93,7 @@ constexpr int K = 8;          // steps per pass = ghost depth
 constexpr int kSlab = 80;     // own rows of an item
 constexpr int kSeg = 1024;    // own columns of an item
 constexpr int kChunk = 16;    // own columns of one window
-constexpr int kThreads = 768;
+constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kH = kSlab + 2 * K;   // window rows
 constexpr int kW = kChunk + 2 * K;  // window columns = row pitch
@@ -142,9 +148,8 @@ __global__ void __launch_bounds__(256)
 }
 
 // The kernel's arguments, a __grid_constant__ parameter: they stay in the
-// constant bank (the out-of-line window load and write below read them by
-// reference, without a local copy), so the steps keep none of them in
-// registers.
+// constant bank, and the window load and write below read them by
+// reference without a local copy.
 struct Args {
   const float* f;
   float* out;
@@ -192,7 +197,7 @@ __device__ __forceinline__ void next_chunk(const Args& a, int& item, int& j) {
 // Window cell (r, cc) is global cell (y0 - K + r, x0 - K + cc), taken from
 // the slab's row snapshot (r < K or r >= K + h), the segment's column
 // snapshot (columns outside the segment), or f (the item's own cells).
-__device__ __noinline__ void load_window(uint8_t* buf, const Args& a, int item, int j,
+__device__ __forceinline__ void load_window(uint8_t* buf, const Args& a, int item, int j,
                                          int tid) {
   const Chunk c(a, item, j);
   float* const wf = reinterpret_cast<float*>(buf);
@@ -249,7 +254,7 @@ __device__ __noinline__ void load_window(uint8_t* buf, const Args& a, int item, 
 
 // Write chunk (item, j)'s own cells from its window `planes` to out, and
 // at an item's last chunk its ||u|| partials (threads s < K).
-__device__ __noinline__ void write_chunk(const float* planes, float (*wsum)[kWarps],
+__device__ __forceinline__ void write_chunk(const float* planes, float (*wsum)[kWarps],
                                          const Args& a, int item, int j, int tid) {
   const Chunk c(a, item, j);
   const size_t plane = a.plane();
@@ -273,14 +278,19 @@ __device__ __noinline__ void write_chunk(const float* planes, float (*wsum)[kWar
   }
 }
 
-// Steps s = S..K of one window, in place; warp sums added into wsum[s-1].
+// Steps s = S..K of one chunk, ping-pong between its window `planes` (odd
+// steps read it) and `other`; warp sums added into wsum[s-1].  K is even:
+// the result ends in `planes`.
 template <int S, bool kForce, class Counted>
 __device__ __forceinline__ void steps(const lbm::Window<kH, kW, kForce, true>& win,
-                                      float* planes, const lbm::StepConsts& c,
+                                      float* planes, float* other, const lbm::StepConsts& c,
                                       Counted counted, float (*wsum)[kWarps], int warp) {
-  lbm::step_in_place<kThreads, S, kH - 2 * S, S, kW - 2 * S>(
-      win, planes, c, counted, [&](float v) { wsum[S - 1][warp] = wsum[S - 1][warp] + v; });
-  if constexpr (S < K) steps<S + 1, kForce>(win, planes, c, counted, wsum, warp);
+  auto from = win;
+  from.planes = S % 2 ? planes : other;
+  lbm::step<kThreads, S, kH - 2 * S, S, kW - 2 * S, false>(
+      from, S % 2 ? other : planes, c, counted,
+      [&](float v) { wsum[S - 1][warp] = wsum[S - 1][warp] + v; });
+  if constexpr (S < K) steps<S + 1, kForce>(win, planes, other, c, counted, wsum, warp);
 }
 
 // f and out may be one buffer: neither is __restrict__.
@@ -292,22 +302,20 @@ __global__ void __launch_bounds__(kThreads, 1) stream_kernel(const __grid_consta
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (tid < K * kWarps) (&wsum[0][0])[tid] = 0.0f;  // first read after a barrier
 
-  // the chunk that steps and the one whose window loads meanwhile
+  // the chunk that steps (its window in buffer b, the other buffer its
+  // ping-pong partner) and the one after it
   int item = blockIdx.x, j = 0;  // the grid has at most `items` blocks
   load_window(smem, a, item, j, tid);
   lbm::cp_async_commit();
-  int next_item = item, next_j = j;
-  next_chunk(a, next_item, next_j);
-  if (next_item < a.items()) load_window(smem + Geo::kBytes, a, next_item, next_j, tid);
-  lbm::cp_async_commit();
-
   for (int b = 0; item < a.items(); b ^= 1) {
     uint8_t* const buf = smem + b * Geo::kBytes;
+    uint8_t* const spare = smem + (b ^ 1) * Geo::kBytes;
     float* const planes = reinterpret_cast<float*>(buf);
     const uint8_t* const wm = buf + 4 * Geo::kFloats;
-    lbm::cp_async_wait<1>();  // this chunk's copies have landed
+    lbm::cp_async_wait<0>();  // this chunk's copies have landed
     __syncthreads();          // ... everyone's
-
+    int next_item = item, next_j = j;
+    next_chunk(a, next_item, next_j);
     {
       const Chunk c(a, item, j);
       const unsigned h = c.h, w = c.w;
@@ -315,36 +323,36 @@ __global__ void __launch_bounds__(kThreads, 1) stream_kernel(const __grid_consta
         return (bits & 5) == 0 && static_cast<unsigned>(r - K) < h &&
                static_cast<unsigned>(col - K) < w;
       };
+      float* const other = reinterpret_cast<float*>(spare);
       const auto frow = lbm::forcing_rows<kH, kW>(wm, lane);
       if (frow.any()) {
         const lbm::Window<kH, kW, true, true> win{planes, wm, frow};
-        steps<1, true>(win, planes, a.c, counted, wsum, warp);
+        steps<1, true>(win, planes, other, a.c, counted, wsum, warp);
       } else {
         const lbm::Window<kH, kW, false, true> win{planes, wm, frow};
-        steps<1, false>(win, planes, a.c, counted, wsum, warp);
+        steps<1, false>(win, planes, other, a.c, counted, wsum, warp);
       }
     }
-
-    lbm::cp_async_wait<0>();  // the next chunk's copies have landed
-    __syncthreads();          // ... everyone's: this chunk may be written
+    // the partner window is free: the next chunk's window goes there, and
+    // this chunk is written only once that load has completed
+    if (next_item < a.items()) load_window(spare, a, next_item, next_j, tid);
+    lbm::cp_async_commit();
+    lbm::cp_async_wait<0>();
+    __syncthreads();
     write_chunk(planes, wsum, a, item, j, tid);
-    __syncthreads();  // this window is free for the chunk after next
+    __syncthreads();  // this window is free: the next chunk's partner
     item = next_item;
     j = next_j;
-    if (next_item < a.items()) {
-      next_chunk(a, next_item, next_j);
-      if (next_item < a.items()) load_window(buf, a, next_item, next_j, tid);
-    }
-    lbm::cp_async_commit();
   }
-  lbm::cp_async_wait<0>();
 }
 
 static_assert(K % 2 == 0, "K steps per pass of the stream tier");
 
-// Blocks of the persistent grid per device (0: not prepared).
+// Blocks per SM of the persistent grid per device (0: not prepared), and
+// the device's SMs.
 constexpr int kMaxDevices = 64;
-int g_grid[kMaxDevices];
+int g_per_sm[kMaxDevices];
+int g_sms[kMaxDevices];
 
 cudaError_t prepare_on(int dev) {
   cudaFuncAttributes attr;
@@ -361,14 +369,17 @@ cudaError_t prepare_on(int dev) {
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;  // a block does not fit on an SM
-  g_grid[dev] = per_sm * sms;
+  g_sms[dev] = sms;
+  g_per_sm[dev] = per_sm;
   return cudaSuccess;
 }
 
-cudaError_t current_device(int* dev) {
-  const cudaError_t err = cudaGetDevice(dev);
-  if (err != cudaSuccess) return err;
-  return *dev < kMaxDevices ? cudaSuccess : cudaErrorInvalidDevice;
+// Prepares the kernels on the current device unless they are; sets *dev.
+cudaError_t prepared(int* dev) {
+  cudaError_t err = cudaGetDevice(dev);
+  if (err == cudaSuccess && *dev >= kMaxDevices) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && g_per_sm[*dev] == 0) err = prepare_on(*dev);
+  return err;
 }
 
 }  // namespace
@@ -386,16 +397,14 @@ extern "C" void lbm_stream_geometry(int* k, int* slab, int* seg) {
 // either.  A launch on a device not yet prepared prepares it first.
 extern "C" int lbm_stream_prepare(void) {
   int dev = 0;
-  cudaError_t err = current_device(&dev);
-  if (err == cudaSuccess) err = prepare_on(dev);
-  return lbm::status(err);
+  return lbm::status(prepared(&dev));
 }
 
-// Blocks per SM of the stream kernel on the current device, from the
-// occupancy query; 0 if a block does not fit.
+// Blocks per SM of the stream kernel's persistent grid on the current
+// device, preparing it first; 0 if it cannot run there.
 extern "C" int lbm_stream_blocks_per_sm(void) {
-  int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stream_kernel, kThreads, kSmemBytes);
+  int dev = 0;
+  const int per_sm = prepared(&dev) == cudaSuccess ? g_per_sm[dev] : 0;
   lbm::status(cudaSuccess);
   return per_sm;
 }
@@ -425,11 +434,11 @@ extern "C" int lbm_stream(const float* f, float* out, const uint8_t* mask,
   const lbm::StepConsts c{w0_omega,        w1_omega, w2_omega,
                           one_minus_omega, accel_w1, accel_w2};
   int dev = 0;
-  cudaError_t err = current_device(&dev);
-  if (err == cudaSuccess && g_grid[dev] == 0) err = prepare_on(dev);
+  const cudaError_t err = prepared(&dev);
   if (err != cudaSuccess) return lbm::status(err);
   const int items = ((ny + kSlab - 1) / kSlab) * ((nx + kSeg - 1) / kSeg);
-  const int grid = items < g_grid[dev] ? items : g_grid[dev];
+  const int blocks = g_per_sm[dev] * g_sms[dev];
+  const int grid = items < blocks ? items : blocks;
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const bool vec = nx % 4 == 0 && nx >= K && ny >= K && aligned(f) && aligned(out) &&
                    aligned(rows_snap) && aligned(cols_snap) &&

@@ -1,14 +1,15 @@
 // Shared machinery of the two ghost-zone kernels (csrc/kstep_kernel.cu and
 // csrc/stream_kernel.cu): a window of the state in shared memory that K
-// steps advance in place, the asynchronous copies that fill the next
-// window while the current one steps, and the persistent grid that walks
-// the work.
+// steps advance (in place, or ping-pong with a second window), the
+// asynchronous copies that fill the next window, and the accessor, cell map
+// and reductions of a step.
 //
-// * In place with register staging.  A step computes a rectangle of the
-//   window: each thread pulls the 9 values of each of its cells and runs
-//   step_common.cuh:cell_step into registers, a barrier ends the reads, the
-//   values are written back into the same window, and a second barrier
-//   publishes them.  One window per tile instead of two ping-pong buffers.
+// * Steps.  A step computes a rectangle of the window, each cell by
+//   step_common.cuh:cell_step.  In place with register staging: each thread
+//   pulls the 9 values of each of its cells into registers, a barrier ends
+//   the reads, the values are written back into the same window, and a
+//   second barrier publishes them (one window per tile).  Or from one
+//   window into another (two buffers ping-pong, one barrier per step).
 // * Compile-time cell map.  Thread tid takes cells i = tid + j * kThreads
 //   of the rectangle, j = 0, 1, ...; a rectangle 32 or more columns wide is
 //   read as a 32-column strip (cell i: row i / 32, column i % 32, one window
@@ -185,48 +186,68 @@ __device__ __forceinline__ void cell_of(int i, int& r, int& c) {
   }
 }
 
-// One step, in place, of the window rectangle rows [kR0, kR0 + kRows) x
-// columns [kC0, kC0 + kCols) by a block of kThreads threads.  `counted(r,
-// c, bits, obst)` says whether cell (r, c)'s ||u|| counts; `warp_total(v)`
-// is called by lane 0 of every warp with the warp's sum, before the
-// barriers that end the step.
-template <int kThreads, int kR0, int kRows, int kC0, int kCols, class Win, class Counted,
-          class WarpTotal>
-__device__ __forceinline__ void step_in_place(const Win& win, float* planes,
-                                              const StepConsts& cc, Counted counted,
-                                              WarpTotal warp_total) {
+// One step of the window rectangle rows [kR0, kR0 + kRows) x columns
+// [kC0, kC0 + kCols) by a block of kThreads threads, from the window `win`
+// reads into the planes `dst` (the same shape).  kInPlace (dst is win's
+// own planes): each thread stages its cells' new values in registers (the
+// rounds unrolled), a barrier ends the reads, the values are written back
+// and a second barrier publishes them.  Otherwise (dst is another window)
+// each cell is written as it is computed, in a loop over the thread's
+// cells, and one barrier publishes the step.  `counted(r, c, bits, obst)`
+// says whether cell (r, c)'s ||u|| counts; `warp_total(v)` is called by
+// lane 0 of every warp with the warp's sum, before the barriers that end
+// the step.
+template <int kThreads, int kR0, int kRows, int kC0, int kCols, bool kInPlace, class Win,
+          class Counted, class WarpTotal>
+__device__ __forceinline__ void step(const Win& win, float* dst, const StepConsts& cc,
+                                     Counted counted, WarpTotal warp_total) {
   using Geo = typename Win::Geo;
   constexpr int kCells = kRows * kCols;
-  constexpr int kRounds = (kCells + kThreads - 1) / kThreads;
   const int tid = threadIdx.x;
-  float v[kRounds][9];
-  int off[kRounds];
   float norm = 0.0f;
+  // the new values of cell i into v; returns the cell's offset in a plane
+  auto cell = [&](int i, float* v) {
+    int r, c;
+    cell_of<kRows, kCols>(i, r, c);
+    r += kR0;
+    c += kC0;
+    const int off = r * Win::kPitch + c;
+    const uint8_t bits = win.mask[off];
+    const bool obst = Win::obst_of(bits);
+    const float u_sq = cell_step(win, r, c, r - 1, r + 1, c - 1, c + 1, v, obst, cc);
+    if (counted(r, c, bits, obst)) norm = norm + sqrtf(u_sq);
+    return off;
+  };
+  if constexpr (kInPlace) {
+    constexpr int kRounds = (kCells + kThreads - 1) / kThreads;
+    float v[kRounds][9];
+    int off[kRounds];
 #pragma unroll
-  for (int j = 0; j < kRounds; ++j) {
-    const int i = tid + j * kThreads;
-    off[j] = 0;
-    if ((j + 1) * kThreads <= kCells || i < kCells) {
-      int r, c;
-      cell_of<kRows, kCols>(i, r, c);
-      r += kR0;
-      c += kC0;
-      off[j] = r * Win::kPitch + c;
-      const uint8_t bits = win.mask[off[j]];
-      const bool obst = Win::obst_of(bits);
-      const float u_sq = cell_step(win, r, c, r - 1, r + 1, c - 1, c + 1, v[j], obst, cc);
-      if (counted(r, c, bits, obst)) norm = norm + sqrtf(u_sq);
+    for (int j = 0; j < kRounds; ++j) {
+      if ((j + 1) * kThreads <= kCells || tid + j * kThreads < kCells) {
+        off[j] = cell(tid + j * kThreads, v[j]);
+      }
     }
-  }
-  norm = warp_sum(norm);
-  if ((tid & 31) == 0) warp_total(norm);
-  __syncthreads();  // every read of the step is done
+    norm = warp_sum(norm);
+    if ((tid & 31) == 0) warp_total(norm);
+    __syncthreads();  // every read of the step is done
 #pragma unroll
-  for (int j = 0; j < kRounds; ++j) {
-    if ((j + 1) * kThreads <= kCells || tid + j * kThreads < kCells) {
+    for (int j = 0; j < kRounds; ++j) {
+      if ((j + 1) * kThreads <= kCells || tid + j * kThreads < kCells) {
 #pragma unroll
-      for (int k = 0; k < 9; ++k) planes[k * Geo::kPlane + off[j]] = v[j][k];
+        for (int k = 0; k < 9; ++k) dst[k * Geo::kPlane + off[j]] = v[j][k];
+      }
     }
+  } else {
+#pragma unroll 1
+    for (int i = tid; i < kCells; i += kThreads) {
+      float v[9];
+      const int off = cell(i, v);
+#pragma unroll
+      for (int k = 0; k < 9; ++k) dst[k * Geo::kPlane + off] = v[k];
+    }
+    norm = warp_sum(norm);
+    if ((tid & 31) == 0) warp_total(norm);
   }
   __syncthreads();  // the step's values are published
 }

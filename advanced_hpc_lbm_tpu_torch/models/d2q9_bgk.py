@@ -64,13 +64,14 @@ WHOLE_RUN = ("resident", "pallask", "pallas2", "stream")
 
 
 # ``auto``'s backend wherever its two state buffers fit, from this port's
-# times on an H100 80GB HBM3 at 700 W (PERF.md, Findings): the K-step
-# kernel was the fastest path measured from 64^2 to 4096^2 in every run
-# (e.g. 3.2-3.6 us per step at 128^2 against 3.6-4.0 for resident and 8-18
-# for step; 23 us at 1024^2 against 32 for step and 41 for resident), and
-# faster than the stream kernel on every grid timed from 2048^2 to 16384^2
-# (1172.32 against 1653.64 us per step at 8192^2).  Where it does not fit,
-# ``auto`` runs ``stream`` (``Simulation._resolve_backend``).
+# times on an H100 80GB HBM3 at 700 W (chip_smoke.py 3k/3s, PERF.md,
+# Findings PR 5): the K-step kernel is the fastest path from 512^2 up
+# (19.26 us per step at 1024^2, K = 3, against 32.18 for step and 40.91
+# for resident), level with resident up to 256^2, where the host paces
+# both (3.4-4.7 us per step against 3.7-4.1), and faster than the stream
+# kernel on every grid timed from 2048^2 to 16384^2 (964 against 1202 us
+# per step at 8192^2, 3862 against 4154 at 16384^2).  Where it does not
+# fit, ``auto`` runs ``stream`` (``Simulation._resolve_backend``).
 AUTO_BACKEND = "pallask"
 
 

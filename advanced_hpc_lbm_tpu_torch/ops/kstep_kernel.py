@@ -49,12 +49,18 @@ prepare_obstacles = step_kernel.prepare_obstacles
 
 def best_k(ny: int, nx: int) -> int:
     """The K of the ``pallask`` backend, from this port's times on an H100
-    (PERF.md): 4 above 256^2 (the fastest K at 768^2 ... 4096^2, within
-    noise at 512^2; larger K moves fewer bytes per step but computes a
-    wider ghost ring and, from K = 5, fits fewer blocks per SM in shared
-    memory); 6 up to 256^2, where a pass is paced by the host's launch and
-    more steps per launch pay."""
-    return 6 if ny * nx <= 256 * 256 else 4
+    80GB HBM3 at 700 W (chip_smoke.py, PERF.md, Findings PR 5): 5 up to
+    512^2, where a pass is paced by the host's launch and more steps per
+    launch pay (3.37 us per step at 64^2 against 3.88 at K = 6 and 3.45 at
+    K = 4); 3 up to 4096^2, where the kernel is bound by instruction issue
+    and K = 3 steps the narrowest ghost ring (1.20 cell steps per own one
+    against 1.31 at K = 4) with the staged cells of 3 blocks per SM in
+    registers (236.85 us per step at 4096^2 against 246.31 at K = 4; 19.26
+    against 20.06 at 1024^2); 4 above, where device memory tells (964 us
+    per step at 8192^2 against 1148 at K = 3, 3862 against 4850 at
+    16384^2)."""
+    cells = ny * nx
+    return 5 if cells <= 512 * 512 else 3 if cells <= 4096 * 4096 else 4
 
 
 def num_tiles(ny: int, nx: int) -> int:

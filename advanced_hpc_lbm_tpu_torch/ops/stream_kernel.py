@@ -23,11 +23,12 @@ function here that takes ``obstacles`` reads a uint8 tensor as such an
 encoded mask and a bool tensor as the plain obstacle mask of a periodic
 grid, forced on row ny - 2 (:func:`prepare_obstacles`).
 
-Each kernel block owns a slab of SLAB rows and a segment of SEGMENT
-columns; a pass writes one ||u|| partial per step and tile,
-``partials[s, slab * segments + segment]``.  In place the device holds one
-state, the mask and a side buffer of ghost values (:func:`side_bytes`, at
-most a quarter of a state on grids of 80 rows or more).
+The kernel cuts the grid into tiles of SLAB rows by SEGMENT columns, each
+walked by one block of a persistent grid; a pass writes one ||u|| partial
+per step and tile, ``partials[s, slab * segments + segment]``.  In place
+the device holds one state, the mask and a side buffer of ghost values
+(:func:`side_bytes`, at most a quarter of a state on grids of 80 rows or
+more).
 """
 
 from __future__ import annotations

@@ -435,6 +435,11 @@ def _stream_window(window_pass, window, mask, params, out, partials) -> None:
 
 # ---- kernel choice and the runners --------------------------------------------------
 
+# Cells of a shard from which ``auto`` runs the stream kernel on it (2048 x
+# 8192; see resolve_shard_kernel).
+STREAM_SHARD_CELLS = 1 << 24
+
+
 def resolve_shard_kernel(
     params: LBMParams,
     *,
@@ -446,15 +451,16 @@ def resolve_shard_kernel(
     """The shard kernel ``auto`` runs.  Off CUDA ``jnp``, as the JAX package
     picks it off the TPU.  On CUDA the local kernels, ``pallas`` (the
     K-step local form when ``ca_steps`` > 1), except a torus with
-    ``ca_steps`` > 1, which only ``jnp`` runs.  Never ``stream``: on 4 ring
-    shards of one H100 80GB HBM3 at 700 W it was slower than the 1-step
-    local kernel at every size timed by chip_smoke.py (1957.33 against
-    1865.79 us per step at 8192^2, 960.51 against 505.25 at 4096^2, 933.30
-    against 173.12 at 2048^2; PERF.md, Findings on the sharded path), and
-    its out-of-place windows need the same two states per shard, so it fits
-    nothing that ``pallas`` does not.  The TPU ladder's 1024^2 threshold is
-    a TPU number.  A shape that does not divide returns ``jnp`` and leaves
-    the error to the runner."""
+    ``ca_steps`` > 1, which only ``jnp`` runs; and ``stream`` on shards of
+    at least STREAM_SHARD_CELLS cells when ``ca_steps`` is 1.  On 4 shards
+    of one H100 80GB HBM3 at 700 W (chip_smoke.py's sharded runs, PERF.md,
+    Findings PR 5) the stream kernel passed the 1-step local kernel at
+    8192^2 (1465 against 1864 us per step on a ring, 1566 against 2598 on a
+    2x2 torus) and not at 6144^2 (1120 against 1077, 1543 against 1466) or
+    below: a shard's window fills the card's blocks with its 80 x 1024
+    cell items only from about that size.  The TPU ladder's 1024^2
+    threshold is a TPU number.  A shape that does not divide returns
+    ``jnp`` and leaves the error to the runner."""
     if device_type is None:
         device_type = "cuda" if torch.cuda.is_available() else "cpu"
     if device_type != "cuda":
@@ -466,7 +472,11 @@ def resolve_shard_kernel(
         my, mx = (torch.cuda.device_count() if n_devices is None else n_devices), 1
     if my < 1 or mx < 1 or ny % my or nx % mx:
         return "jnp"
-    return "jnp" if mesh_shape is not None and ca_steps > 1 else "pallas"
+    if ca_steps > 1:
+        return "jnp" if mesh_shape is not None else "pallas"
+    ly, lx = ny // my, nx // mx
+    thick = ly >= stream_kernel.K and (mesh_shape is None or lx >= stream_kernel.K)
+    return "stream" if thick and ly * lx >= STREAM_SHARD_CELLS else "pallas"
 
 
 class ShardedRunner:

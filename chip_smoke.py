@@ -11,7 +11,8 @@ non-zero and prints no result:
   1. card    the card's name and power limit (nvidia-smi), torch and CUDA
   2. build   nvcc builds the kernel library from csrc/ (or finds it built)
              and every kernel is loaded onto the card (the ptxas report of
-             each, the stream and snapshot kernels included)
+             each: registers, shared memory, spills; the persistent grids'
+             blocks per SM)
   3. kernel  the step kernel against its plain PyTorch version on the card,
              from seeded states, at 1024x1024, 64x64, 100x130 and 17x23,
              1 and 50 steps, plus a forcing row that fails the guard
@@ -19,13 +20,12 @@ non-zero and prints no result:
              values) and its plain version, 1024^2 to 17x23: 1 and 50 steps
              in one chunk, 17 steps in chunks of 6 with a guard-failing
              row; then its time per step beside the step kernel's run loop
-  3k. kstep  the K-step kernel (K = 2, 4, 8 and best_k of the shape, the K
-             pallask runs there) against the step kernel (0 differing
-             values) and its plain version at 4096^2, 1024^2, 256^2,
-             128x256, 64^2, 100x130 and 17x23, 1 pass and 3 passes with a
-             guard-failing row; then its time per step for K = 2..6, 8 at
-             4096^2 down to 64^2, beside the step and resident kernels, and
-             the step and K-step times beside PERF.md's earlier ones
+  3k. kstep  the K-step kernel (every built K; at 4096^2 K = 2, 4, 8 and
+             best_k, the K pallask runs there) against the step kernel (0
+             differing values) and its plain version at 4096^2, 1024^2,
+             256^2, 128x256, 64^2, 100x130 and 17x23, 1 pass and 3 passes
+             with a guard-failing row; then its time per step for K = 2..6,
+             8 at 4096^2 down to 64^2, beside the step and resident kernels
   3s. stream the stream kernel, in place and out of place, against the step
              kernel (0 differing values) and its plain version at 8192^2,
              4096^2, 1024^2, 256^2, 64^2 (the mini deck), 100x130 and
@@ -55,8 +55,11 @@ non-zero and prints no result:
              the K-step kernel's local form) against their plain versions
              on seeded shard windows, ly = 2 to 2048, 17x23 blocks, the
              forcing row on a halo row, an own row and twice in a K-step
-             window (K = 2, 3, 4, 8); then their times at the main path's
-             shard shapes
+             window (K = 2..8); then their times at the main path's shard
+             shapes
+  3 retime  the K-step (both forms) and stream kernels' times beside
+             PERF.md's from before their redesign, and the untouched step
+             kernel's as the yardstick that the card matches
   8. sharded the main path on a device mesh: decks/mini_64x64 through the
              CLI with --backend sharded (the ring of the one visible card:
              pallas, --ca-steps 4, --shard-kernel stream; exact launches,
@@ -446,8 +449,10 @@ def phase_kstep(card: str, res_times: dict) -> tuple[float, dict]:
     shapes = ((4096, 4096), (1024, 1024), (256, 256), (128, 256), (64, 64),
               (100, 130), (17, 23))
     for seed, (ny, nx) in enumerate(shapes):
-        # the K the pallask backend runs at this shape, and 2, 4, 8
-        for k in sorted({2, 4, 8, kstep_kernel.best_k(ny, nx)}):
+        # every built K; at 4096^2 the K the pallask backend runs there, and 2, 4, 8
+        ks = ({2, 4, 8, kstep_kernel.best_k(ny, nx)} if ny == 4096
+              else set(kstep_kernel.K_RANGE))
+        for k in sorted(ks):
             for passes, guard in ((1, False), (3, True)):
                 params, mask, f = on_card(ny, nx, 300 + seed, guard)
                 n = k * passes
@@ -1016,6 +1021,9 @@ LOCAL_CASES = (
     ("ca", 3, 16, 100, (7,), "K = 3"),
     ("ca", 4, 2048, 8192, (2049,), "K = 4, an 8192^2 ring shard of 4"),
     ("ca", 8, 17, 23, (1, 20), "K = 8, 17x23, forcing row twice"),
+    ("ca", 5, 40, 130, (43,), "K = 5, a ragged tile"),
+    ("ca", 6, 2, 64, (1, 13), "K = 6, ly = 2, forcing row twice"),
+    ("ca", 7, 33, 96, (2, 40), "K = 7, forcing row twice"),
 )
 
 # the main path's shard shape of each kind, timed

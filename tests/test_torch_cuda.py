@@ -210,14 +210,14 @@ def test_stream_pipeline_in_place_matches_step_on_card(ny, nx):
 
 @pytest.mark.parametrize("backend,counts", [
     ("resident", (0, 1, 0)), ("pallas2", (1, 0, 12)), ("pallas", (25, 0, 0)),
-    ("pallask", (1, 0, 4)),
+    ("pallask", (0, 0, 5)),
 ])
 def test_simulation_launch_counts(backend, counts):
     """Exact launches per kernel module for a 25-step run: (step,
     resident, K-step); warmup launches nothing.  pallask runs at
-    best_k(48, 80) = 6: 4 passes and a 1-step tail."""
+    best_k(48, 80) = 5: 5 passes and no tail."""
     params, mask_np, _ = make_case(48, 80, seed=5)
-    assert kstep_kernel.best_k(48, 80) == 6
+    assert kstep_kernel.best_k(48, 80) == 5
     sim = Simulation(params, mask_np, backend=backend, device="cuda")
     sim.warmup()
     before = (step_kernel.launches, resident.launches, kstep_kernel.launches)

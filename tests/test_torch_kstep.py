@@ -249,6 +249,7 @@ def test_kstep_rejects_bad_arguments(bad):
                            LBMParams.from_jax(jp), k, **args)
 
 
-@pytest.mark.parametrize("ny,nx", [(17, 23), (64, 64), (256, 256), (1024, 1024), (4096, 4096)])
+@pytest.mark.parametrize("ny,nx", [(17, 23), (64, 64), (256, 256), (1024, 1024), (4096, 4096),
+                                   (16384, 16384)])
 def test_best_k_is_a_built_k(ny, nx):
     assert kstep_kernel.best_k(ny, nx) in kstep_kernel.K_RANGE

@@ -143,14 +143,15 @@ def test_debug_on_whole_run_backend_collects_densities(backend):
     np.testing.assert_array_equal(res.f_final, plain.f_final)
 
 
-@pytest.mark.parametrize("ny,nx", [(17, 23), (128, 128), (128, 256), (1024, 1024)])
+@pytest.mark.parametrize("ny,nx", [(17, 23), (128, 128), (128, 256), (1024, 1024),
+                                   (4096, 4096), (4096, 8192)])
 def test_auto_rule(ny, nx):
     """auto runs the K-step kernel on every grid, at best_k's K."""
     params = LBMParams(nx=nx, ny=ny, max_iters=1, reynolds_dim=10,
                        density=0.1, accel=0.005, omega=1.85)
     sim = Simulation(params, np.zeros((ny, nx), dtype=bool), device="cpu")
     assert sim.backend == "pallask"
-    assert sim._k() == (6 if ny * nx <= 256 * 256 else 4)
+    assert sim._k() == (5 if ny * nx <= 512 * 512 else 3 if ny * nx <= 4096 * 4096 else 4)
 
 
 @pytest.mark.parametrize("backend", ["sharded"])

@@ -326,6 +326,19 @@ def test_auto_resolution():
     assert halo.resolve_shard_kernel(params, mesh_shape=(2, 2), ca_steps=2,
                                      device_type="cuda") == "jnp"
     assert halo.resolve_shard_kernel(params, n_devices=3, device_type="cuda") == "jnp"
+    # shards of 2^24 cells and more run the stream kernel when ca_steps is 1
+    for n, shape, want in ((8192, 4, "stream"), (8192, (2, 2), "stream"),
+                           (6144, 4, "pallas"), (6144, (2, 2), "pallas")):
+        big = LBMParams(nx=n, ny=n, max_iters=1, reynolds_dim=10, density=0.1,
+                        accel=0.005, omega=1.85)
+        kw = {"mesh_shape": shape} if isinstance(shape, tuple) else {"n_devices": shape}
+        assert halo.resolve_shard_kernel(big, device_type="cuda", **kw) == want
+    big = LBMParams(nx=8192, ny=8192, max_iters=1, reynolds_dim=10, density=0.1,
+                    accel=0.005, omega=1.85)
+    assert halo.resolve_shard_kernel(big, n_devices=4, ca_steps=4, device_type="cuda") == "pallas"
+    thin = LBMParams(nx=1 << 22, ny=16, max_iters=1, reynolds_dim=10, density=0.1,
+                     accel=0.005, omega=1.85)
+    assert halo.resolve_shard_kernel(thin, n_devices=4, device_type="cuda") == "pallas"
 
 
 def test_simulation_sharded_equals_single_device():
