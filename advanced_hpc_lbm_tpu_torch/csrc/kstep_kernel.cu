@@ -49,8 +49,8 @@
 // up to K = 3 a block's staged cells fit 80 registers and 3 blocks run
 // per SM; from K = 4 a block takes up to 128 and 2 run (at 80, K = 4
 // spilled and ran 11% slower).  Measured on an H100 80GB HBM3 at 700 W
-// (chip_smoke.py 3k): 236.85 us per step at 4096^2 at K = 3 (PR 4's
-// kernel: 303.93 at K = 4), 19.26 at 1024^2; above 4096^2 K = 4 is the
+// (chip_smoke.py 3k): 236.85 us per step at 4096^2 at K = 3 (the earlier
+// two-buffer kernel: 303.93 at K = 4), 19.26 at 1024^2; above 4096^2 K = 4 is the
 // faster (964 us per step at 8192^2).
 //
 // The local form (kLocal, `lbm_local_ca`) replaces

@@ -65,7 +65,7 @@ WHOLE_RUN = ("resident", "pallask", "pallas2", "stream")
 
 # ``auto``'s backend wherever its two state buffers fit, from this port's
 # times on an H100 80GB HBM3 at 700 W (chip_smoke.py 3k/3s, PERF.md,
-# Findings PR 5): the K-step kernel is the fastest path from 512^2 up
+# Findings): the K-step kernel is the fastest path from 512^2 up
 # (19.26 us per step at 1024^2, K = 3, against 32.18 for step and 40.91
 # for resident), level with resident up to 256^2, where the host paces
 # both (3.4-4.7 us per step against 3.7-4.1), and faster than the stream

@@ -49,7 +49,7 @@ prepare_obstacles = step_kernel.prepare_obstacles
 
 def best_k(ny: int, nx: int) -> int:
     """The K of the ``pallask`` backend, from this port's times on an H100
-    80GB HBM3 at 700 W (chip_smoke.py, PERF.md, Findings PR 5): 5 up to
+    80GB HBM3 at 700 W (chip_smoke.py, PERF.md, Findings): 5 up to
     512^2, where a pass is paced by the host's launch and more steps per
     launch pay (3.37 us per step at 64^2 against 3.88 at K = 6 and 3.45 at
     K = 4); 3 up to 4096^2, where the kernel is bound by instruction issue

@@ -454,7 +454,7 @@ def resolve_shard_kernel(
     ``ca_steps`` > 1, which only ``jnp`` runs; and ``stream`` on shards of
     at least STREAM_SHARD_CELLS cells when ``ca_steps`` is 1.  On 4 shards
     of one H100 80GB HBM3 at 700 W (chip_smoke.py's sharded runs, PERF.md,
-    Findings PR 5) the stream kernel passed the 1-step local kernel at
+    Findings) the stream kernel passed the 1-step local kernel at
     8192^2 (1465 against 1864 us per step on a ring, 1566 against 2598 on a
     2x2 torus) and not at 6144^2 (1120 against 1077, 1543 against 1466) or
     below: a shard's window fills the card's blocks with its 80 x 1024

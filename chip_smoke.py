@@ -116,10 +116,10 @@ FLOPS_PER_CELL_STEP = 94
 # bytes of one cell per launch of a kernel: 9 float32 read and written,
 # the uint8 mask read
 CELL_BYTES = 9 * 4 * 2 + 1
-# µs per step in PERF.md's table before the K-step and stream kernels were
-# redesigned (PR 4's final call, K=2 PR 3's, K=4 at 1024^2 PR 2's; H100
-# 80GB HBM3 at 700 W), to re-time beside: the untouched step kernel as the
-# yardstick, the K-step kernel (both forms) and the stream kernel in place
+# µs per step in PERF.md's bring-up table before the K-step and stream
+# kernels were redesigned (H100 80GB HBM3 at 700 W), to re-time beside: the
+# untouched step kernel as the yardstick, the K-step kernel (both forms)
+# and the stream kernel in place
 BEFORE_US = {"step 1024^2": 32.37, "K=4 4096^2": 303.93, "K=4 1024^2": 23.20,
              "K=2 4096^2": 361.50, "local K=4 2048x8192": 309.43,
              "stream 4096^2": 476.92, "stream 8192^2": 1665.38,
