@@ -39,8 +39,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("paramfile")
     p.add_argument("obstaclefile")
     p.add_argument(
-        "--backend", default="auto",
-        help=f"one of {', '.join(BACKENDS)}; auto runs pallask, or stream where "
+        "--backend", default="auto", choices=BACKENDS,
+        help="auto runs pallask, or stream where "
              "pallask's two state buffers do not fit on the card; the CUDA "
              "kernels run their plain PyTorch versions on the CPU",
     )

@@ -1,42 +1,99 @@
-// A whole chunk of D2Q9-BGK timesteps in one launch: a cooperative
-// persistent kernel for NVIDIA Hopper (sm_90a).
+// A whole chunk of D2Q9-BGK timesteps in one launch, for NVIDIA Hopper
+// (sm_90a): a banded kernel for grids whose bands fit in shared memory,
+// and a cooperative persistent kernel for every other grid.
 //
 // Replaces: advanced_hpc_lbm_tpu/ops/resident.py `_chunk_kernel` (the
 // whole-run Pallas kernel behind the `resident` backend).  On the TPU one
 // core runs the whole chunk with the state in VMEM, and its grid of one
-// program needs no barrier between steps.  Here the state ping-pongs
-// between two buffers in device memory and every SM takes part:
+// program needs no barrier between steps.  Here many SMs share a chunk, and
+// the two forms differ in how they meet between steps.  Both run every
+// cell through step_common.cuh:cell_step in the same operand order, so the
+// state equals the step kernel's bit for bit, and both write the step
+// kernel's per-tile ||u|| partials into partials[t, tile] (row-major 32x8
+// tiles), so that the caller's torch.sum(dim=1) gives the step backend's av
+// history bit for bit.  Which form runs is a rule on the shape, decided by
+// the wrapper before the launch (lbm_resident_banded_fits).
 //
-// * One cooperative launch per chunk (cudaLaunchCooperativeKernel).  The
-//   grid is as large as can be co-resident (occupancy x SMs), capped at the
-//   tile count; each block walks the step kernel's 32x8 tiles grid-stride
-//   and runs the shared per-cell step (step_common.cuh).  A grid barrier
-//   (cooperative_groups::this_grid().sync()) separates the steps.  Every
-//   block runs every step and reaches every barrier: no early return.
-// * Per step, one ||u|| partial per tile into partials[t, tile], in the
-//   step kernel's row-major tile order and with its block reduction, so
-//   that the caller's torch.sum(dim=1) gives the step backend's av history
-//   bit for bit; the state itself is bitwise that of the step kernel.
-// * The state is read with plain loads (no read-only cache): a buffer is
-//   read after other blocks wrote it, across a barrier.
+// The banded form (resident_banded_kernel), for the small decks:
+// * Band b is the step kernel's tile row b: grid rows 8b .. 8b+7, the last
+//   band ragged when ny % 8 != 0.  One block per band; thread x owns column
+//   x of the band (8 cells), blockDim = 32 * ceil(nx / 32).  The grid is a
+//   cooperative launch of exactly ceil(ny / 8) blocks, which guarantees
+//   that every block is resident, as the spin-waits below need.  There is
+//   no grid-wide barrier.
+// * A step of a band needs only the row above it and the row below it.
+//   Bands exchange their edge rows (all 9 speeds) through an outbox in
+//   device memory, 2 slots x bands x {top, bottom} x 9 x nx floats, and
+//   announce them through one int flag per band.  flags[b] = t+1 means:
+//   band b has put the edge rows of its state t into slot t % 2, and it has
+//   finished reading its neighbours' slot (t-1) % 2.  Step t of band b:
+//     1. wait until flags[prev] >= t+1 and flags[next] >= t+1 (prev and
+//        next wrap periodically, and may be one band or b itself);
+//     2. read the two ghost rows from the neighbours' slot t % 2;
+//     3. step the band;
+//     4. write its own new edge rows to slot (t+1) % 2;
+//     5. publish flags[b] = t+2: a __syncthreads, then the publishing
+//        thread's __threadfence and store (the order grid.sync uses).
+//   At chunk start each band reads only its own rows of `a` and publishes
+//   state 0 into slot 0, so no band ever reads another band's rows of `a`
+//   or `b`, and the final write of a band cannot race a neighbour.
+// * Write after read: band b overwrites slot (t+1) % 2 at step t only after
+//   it has seen flags[nb] >= t+1 for both neighbours nb, so each neighbour
+//   has finished step t-1, its reads of that slot included.  No band runs
+//   more than one step ahead of a neighbour.  Read after write: the slot
+//   band b reads at step t was published by flags[nb] >= t+1 after a fence.
+// * Memory model: the flag is stored with release semantics after the
+//   fence; the waiting thread polls with relaxed device-scope loads,
+//   fences, and a __syncthreads hands the acquire to the block.  Outbox
+//   reads go through __ldcg (L2, never L1: the same slot is re-read every
+//   second step and L1 is not coherent across SMs).  A wait that exceeds
+//   kMaxPolls polls traps, so that a fault ends the run with an error
+//   instead of a hang.  The wrapper resets the flags before every launch
+//   (cudaMemsetAsync on the launch's stream).
+// * ||u|| partials without a barrier: block_sum's tree over a 32x8 tile
+//   (strides 128, 64, 32, then 16 .. 1) is, per column, the register sum
+//   ((r0+r4)+(r2+r6)) + ((r1+r5)+(r3+r7)) of its 8 rows followed by
+//   __shfl_down_sync by 16, 8, 4, 2, 1 across the warp, so lane 0 of warp w
+//   holds tile (b, w)'s partial bit for bit.  Rows past ny contribute 0.
+// * The state stays in the two buffers in device memory (L2-resident at
+//   these sizes), each band reading and writing only its own rows.
+// * Which grids: the band with its two ghost rows, two ping-pong copies of
+//   its 9 planes and its mask rows, 2*9*10*nx*4 + 10*nx bytes, fits the
+//   card's opt-in shared memory (nx <= 318 at 232 448 B), and ceil(ny/8)
+//   blocks are co-resident (occupancy x SMs): the reference's 128^2,
+//   128x256 and 256^2 decks and the 64^2 mini deck, not 512^2 or 1024^2.
+//
+// The cooperative form (resident_kernel), for every other grid:
+// * One cooperative launch per chunk.  The grid is as large as can be
+//   co-resident (occupancy x SMs), capped at the tile count; each block
+//   walks the step kernel's 32x8 tiles grid-stride and runs the shared
+//   per-cell step.  A grid barrier (cooperative_groups::this_grid().sync())
+//   separates the steps.  Every block runs every step and reaches every
+//   barrier: no early return.
+// * The state ping-pongs between two buffers in device memory and is read
+//   with plain loads (no read-only cache): a buffer is read after other
+//   blocks wrote it, across a barrier.
 //
 // Bound on this card: the launch latency and the host loop disappear (one
-// launch per chunk instead of one per step); what is left per step is the
-// step's traffic (73 B/cell) plus one grid barrier of a few microseconds.
-// The pair of buffers (72 B/cell) fits in the 50 MB L2 up to about 690 000
-// cells, so every reference deck up to 256x256 runs from L2; the 1024x1024
-// pair is 75.5 MB and does not fit.  Shared-memory tiles and a state held
-// in a cluster's distributed shared memory are later work.
+// launch per chunk instead of one per step).  What is left per step is the
+// step's traffic (73 B/cell) and the synchronisation: for the cooperative
+// form one grid barrier of a few microseconds; for the banded form the
+// latency of a chain of one flag hop through L2, one ghost-row load, the
+// band's step and the fence.  The pair of buffers (72 B/cell) fits in the
+// 50 MB L2 up to about 690 000 cells; the 1024x1024 pair is 75.5 MB and
+// does not fit.
 //
 // Build (ops/_build.py): nvcc -gencode arch=compute_90a,code=sm_90a
 //   -std=c++17 -O3 -fmad=false -shared -Xcompiler -fPIC  (no -rdc: grid
 //   sync needs none on CUDA >= 11)
 
 #include <cooperative_groups.h>
+#include <cuda/atomic>
 
 #include <cstdint>
 
 #include "step_common.cuh"
+#include "window_common.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -71,6 +128,163 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- the banded form ------------------------------------------------------
+
+constexpr int kBandRows = lbm::kTileY;  // a band is one tile row
+constexpr int kSpeeds = 9;
+// Shared memory is the rule's bound on nx (318 at the card's 232 448 B),
+// so a band has at most 10 warps.
+constexpr int kMaxBandCols = 320;
+constexpr int kMaxBandThreads = kMaxBandCols;
+constexpr int kMaxPolls = 1 << 24;  // ~seconds of polling: a fault, not a wait
+
+__host__ __device__ constexpr int num_bands(int ny) {
+  return (ny + kBandRows - 1) / kBandRows;
+}
+
+__host__ __device__ constexpr int band_threads(int nx) {
+  return lbm::kTileX * ((nx + lbm::kTileX - 1) / lbm::kTileX);
+}
+
+// The rule's bytes of one band in shared memory: two ping-pong copies of
+// its 9 planes over its rows and two ghost rows, and its mask rows.
+constexpr size_t band_smem_bytes(int nx) {
+  return 2 * 9 * (kBandRows + 2) * static_cast<size_t>(nx) * sizeof(float) +
+         (kBandRows + 2) * static_cast<size_t>(nx);
+}
+
+// The accessor of one band's step t: its own rows from the state in device
+// memory (rows this block wrote before the last __syncthreads), the ghost
+// rows from the neighbours' outbox slot through L2.  Rows are global; with
+// one band the ghost rows are own rows and never reach the outbox.
+struct BandState {
+  const float* planes;      // state t, (9, ny, nx)
+  const float* ghost_prev;  // row row_prev of state t, (9, nx), in the outbox
+  const float* ghost_next;  // row row_next of state t
+  const uint8_t* mask;
+  size_t plane;
+  int nx, y0, h, row_prev, accel_row;
+  __device__ __forceinline__ float f(int k, int r, int c) const {
+    if (static_cast<unsigned>(r - y0) < static_cast<unsigned>(h)) {
+      return planes[k * plane + static_cast<size_t>(r) * nx + c];
+    }
+    return __ldcg((r == row_prev ? ghost_prev : ghost_next) + k * nx + c);
+  }
+  __device__ __forceinline__ bool obst(int r, int c) const {
+    return __ldg(mask + static_cast<size_t>(r) * nx + c) != 0;
+  }
+  __device__ __forceinline__ bool accel(int r, int) const { return r == accel_row; }
+};
+
+// Step 5 of the schedule: every thread's writes are done (block scope), the
+// publishing thread makes them visible at device scope, then stores v.
+__device__ __forceinline__ void publish(int* flag, int v) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    cuda::atomic_ref<int, cuda::thread_scope_device>(*flag).store(
+        v, cuda::memory_order_release);
+  }
+}
+
+// Step 1: one thread polls both neighbours' flags (two loads in flight per
+// poll) until both reach v, fences, and releases the block.
+__device__ __forceinline__ void wait_for(int* prev, int* next, int v) {
+  if (threadIdx.x == 0) {
+    cuda::atomic_ref<int, cuda::thread_scope_device> p(*prev), q(*next);
+    for (int polls = 0;; ++polls) {
+      const int vp = p.load(cuda::memory_order_relaxed);
+      const int vq = q.load(cuda::memory_order_relaxed);
+      if (vp >= v && vq >= v) break;
+      if (polls >= kMaxPolls) __trap();
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kMaxBandThreads)
+    resident_banded_kernel(float* a, float* b, const uint8_t* mask, float* partials,
+                           int* flags, float* outbox, int ny, int nx, int n_steps,
+                           lbm::StepConsts c) {
+  const int bands = num_bands(ny);
+  const int band = blockIdx.x;
+  if (band >= bands) return;  // only a test's refused grid has more blocks
+  const int y0 = band * kBandRows;
+  const int h = min(kBandRows, ny - y0);
+  const int prev = band == 0 ? bands - 1 : band - 1;
+  const int next = band == bands - 1 ? 0 : band + 1;
+  const int row_prev = y0 == 0 ? ny - 1 : y0 - 1;
+  const int row_next = y0 + h == ny ? 0 : y0 + h;
+  const int x = threadIdx.x;
+  const bool live = x < nx;
+  const int xe = x == 0 ? nx - 1 : x - 1;  // east-moving speeds pull from x-1
+  const int xw = x == nx - 1 ? 0 : x + 1;  // west-moving speeds pull from x+1
+  const int tiles_x = (nx + lbm::kTileX - 1) / lbm::kTileX;
+  const size_t plane = static_cast<size_t>(ny) * nx;
+  const size_t edge = static_cast<size_t>(kSpeeds) * nx;
+  // outbox slot s of band q: its top row, then its bottom row
+  auto box = [=](int s, int q) {
+    return outbox + (static_cast<size_t>(s) * bands + q) * 2 * edge;
+  };
+
+  // state 0's edge rows into slot 0
+  if (live) {
+    float* out = box(0, band);
+#pragma unroll
+    for (int k = 0; k < kSpeeds; ++k) {
+      out[k * nx + x] = a[k * plane + static_cast<size_t>(y0) * nx + x];
+      out[edge + k * nx + x] = a[k * plane + static_cast<size_t>(y0 + h - 1) * nx + x];
+    }
+  }
+  publish(flags + band, 1);
+
+  for (int t = 0; t < n_steps; ++t) {
+    const float* src = (t % 2 == 0) ? a : b;
+    float* dst = (t % 2 == 0) ? b : a;
+    wait_for(flags + prev, flags + next, t + 1);
+    const BandState st{src,  box(t % 2, prev) + edge, box(t % 2, next), mask, plane,
+                       nx,   y0,   h,  row_prev,  ny - 2};
+    float* out_edges = box((t + 1) % 2, band);
+    float norm[kBandRows];
+#pragma unroll
+    for (int i = 0; i < kBandRows; ++i) {
+      norm[i] = 0.0f;
+      if (live && i < h) {
+        const int y = y0 + i;
+        const int rn = i == 0 ? row_prev : y - 1;      // north-moving speeds pull from y-1
+        const int rs = i == h - 1 ? row_next : y + 1;  // south-moving speeds pull from y+1
+        const bool obst = st.obst(y, x);
+        float s[kSpeeds];
+        const float u_sq = lbm::cell_step(st, y, x, rn, rs, xe, xw, s, obst, c);
+        const size_t at = static_cast<size_t>(y) * nx + x;
+#pragma unroll
+        for (int k = 0; k < kSpeeds; ++k) dst[k * plane + at] = s[k];
+        if (i == 0) {
+#pragma unroll
+          for (int k = 0; k < kSpeeds; ++k) out_edges[k * nx + x] = s[k];
+        }
+        if (i == h - 1) {
+#pragma unroll
+          for (int k = 0; k < kSpeeds; ++k) out_edges[edge + k * nx + x] = s[k];
+        }
+        norm[i] = obst ? 0.0f : sqrtf(u_sq);
+      }
+    }
+    // block_sum's order over the tile (see the note above)
+    const float column = ((norm[0] + norm[4]) + (norm[2] + norm[6])) +
+                         ((norm[1] + norm[5]) + (norm[3] + norm[7]));
+    const float total = lbm::warp_sum(column);
+    if (x % lbm::kTileX == 0) {
+      partials[static_cast<size_t>(t) * bands * tiles_x + band * tiles_x + x / lbm::kTileX] =
+          total;
+    }
+    publish(flags + band, t + 2);
+  }
+}
+
+// ---- host side ------------------------------------------------------------
+
 // The grid of a cooperative launch: as many blocks as can be co-resident,
 // no more than there are tiles.
 cudaError_t grid_blocks(int ny, int nx, int* blocks) {
@@ -92,16 +306,77 @@ cudaError_t grid_blocks(int ny, int nx, int* blocks) {
   return cudaSuccess;
 }
 
+// Dynamic shared memory of one banded launch.
+size_t banded_launch_smem(int) { return 0; }
+
+// The banded form's limits on the current device for a grid nx wide: the
+// opt-in shared memory of a block, and the blocks that can be co-resident
+// (occupancy x SMs; 0 where the kernel cannot take nx at all).  Sets the
+// kernel's dynamic shared-memory limit first, which the occupancy query
+// needs.
+cudaError_t banded_limits(int nx, int* smem_optin, int* max_blocks) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  err = cudaDeviceGetAttribute(smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(resident_banded_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, *smem_optin);
+  if (err != cudaSuccess) return err;
+  *max_blocks = 0;
+  if (nx < 1 || nx > kMaxBandCols || banded_launch_smem(nx) > static_cast<size_t>(*smem_optin)) {
+    return cudaSuccess;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, resident_banded_kernel, band_threads(nx), banded_launch_smem(nx));
+  if (err != cudaSuccess) return err;
+  *max_blocks = per_sm * sms;
+  return cudaSuccess;
+}
+
+// The shape rule (ops/resident.py:banded_fits is the same rule in Python).
+bool banded_fits(int ny, int nx, int smem_optin, int max_blocks) {
+  return ny >= 1 && nx >= 1 && nx <= kMaxBandCols &&
+         band_smem_bytes(nx) <= static_cast<size_t>(smem_optin) &&
+         num_bands(ny) <= max_blocks;
+}
+
 }  // namespace
 
-// Loads the kernel onto the current device without launching it and checks
-// that the device takes cooperative launches.
+// Loads both kernels onto the current device without launching them,
+// checks that the device takes cooperative launches, and sets the banded
+// kernel's shared-memory limit.
 extern "C" int lbm_resident_prepare(void) {
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, resident_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, resident_kernel);
+  if (err != cudaSuccess) return lbm::status(err);
+  err = cudaFuncGetAttributes(&attr, resident_banded_kernel);
+  if (err != cudaSuccess) return lbm::status(err);
+  int smem = 0, max_blocks = 0;
+  err = banded_limits(1, &smem, &max_blocks);
   if (err != cudaSuccess) return lbm::status(err);
   int blocks = 0;
   return lbm::status(grid_blocks(1, 1, &blocks));
+}
+
+// The banded form's limits for a grid nx wide (see banded_limits); returns
+// a cudaError_t.
+extern "C" int lbm_resident_banded_limits(int nx, int* smem_optin, int* max_blocks) {
+  return lbm::status(banded_limits(nx, smem_optin, max_blocks));
+}
+
+// 1 if the banded form takes an (ny, nx) grid on the current device, 0 if
+// the cooperative form runs it; a negative cudaError_t on failure.
+extern "C" int lbm_resident_banded_fits(int ny, int nx) {
+  int smem = 0, max_blocks = 0;
+  const int err = lbm::status(banded_limits(nx, &smem, &max_blocks));
+  if (err != 0) return -err;
+  return banded_fits(ny, nx, smem, max_blocks) ? 1 : 0;
 }
 
 // n_steps steps on the state in `a`, ping-ponging with `b`: the state ends
@@ -128,4 +403,31 @@ extern "C" int lbm_resident_chunk(float* a, float* b, const uint8_t* mask,
       reinterpret_cast<void*>(resident_kernel), dim3(blocks),
       dim3(lbm::kTileX, lbm::kTileY), args, 0,
       static_cast<cudaStream_t>(stream)));
+}
+
+// The banded form of lbm_resident_chunk, for a grid that
+// lbm_resident_banded_fits takes; the same state, parity and partials.
+// `flags` is ceil(ny/8) int32 and `outbox` 2 * ceil(ny/8) * 2 * 9 * nx
+// float32 of scratch; the flags are reset on `stream` before the launch.
+// `blocks` is 0 (one block per band) except in the test of a refused
+// launch (a grid larger than can be co-resident); fewer blocks than bands
+// are refused with cudaErrorInvalidValue.
+extern "C" int lbm_resident_banded_chunk(float* a, float* b, const uint8_t* mask,
+                                         float* partials, int* flags, float* outbox,
+                                         int ny, int nx, int n_steps, int blocks,
+                                         float w0_omega, float w1_omega, float w2_omega,
+                                         float one_minus_omega, float accel_w1,
+                                         float accel_w2, void* stream) {
+  const int bands = num_bands(ny);
+  if (blocks <= 0) blocks = bands;
+  if (blocks < bands || nx < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(flags, 0, sizeof(int) * bands, s);
+  if (err != cudaSuccess) return lbm::status(err);
+  lbm::StepConsts c{w0_omega,        w1_omega, w2_omega,
+                    one_minus_omega, accel_w1, accel_w2};
+  void* args[] = {&a, &b, &mask, &partials, &flags, &outbox, &ny, &nx, &n_steps, &c};
+  return lbm::status(cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(resident_banded_kernel), dim3(blocks),
+      dim3(band_threads(nx)), args, banded_launch_smem(nx), s));
 }

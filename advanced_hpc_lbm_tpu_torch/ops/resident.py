@@ -1,26 +1,38 @@
-"""The whole run in one launch per chunk: the cooperative persistent CUDA
-kernel, its wrapper and its plain PyTorch version.
+"""The whole run in one launch per chunk: the banded and the cooperative
+CUDA kernels, their wrapper and their plain PyTorch version.
 
 The port's counterpart of ``advanced_hpc_lbm_tpu.ops.resident``
 (``resident_run`` and its kernel ``_chunk_kernel``).  :func:`resident_run`
 is the wrapper: on a CUDA tensor it launches ``csrc/resident_kernel.cu``
-once per chunk of at most ``chunk`` steps and adds one to :data:`launches`
-per launch; on a CPU tensor it runs :func:`plain_run`, a loop of
-``step_kernel.plain_step``.  A CUDA tensor never falls back to the plain
-version: the launch happens or the wrapper raises (a device without
-cooperative launches, a grid too large to be co-resident, a failed launch).
+once per chunk of at most ``chunk`` steps; on a CPU tensor it runs
+:func:`plain_run`, a loop of ``step_kernel.plain_step``.  The kernel has
+two forms, chosen by the grid's shape before the launch
+(:func:`banded_fits` with the card's limits):
 
-Each step runs the step kernel's per-cell code on the step kernel's 32x8
-tiles and writes the same per-tile ||u|| partials, so the state and the av
-history equal the ``step`` backend's bit for bit.  The JAX kernel keeps
-the state in VMEM and clamps a chunk to 1500 steps for its SMEM budget;
-here the state ping-pongs between two buffers in device memory, and the
-chunk only bounds the (chunk, tiles) partials buffer.
+* the banded form, one block per band of 8 rows, neighbouring bands
+  synchronised by flags instead of a grid barrier, for grids whose band
+  fits in shared memory (the small decks); each launch adds one to
+  :data:`banded_launches`;
+* the cooperative form, a persistent grid with one grid barrier per step,
+  for every other grid; each launch adds one to :data:`launches`.
+
+A CUDA tensor never falls back to another form or to the plain version:
+the launch happens or the wrapper raises (a device without cooperative
+launches, a grid too large to be co-resident, a failed launch).
+
+Each step runs the step kernel's per-cell code and writes the step
+kernel's per-tile ||u|| partials (32x8 tiles, row-major), so the state and
+the av history equal the ``step`` backend's bit for bit in either form.
+The JAX kernel keeps the state in VMEM and clamps a chunk to 1500 steps
+for its SMEM budget; here the chunk only bounds the (chunk, tiles)
+partials buffer.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 
 import torch
 
@@ -30,15 +42,25 @@ from advanced_hpc_lbm_tpu_torch.params import LBMParams
 # Steps per launch: bounds the partials buffer (16 MB at 1024x1024).
 CHUNK = 1000
 
-# Kernel launches made by this module since the count was last reset.
+# Kernel launches made by this module since the count was last reset: of
+# the cooperative form, and of the banded form.
 launches = 0
+banded_launches = 0
+
+# A band of the banded form is one row of the step kernel's tiles.
+BAND_ROWS = step_kernel.BLOCK_Y
+# The widest band a block takes (kMaxBandCols in csrc/resident_kernel.cu):
+# one thread per column, at most 10 warps.  The shared-memory rule bounds nx
+# below it on an H100 (318 columns at 232 448 B).
+BAND_MAX_COLS = 320
 
 prepare_obstacles = step_kernel.prepare_obstacles
 
 
 def prepare(device: torch.device | str) -> None:
-    """Build and load the kernel library and load the resident kernel onto
-    ``device`` without launching it; raises if the device takes no
+    """Build and load the kernel library and load both forms of the
+    resident kernel onto ``device`` without launching them (setting the
+    banded form's shared-memory limit); raises if the device takes no
     cooperative launches."""
     device = torch.device(device)
     if device.type != "cuda":
@@ -47,6 +69,59 @@ def prepare(device: torch.device | str) -> None:
     with torch.cuda.device(device):
         torch.zeros(1, device=device)  # create the context first
         step_kernel._raise_on(lib, lib.lbm_resident_prepare(), "loading the resident kernel")
+
+
+def num_bands(ny: int) -> int:
+    return -(-ny // BAND_ROWS)
+
+
+def band_partition(ny: int) -> list[tuple[int, int, int, int]]:
+    """The banded form's bands of an ny-row grid, as the kernel computes
+    them: (first row, rows, band above, band below) each, the last band
+    ragged when ny % 8 != 0, the neighbours wrapping periodically."""
+    n = num_bands(ny)
+    return [(b * BAND_ROWS, min(BAND_ROWS, ny - b * BAND_ROWS), (b - 1) % n, (b + 1) % n)
+            for b in range(n)]
+
+
+def band_smem_bytes(nx: int) -> int:
+    """Shared memory of one band: two ping-pong copies of its 9 planes over
+    its 8 rows and 2 ghost rows (float32), and its 10 mask rows (uint8)."""
+    rows = BAND_ROWS + 2
+    return 2 * 9 * rows * nx * 4 + rows * nx
+
+
+def banded_fits(ny: int, nx: int, smem_bytes: int, max_blocks: int) -> bool:
+    """Whether the banded form takes an (ny, nx) grid on a card with
+    ``smem_bytes`` of opt-in shared memory per block and ``max_blocks``
+    co-resident blocks of the banded kernel at this width (its occupancy
+    x SMs); the C query ``lbm_resident_banded_fits`` is the same rule."""
+    return (1 <= nx <= BAND_MAX_COLS and ny >= 1 and band_smem_bytes(nx) <= smem_bytes
+            and num_bands(ny) <= max_blocks)
+
+
+@functools.cache
+def _banded_limits(device_index: int, nx: int) -> tuple[int, int]:
+    """(opt-in shared memory per block, co-resident blocks of the banded
+    kernel nx wide) on a CUDA device, from the kernel library."""
+    lib = step_kernel._library()
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        torch.zeros(1, device=f"cuda:{device_index}")  # create the context first
+        step_kernel._raise_on(lib, lib.lbm_resident_banded_limits(
+            nx, ctypes.byref(smem), ctypes.byref(blocks)), "querying the banded kernel")
+    return smem.value, blocks.value
+
+
+def takes_banded(ny: int, nx: int, device: torch.device | str) -> bool:
+    """Whether a CUDA device runs an (ny, nx) grid on the banded form (the
+    cooperative form otherwise).  False off CUDA, where the plain version
+    runs."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return False
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return banded_fits(ny, nx, *_banded_limits(index, nx))
 
 
 def plain_run(
@@ -65,21 +140,39 @@ def plain_run(
 
 
 def _chunk_launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams,
-                    blocks: int = 0):
+                    blocks: int = 0, form: str | None = None):
     """A function ``(bufs, n_steps, partials) -> None`` that runs one chunk
-    on tensors shaped like ``f``: the kernel on CUDA, the plain version on
-    the CPU.  ``blocks`` is a test hook: > 0 overrides the cooperative
-    grid size (otherwise the co-resident limit), the only way to make the
-    card refuse a launch; ``resident_run`` never passes it."""
+    on tensors shaped like ``f``: the kernel on CUDA (the form the shape
+    takes, :func:`takes_banded`), the plain version on the CPU.  Two test
+    hooks, which ``resident_run`` never passes: ``blocks`` > 0 overrides
+    the cooperative grid size (otherwise one block per band, or the
+    co-resident limit), the only way to make the card refuse a launch;
+    ``form="cooperative"`` runs the cooperative form on any grid."""
     if f.device.type == "cpu":
         return lambda bufs, n, part: plain_run(bufs, mask, params, n, part)
     if f.device.type != "cuda":
         raise ValueError(f"no resident kernel for device {f.device}")
+    if form not in (None, "cooperative"):
+        raise ValueError(f"unknown form {form!r}")
     lib = step_kernel._library()
     _, ny, nx = f.shape
     consts = step_kernel._consts(params)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     mask_ptr = mask.data_ptr()
+
+    if form is None and takes_banded(ny, nx, f.device):
+        bands = num_bands(ny)
+        flags = torch.empty(bands, dtype=torch.int32, device=f.device)
+        outbox = torch.empty(2 * bands * 2 * 9 * nx, dtype=torch.float32, device=f.device)
+
+        def banded(bufs, n, part):
+            global banded_launches
+            err = lib.lbm_resident_banded_chunk(
+                bufs[0].data_ptr(), bufs[1].data_ptr(), mask_ptr, part.data_ptr(),
+                flags.data_ptr(), outbox.data_ptr(), ny, nx, n, blocks, *consts, stream)
+            step_kernel._raise_on(lib, err, "resident kernel launch")
+            banded_launches += 1
+        return banded
 
     def chunk(bufs, n, part):
         global launches

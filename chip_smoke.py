@@ -16,10 +16,14 @@ non-zero and prints no result:
   3. kernel  the step kernel against its plain PyTorch version on the card,
              from seeded states, at 1024x1024, 64x64, 100x130 and 17x23,
              1 and 50 steps, plus a forcing row that fails the guard
-  3r. resident  the resident kernel against the step kernel (0 differing
-             values) and its plain version, 1024^2 to 17x23: 1 and 50 steps
-             in one chunk, 17 steps in chunks of 6 with a guard-failing
-             row; then its time per step beside the step kernel's run loop
+  3r. resident  the form each shape takes (the C rule against
+             resident.banded_fits; the band's shared-memory bytes, ptxas's
+             registers and spills of both forms), then the resident kernel
+             against the step kernel (0 differing values) and its plain
+             version, 1024^2 to 17x23: 1 and 50 steps in one chunk, 17
+             steps in chunks of 6 with a guard-failing row, in both forms
+             where the banded one applies; then its time per step beside
+             the step kernel's run loop, both forms in turns at 64^2 to 256^2
   3k. kstep  the K-step kernel (every built K; at 4096^2 K = 2, 4, 8 and
              best_k, the K pallask runs there) against the step kernel (0
              differing values) and its plain version at 4096^2, 1024^2,
@@ -139,6 +143,7 @@ def kernel_counters() -> dict:
 
     return {"step_kernel": (step_kernel, "launches"),
             "resident_kernel": (resident, "launches"),
+            "resident_banded_kernel": (resident, "banded_launches"),
             "kstep_kernel": (kstep_kernel, "launches"),
             "stream_kernel": (stream_kernel, "launches"),
             "stream_snapshot": (stream_kernel, "snapshot_launches"),
@@ -189,6 +194,26 @@ def phase_card() -> str:
 
 # ---- 2. build --------------------------------------------------------------
 
+def ptxas_report(kernel: str | None = None) -> list[str]:
+    """ptxas's lines (registers, shared memory; spills where not 0) of each
+    kernel entry in the library's build log, or of the entries whose
+    (mangled) name holds ``kernel``."""
+    from advanced_hpc_lbm_tpu_torch.ops import _build
+
+    log = _build.library_path().with_suffix(".log")
+    report, name = [], "?"
+    for ln in log.read_text().splitlines() if log.exists() else ():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif kernel is not None and kernel not in name:
+            continue
+        elif "registers" in ln:
+            report.append(f"{name}: {ln.split(':', 1)[1].strip()}")
+        elif "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill"):
+            report.append(f"{name}: {ln.strip()}")
+    return report
+
+
 def phase_build() -> None:
     from advanced_hpc_lbm_tpu_torch.ops import _build, kstep_kernel, resident, step_kernel
     from advanced_hpc_lbm_tpu_torch.ops import local_kernel, stream_kernel
@@ -200,16 +225,9 @@ def phase_build() -> None:
     stream_kernel.prepare("cuda")
     local_kernel.prepare("cuda", tuple(kstep_kernel.K_RANGE))
     dt = time.perf_counter() - t0
-    log = path.with_suffix(".log")
-    report, name = [], "?"
-    for ln in log.read_text().splitlines() if log.exists() else ():
-        if "Compiling entry function" in ln:
-            name = ln.split("'")[1]
-        elif "registers" in ln:
-            report.append(f"{name}: {ln.split(':', 1)[1].strip()}")
-        elif "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill"):
-            report.append(f"{name}: {ln.strip()}")
-    for kernel in ("stream_kernel", "local_step_kernel", "kstep_kernel"):
+    report = ptxas_report()
+    for kernel in ("stream_kernel", "local_step_kernel", "kstep_kernel", "resident_kernel",
+                   "resident_banded_kernel"):
         if not any(kernel in r for r in report):
             fail(f"[2 build] {kernel} is not in the ptxas report")
     report = " | ".join(report)
@@ -378,36 +396,109 @@ def plain_resident(f, mask, params, n, chunk):
     return bufs[n % 2], part.sum(dim=1) / (mask == 0).sum().to(torch.float32)
 
 
-def phase_resident(card: str) -> tuple[float, dict]:
+def resident_form(f, mask, params, n, chunk, form):
+    """n steps of the resident kernel in chunks, in the form the shape takes
+    (``form`` None) or the cooperative one (the wrapper's test hook):
+    (state, av), as resident_run returns them."""
     from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel
 
-    shapes = ((1024, 1024), (256, 256), (128, 128), (64, 64), (100, 130), (17, 23))
-    worst = 0.0
+    if form is None:
+        return resident.resident_run(f, mask, params, n_iters=n, chunk=chunk)
+    _, ny, nx = f.shape
+    mask = step_kernel.prepare_obstacles(mask)
+    bufs = (f.clone(), torch.empty_like(f))
+    part = torch.empty(chunk, step_kernel.num_partials(ny, nx), device=f.device)
+    av = torch.empty(n, device=f.device)
+    launch = resident._chunk_launcher(f, mask, params, form=form)
+    for t0 in range(0, n, chunk):
+        m = min(chunk, n - t0)
+        launch((bufs[t0 % 2], bufs[(t0 + 1) % 2]), m, part)
+        torch.sum(part[:m], dim=1, out=av[t0:t0 + m])
+    return bufs[n % 2], av / (mask == 0).sum().to(torch.float32)
+
+
+# grids whose form phase 3r holds: the C rule against resident.banded_fits
+RULE_SHAPES = ((8, 32), (17, 23), (64, 64), (128, 128), (128, 256), (256, 128), (256, 256),
+               (1056, 64), (1064, 64), (64, 318), (64, 319), (256, 512), (512, 512),
+               (1024, 1024))
+# the small decks, which the banded form must take
+BANDED_DECKS = ((64, 64), (128, 128), (128, 256), (256, 128), (256, 256))
+
+
+def check_banded_rule(card: str) -> None:
+    """The C query lbm_resident_banded_fits equals resident.banded_fits on
+    the card's limits; the small decks take the banded form, 512^2 and
+    1024^2 the cooperative one."""
+    from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel
+
+    lib = step_kernel._library()
+    dev = torch.cuda.current_device()
+    rows = []
+    for ny, nx in RULE_SHAPES:
+        smem, blocks = resident._banded_limits(dev, nx)
+        c_rule = lib.lbm_resident_banded_fits(ny, nx)
+        py_rule = resident.banded_fits(ny, nx, smem, blocks)
+        if c_rule != int(py_rule):
+            fail(f"[3r resident] {ny}x{nx}: the C rule says {c_rule}, banded_fits {py_rule} "
+                 f"(smem {smem} B, {blocks} co-resident blocks)")
+        rows.append(f"{ny}x{nx} {'banded' if py_rule else 'cooperative'} ({blocks} blocks)")
+    for ny, nx in BANDED_DECKS:
+        if not resident.takes_banded(ny, nx, "cuda"):
+            fail(f"[3r resident] {ny}x{nx} does not take the banded form")
+    for ny, nx in ((512, 512), (1024, 1024)):
+        if resident.takes_banded(ny, nx, "cuda"):
+            fail(f"[3r resident] {ny}x{nx} takes the banded form")
+    smem = resident._banded_limits(dev, 64)[0]
+    say(f"[3r resident] form by shape, C rule = banded_fits at {smem} B of opt-in shared "
+        f"memory: {', '.join(rows)}; band bytes (2*9*10*nx*4 + 10*nx): nx=64 "
+        f"{resident.band_smem_bytes(64)}, 128 {resident.band_smem_bytes(128)}, 256 "
+        f"{resident.band_smem_bytes(256)} | ptxas: "
+        + " | ".join(ptxas_report("resident")) + f" | {card}")
+
+
+def phase_resident(card: str) -> tuple[dict, dict]:
+    """Both forms against the step kernel (0 differing values) and the plain
+    version; returns (worst max |df| against the plain version per form,
+    times)."""
+    from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel
+
+    check_banded_rule(card)
+    shapes = ((1024, 1024), (256, 512), (256, 256), (128, 256), (128, 128), (64, 64),
+              (100, 130), (17, 23))
+    worst = {"banded": 0.0, "cooperative": 0.0}
     for seed, (ny, nx) in enumerate(shapes):
+        banded = resident.takes_banded(ny, nx, "cuda")
+        forms = (None, "cooperative") if banded else (None,)
         for n, chunk, guard in ((1, resident.CHUNK, False), (50, resident.CHUNK, False),
                                 (17, 6, True)):
             params, mask, f = on_card(ny, nx, 100 + seed, guard)
-            tag = f"[3r resident] {ny}x{nx} {n} step(s), chunk {chunk}" + (
-                ", guard-failing row" if guard else "")
-            resident.launches = 0
-            fr, avr = resident.resident_run(f, mask, params, n_iters=n, chunk=chunk)
-            torch.cuda.synchronize()
-            if resident.launches != -(-n // chunk):
-                fail(f"{tag}: {resident.launches} launches, expected {-(-n // chunk)}")
             fs, avs = step_kernel.run(f, mask, params, n_iters=n)
             fp, avp = plain_resident(f, mask, params, n, chunk)
-            torch.cuda.synchronize()
-            worst = max(worst, diff_line(fr, fp)[0])
-            say(f"{tag}: {resident.launches} launch(es); "
-                f"{check_against(tag, fr, avr, fs, avs, 'step kernel', True)}; "
-                f"{check_against(tag, fr, avr, fp, avp, 'plain version', False)}")
+            for form in forms:
+                name = "banded" if banded and form is None else "cooperative"
+                tag = f"[3r resident] {name} {ny}x{nx} {n} step(s), chunk {chunk}" + (
+                    ", guard-failing row" if guard else "")
+                resident.launches = resident.banded_launches = 0
+                fr, avr = resident_form(f, mask, params, n, chunk, form)
+                torch.cuda.synchronize()
+                counts = (resident.banded_launches, resident.launches)
+                want = (-(-n // chunk), 0) if name == "banded" else (0, -(-n // chunk))
+                if counts != want:
+                    fail(f"{tag}: (banded, cooperative) launches {counts}, expected {want}")
+                worst[name] = max(worst[name], diff_line(fr, fp)[0])
+                say(f"{tag}: {sum(counts)} launch(es); "
+                    f"{check_against(tag, fr, avr, fs, avs, 'step kernel', True)}; "
+                    f"{check_against(tag, fr, avr, fp, avp, 'plain version', False)}")
     return worst, time_whole_runs(card)
 
 
 def time_whole_runs(card: str) -> dict:
-    """us per step of the resident kernel, the step kernel's run loop and
-    the plain step at grids from 64^2 to 4096^2 (one chunk of RUN_STEPS
-    steps per timed run; the plain step one call at a time)."""
+    """us per step of the resident kernel in the form the shape takes, the
+    step kernel's run loop and the plain step at grids from 64^2 to 4096^2
+    (one chunk of RUN_STEPS steps per timed run; the plain step one call at
+    a time); at 64^2, 128^2 and 256^2 the banded and the cooperative form in
+    turns (cooperative, banded, banded, cooperative).  Returns (resident,
+    step, plain, cooperative form) ms per step by grid."""
     from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel
 
     times = {}
@@ -415,13 +506,25 @@ def time_whole_runs(card: str) -> dict:
         params, mask, f = on_card(n, n, 200 + seed)
         steps = RUN_STEPS if n <= 2048 else RUN_STEPS // 4
         reps = 3 if n <= 2048 else 1
-        r_ms = time_ms(lambda: resident.resident_run(f, mask, params, n_iters=steps), reps) / steps
+
+        def run(form=None):
+            return time_ms(lambda: resident_form(f, mask, params, steps, steps, form),
+                           reps) / steps
+        if resident.takes_banded(n, n, "cuda"):
+            c1, b1, b2, c2 = run("cooperative"), run(), run(), run("cooperative")
+            r_ms, coop_ms = (b1 + b2) / 2, (c1 + c2) / 2
+            forms = (f"banded {r_ms * 1e3:.2f} us ({b1 * 1e3:.2f}, {b2 * 1e3:.2f}), "
+                     f"cooperative {coop_ms * 1e3:.2f} us ({c1 * 1e3:.2f}, {c2 * 1e3:.2f}), "
+                     f"banded {coop_ms / r_ms - 1:+.1%} faster")
+        else:
+            r_ms = coop_ms = run()
+            forms = f"cooperative {r_ms * 1e3:.2f} us"
         s_ms = time_ms(lambda: step_kernel.run(f, mask, params, n_iters=steps), reps) / steps
         p_ms = (time_ms(step_timer(step_kernel.plain_step, params, mask, f), 20)
                 if n in (128, 1024) else float("nan"))
-        times[(n, n)] = (r_ms, s_ms, p_ms)
+        times[(n, n)] = (r_ms, s_ms, p_ms, coop_ms)
         say(f"[3r resident] {n}x{n} time per step ({steps} steps, one chunk): resident "
-            f"{r_ms * 1e3:.2f} us ({n * n / r_ms / 1e6:.3f} GLUPS), step run loop "
+            f"{forms} ({n * n / r_ms / 1e6:.3f} GLUPS), step run loop "
             f"{s_ms * 1e3:.2f} us ({n * n / s_ms / 1e6:.3f} GLUPS), plain "
             + (f"{p_ms * 1e3:.2f} us" if p_ms == p_ms else "not timed")
             + f" | {card}")
@@ -664,7 +767,9 @@ def expected_launches(backend: str, ny: int, nx: int, iters: int) -> dict:
     if backend in ("step", "pallas"):
         want["step_kernel"] = iters
     elif backend == "resident":
-        want["resident_kernel"] = -(-iters // resident.CHUNK)
+        form = ("resident_banded_kernel" if resident.takes_banded(ny, nx, "cuda")
+                else "resident_kernel")
+        want[form] = -(-iters // resident.CHUNK)
     elif backend == "stream":
         want["stream_kernel"], want["step_kernel"] = divmod(iters, stream_kernel.K)
         want["stream_snapshot"] = want["stream_kernel"]
@@ -773,7 +878,7 @@ def phase_full(card: str, times: dict) -> None:
             fail(f"[5 full] library run ({sim.backend}) disagrees with the CLI's "
                  f"--backend {backend} av history")
     same = bool(np.array_equal(histories["auto"], histories["resident"]))
-    r_ms, s_ms, p_ms = times[(ny, nx)]
+    r_ms, s_ms, p_ms, _ = times[(ny, nx)]
     say(f"[5 full] library run ({sim.backend}): launches {counts}, mass drift {drift:.3e} "
         f"(limit 1e-4), av within rtol 1e-5 of both CLI runs; auto and resident av "
         f"{'bitwise equal' if same else 'within rtol 1e-5'} | {card}")
@@ -1317,7 +1422,7 @@ def main() -> int:
     from advanced_hpc_lbm_tpu_torch.ops import kstep_kernel, stream_kernel
 
     k_ms, p_ms = step_times[(1024, 1024)]
-    r_ms, _, rp_ms = res_times[(128, 128)]  # the reference's 128x128 deck
+    r_ms, _, rp_ms, coop_ms = res_times[(128, 128)]  # the reference's 128x128 deck
     best = kstep_kernel.best_k(4096, 4096)
     big = k_times[(4096, 4096)]
     st = s_times[(4096, 4096)]
@@ -1329,7 +1434,10 @@ def main() -> int:
         ("step_kernel", "step_kernel.cu", "advanced_hpc_lbm_tpu/ops/pallas_step.py:112", {},
          worst_step, k_ms, p_ms, bound(1024 * 1024, 1)),
         ("resident_kernel", "resident_kernel.cu", "advanced_hpc_lbm_tpu/ops/resident.py:88", {},
-         worst_res, r_ms, rp_ms, bound(128 * 128, RUN_STEPS)),
+         worst_res["cooperative"], coop_ms, rp_ms, bound(128 * 128, RUN_STEPS)),
+        ("resident_banded_kernel", "resident_kernel.cu",
+         "advanced_hpc_lbm_tpu/ops/resident.py:88", {},
+         worst_res["banded"], r_ms, rp_ms, bound(128 * 128, RUN_STEPS)),
         ("kstep_kernel", "kstep_kernel.cu", "advanced_hpc_lbm_tpu/ops/pallas_k.py:208",
          {"also_replaces": ["advanced_hpc_lbm_tpu/ops/pallas_k.py:143",
                             "advanced_hpc_lbm_tpu/ops/pallas_multi.py:97"]},

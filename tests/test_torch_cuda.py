@@ -101,11 +101,16 @@ def _on_card(ny, nx, seed):
 
 @pytest.mark.parametrize("ny,nx", [(64, 64), (100, 130), (17, 23), (256, 512)])
 def test_resident_matches_step_and_plain_on_card(ny, nx):
+    """Whichever form the shape takes: the banded one up to 256 x 318, the
+    cooperative one on 256 x 512."""
     params, mask, f = _on_card(ny, nx, seed=3)
-    before = resident.launches
+    banded = resident.takes_banded(ny, nx, "cuda")
+    assert banded is (nx <= 318)
+    before = (resident.launches, resident.banded_launches)
     fr, avr = resident.resident_run(f, mask, params, n_iters=17, chunk=6)
     torch.cuda.synchronize()
-    assert resident.launches - before == 3  # chunks of 6, 6 and 5 steps
+    moved = (resident.launches - before[0], resident.banded_launches - before[1])
+    assert moved == ((0, 3) if banded else (3, 0))  # chunks of 6, 6 and 5 steps
     fs, avs = step_kernel.run(f, mask, params, n_iters=17)
     assert int((fr != fs).sum()) == 0
     torch.testing.assert_close(avr, avs, rtol=1e-5, atol=0.0)
@@ -114,17 +119,88 @@ def test_resident_matches_step_and_plain_on_card(ny, nx):
     torch.testing.assert_close(avr.cpu(), avp, rtol=1e-5, atol=0.0)
 
 
+def _chunked_partials(launcher, f, n, chunk, tiles):
+    """Run n steps in chunks through a chunk launcher; (state, partials)."""
+    bufs = (f.clone(), torch.empty_like(f))
+    part = torch.empty(n, tiles, device=f.device)
+    for t0 in range(0, n, chunk):
+        m = min(chunk, n - t0)
+        launcher((bufs[t0 % 2], bufs[(t0 + 1) % 2]), m, part[t0:t0 + m])
+    return bufs[n % 2], part
+
+
+@pytest.mark.parametrize("ny,nx", [(8, 32), (16, 32), (17, 23), (64, 64), (128, 256),
+                                   (256, 256)])
+def test_banded_resident_matches_step_kernel_bitwise(ny, nx):
+    """One band, two bands, a ragged band, the mini deck and two reference
+    decks: 17 steps in chunks of 6 (the flags reset between launches), 0
+    differing values in f and bitwise-equal partials against the step
+    kernel, and the cooperative form's state on the same input."""
+    params, mask, f = _on_card(ny, nx, seed=ny + nx)
+    mask = step_kernel.prepare_obstacles(mask)
+    assert resident.takes_banded(ny, nx, "cuda")
+    tiles = step_kernel.num_partials(ny, nx)
+    before = (resident.launches, resident.banded_launches)
+    fb, pb = _chunked_partials(resident._chunk_launcher(f, mask, params), f, 17, 6, tiles)
+    torch.cuda.synchronize()
+    assert (resident.launches - before[0], resident.banded_launches - before[1]) == (0, 3)
+    bufs = [f.clone(), torch.empty_like(f)]
+    ps = torch.empty(17, tiles, device="cuda")
+    for t in range(17):
+        step_kernel.step(bufs[t % 2], mask, params, out=bufs[(t + 1) % 2], partials=ps[t])
+    assert int((fb != bufs[1]).sum()) == 0
+    assert int((pb != ps).sum()) == 0
+    fc, pc = _chunked_partials(resident._chunk_launcher(f, mask, params, form="cooperative"),
+                               f, 17, 6, tiles)
+    assert int((fb != fc).sum()) == 0 and int((pb != pc).sum()) == 0
+
+
+def test_wide_grid_runs_the_cooperative_form():
+    params, mask, f = _on_card(256, 512, seed=9)
+    assert not resident.takes_banded(256, 512, "cuda")
+    before = (resident.launches, resident.banded_launches)
+    resident.resident_run(f, mask, params, n_iters=4, chunk=2)
+    torch.cuda.synchronize()
+    assert (resident.launches - before[0], resident.banded_launches - before[1]) == (2, 0)
+
+
+@pytest.mark.parametrize("ny,nx", [(8, 32), (64, 64), (256, 256), (1056, 64), (1064, 64),
+                                   (64, 318), (64, 319), (512, 512), (1024, 1024)])
+def test_banded_rule_in_c_equals_python(ny, nx):
+    lib = step_kernel._library()
+    smem, blocks = resident._banded_limits(torch.cuda.current_device(), nx)
+    assert smem >= resident.band_smem_bytes(256)
+    assert (blocks >= 1) is (nx <= resident.BAND_MAX_COLS)  # 0: the kernel cannot take nx
+    assert lib.lbm_resident_banded_fits(ny, nx) == int(resident.banded_fits(ny, nx, smem, blocks))
+
+
 def test_oversized_cooperative_grid_raises():
     """10**6 blocks exceed any card's co-resident limit (132 SMs x at most
     32 blocks): the launch is refused, and the wrapper raises."""
     params, mask, f = _on_card(64, 64, seed=4)
     mask = step_kernel.prepare_obstacles(mask)
     part = torch.empty(2, step_kernel.num_partials(64, 64), device="cuda")
-    run_chunk = resident._chunk_launcher(f, mask, params, blocks=10**6)
+    run_chunk = resident._chunk_launcher(f, mask, params, blocks=10**6, form="cooperative")
     with pytest.raises(RuntimeError, match="resident kernel launch failed"):
         run_chunk((f.clone(), torch.empty_like(f)), 2, part)
     # the refusal is not reported again by the next launch
     step_kernel.run(f, mask, params, n_iters=2)
+    torch.cuda.synchronize()
+
+
+def test_refused_banded_launch_raises():
+    """The banded form refused (a grid of 10**6 blocks cannot be
+    co-resident): the wrapper raises and counts no launch; the next launch
+    runs."""
+    params, mask, f = _on_card(64, 64, seed=6)
+    mask = step_kernel.prepare_obstacles(mask)
+    part = torch.empty(2, step_kernel.num_partials(64, 64), device="cuda")
+    run_chunk = resident._chunk_launcher(f, mask, params, blocks=10**6)
+    before = (resident.launches, resident.banded_launches)
+    with pytest.raises(RuntimeError, match="resident kernel launch failed"):
+        run_chunk((f.clone(), torch.empty_like(f)), 2, part)
+    assert (resident.launches, resident.banded_launches) == before
+    resident.resident_run(f, mask, params, n_iters=2)
     torch.cuda.synchronize()
 
 
@@ -214,15 +290,18 @@ def test_stream_pipeline_in_place_matches_step_on_card(ny, nx):
 ])
 def test_simulation_launch_counts(backend, counts):
     """Exact launches per kernel module for a 25-step run: (step,
-    resident, K-step); warmup launches nothing.  pallask runs at
-    best_k(48, 80) = 5: 5 passes and no tail."""
+    resident in either form, K-step); warmup launches nothing.  pallask
+    runs at best_k(48, 80) = 5: 5 passes and no tail."""
     params, mask_np, _ = make_case(48, 80, seed=5)
     assert kstep_kernel.best_k(48, 80) == 5
     sim = Simulation(params, mask_np, backend=backend, device="cuda")
     sim.warmup()
-    before = (step_kernel.launches, resident.launches, kstep_kernel.launches)
+    def counts_now():
+        return (step_kernel.launches, resident.launches + resident.banded_launches,
+                kstep_kernel.launches)
+    before = counts_now()
     res = sim.run(n_iters=25)
-    after = (step_kernel.launches, resident.launches, kstep_kernel.launches)
+    after = counts_now()
     assert tuple(a - b for a, b in zip(after, before)) == counts
     cpu = Simulation(params, mask_np, backend=backend, device="cpu").run(n_iters=25)
     np.testing.assert_allclose(res.f_final, cpu.f_final, rtol=1e-6, atol=1e-8)

@@ -266,6 +266,17 @@ def test_cli_bad_choice_exits_1(tmp_path, capsys, extra, message):
     assert rc == 1 and message in err
 
 
+def test_cli_unknown_backend_exits_2(tmp_path, capsys):
+    """An unknown --backend is refused by argparse with the usage line and
+    exit code 2, as the reference's CLI does."""
+    with pytest.raises(SystemExit) as e:
+        cli.main([*MINI, "--device", "cpu", "--backend", "nope", "--out-dir", str(tmp_path)])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert "usage:" in err and "invalid choice: 'nope'" in err
+    assert not (tmp_path / "av_vels.dat").exists()
+
+
 def test_cli_bad_deck_exits_1(tmp_path, capsys):
     bad = tmp_path / "bad.params"
     bad.write_text("not a number\n")
@@ -316,6 +327,7 @@ def test_no_jax_import_in_sources():
 def test_launch_counter_is_a_plain_int():
     for module in (step_kernel, resident, kstep_kernel, stream_kernel):
         assert isinstance(module.launches, int)
+    assert isinstance(resident.banded_launches, int)
     assert isinstance(stream_kernel.snapshot_launches, int)
 
 

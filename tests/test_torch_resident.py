@@ -118,3 +118,57 @@ def test_prepare_builds_nothing_on_cpu(monkeypatch):
     from advanced_hpc_lbm_tpu_torch.ops import _build
     monkeypatch.setattr(_build, "build", lambda: pytest.fail("built on the CPU"))
     resident.prepare("cpu")
+
+
+# ---- the banded form's shape rule and band partition ---------------------------
+
+H100_SMEM = 232_448  # opt-in shared memory per block
+H100_BLOCKS = 132  # 132 SMs x 1 block of the widest band
+
+
+@pytest.mark.parametrize("ny,nx,banded", [
+    (64, 64, True), (128, 128, True), (128, 256, True), (256, 128, True), (256, 256, True),
+    (8, 32, True), (17, 23, True), (512, 512, False), (1024, 1024, False), (64, 320, False),
+    (256, 318, True), (256, 319, False),
+])
+def test_banded_rule_at_h100_limits(ny, nx, banded):
+    """The reference's small decks and the mini deck go to the banded form;
+    512^2, 1024^2 and any band wider than 318 columns (its 2 x 9 x 10 x nx
+    floats and 10 x nx mask bytes above 232 448 B) do not."""
+    assert resident.banded_fits(ny, nx, H100_SMEM, H100_BLOCKS) is banded
+
+
+@pytest.mark.parametrize("ny,max_blocks,banded", [
+    (1056, H100_BLOCKS, True), (1057, H100_BLOCKS, False), (64, 8, True), (65, 8, False),
+    (8, 1, True), (9, 1, False), (1, 0, False),
+])
+def test_banded_rule_needs_every_band_co_resident(ny, max_blocks, banded):
+    assert resident.banded_fits(ny, 64, H100_SMEM, max_blocks) is banded
+
+
+def test_band_smem_bytes():
+    assert resident.band_smem_bytes(64) == 2 * 9 * 10 * 64 * 4 + 10 * 64
+    assert resident.band_smem_bytes(318) <= H100_SMEM < resident.band_smem_bytes(319)
+
+
+@pytest.mark.parametrize("ny,bands", [
+    (17, [(0, 8, 2, 1), (8, 8, 0, 2), (16, 1, 1, 0)]),  # ragged last band
+    (8, [(0, 8, 0, 0)]),  # one band: its own neighbour both ways
+    (5, [(0, 5, 0, 0)]),
+    (16, [(0, 8, 1, 1), (8, 8, 0, 0)]),  # two bands: each the other's neighbour
+    (32, [(0, 8, 3, 1), (8, 8, 0, 2), (16, 8, 1, 3), (24, 8, 2, 0)]),
+])
+def test_band_partition(ny, bands):
+    """(first row, rows, band above, band below): the step kernel's tile
+    rows, wrapping periodically."""
+    assert resident.band_partition(ny) == bands
+    assert resident.num_bands(ny) == len(bands)
+    assert sum(h for _, h, _, _ in bands) == ny
+
+
+def test_cpu_takes_no_form():
+    assert not resident.takes_banded(64, 64, "cpu")
+    jp, mask, f0 = make_deck(16, 32)
+    before = (resident.launches, resident.banded_launches)
+    port_run(jp, mask, f0, 3)
+    assert (resident.launches, resident.banded_launches) == before
