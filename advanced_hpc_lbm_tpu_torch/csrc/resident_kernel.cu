@@ -16,53 +16,75 @@
 //
 // The banded form (resident_banded_kernel), for the small decks:
 // * Band b is the step kernel's tile row b: grid rows 8b .. 8b+7, the last
-//   band ragged when ny % 8 != 0.  One block per band; thread x owns column
-//   x of the band (8 cells), blockDim = 32 * ceil(nx / 32).  The grid is a
-//   cooperative launch of exactly ceil(ny / 8) blocks, which guarantees
-//   that every block is resident, as the spin-waits below need.  There is
-//   no grid-wide barrier.
+//   band ragged when ny % 8 != 0.  One block per band, one thread column
+//   per grid column (whole warps), and 8 / R threads per column, each
+//   stepping R of the band's rows (R = 1 up to 128 columns, 2 up to 256,
+//   4 beyond: at most 1024 threads).  The grid is a cooperative launch of
+//   exactly ceil(ny / 8) blocks, which guarantees that every block is
+//   resident, as the spin-waits below need.  There is no grid-wide
+//   barrier.
+// * The band lives in shared memory for the whole chunk: two ping-pong
+//   copies of its 9 planes over its 8 rows, and the mask of its rows and
+//   its two ghost rows.  It is read from `a` once at chunk start and
+//   written back once at chunk end, to `a` for an even n_steps, else to
+//   `b`, as the cooperative form leaves it.
 // * A step of a band needs only the row above it and the row below it.
 //   Bands exchange their edge rows (all 9 speeds) through an outbox in
 //   device memory, 2 slots x bands x {top, bottom} x 9 x nx floats, and
 //   announce them through one int flag per band.  flags[b] = t+1 means:
 //   band b has put the edge rows of its state t into slot t % 2, and it has
 //   finished reading its neighbours' slot (t-1) % 2.  Step t of band b:
-//     1. wait until flags[prev] >= t+1 and flags[next] >= t+1 (prev and
-//        next wrap periodically, and may be one band or b itself);
-//     2. read the two ghost rows from the neighbours' slot t % 2;
-//     3. step the band;
-//     4. write its own new edge rows to slot (t+1) % 2;
+//     1. each thread that steps the top (bottom) row waits until
+//        flags[prev] (flags[next]) >= t+1; prev and next wrap
+//        periodically, and may be one band or b itself.  Inner rows need
+//        nothing of the neighbours and are stepped first;
+//     2. the edge rows read the ghost rows from the neighbours' slot t % 2;
+//     3. every row is stepped from one copy into the other;
+//     4. the edge rows write their new values to slot (t+1) % 2;
 //     5. publish flags[b] = t+2: a __syncthreads, then the publishing
-//        thread's __threadfence and store (the order grid.sync uses).
+//        thread's __threadfence and store (the order grid.sync uses).  It
+//        is the one block barrier of a step: it also ends the step's
+//        reads of the copy that the next step overwrites.
 //   At chunk start each band reads only its own rows of `a` and publishes
 //   state 0 into slot 0, so no band ever reads another band's rows of `a`
 //   or `b`, and the final write of a band cannot race a neighbour.
 // * Write after read: band b overwrites slot (t+1) % 2 at step t only after
-//   it has seen flags[nb] >= t+1 for both neighbours nb, so each neighbour
-//   has finished step t-1, its reads of that slot included.  No band runs
-//   more than one step ahead of a neighbour.  Read after write: the slot
-//   band b reads at step t was published by flags[nb] >= t+1 after a fence.
-// * Memory model: the flag is stored with release semantics after the
-//   fence; the waiting thread polls with relaxed device-scope loads,
-//   fences, and a __syncthreads hands the acquire to the block.  Outbox
-//   reads go through __ldcg (L2, never L1: the same slot is re-read every
-//   second step and L1 is not coherent across SMs).  A wait that exceeds
-//   kMaxPolls polls traps, so that a fault ends the run with an error
-//   instead of a hang.  The wrapper resets the flags before every launch
-//   (cudaMemsetAsync on the launch's stream).
-// * ||u|| partials without a barrier: block_sum's tree over a 32x8 tile
-//   (strides 128, 64, 32, then 16 .. 1) is, per column, the register sum
+//   it has seen flags[nb] >= t+1 for the neighbour nb that reads that
+//   edge row, so nb has finished step t-1, its reads of that slot
+//   included.  No band runs more than one step ahead of a neighbour.  Read
+//   after write: the slot band b reads at step t was published by
+//   flags[nb] >= t+1 after a fence.
+// * Memory model: the flag is stored after the publishing thread's fence;
+//   a waiting thread polls it with device-scope acquire loads.  Outbox
+//   reads go through __ldcg and writes through __stcg (L2, never L1: the
+//   same slot is re-read every second step and L1 is not coherent across
+//   SMs).  A wait that exceeds kMaxPolls polls traps, so that a fault ends
+//   the run with an error instead of a hang.  The wrapper resets the flags
+//   before every launch (cudaMemsetAsync on the launch's stream).
+// * ||u|| partials with the block's one barrier: block_sum's tree over a
+//   32x8 tile (strides 128, 64, 32, then 16 .. 1) is, per column, the sum
 //   ((r0+r4)+(r2+r6)) + ((r1+r5)+(r3+r7)) of its 8 rows followed by
-//   __shfl_down_sync by 16, 8, 4, 2, 1 across the warp, so lane 0 of warp w
-//   holds tile (b, w)'s partial bit for bit.  Rows past ny contribute 0.
-// * The state stays in the two buffers in device memory (L2-resident at
-//   these sizes), each band reading and writing only its own rows.
+//   __shfl_down_sync by 16, 8, 4, 2, 1 across the warp.  Each thread adds
+//   its own rows in that order (R = 2: r_j + r_j+4; R = 4:
+//   (r_j + r_j+4) + (r_j+2 + r_j+6)) into shared memory before the
+//   publish barrier; after it, the first thread of each column adds the
+//   column's threads in the tree's order and warp w's lane 0 holds tile
+//   (b, w)'s partial bit for bit.  The sums of two steps alternate, so
+//   the next step's writes cannot overtake these reads.  Rows past ny
+//   contribute 0.
 // * Which grids: the band with its two ghost rows, two ping-pong copies of
 //   its 9 planes and its mask rows, 2*9*10*nx*4 + 10*nx bytes, fits the
 //   card's opt-in shared memory (nx <= 318 at 232 448 B), and ceil(ny/8)
 //   blocks are co-resident (occupancy x SMs): the reference's 128^2,
 //   128x256 and 256^2 decks and the 64^2 mini deck, not 512^2 or 1024^2.
-//
+//   (The launch needs less: the ghost rows are read from L2.)
+// * History: a first form with one thread per column stepping all 8 rows,
+//   the state in device memory and a block-wide wait, ran 14.94 / 18.36 /
+//   20.07 us per step at 64^2 / 128^2 / 256^2 against the cooperative
+//   form's 3.56 / 3.80 / 4.19 (H100 80GB HBM3, 700 W): one warp per
+//   scheduler stepped eight cells one after another, 168 registers with
+//   1 KB of spills.
+
 // The cooperative form (resident_kernel), for every other grid:
 // * One cooperative launch per chunk.  The grid is as large as can be
 //   co-resident (occupancy x SMs), capped at the tile count; each block
@@ -131,155 +153,264 @@ __global__ void __launch_bounds__(kThreads)
 // ---- the banded form ------------------------------------------------------
 
 constexpr int kBandRows = lbm::kTileY;  // a band is one tile row
+constexpr int kRows = kBandRows + 2;    // a block's rows with its two ghost rows
 constexpr int kSpeeds = 9;
-// Shared memory is the rule's bound on nx (318 at the card's 232 448 B),
-// so a band has at most 10 warps.
+// Shared memory is the rule's bound on nx (318 at the card's 232 448 B).
 constexpr int kMaxBandCols = 320;
-constexpr int kMaxBandThreads = kMaxBandCols;
+// A block steps one cell per thread: at most 4 tiles (128 columns) of a
+// band, 1024 threads.
+constexpr int kMaxSegTiles = 4;
+constexpr int kMaxBandThreads = kMaxSegTiles * lbm::kTileX * kBandRows;
+// Ghost values a thread gathers per step, at most: 9 x (2 (seg_w + 2) + 2 x
+// 8) values over 8 seg_w threads is at most 3 for seg_w >= 30.
+constexpr int kGather = 3;
 constexpr int kMaxPolls = 1 << 24;  // ~seconds of polling: a fault, not a wait
+
+// An outbox value: the float's bits, and above them the step it belongs to
+// plus one (0, the reset value, belongs to no step).
+using Word = unsigned long long;
 
 __host__ __device__ constexpr int num_bands(int ny) {
   return (ny + kBandRows - 1) / kBandRows;
 }
 
-__host__ __device__ constexpr int band_threads(int nx) {
-  return lbm::kTileX * ((nx + lbm::kTileX - 1) / lbm::kTileX);
+__host__ __device__ constexpr int num_tiles_x(int nx) {
+  return (nx + lbm::kTileX - 1) / lbm::kTileX;
+}
+
+// Segments a band needs at least: blocks of at most kMaxSegTiles tiles.
+constexpr int min_segments(int nx) {
+  return (num_tiles_x(nx) + kMaxSegTiles - 1) / kMaxSegTiles;
 }
 
 // The rule's bytes of one band in shared memory: two ping-pong copies of
 // its 9 planes over its rows and two ghost rows, and its mask rows.
 constexpr size_t band_smem_bytes(int nx) {
-  return 2 * 9 * (kBandRows + 2) * static_cast<size_t>(nx) * sizeof(float) +
-         (kBandRows + 2) * static_cast<size_t>(nx);
+  return 2 * 9 * kRows * static_cast<size_t>(nx) * sizeof(float) +
+         kRows * static_cast<size_t>(nx);
 }
 
-// The accessor of one band's step t: its own rows from the state in device
-// memory (rows this block wrote before the last __syncthreads), the ghost
-// rows from the neighbours' outbox slot through L2.  Rows are global; with
-// one band the ghost rows are own rows and never reach the outbox.
-struct BandState {
-  const float* planes;      // state t, (9, ny, nx)
-  const float* ghost_prev;  // row row_prev of state t, (9, nx), in the outbox
-  const float* ghost_next;  // row row_next of state t
-  const uint8_t* mask;
-  size_t plane;
-  int nx, y0, h, row_prev, accel_row;
-  __device__ __forceinline__ float f(int k, int r, int c) const {
-    if (static_cast<unsigned>(r - y0) < static_cast<unsigned>(h)) {
-      return planes[k * plane + static_cast<size_t>(r) * nx + c];
-    }
-    return __ldcg((r == row_prev ? ghost_prev : ghost_next) + k * nx + c);
+// Dynamic shared memory of a block seg_w columns wide: its threads' ||u||
+// values, two copies of its cells' 9 planes with their ghost rows and
+// columns, and the mask of the same cells.
+constexpr size_t banded_launch_smem(int seg_w) {
+  return (kBandRows * static_cast<size_t>(seg_w) +
+          2 * static_cast<size_t>(kSpeeds) * kRows * (seg_w + 2)) * sizeof(float) +
+         kRows * static_cast<size_t>(seg_w + 2);
+}
+
+// Words of one outbox slot: the edge rows of every band, then the edge
+// columns of every block.
+__host__ __device__ constexpr long long slot_words(int bands, int segs, int nx) {
+  return 2LL * kSpeeds * bands * (nx + static_cast<long long>(segs) * kBandRows);
+}
+
+// The blocks of a launch on a card with `sms` SMs: the band's width cut
+// into `segs` segments of seg_w columns (whole tiles, the last one
+// ragged), as many as give each SM one block, and at least min_segments.
+void banded_geometry(int ny, int nx, int sms, int* seg_w, int* segs) {
+  const int tiles = num_tiles_x(nx);
+  int target = sms / num_bands(ny);
+  target = target < tiles ? target : tiles;
+  target = target > min_segments(nx) ? target : min_segments(nx);
+  const int seg_tiles = (tiles + target - 1) / target;
+  *seg_w = seg_tiles * lbm::kTileX;
+  *segs = (tiles + seg_tiles - 1) / seg_tiles;
+}
+
+__device__ __forceinline__ Word ll_load(Word* p) {
+  return cuda::atomic_ref<Word, cuda::thread_scope_device>(*p).load(
+      cuda::memory_order_relaxed);
+}
+
+__device__ __forceinline__ void ll_store(Word* p, float v, unsigned tag) {
+  cuda::atomic_ref<Word, cuda::thread_scope_device>(*p).store(
+      (static_cast<Word>(tag) << 32) | __float_as_uint(v), cuda::memory_order_relaxed);
+}
+
+// The accessor of one block's step: every value in shared memory, by
+// local row (0 and h+1 the ghost rows) and local column (-1 and w the
+// ghost columns).
+struct SmemState {
+  const float* cur;     // [9][kRows][pitch]: state t
+  const uint8_t* mask;  // [kRows][pitch]
+  int pitch;            // seg_w + 2
+  unsigned accel_rows;  // bit lr: local row lr is an image of row ny-2
+  __device__ __forceinline__ float f(int k, int lr, int lc) const {
+    return cur[(k * kRows + lr) * pitch + lc + 1];
   }
-  __device__ __forceinline__ bool obst(int r, int c) const {
-    return __ldg(mask + static_cast<size_t>(r) * nx + c) != 0;
+  __device__ __forceinline__ bool obst(int lr, int lc) const {
+    return mask[lr * pitch + lc + 1] != 0;
   }
-  __device__ __forceinline__ bool accel(int r, int) const { return r == accel_row; }
+  __device__ __forceinline__ bool accel(int lr, int) const { return (accel_rows >> lr) & 1u; }
 };
 
-// Step 5 of the schedule: every thread's writes are done (block scope), the
-// publishing thread makes them visible at device scope, then stores v.
-__device__ __forceinline__ void publish(int* flag, int v) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    cuda::atomic_ref<int, cuda::thread_scope_device>(*flag).store(
-        v, cuda::memory_order_release);
-  }
-}
-
-// Step 1: one thread polls both neighbours' flags (two loads in flight per
-// poll) until both reach v, fences, and releases the block.
-__device__ __forceinline__ void wait_for(int* prev, int* next, int v) {
-  if (threadIdx.x == 0) {
-    cuda::atomic_ref<int, cuda::thread_scope_device> p(*prev), q(*next);
-    for (int polls = 0;; ++polls) {
-      const int vp = p.load(cuda::memory_order_relaxed);
-      const int vq = q.load(cuda::memory_order_relaxed);
-      if (vp >= v && vq >= v) break;
-      if (polls >= kMaxPolls) __trap();
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
+// One block per (band, segment); blockDim = (seg_w, kBandRows), one cell
+// per thread.  outbox: two slots of slot_words each; in a slot, the rows
+// [bands][top, bottom][9][nx], then the columns [bands][segs][left,
+// right][9][kBandRows].
 __global__ void __launch_bounds__(kMaxBandThreads)
     resident_banded_kernel(float* a, float* b, const uint8_t* mask, float* partials,
-                           int* flags, float* outbox, int ny, int nx, int n_steps,
-                           lbm::StepConsts c) {
+                           Word* outbox, int ny, int nx, int n_steps, lbm::StepConsts c) {
+  const int seg_w = blockDim.x, pitch = seg_w + 2;
+  const int segs = (nx + seg_w - 1) / seg_w;
   const int bands = num_bands(ny);
-  const int band = blockIdx.x;
+  const int band = blockIdx.x / segs, s = blockIdx.x % segs;
   if (band >= bands) return;  // only a test's refused grid has more blocks
-  const int y0 = band * kBandRows;
-  const int h = min(kBandRows, ny - y0);
+  const int y0 = band * kBandRows, x0 = s * seg_w;
+  const int h = min(kBandRows, ny - y0), w = min(seg_w, nx - x0);
   const int prev = band == 0 ? bands - 1 : band - 1;
   const int next = band == bands - 1 ? 0 : band + 1;
+  const int left = s == 0 ? segs - 1 : s - 1;
+  const int right = s == segs - 1 ? 0 : s + 1;
   const int row_prev = y0 == 0 ? ny - 1 : y0 - 1;
   const int row_next = y0 + h == ny ? 0 : y0 + h;
-  const int x = threadIdx.x;
-  const bool live = x < nx;
-  const int xe = x == 0 ? nx - 1 : x - 1;  // east-moving speeds pull from x-1
-  const int xw = x == nx - 1 ? 0 : x + 1;  // west-moving speeds pull from x+1
-  const int tiles_x = (nx + lbm::kTileX - 1) / lbm::kTileX;
+  const int x = threadIdx.x, i = threadIdx.y;
+  const int tid = i * seg_w + x, threads = kBandRows * seg_w;
   const size_t plane = static_cast<size_t>(ny) * nx;
-  const size_t edge = static_cast<size_t>(kSpeeds) * nx;
-  // outbox slot s of band q: its top row, then its bottom row
-  auto box = [=](int s, int q) {
-    return outbox + (static_cast<size_t>(s) * bands + q) * 2 * edge;
-  };
+  const long long slot = slot_words(bands, segs, nx);
+  const int row_edge = kSpeeds * nx, col_edge = kSpeeds * kBandRows;
+  // offsets in a slot: the edge rows of band q (top, then bottom), the
+  // edge columns of block (q, g) (left, then right)
+  const int cols_at = 2 * bands * row_edge;
+  auto rows_of = [=](int q) { return q * 2 * row_edge; };
+  auto cols_of = [=](int q, int g) { return cols_at + (q * segs + g) * 2 * col_edge; };
+  auto wrap_x = [=](int g) { return g < 0 ? g + nx : (g >= nx ? g - nx : g); };
 
-  // state 0's edge rows into slot 0
-  if (live) {
-    float* out = box(0, band);
+  extern __shared__ float4 smem4[];
+  float* red = reinterpret_cast<float*>(smem4);  // [kBandRows][seg_w]
+  float* copy0 = red + kBandRows * seg_w;        // [9][kRows][pitch]
+  float* copy1 = copy0 + kSpeeds * kRows * pitch;
+  uint8_t* mcells = reinterpret_cast<uint8_t*>(copy1 + kSpeeds * kRows * pitch);
+
+  unsigned accel_rows = 0;
+  for (int lr = 0; lr < h + 2; ++lr) {
+    const int g = lr == 0 ? row_prev : (lr == h + 1 ? row_next : y0 + lr - 1);
+    if (g == ny - 2) accel_rows |= 1u << lr;
+  }
+  // The ghost values this thread gathers each step: value m = k * ghosts +
+  // p of the block's ghost cells p (the row above at columns -1 .. w, the
+  // row below likewise, the column left at rows 0 .. h-1, the column
+  // right likewise); where it lies in a slot, and where in a copy.
+  const int ghosts = 2 * (w + 2) + 2 * h;
+  int g_src[kGather], g_dst[kGather];
 #pragma unroll
-    for (int k = 0; k < kSpeeds; ++k) {
-      out[k * nx + x] = a[k * plane + static_cast<size_t>(y0) * nx + x];
-      out[edge + k * nx + x] = a[k * plane + static_cast<size_t>(y0 + h - 1) * nx + x];
+  for (int q = 0; q < kGather; ++q) {
+    const int m = tid + q * threads;
+    const int k = m / ghosts, p = m % ghosts;
+    if (m >= kSpeeds * ghosts) {
+      g_src[q] = -1;
+    } else if (p < w + 2) {  // the row above: the bottom edge of band prev
+      g_src[q] = rows_of(prev) + row_edge + k * nx + wrap_x(x0 + p - 1);
+      g_dst[q] = (k * kRows) * pitch + p;
+    } else if (p < 2 * (w + 2)) {  // the row below: the top edge of band next
+      const int lc = p - (w + 2) - 1;
+      g_src[q] = rows_of(next) + k * nx + wrap_x(x0 + lc);
+      g_dst[q] = (k * kRows + h + 1) * pitch + lc + 1;
+    } else if (p < 2 * (w + 2) + h) {  // the column left: the right edge of segment left
+      const int r = p - 2 * (w + 2);
+      g_src[q] = cols_of(band, left) + col_edge + k * kBandRows + r;
+      g_dst[q] = (k * kRows + r + 1) * pitch;
+    } else {  // the column right: the left edge of segment right
+      const int r = p - 2 * (w + 2) - h;
+      g_src[q] = cols_of(band, right) + k * kBandRows + r;
+      g_dst[q] = (k * kRows + r + 1) * pitch + w + 1;
     }
   }
-  publish(flags + band, 1);
+  const bool live = i < h && x < w;
+  const bool top = i == 0, bottom = i == h - 1, west = x == 0, east = x == w - 1;
+  const bool edge = top || bottom || west || east;
+  // where this cell's values go in a slot, when it is on an edge
+  const int out_row = rows_of(band) + (top ? 0 : row_edge) + x0 + x;
+  const int out_col = cols_of(band, s) + (west ? 0 : col_edge) + i;
+
+  // state 0: the block's cells into copy 0, its edge values into slot 0;
+  // the mask of its cells and of their ghost rows and columns
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < kSpeeds; ++k) {
+      const float v = a[k * plane + static_cast<size_t>(y0 + i) * nx + x0 + x];
+      copy0[(k * kRows + i + 1) * pitch + x + 1] = v;
+      if (top || bottom) ll_store(outbox + out_row + k * nx, v, 1);
+      if (top && bottom) ll_store(outbox + out_row + row_edge + k * nx, v, 1);
+      if (west || east) ll_store(outbox + out_col + k * kBandRows, v, 1);
+      if (west && east) ll_store(outbox + out_col + col_edge + k * kBandRows, v, 1);
+    }
+  }
+  for (int m = tid; m < (h + 2) * (w + 2); m += threads) {
+    const int lr = m / (w + 2), lc = m % (w + 2);
+    const int gy = lr == 0 ? row_prev : (lr == h + 1 ? row_next : y0 + lr - 1);
+    mcells[lr * pitch + lc] = mask[static_cast<size_t>(gy) * nx + wrap_x(x0 + lc - 1)];
+  }
+  __syncthreads();
 
   for (int t = 0; t < n_steps; ++t) {
-    const float* src = (t % 2 == 0) ? a : b;
-    float* dst = (t % 2 == 0) ? b : a;
-    wait_for(flags + prev, flags + next, t + 1);
-    const BandState st{src,  box(t % 2, prev) + edge, box(t % 2, next), mask, plane,
-                       nx,   y0,   h,  row_prev,  ny - 2};
-    float* out_edges = box((t + 1) % 2, band);
-    float norm[kBandRows];
+    float* cur = (t % 2 == 0) ? copy0 : copy1;
+    float* nxt = (t % 2 == 0) ? copy1 : copy0;
+    Word* in = outbox + (t % 2) * slot;
+    Word* out = outbox + ((t + 1) % 2) * slot;
+    const SmemState st{cur, mcells, pitch, accel_rows};
+    // one step of this thread's cell: into the other copy, and an edge
+    // cell's values into the next slot, marked as state t+1
+    auto step_cell = [&]() {
+      const bool obst = st.obst(i + 1, x);
+      float v[kSpeeds];
+      const float u_sq = lbm::cell_step(st, i + 1, x, i, i + 2, x - 1, x + 1, v, obst, c);
 #pragma unroll
-    for (int i = 0; i < kBandRows; ++i) {
-      norm[i] = 0.0f;
-      if (live && i < h) {
-        const int y = y0 + i;
-        const int rn = i == 0 ? row_prev : y - 1;      // north-moving speeds pull from y-1
-        const int rs = i == h - 1 ? row_next : y + 1;  // south-moving speeds pull from y+1
-        const bool obst = st.obst(y, x);
-        float s[kSpeeds];
-        const float u_sq = lbm::cell_step(st, y, x, rn, rs, xe, xw, s, obst, c);
-        const size_t at = static_cast<size_t>(y) * nx + x;
+      for (int k = 0; k < kSpeeds; ++k) {
+        nxt[(k * kRows + i + 1) * pitch + x + 1] = v[k];
+        if (top || bottom) ll_store(out + out_row + k * nx, v[k], t + 2);
+        if (top && bottom) ll_store(out + out_row + row_edge + k * nx, v[k], t + 2);
+        if (west || east) ll_store(out + out_col + k * kBandRows, v[k], t + 2);
+        if (west && east) ll_store(out + out_col + col_edge + k * kBandRows, v[k], t + 2);
+      }
+      return obst ? 0.0f : sqrtf(u_sq);
+    };
+    float norm = 0.0f;
+    // inner cells need nothing of the neighbours: they go first
+    if (live && !edge) norm = step_cell();
+    // the ghost values of state t: poll each until it is marked t+1
+    Word got[kGather];
 #pragma unroll
-        for (int k = 0; k < kSpeeds; ++k) dst[k * plane + at] = s[k];
-        if (i == 0) {
+    for (int q = 0; q < kGather; ++q) {
+      if (g_src[q] >= 0) got[q] = ll_load(in + g_src[q]);
+    }
 #pragma unroll
-          for (int k = 0; k < kSpeeds; ++k) out_edges[k * nx + x] = s[k];
-        }
-        if (i == h - 1) {
-#pragma unroll
-          for (int k = 0; k < kSpeeds; ++k) out_edges[edge + k * nx + x] = s[k];
-        }
-        norm[i] = obst ? 0.0f : sqrtf(u_sq);
+    for (int q = 0; q < kGather; ++q) {
+      if (g_src[q] < 0) continue;
+      for (int polls = 0; static_cast<unsigned>(got[q] >> 32) != static_cast<unsigned>(t + 1);
+           ++polls) {
+        if (polls >= kMaxPolls) __trap();
+        got[q] = ll_load(in + g_src[q]);
+      }
+      cur[g_dst[q]] = __uint_as_float(static_cast<unsigned>(got[q]));
+    }
+    __syncthreads();  // the ghosts are in
+    if (live && edge) norm = step_cell();
+    red[tid] = norm;
+    __syncthreads();  // every value of the step is in, every read of cur done
+    if (i == 0) {
+      // block_sum's order over the tile (see the note above)
+      const float* r = red + x;
+      const float column = ((r[0] + r[4 * seg_w]) + (r[2 * seg_w] + r[6 * seg_w])) +
+                           ((r[seg_w] + r[5 * seg_w]) + (r[3 * seg_w] + r[7 * seg_w]));
+      const float total = lbm::warp_sum(column);
+      if (x % lbm::kTileX == 0 && x0 + x < nx) {
+        partials[(static_cast<size_t>(t) * bands + band) * num_tiles_x(nx) +
+                 (x0 + x) / lbm::kTileX] = total;
       }
     }
-    // block_sum's order over the tile (see the note above)
-    const float column = ((norm[0] + norm[4]) + (norm[2] + norm[6])) +
-                         ((norm[1] + norm[5]) + (norm[3] + norm[7]));
-    const float total = lbm::warp_sum(column);
-    if (x % lbm::kTileX == 0) {
-      partials[static_cast<size_t>(t) * bands * tiles_x + band * tiles_x + x / lbm::kTileX] =
-          total;
+  }
+
+  // state n_steps back to its buffer: `a` for an even n_steps, else `b`
+  if (live) {
+    const float* last = (n_steps % 2 == 0) ? copy0 : copy1;
+    float* out = (n_steps % 2 == 0) ? a : b;
+#pragma unroll
+    for (int k = 0; k < kSpeeds; ++k) {
+      out[k * plane + static_cast<size_t>(y0 + i) * nx + x0 + x] =
+          last[(k * kRows + i + 1) * pitch + x + 1];
     }
-    publish(flags + band, t + 2);
   }
 }
 
@@ -306,15 +437,20 @@ cudaError_t grid_blocks(int ny, int nx, int* blocks) {
   return cudaSuccess;
 }
 
-// Dynamic shared memory of one banded launch.
-size_t banded_launch_smem(int) { return 0; }
+cudaError_t num_sms(int* sms) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
 
 // The banded form's limits on the current device for a grid nx wide: the
-// opt-in shared memory of a block, and the blocks that can be co-resident
-// (occupancy x SMs; 0 where the kernel cannot take nx at all).  Sets the
-// kernel's dynamic shared-memory limit first, which the occupancy query
-// needs.
-cudaError_t banded_limits(int nx, int* smem_optin, int* max_blocks) {
+// opt-in shared memory of a block, and the bands that can be co-resident
+// (the blocks of the widest segment that can be, occupancy x SMs, over
+// the segments a band needs at least; 0 where the kernel cannot take nx
+// at all).  Sets the kernel's dynamic shared-memory limit first, which
+// the occupancy query needs.
+cudaError_t banded_limits(int nx, int* smem_optin, int* max_bands) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -328,22 +464,22 @@ cudaError_t banded_limits(int nx, int* smem_optin, int* max_blocks) {
   err = cudaFuncSetAttribute(resident_banded_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, *smem_optin);
   if (err != cudaSuccess) return err;
-  *max_blocks = 0;
-  if (nx < 1 || nx > kMaxBandCols || banded_launch_smem(nx) > static_cast<size_t>(*smem_optin)) {
-    return cudaSuccess;
-  }
+  *max_bands = 0;
+  if (nx < 1 || nx > kMaxBandCols) return cudaSuccess;
+  const int tiles = num_tiles_x(nx);
+  const int widest = (tiles < kMaxSegTiles ? tiles : kMaxSegTiles) * lbm::kTileX;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, resident_banded_kernel, band_threads(nx), banded_launch_smem(nx));
+      &per_sm, resident_banded_kernel, widest * kBandRows, banded_launch_smem(widest));
   if (err != cudaSuccess) return err;
-  *max_blocks = per_sm * sms;
+  *max_bands = per_sm * sms / min_segments(nx);
   return cudaSuccess;
 }
 
 // The shape rule (ops/resident.py:banded_fits is the same rule in Python).
-bool banded_fits(int ny, int nx, int smem_optin, int max_blocks) {
+bool banded_fits(int ny, int nx, int smem_optin, int max_bands) {
   return ny >= 1 && nx >= 1 && nx <= kMaxBandCols &&
          band_smem_bytes(nx) <= static_cast<size_t>(smem_optin) &&
-         num_bands(ny) <= max_blocks;
+         num_bands(ny) <= max_bands;
 }
 
 }  // namespace
@@ -357,8 +493,8 @@ extern "C" int lbm_resident_prepare(void) {
   if (err != cudaSuccess) return lbm::status(err);
   err = cudaFuncGetAttributes(&attr, resident_banded_kernel);
   if (err != cudaSuccess) return lbm::status(err);
-  int smem = 0, max_blocks = 0;
-  err = banded_limits(1, &smem, &max_blocks);
+  int smem = 0, max_bands = 0;
+  err = banded_limits(1, &smem, &max_bands);
   if (err != cudaSuccess) return lbm::status(err);
   int blocks = 0;
   return lbm::status(grid_blocks(1, 1, &blocks));
@@ -366,17 +502,28 @@ extern "C" int lbm_resident_prepare(void) {
 
 // The banded form's limits for a grid nx wide (see banded_limits); returns
 // a cudaError_t.
-extern "C" int lbm_resident_banded_limits(int nx, int* smem_optin, int* max_blocks) {
-  return lbm::status(banded_limits(nx, smem_optin, max_blocks));
+extern "C" int lbm_resident_banded_limits(int nx, int* smem_optin, int* max_bands) {
+  return lbm::status(banded_limits(nx, smem_optin, max_bands));
 }
 
 // 1 if the banded form takes an (ny, nx) grid on the current device, 0 if
 // the cooperative form runs it; a negative cudaError_t on failure.
 extern "C" int lbm_resident_banded_fits(int ny, int nx) {
-  int smem = 0, max_blocks = 0;
-  const int err = lbm::status(banded_limits(nx, &smem, &max_blocks));
+  int smem = 0, max_bands = 0;
+  const int err = lbm::status(banded_limits(nx, &smem, &max_bands));
   if (err != 0) return -err;
-  return banded_fits(ny, nx, smem, max_blocks) ? 1 : 0;
+  return banded_fits(ny, nx, smem, max_bands) ? 1 : 0;
+}
+
+// The scratch of a banded launch on the current device: the outbox, in
+// 64-bit words (two slots of edge values).
+extern "C" int lbm_resident_banded_scratch(int ny, int nx, long long* n_words) {
+  int sms = 0, seg_w = 0, segs = 0;
+  const cudaError_t err = num_sms(&sms);
+  if (err != cudaSuccess) return lbm::status(err);
+  banded_geometry(ny, nx, sms, &seg_w, &segs);
+  *n_words = 2 * slot_words(num_bands(ny), segs, nx);
+  return 0;
 }
 
 // n_steps steps on the state in `a`, ping-ponging with `b`: the state ends
@@ -407,27 +554,33 @@ extern "C" int lbm_resident_chunk(float* a, float* b, const uint8_t* mask,
 
 // The banded form of lbm_resident_chunk, for a grid that
 // lbm_resident_banded_fits takes; the same state, parity and partials.
-// `flags` is ceil(ny/8) int32 and `outbox` 2 * ceil(ny/8) * 2 * 9 * nx
-// float32 of scratch; the flags are reset on `stream` before the launch.
-// `blocks` is 0 (one block per band) except in the test of a refused
-// launch (a grid larger than can be co-resident); fewer blocks than bands
-// are refused with cudaErrorInvalidValue.
+// `outbox` is the scratch that lbm_resident_banded_scratch sizes; it is
+// reset on `stream` before the launch.  `blocks` is 0 (one block per band
+// and segment) except in the test of a refused launch (a grid larger than
+// can be co-resident); fewer blocks than that are refused with
+// cudaErrorInvalidValue.
 extern "C" int lbm_resident_banded_chunk(float* a, float* b, const uint8_t* mask,
-                                         float* partials, int* flags, float* outbox,
-                                         int ny, int nx, int n_steps, int blocks,
-                                         float w0_omega, float w1_omega, float w2_omega,
+                                         float* partials, void* outbox, int ny, int nx,
+                                         int n_steps, int blocks, float w0_omega,
+                                         float w1_omega, float w2_omega,
                                          float one_minus_omega, float accel_w1,
                                          float accel_w2, void* stream) {
-  const int bands = num_bands(ny);
-  if (blocks <= 0) blocks = bands;
-  if (blocks < bands || nx < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(flags, 0, sizeof(int) * bands, s);
+  int sms = 0, seg_w = 0, segs = 0;
+  cudaError_t err = num_sms(&sms);
   if (err != cudaSuccess) return lbm::status(err);
+  if (nx < 1 || nx > kMaxBandCols || ny < 1) return static_cast<int>(cudaErrorInvalidValue);
+  banded_geometry(ny, nx, sms, &seg_w, &segs);
+  const int bands = num_bands(ny);
+  if (blocks <= 0) blocks = bands * segs;
+  if (blocks < bands * segs) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(outbox, 0, sizeof(Word) * 2 * slot_words(bands, segs, nx), st);
+  if (err != cudaSuccess) return lbm::status(err);
+  Word* box = static_cast<Word*>(outbox);
   lbm::StepConsts c{w0_omega,        w1_omega, w2_omega,
                     one_minus_omega, accel_w1, accel_w2};
-  void* args[] = {&a, &b, &mask, &partials, &flags, &outbox, &ny, &nx, &n_steps, &c};
+  void* args[] = {&a, &b, &mask, &partials, &box, &ny, &nx, &n_steps, &c};
   return lbm::status(cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(resident_banded_kernel), dim3(blocks),
-      dim3(band_threads(nx)), args, banded_launch_smem(nx), s));
+      dim3(seg_w, kBandRows), args, banded_launch_smem(seg_w), st));
 }

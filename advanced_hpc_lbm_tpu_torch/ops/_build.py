@@ -116,10 +116,11 @@ def load() -> ctypes.CDLL:
         "lbm_step_block_shape": ([ctypes.POINTER(i32)] * 2, None),
         "lbm_resident_chunk": ([ptr, ptr, ptr, ptr, i32, i32, i32, i32, *consts, ptr], i32),
         "lbm_resident_prepare": ([], i32),
-        "lbm_resident_banded_chunk": ([ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+        "lbm_resident_banded_chunk": ([ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                        *consts, ptr], i32),
         "lbm_resident_banded_limits": ([i32, ctypes.POINTER(i32), ctypes.POINTER(i32)], i32),
         "lbm_resident_banded_fits": ([i32, i32], i32),
+        "lbm_resident_banded_scratch": ([i32, i32, ctypes.POINTER(i64)], i32),
         "lbm_kstep": ([ptr, ptr, ptr, ptr, i32, i32, i32, *consts, ptr], i32),
         "lbm_kstep_prepare": ([i32], i32),
         "lbm_kstep_tile_shape": ([ctypes.POINTER(i32)] * 2, None),

@@ -9,10 +9,11 @@ once per chunk of at most ``chunk`` steps; on a CPU tensor it runs
 two forms, chosen by the grid's shape before the launch
 (:func:`banded_fits` with the card's limits):
 
-* the banded form, one block per band of 8 rows, neighbouring bands
-  synchronised by flags instead of a grid barrier, for grids whose band
-  fits in shared memory (the small decks); each launch adds one to
-  :data:`banded_launches`;
+* the banded form, for grids whose band of 8 rows fits in shared memory
+  (the small decks): blocks of a band's segment of columns keep their
+  cells in shared memory for the whole chunk and meet only their
+  neighbours, through edge values that carry their step, instead of a
+  grid barrier; each launch adds one to :data:`banded_launches`;
 * the cooperative form, a persistent grid with one grid barrier per step,
   for every other grid; each launch adds one to :data:`launches`.
 
@@ -49,9 +50,9 @@ banded_launches = 0
 
 # A band of the banded form is one row of the step kernel's tiles.
 BAND_ROWS = step_kernel.BLOCK_Y
-# The widest band a block takes (kMaxBandCols in csrc/resident_kernel.cu):
-# one thread per column, at most 10 warps.  The shared-memory rule bounds nx
-# below it on an H100 (318 columns at 232 448 B).
+# The widest grid the banded form takes (kMaxBandCols in
+# csrc/resident_kernel.cu); the shared-memory rule bounds nx below it on an
+# H100 (318 columns at 232 448 B).
 BAND_MAX_COLS = 320
 
 prepare_obstacles = step_kernel.prepare_obstacles
@@ -91,19 +92,20 @@ def band_smem_bytes(nx: int) -> int:
     return 2 * 9 * rows * nx * 4 + rows * nx
 
 
-def banded_fits(ny: int, nx: int, smem_bytes: int, max_blocks: int) -> bool:
+def banded_fits(ny: int, nx: int, smem_bytes: int, max_bands: int) -> bool:
     """Whether the banded form takes an (ny, nx) grid on a card with
-    ``smem_bytes`` of opt-in shared memory per block and ``max_blocks``
-    co-resident blocks of the banded kernel at this width (its occupancy
-    x SMs); the C query ``lbm_resident_banded_fits`` is the same rule."""
+    ``smem_bytes`` of opt-in shared memory per block, where ``max_bands``
+    bands nx wide can be co-resident (the banded kernel's occupancy x SMs,
+    over the blocks a band needs at least: one per 128 columns); the C
+    query ``lbm_resident_banded_fits`` is the same rule."""
     return (1 <= nx <= BAND_MAX_COLS and ny >= 1 and band_smem_bytes(nx) <= smem_bytes
-            and num_bands(ny) <= max_blocks)
+            and num_bands(ny) <= max_bands)
 
 
 @functools.cache
 def _banded_limits(device_index: int, nx: int) -> tuple[int, int]:
-    """(opt-in shared memory per block, co-resident blocks of the banded
-    kernel nx wide) on a CUDA device, from the kernel library."""
+    """(opt-in shared memory per block, bands nx wide that can be
+    co-resident) on a CUDA device, from the kernel library."""
     lib = step_kernel._library()
     smem, blocks = ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device_index):
@@ -161,15 +163,18 @@ def _chunk_launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams,
     mask_ptr = mask.data_ptr()
 
     if form is None and takes_banded(ny, nx, f.device):
-        bands = num_bands(ny)
-        flags = torch.empty(bands, dtype=torch.int32, device=f.device)
-        outbox = torch.empty(2 * bands * 2 * 9 * nx, dtype=torch.float32, device=f.device)
+        words = ctypes.c_longlong()
+        step_kernel._raise_on(lib, lib.lbm_resident_banded_scratch(
+            ny, nx, ctypes.byref(words)), "sizing the banded kernel's outbox")
+        # the blocks' edge values of two steps, each with its step (the
+        # launch resets it)
+        outbox = torch.empty(words.value, dtype=torch.int64, device=f.device)
 
         def banded(bufs, n, part):
             global banded_launches
             err = lib.lbm_resident_banded_chunk(
                 bufs[0].data_ptr(), bufs[1].data_ptr(), mask_ptr, part.data_ptr(),
-                flags.data_ptr(), outbox.data_ptr(), ny, nx, n, blocks, *consts, stream)
+                outbox.data_ptr(), ny, nx, n, blocks, *consts, stream)
             step_kernel._raise_on(lib, err, "resident kernel launch")
             banded_launches += 1
         return banded

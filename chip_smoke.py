@@ -441,7 +441,7 @@ def check_banded_rule(card: str) -> None:
         if c_rule != int(py_rule):
             fail(f"[3r resident] {ny}x{nx}: the C rule says {c_rule}, banded_fits {py_rule} "
                  f"(smem {smem} B, {blocks} co-resident blocks)")
-        rows.append(f"{ny}x{nx} {'banded' if py_rule else 'cooperative'} ({blocks} blocks)")
+        rows.append(f"{ny}x{nx} {'banded' if py_rule else 'cooperative'} ({blocks} bands co-resident)")
     for ny, nx in BANDED_DECKS:
         if not resident.takes_banded(ny, nx, "cuda"):
             fail(f"[3r resident] {ny}x{nx} does not take the banded form")

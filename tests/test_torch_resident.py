@@ -123,7 +123,7 @@ def test_prepare_builds_nothing_on_cpu(monkeypatch):
 # ---- the banded form's shape rule and band partition ---------------------------
 
 H100_SMEM = 232_448  # opt-in shared memory per block
-H100_BLOCKS = 132  # 132 SMs x 1 block of the widest band
+H100_BANDS = 132  # bands that can be co-resident: 132 SMs x 1 block each
 
 
 @pytest.mark.parametrize("ny,nx,banded", [
@@ -135,15 +135,15 @@ def test_banded_rule_at_h100_limits(ny, nx, banded):
     """The reference's small decks and the mini deck go to the banded form;
     512^2, 1024^2 and any band wider than 318 columns (its 2 x 9 x 10 x nx
     floats and 10 x nx mask bytes above 232 448 B) do not."""
-    assert resident.banded_fits(ny, nx, H100_SMEM, H100_BLOCKS) is banded
+    assert resident.banded_fits(ny, nx, H100_SMEM, H100_BANDS) is banded
 
 
-@pytest.mark.parametrize("ny,max_blocks,banded", [
-    (1056, H100_BLOCKS, True), (1057, H100_BLOCKS, False), (64, 8, True), (65, 8, False),
+@pytest.mark.parametrize("ny,max_bands,banded", [
+    (1056, H100_BANDS, True), (1057, H100_BANDS, False), (64, 8, True), (65, 8, False),
     (8, 1, True), (9, 1, False), (1, 0, False),
 ])
-def test_banded_rule_needs_every_band_co_resident(ny, max_blocks, banded):
-    assert resident.banded_fits(ny, 64, H100_SMEM, max_blocks) is banded
+def test_banded_rule_needs_every_band_co_resident(ny, max_bands, banded):
+    assert resident.banded_fits(ny, 64, H100_SMEM, max_bands) is banded
 
 
 def test_band_smem_bytes():
