@@ -40,9 +40,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("obstaclefile")
     p.add_argument(
         "--backend", default="auto", choices=BACKENDS,
-        help="auto runs pallask, or stream where "
-             "pallask's two state buffers do not fit on the card; the CUDA "
-             "kernels run their plain PyTorch versions on the CPU",
+        help="auto runs resident where its banded form takes the grid on the "
+             "card (the small decks), else pallask, or stream where pallask's two "
+             "state buffers do not fit on the card; the CUDA kernels run their "
+             "plain PyTorch versions on the CPU",
     )
     p.add_argument("--device", default="cuda", help="torch device to run on")
     p.add_argument("--debug", action="store_true")

@@ -16,74 +16,78 @@
 //
 // The banded form (resident_banded_kernel), for the small decks:
 // * Band b is the step kernel's tile row b: grid rows 8b .. 8b+7, the last
-//   band ragged when ny % 8 != 0.  One block per band, one thread column
-//   per grid column (whole warps), and 8 / R threads per column, each
-//   stepping R of the band's rows (R = 1 up to 128 columns, 2 up to 256,
-//   4 beyond: at most 1024 threads).  The grid is a cooperative launch of
-//   exactly ceil(ny / 8) blocks, which guarantees that every block is
-//   resident, as the spin-waits below need.  There is no grid-wide
-//   barrier.
-// * The band lives in shared memory for the whole chunk: two ping-pong
-//   copies of its 9 planes over its 8 rows, and the mask of its rows and
-//   its two ghost rows.  It is read from `a` once at chunk start and
-//   written back once at chunk end, to `a` for an even n_steps, else to
-//   `b`, as the cooperative form leaves it.
-// * A step of a band needs only the row above it and the row below it.
-//   Bands exchange their edge rows (all 9 speeds) through an outbox in
-//   device memory, 2 slots x bands x {top, bottom} x 9 x nx floats, and
-//   announce them through one int flag per band.  flags[b] = t+1 means:
-//   band b has put the edge rows of its state t into slot t % 2, and it has
-//   finished reading its neighbours' slot (t-1) % 2.  Step t of band b:
-//     1. each thread that steps the top (bottom) row waits until
-//        flags[prev] (flags[next]) >= t+1; prev and next wrap
-//        periodically, and may be one band or b itself.  Inner rows need
-//        nothing of the neighbours and are stepped first;
-//     2. the edge rows read the ghost rows from the neighbours' slot t % 2;
-//     3. every row is stepped from one copy into the other;
-//     4. the edge rows write their new values to slot (t+1) % 2;
-//     5. publish flags[b] = t+2: a __syncthreads, then the publishing
-//        thread's __threadfence and store (the order grid.sync uses).  It
-//        is the one block barrier of a step: it also ends the step's
-//        reads of the copy that the next step overwrites.
-//   At chunk start each band reads only its own rows of `a` and publishes
-//   state 0 into slot 0, so no band ever reads another band's rows of `a`
-//   or `b`, and the final write of a band cannot race a neighbour.
-// * Write after read: band b overwrites slot (t+1) % 2 at step t only after
-//   it has seen flags[nb] >= t+1 for the neighbour nb that reads that
-//   edge row, so nb has finished step t-1, its reads of that slot
-//   included.  No band runs more than one step ahead of a neighbour.  Read
-//   after write: the slot band b reads at step t was published by
-//   flags[nb] >= t+1 after a fence.
-// * Memory model: the flag is stored after the publishing thread's fence;
-//   a waiting thread polls it with device-scope acquire loads.  Outbox
-//   reads go through __ldcg and writes through __stcg (L2, never L1: the
-//   same slot is re-read every second step and L1 is not coherent across
-//   SMs).  A wait that exceeds kMaxPolls polls traps, so that a fault ends
-//   the run with an error instead of a hang.  The wrapper resets the flags
-//   before every launch (cudaMemsetAsync on the launch's stream).
-// * ||u|| partials with the block's one barrier: block_sum's tree over a
-//   32x8 tile (strides 128, 64, 32, then 16 .. 1) is, per column, the sum
-//   ((r0+r4)+(r2+r6)) + ((r1+r5)+(r3+r7)) of its 8 rows followed by
-//   __shfl_down_sync by 16, 8, 4, 2, 1 across the warp.  Each thread adds
-//   its own rows in that order (R = 2: r_j + r_j+4; R = 4:
-//   (r_j + r_j+4) + (r_j+2 + r_j+6)) into shared memory before the
-//   publish barrier; after it, the first thread of each column adds the
-//   column's threads in the tree's order and warp w's lane 0 holds tile
-//   (b, w)'s partial bit for bit.  The sums of two steps alternate, so
-//   the next step's writes cannot overtake these reads.  Rows past ny
-//   contribute 0.
-// * Which grids: the band with its two ghost rows, two ping-pong copies of
-//   its 9 planes and its mask rows, 2*9*10*nx*4 + 10*nx bytes, fits the
-//   card's opt-in shared memory (nx <= 318 at 232 448 B), and ceil(ny/8)
-//   blocks are co-resident (occupancy x SMs): the reference's 128^2,
+//   band ragged when ny % 8 != 0.  A band is cut into segments of whole
+//   tiles (at most 2, 64 columns; the last segment ragged), as many as
+//   give each SM one block where the grid leaves SMs to spare.  One block
+//   per (band, segment), one thread per cell.  The grid is a cooperative
+//   launch of exactly bands x segments blocks, which guarantees that every
+//   block is resident, as the spin-waits below need.  There is no
+//   grid-wide barrier.
+// * A block keeps its cells in shared memory for the whole chunk: two
+//   ping-pong copies of their 9 planes, each with a ring of ghost cells
+//   (the rows above and below, the columns left and right, the corners),
+//   and the mask of the same cells.  The cells are read from `a` once at
+//   chunk start and written back once at chunk end, to `a` for an even
+//   n_steps, else to `b`, as the cooperative form leaves them.
+// * A step of a block needs only its ghost ring, the edge cells of its up
+//   to 8 neighbouring blocks (periodic wrap; with one band or one segment
+//   a block is its own neighbour).  Each edge cell's new values go out to
+//   an outbox in device memory as 64-bit words: the float's bits and,
+//   above them, the step they belong to plus one, stored as one volatile
+//   access so that a value and its step arrive together.  The outbox has
+//   two slots, by step parity: the rows [bands][top, bottom][9][nx] and
+//   the columns [bands][segments][left, right][9][8].  Nothing else is a
+//   flag: the step beside a value is its own flag.  Step t of a block:
+//     1. load its ghost values of state t from slot t % 2 (every thread up
+//        to 3 of them, all in flight at once);
+//     2. meanwhile step its inner cells, which need nothing of the
+//        neighbours, into the other copy, and take step t-1's tile sums;
+//     3. poll each loaded value until it is marked t+1, and put it into
+//        the ghost ring; a block barrier;
+//     4. step its edge cells, and send their values of state t+1 to slot
+//        (t+1) % 2, marked t+2; a block barrier, which also ends the
+//        step's reads of the copy that the next step overwrites.
+//   At chunk start each block reads only its own cells of `a` and sends
+//   state 0 into slot 0, marked 1; the wrapper resets the outbox to 0 (no
+//   step) before every launch, on the launch's stream.
+// * Write after read: a block overwrites an edge value in slot (t+1) % 2
+//   at step t, after its barrier of step 3.  The readers of the state t-1
+//   value it replaces are the neighbouring blocks' gathers of step t-1.
+//   The stencil is symmetric: every block that reads this block's edges
+//   owns cells of its ghost ring, and this block has read, before that
+//   barrier, values of each of them marked t+1, which that block sent
+//   after its own step-3 barrier of step t-1, after all its gathers of
+//   step t-1.  So no block runs more than one step ahead of a neighbour.
+//   Read after write: a value is used only once it is marked with its
+//   step.  A poll that exceeds kMaxPolls traps, so that a fault ends the
+//   run with an error instead of a hang.  Outbox accesses are volatile
+//   64-bit loads and stores, served by L2, never by L1 (the same slot is
+//   re-read every second step and L1 is not coherent across SMs).
+// * ||u|| partials: block_sum's tree over a 32x8 tile (strides 128, 64,
+//   32, then 16 .. 1) is, per column, ((r0+r4)+(r2+r6)) + ((r1+r5)+(r3+r7))
+//   over its 8 rows, then __shfl_down_sync by 16, 8, 4, 2, 1 across the
+//   warp.  Each thread puts its cell's ||u|| (0 off the grid) into shared
+//   memory before the step's last barrier; row 0 adds the column in that
+//   order and warp w's lane 0 holds tile (b, w)'s partial bit for bit.
+// * Which grids: the rule is the band with its two ghost rows, two
+//   ping-pong copies of its 9 planes and its mask rows, 2*9*10*nx*4 +
+//   10*nx bytes, fitting the card's opt-in shared memory (nx <= 318 at
+//   232 448 B), and ceil(ny/8) bands co-resident (the kernel's occupancy x
+//   SMs, over the segments a band needs at least): the reference's 128^2,
 //   128x256 and 256^2 decks and the 64^2 mini deck, not 512^2 or 1024^2.
-//   (The launch needs less: the ghost rows are read from L2.)
-// * History: a first form with one thread per column stepping all 8 rows,
-//   the state in device memory and a block-wide wait, ran 14.94 / 18.36 /
-//   20.07 us per step at 64^2 / 128^2 / 256^2 against the cooperative
-//   form's 3.56 / 3.80 / 4.19 (H100 80GB HBM3, 700 W): one warp per
-//   scheduler stepped eight cells one after another, 168 registers with
-//   1 KB of spills.
+//   A block itself needs less (at most 64 columns of the band).
+// * What bounds it: not the cells (at most 512 a block) and not the wait
+//   for the neighbours.  MEASURED_BANDED
+// * History: with one thread per column stepping all 8 rows of a band,
+//   the state in device memory and one int flag per band (stored after a
+//   fence, polled by one thread while the block waited), it ran 14.94 /
+//   18.36 / 20.07 us per step at 64^2 / 128^2 / 256^2 against the
+//   cooperative form's 3.56 / 3.80 / 4.19 (168 registers, 1 KB of
+//   spills); with the band in shared memory, 1-4 rows per thread and
+//   only the edge rows waiting, 2.59 / 3.12 / 5.51 (one block per band
+//   left 100 SMs idle at 256^2); cut into segments with a flag per block,
+//   6.75 / 6.77 / 5.50: a corner cell waited on four flags one after
+//   another (H100 80GB HBM3, 700 W).
 
 // The cooperative form (resident_kernel), for every other grid:
 // * One cooperative launch per chunk.  The grid is as large as can be
@@ -100,17 +104,16 @@
 // launch per chunk instead of one per step).  What is left per step is the
 // step's traffic (73 B/cell) and the synchronisation: for the cooperative
 // form one grid barrier of a few microseconds; for the banded form the
-// latency of a chain of one flag hop through L2, one ghost-row load, the
-// band's step and the fence.  The pair of buffers (72 B/cell) fits in the
-// 50 MB L2 up to about 690 000 cells; the 1024x1024 pair is 75.5 MB and
-// does not fit.
+// chain of one round trip through L2 for the ghost values, two block
+// barriers and one cell step of latency.  The pair of buffers (72 B/cell)
+// fits in the 50 MB L2 up to about 690 000 cells; the 1024x1024 pair is
+// 75.5 MB and does not fit.
 //
 // Build (ops/_build.py): nvcc -gencode arch=compute_90a,code=sm_90a
 //   -std=c++17 -O3 -fmad=false -shared -Xcompiler -fPIC  (no -rdc: grid
 //   sync needs none on CUDA >= 11)
 
 #include <cooperative_groups.h>
-#include <cuda/atomic>
 
 #include <cstdint>
 
@@ -157,9 +160,9 @@ constexpr int kRows = kBandRows + 2;    // a block's rows with its two ghost row
 constexpr int kSpeeds = 9;
 // Shared memory is the rule's bound on nx (318 at the card's 232 448 B).
 constexpr int kMaxBandCols = 320;
-// A block steps one cell per thread: at most 4 tiles (128 columns) of a
-// band, 1024 threads.
-constexpr int kMaxSegTiles = 4;
+// A block steps one cell per thread: at most 2 tiles (64 columns) of a
+// band, 512 threads of up to 128 registers.
+constexpr int kMaxSegTiles = 2;
 constexpr int kMaxBandThreads = kMaxSegTiles * lbm::kTileX * kBandRows;
 // Ghost values a thread gathers per step, at most: 9 x (2 (seg_w + 2) + 2 x
 // 8) values over 8 seg_w threads is at most 3 for seg_w >= 30.
@@ -218,14 +221,14 @@ void banded_geometry(int ny, int nx, int sms, int* seg_w, int* segs) {
   *segs = (tiles + seg_tiles - 1) / seg_tiles;
 }
 
+// A volatile 64-bit access is one access (relaxed, at system scope): a
+// value and its step arrive together.  It is served by L2, never by L1.
 __device__ __forceinline__ Word ll_load(Word* p) {
-  return cuda::atomic_ref<Word, cuda::thread_scope_device>(*p).load(
-      cuda::memory_order_relaxed);
+  return *reinterpret_cast<volatile Word*>(p);
 }
 
 __device__ __forceinline__ void ll_store(Word* p, float v, unsigned tag) {
-  cuda::atomic_ref<Word, cuda::thread_scope_device>(*p).store(
-      (static_cast<Word>(tag) << 32) | __float_as_uint(v), cuda::memory_order_relaxed);
+  *reinterpret_cast<volatile Word*>(p) = (static_cast<Word>(tag) << 32) | __float_as_uint(v);
 }
 
 // The accessor of one block's step: every value in shared memory, by
@@ -249,7 +252,7 @@ struct SmemState {
 // per thread.  outbox: two slots of slot_words each; in a slot, the rows
 // [bands][top, bottom][9][nx], then the columns [bands][segs][left,
 // right][9][kBandRows].
-__global__ void __launch_bounds__(kMaxBandThreads)
+__global__ void __launch_bounds__(kMaxBandThreads, 1)
     resident_banded_kernel(float* a, float* b, const uint8_t* mask, float* partials,
                            Word* outbox, int ny, int nx, int n_steps, lbm::StepConsts c) {
   const int seg_w = blockDim.x, pitch = seg_w + 2;
@@ -344,6 +347,19 @@ __global__ void __launch_bounds__(kMaxBandThreads)
   }
   __syncthreads();
 
+  // step t's ||u|| partial of each of the block's tiles, by the threads
+  // of row 0, from the values in `red` (block_sum's order over the tile,
+  // see the note above)
+  auto tile_partial = [&](int t) {
+    const float* r = red + x;
+    const float column = ((r[0] + r[4 * seg_w]) + (r[2 * seg_w] + r[6 * seg_w])) +
+                         ((r[seg_w] + r[5 * seg_w]) + (r[3 * seg_w] + r[7 * seg_w]));
+    const float total = lbm::warp_sum(column);
+    if (x % lbm::kTileX == 0 && x0 + x < nx) {
+      partials[(static_cast<size_t>(t) * bands + band) * num_tiles_x(nx) +
+               (x0 + x) / lbm::kTileX] = total;
+    }
+  };
   for (int t = 0; t < n_steps; ++t) {
     float* cur = (t % 2 == 0) ? copy0 : copy1;
     float* nxt = (t % 2 == 0) ? copy1 : copy0;
@@ -366,15 +382,17 @@ __global__ void __launch_bounds__(kMaxBandThreads)
       }
       return obst ? 0.0f : sqrtf(u_sq);
     };
-    float norm = 0.0f;
-    // inner cells need nothing of the neighbours: they go first
-    if (live && !edge) norm = step_cell();
-    // the ghost values of state t: poll each until it is marked t+1
+    // The ghost values of state t: loads in flight while the inner cells,
+    // which need nothing of the neighbours, step and the last step's tile
+    // sums are taken; then each value is polled until it is marked t+1.
     Word got[kGather];
 #pragma unroll
     for (int q = 0; q < kGather; ++q) {
       if (g_src[q] >= 0) got[q] = ll_load(in + g_src[q]);
     }
+    float norm = 0.0f;
+    if (live && !edge) norm = step_cell();
+    if (i == 0 && t > 0) tile_partial(t - 1);
 #pragma unroll
     for (int q = 0; q < kGather; ++q) {
       if (g_src[q] < 0) continue;
@@ -389,18 +407,8 @@ __global__ void __launch_bounds__(kMaxBandThreads)
     if (live && edge) norm = step_cell();
     red[tid] = norm;
     __syncthreads();  // every value of the step is in, every read of cur done
-    if (i == 0) {
-      // block_sum's order over the tile (see the note above)
-      const float* r = red + x;
-      const float column = ((r[0] + r[4 * seg_w]) + (r[2 * seg_w] + r[6 * seg_w])) +
-                           ((r[seg_w] + r[5 * seg_w]) + (r[3 * seg_w] + r[7 * seg_w]));
-      const float total = lbm::warp_sum(column);
-      if (x % lbm::kTileX == 0 && x0 + x < nx) {
-        partials[(static_cast<size_t>(t) * bands + band) * num_tiles_x(nx) +
-                 (x0 + x) / lbm::kTileX] = total;
-      }
-    }
   }
+  if (i == 0 && n_steps > 0) tile_partial(n_steps - 1);
 
   // state n_steps back to its buffer: `a` for an even n_steps, else `b`
   if (live) {

@@ -20,9 +20,10 @@ Backends (each CUDA kernel runs its plain PyTorch version on the CPU):
             gate refuses a run with such a tail
   fused     the fused step in plain PyTorch (ops/fused.py)
   pipeline  the 4-op reference pipeline (ops/reference.py)
-  auto      ``pallask``, the fastest on every grid this port timed on the
-            H100, or ``stream`` where pallask's two state buffers do not
-            fit on the card (see ``AUTO_BACKEND``)
+  auto      on a CUDA card, ``resident`` where its banded form takes the
+            grid (the small decks), else ``pallask``, or ``stream`` where
+            pallask's two state buffers do not fit on the card (see
+            ``AUTO_BACKEND``); off CUDA ``pallask``
   sharded   the grid cut over a device mesh, halos exchanged between the
             shards (parallel/halo.py): a ring of ``devices`` shards or a
             ``mesh`` = (my, mx) torus, each shard on the shard kernel
@@ -64,14 +65,17 @@ WHOLE_RUN = ("resident", "pallask", "pallas2", "stream")
 
 
 # ``auto``'s backend wherever its two state buffers fit, from this port's
-# times on an H100 80GB HBM3 at 700 W (chip_smoke.py 3k/3s, PERF.md,
-# Findings): the K-step kernel is the fastest path from 512^2 up
-# (19.26 us per step at 1024^2, K = 3, against 32.18 for step and 40.91
-# for resident), level with resident up to 256^2, where the host paces
-# both (3.4-4.7 us per step against 3.7-4.1), and faster than the stream
-# kernel on every grid timed from 2048^2 to 16384^2 (964 against 1202 us
-# per step at 8192^2, 3862 against 4154 at 16384^2).  Where it does not
-# fit, ``auto`` runs ``stream`` (``Simulation._resolve_backend``).
+# times on an H100 80GB HBM3 at 700 W (chip_smoke.py 3r/3k/3s, PERF.md,
+# Findings).  Where the resident kernel's banded form takes the grid (the
+# small decks, ``resident.takes_banded``), ``auto`` runs ``resident``
+# instead: 2.98 / 2.97 / 3.22 us per step at 64^2 / 128^2 / 256^2 against
+# pallask's 3.49 / 3.98 / 3.81 (K = 5, host-paced), as the JAX ``auto``
+# runs its resident kernel on small grids.  Elsewhere the K-step kernel is
+# the fastest path (19.43 us per step at 1024^2, K = 3, against 32.59 for
+# step and 40.86 for the cooperative resident form) and faster than the
+# stream kernel on every grid timed from 2048^2 to 16384^2 (964 against
+# 1202 us per step at 8192^2, 3862 against 4154 at 16384^2).  Where it
+# does not fit, ``auto`` runs ``stream`` (``Simulation._resolve_backend``).
 AUTO_BACKEND = "pallask"
 
 
@@ -221,6 +225,8 @@ class Simulation:
 
     def _resolve_backend(self, backend: str) -> str:
         if backend == "auto":
+            if resident.takes_banded(self.params.ny, self.params.nx, self.device):
+                return "resident"
             mem = _device_memory_bytes(self.device)
             if (mem is not None
                     and self._need_bytes(AUTO_BACKEND, False) > FIT_MARGIN * mem

@@ -96,7 +96,7 @@ def banded_fits(ny: int, nx: int, smem_bytes: int, max_bands: int) -> bool:
     """Whether the banded form takes an (ny, nx) grid on a card with
     ``smem_bytes`` of opt-in shared memory per block, where ``max_bands``
     bands nx wide can be co-resident (the banded kernel's occupancy x SMs,
-    over the blocks a band needs at least: one per 128 columns); the C
+    over the blocks a band needs at least: one per 64 columns); the C
     query ``lbm_resident_banded_fits`` is the same rule."""
     return (1 <= nx <= BAND_MAX_COLS and ny >= 1 and band_smem_bytes(nx) <= smem_bytes
             and num_bands(ny) <= max_bands)

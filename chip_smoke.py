@@ -612,12 +612,15 @@ def check_auto(card: str, res_times: dict, k_times: dict) -> None:
     best_k choose there (a report; the choice is fixed in the code)."""
     from advanced_hpc_lbm_tpu_torch.models import d2q9_bgk
     from advanced_hpc_lbm_tpu_torch.ops import kstep_kernel
+    from advanced_hpc_lbm_tpu_torch.params import LBMParams
 
     for (ny, nx), row in sorted(k_times.items()):
         k = min(TIMED_K, key=row.get)
         t = {"step": row["step"], "resident": res_times[(ny, nx)][0],
              "pallask": row[kstep_kernel.best_k(ny, nx)]}
-        auto = d2q9_bgk.AUTO_BACKEND
+        auto = d2q9_bgk.Simulation(LBMParams(nx=nx, ny=ny, max_iters=1, reynolds_dim=10,
+                                             density=0.1, accel=0.005, omega=1.85),
+                                   np.zeros((ny, nx), dtype=bool), device="cuda").backend
         fastest = min(t, key=t.get)
         say(f"[3k auto] {ny}x{nx}: step {t['step'] * 1e3:.2f} us, resident "
             f"{t['resident'] * 1e3:.2f} us, pallask (K={kstep_kernel.best_k(ny, nx)}) "
@@ -762,7 +765,9 @@ def expected_launches(backend: str, ny: int, nx: int, iters: int) -> dict:
     from advanced_hpc_lbm_tpu_torch.models import d2q9_bgk
     from advanced_hpc_lbm_tpu_torch.ops import kstep_kernel, resident, stream_kernel
 
-    backend = d2q9_bgk.AUTO_BACKEND if backend == "auto" else backend
+    if backend == "auto":
+        backend = ("resident" if resident.takes_banded(ny, nx, "cuda")
+                   else d2q9_bgk.AUTO_BACKEND)
     want = dict.fromkeys(kernel_counters(), 0)
     if backend in ("step", "pallas"):
         want["step_kernel"] = iters

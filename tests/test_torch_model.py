@@ -146,12 +146,30 @@ def test_debug_on_whole_run_backend_collects_densities(backend):
 @pytest.mark.parametrize("ny,nx", [(17, 23), (128, 128), (128, 256), (1024, 1024),
                                    (4096, 4096), (4096, 8192)])
 def test_auto_rule(ny, nx):
-    """auto runs the K-step kernel on every grid, at best_k's K."""
+    """Off CUDA, where no banded resident form runs, auto runs the K-step
+    kernel on every grid, at best_k's K."""
     params = LBMParams(nx=nx, ny=ny, max_iters=1, reynolds_dim=10,
                        density=0.1, accel=0.005, omega=1.85)
     sim = Simulation(params, np.zeros((ny, nx), dtype=bool), device="cpu")
     assert sim.backend == "pallask"
     assert sim._k() == (5 if ny * nx <= 512 * 512 else 3 if ny * nx <= 4096 * 4096 else 4)
+
+
+def test_auto_takes_the_banded_resident_form(monkeypatch):
+    """Where the resident kernel's banded form takes the grid on the run's
+    device, auto runs resident; elsewhere pallask."""
+    params, mask = _small_deck()
+    seen = []
+
+    def takes(ny, nx, device):
+        seen.append((ny, nx, torch.device(device)))
+        return taken
+    monkeypatch.setattr(resident, "takes_banded", takes)
+    taken = True
+    assert Simulation(params, mask, device="cpu").backend == "resident"
+    taken = False
+    assert Simulation(params, mask, device="cpu").backend == "pallask"
+    assert seen == [(params.ny, params.nx, torch.device("cpu"))] * 2
 
 
 @pytest.mark.parametrize("backend", ["sharded"])
