@@ -77,7 +77,14 @@
 //   128x256 and 256^2 decks and the 64^2 mini deck, not 512^2 or 1024^2.
 //   A block itself needs less (at most 64 columns of the band).
 // * What bounds it: not the cells (at most 512 a block) and not the wait
-//   for the neighbours.  MEASURED_BANDED
+//   for the neighbours.  It runs 2.78 / 2.67 / 2.96 us per step at 64^2 /
+//   128^2 / 256^2 against the cooperative form's 4.05 / 3.75 / 4.09
+//   (chip_smoke.py 3r, H100 80GB HBM3, 700 W).  Without the wait for the
+//   neighbours' values it ran 2.60 / 2.53 / 2.96, with the cell step
+//   replaced by a copy 1.80 / 2.25 / 2.15 (scripts/
+//   torch_resident_variants.py): about 2 us of a step is its skeleton
+//   (the gather's round trip through L2, two block barriers, the tile
+//   sums) and about 0.7 us the cell step's latency.
 // * History: with one thread per column stepping all 8 rows of a band,
 //   the state in device memory and one int flag per band (stored after a
 //   fence, polled by one thread while the block waited), it ran 14.94 /

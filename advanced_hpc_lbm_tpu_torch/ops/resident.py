@@ -86,8 +86,10 @@ def band_partition(ny: int) -> list[tuple[int, int, int, int]]:
 
 
 def band_smem_bytes(nx: int) -> int:
-    """Shared memory of one band: two ping-pong copies of its 9 planes over
-    its 8 rows and 2 ghost rows (float32), and its 10 mask rows (uint8)."""
+    """The shape rule's shared memory of one band: two ping-pong copies of
+    its 9 planes over its 8 rows and 2 ghost rows (float32), and its 10
+    mask rows (uint8).  A block of the kernel holds less: a segment of the
+    band, at most 64 columns wide."""
     rows = BAND_ROWS + 2
     return 2 * 9 * rows * nx * 4 + rows * nx
 
@@ -107,12 +109,12 @@ def _banded_limits(device_index: int, nx: int) -> tuple[int, int]:
     """(opt-in shared memory per block, bands nx wide that can be
     co-resident) on a CUDA device, from the kernel library."""
     lib = step_kernel._library()
-    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    smem, bands = ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device_index):
         torch.zeros(1, device=f"cuda:{device_index}")  # create the context first
         step_kernel._raise_on(lib, lib.lbm_resident_banded_limits(
-            nx, ctypes.byref(smem), ctypes.byref(blocks)), "querying the banded kernel")
-    return smem.value, blocks.value
+            nx, ctypes.byref(smem), ctypes.byref(bands)), "querying the banded kernel")
+    return smem.value, bands.value
 
 
 def takes_banded(ny: int, nx: int, device: torch.device | str) -> bool:

@@ -2,141 +2,98 @@
 
 Each variant is a copy of ``advanced_hpc_lbm_tpu_torch/`` under
 ``build/scratch/var/<name>/`` whose ``csrc/resident_kernel.cu`` has text
-edits applied; each copy builds its own kernel library and is timed in a
+edits applied.  Each copy builds its own kernel library and is timed in a
 process of its own, one after another: 50 steps against the step kernel
-(differing values; the diagnostic variants differ on purpose) and two
-timings of 1000 steps of ``resident_run`` (us per step) at 64^2, 128^2 and
-256^2.  The edits match the banded kernel with the per-value step tags and
-the gather after the inner cells (the kernel as first committed in that
-form); run from the root of such a checkout on a CUDA card:
+(the number of differing values; the diagnostic variants differ on
+purpose) and two timings of 1000 steps of ``resident_run`` (us per step)
+at 64^2, 128^2 and 256^2.  Run from the root of a checkout on a CUDA card:
 
-    python scripts/torch_resident_variants.py base nowait reorder cg volatile
-    python scripts/torch_resident_variants.py rv rv_pre rv_pre_narrow rv_pre_nowait
+    python scripts/torch_resident_variants.py [name ...]   # default: all
 
 Prints one ``RESULT <name> {size: [differing values, [us, us]]}`` line per
-variant.
+variant.  The variants:
+
+  kernel       the kernel as it is
+  nowait       ghost values used without waiting for their step
+               (diagnostic: wrong results; what the exchange's wait costs)
+  nocompute    the cell step replaced by a copy (diagnostic: what the cell
+               step's latency costs)
+  late_gather  the ghost loads issued after the inner cells' step
+  relaxed      outbox words through cuda::atomic_ref relaxed loads and
+               stores instead of volatile accesses
+  wide         segments of up to 128 columns, 1024 threads of up to 64
+               registers
 """
-import os, shutil, subprocess, sys
+
+import os
+import shutil
+import subprocess
+import sys
 from pathlib import Path
 
-ROOT = Path(".").resolve()
+ROOT = Path.cwd()
 PKG = ROOT / "advanced_hpc_lbm_tpu_torch"
 OUT = ROOT / "build" / "scratch" / "var"
 
-PARTIAL = '''    if (i == 0) {
-      // block_sum's order over the tile (see the note above)
-      const float* r = red + x;
-      const float column = ((r[0] + r[4 * seg_w]) + (r[2 * seg_w] + r[6 * seg_w])) +
-                           ((r[seg_w] + r[5 * seg_w]) + (r[3 * seg_w] + r[7 * seg_w]));
-      const float total = lbm::warp_sum(column);
-      if (x % lbm::kTileX == 0 && x0 + x < nx) {
-        partials[(static_cast<size_t>(t) * bands + band) * num_tiles_x(nx) +
-                 (x0 + x) / lbm::kTileX] = total;
-      }
-    }
-  }
-'''
-PARTIAL_FN = '''    if (i == 0) tile_partial(t);
-  }
-  if (i == 0 && n_steps > 0) tile_partial(n_steps - 1);
-'''
-LAMBDA = '''  auto tile_partial = [&](int t) {
-      const float* r = red + x;
-      const float column = ((r[0] + r[4 * seg_w]) + (r[2 * seg_w] + r[6 * seg_w])) +
-                           ((r[seg_w] + r[5 * seg_w]) + (r[3 * seg_w] + r[7 * seg_w]));
-      const float total = lbm::warp_sum(column);
-      if (x % lbm::kTileX == 0 && x0 + x < nx) {
-        partials[(static_cast<size_t>(t) * bands + band) * num_tiles_x(nx) +
-                 (x0 + x) / lbm::kTileX] = total;
-      }
-  };
-  for (int t = 0; t < n_steps; ++t) {'''
-
-def reorder(s):
-    assert PARTIAL in s
-    s = s.replace(PARTIAL, '''  }
-  if (i == 0 && n_steps > 0) tile_partial(n_steps - 1);
-''')
-    s = s.replace("  for (int t = 0; t < n_steps; ++t) {\n    float* cur", LAMBDA + "\n    float* cur", 1)
-    old = '''#pragma unroll
-    for (int q = 0; q < kGather; ++q) {
-      if (g_src[q] < 0) continue;'''
-    assert old in s
-    s = s.replace(old, '''    if (i == 0 && t > 0) tile_partial(t - 1);
-''' + old)
-    return s
-
-def nowait(s):
-    old = '''      for (int polls = 0; static_cast<unsigned>(got[q] >> 32) != static_cast<unsigned>(t + 1);'''
-    assert old in s
-    return s.replace(old, '''      for (int polls = 0; false;''')
-
-def cg(s):
-    old_l = '''  return cuda::atomic_ref<Word, cuda::thread_scope_device>(*p).load(
-      cuda::memory_order_relaxed);'''
-    old_s = '''  cuda::atomic_ref<Word, cuda::thread_scope_device>(*p).store(
-      (static_cast<Word>(tag) << 32) | __float_as_uint(v), cuda::memory_order_relaxed);'''
-    assert old_l in s and old_s in s
-    s = s.replace(old_l, "  return __ldcg(p);")
-    return s.replace(old_s, "  __stcg(p, (static_cast<Word>(tag) << 32) | __float_as_uint(v));")
-
-def volatile(s):
-    old_l = '''  return cuda::atomic_ref<Word, cuda::thread_scope_device>(*p).load(
-      cuda::memory_order_relaxed);'''
-    old_s = '''  cuda::atomic_ref<Word, cuda::thread_scope_device>(*p).store(
-      (static_cast<Word>(tag) << 32) | __float_as_uint(v), cuda::memory_order_relaxed);'''
-    s = s.replace(old_l, "  return *reinterpret_cast<volatile Word*>(p);")
-    return s.replace(old_s, "  *reinterpret_cast<volatile Word*>(p) = (static_cast<Word>(tag) << 32) | __float_as_uint(v);")
-
-def prefetch(s):
-    old = """    float norm = 0.0f;
-    // inner cells need nothing of the neighbours: they go first
-    if (live && !edge) norm = step_cell();
-    // the ghost values of state t: poll each until it is marked t+1
-    Word got[kGather];
+LOADS = """    Word got[kGather];
 #pragma unroll
     for (int q = 0; q < kGather; ++q) {
       if (g_src[q] >= 0) got[q] = ll_load(in + g_src[q]);
     }
 """
-    new = """    Word got[kGather];
-#pragma unroll
-    for (int q = 0; q < kGather; ++q) {
-      if (g_src[q] >= 0) got[q] = ll_load(in + g_src[q]);
-    }
-    float norm = 0.0f;
+INNER = """    float norm = 0.0f;
     if (live && !edge) norm = step_cell();
 """
-    assert old in s
+
+
+def replace(s: str, old: str, new: str) -> str:
+    assert old in s, old[:80]
     return s.replace(old, new)
 
-def narrow(s):
-    old = "constexpr int kMaxSegTiles = 4;"
-    assert old in s
-    s = s.replace(old, "constexpr int kMaxSegTiles = 2;")
-    old = "__global__ void __launch_bounds__(kMaxBandThreads)\n    resident_banded_kernel"
-    assert old in s
-    return s.replace(old, "__global__ void __launch_bounds__(kMaxBandThreads, 1)\n    resident_banded_kernel")
 
-def nocompute(s):
-    old = """      const float u_sq = lbm::cell_step(st, i + 1, x, i, i + 2, x - 1, x + 1, v, obst, c);"""
-    assert old in s
-    return s.replace(old, """      float u_sq = 0.0f;
-      for (int k = 0; k < kSpeeds; ++k) v[k] = st.f(k, i + 1, x);""")
+def nowait(s: str) -> str:
+    return replace(s, "for (int polls = 0; static_cast<unsigned>(got[q] >> 32) != "
+                      "static_cast<unsigned>(t + 1);", "for (int polls = 0; false;")
 
-VARIANTS = {"base": [], "nowait": [nowait], "reorder": [reorder], "cg": [cg],
-            "volatile": [volatile], "reorder_volatile": [reorder, volatile],
-            "rv": [reorder, volatile], "rv_pre": [reorder, volatile, prefetch],
-            "rv_pre_narrow": [reorder, volatile, prefetch, narrow],
-            "rv_pre_nowait": [reorder, volatile, prefetch, nowait],
-            "rv_nocompute": [reorder, volatile, nocompute]}
+
+def nocompute(s: str) -> str:
+    return replace(s, "      const float u_sq = lbm::cell_step(st, i + 1, x, i, i + 2, "
+                      "x - 1, x + 1, v, obst, c);",
+                   "      const float u_sq = 0.0f;\n"
+                   "      for (int k = 0; k < kSpeeds; ++k) v[k] = st.f(k, i + 1, x);")
+
+
+def late_gather(s: str) -> str:
+    return replace(s, LOADS + INNER, INNER + LOADS)
+
+
+def relaxed(s: str) -> str:
+    s = replace(s, "#include <cooperative_groups.h>\n",
+                "#include <cooperative_groups.h>\n#include <cuda/atomic>\n")
+    s = replace(s, "  return *reinterpret_cast<volatile Word*>(p);",
+                "  return cuda::atomic_ref<Word, cuda::thread_scope_device>(*p).load(\n"
+                "      cuda::memory_order_relaxed);")
+    return replace(s, "  *reinterpret_cast<volatile Word*>(p) = (static_cast<Word>(tag) << 32) "
+                      "| __float_as_uint(v);",
+                   "  cuda::atomic_ref<Word, cuda::thread_scope_device>(*p).store(\n"
+                   "      (static_cast<Word>(tag) << 32) | __float_as_uint(v), "
+                   "cuda::memory_order_relaxed);")
+
+
+def wide(s: str) -> str:
+    s = replace(s, "constexpr int kMaxSegTiles = 2;", "constexpr int kMaxSegTiles = 4;")
+    return replace(s, "__launch_bounds__(kMaxBandThreads, 1)", "__launch_bounds__(kMaxBandThreads)")
+
+
+VARIANTS = {"kernel": [], "nowait": [nowait], "nocompute": [nocompute],
+            "late_gather": [late_gather], "relaxed": [relaxed], "wide": [wide]}
 
 TIMER = r'''
-import sys, json, torch, numpy as np
-sys.path.append("{root}")
+import sys, json
+sys.path.append({root!r})
 import chip_smoke as c
-from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel, _build
-assert str(_build.CSRC).startswith("{pkgdir}"), _build.CSRC
+from advanced_hpc_lbm_tpu_torch.ops import _build, resident, step_kernel
+assert str(_build.CSRC).startswith({pkgdir!r}), _build.CSRC
 _build.build()
 out = {{}}
 for n in (64, 128, 256):
@@ -147,25 +104,32 @@ for n in (64, 128, 256):
     ms = [c.time_ms(lambda: resident.resident_run(f, mask, params, n_iters=1000), 3) / 1000
           for _ in range(2)]
     out[n] = (diff, [m * 1e3 for m in ms])
-print("RESULT", "{name}", json.dumps(out), flush=True)
+print("RESULT", {name!r}, json.dumps(out), flush=True)
 '''
 
-chosen = sys.argv[1:] or list(VARIANTS)
-for name in chosen:
-    edits = VARIANTS[name]
-    d = OUT / name
-    if d.exists():
-        shutil.rmtree(d)
-    shutil.copytree(PKG, d / "advanced_hpc_lbm_tpu_torch", ignore=shutil.ignore_patterns("__pycache__"))
-    src = d / "advanced_hpc_lbm_tpu_torch" / "csrc" / "resident_kernel.cu"
-    s = src.read_text()
-    for e in edits:
-        s = e(s)
-    src.write_text(s)
-for name in chosen:  # one at a time: each times on the whole card
-    d = OUT / name
-    code = TIMER.format(root=ROOT, pkgdir=d, name=name)
-    env = dict(os.environ, PYTHONPATH=str(d))
-    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=d, capture_output=True, text=True)
-    lines = [l for l in r.stdout.splitlines() if l.startswith("RESULT")]
-    print(lines[0] if lines else f"{name} FAILED rc {r.returncode}: {r.stderr[-1500:]}", flush=True)
+
+def main() -> int:
+    chosen = sys.argv[1:] or list(VARIANTS)
+    for name in chosen:
+        d = OUT / name
+        if d.exists():
+            shutil.rmtree(d)
+        shutil.copytree(PKG, d / PKG.name, ignore=shutil.ignore_patterns("__pycache__"))
+        src = d / PKG.name / "csrc" / "resident_kernel.cu"
+        text = src.read_text()
+        for edit in VARIANTS[name]:
+            text = edit(text)
+        src.write_text(text)
+    for name in chosen:  # one at a time: each times on the whole card
+        d = OUT / name
+        code = TIMER.format(root=str(ROOT), pkgdir=str(d), name=name)
+        r = subprocess.run([sys.executable, "-c", code], cwd=d, capture_output=True, text=True,
+                           env=dict(os.environ, PYTHONPATH=str(d)))
+        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT")]
+        print(lines[0] if lines else f"{name} FAILED rc {r.returncode}: {r.stderr[-1500:]}",
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -133,7 +133,7 @@ def _chunked_partials(launcher, f, n, chunk, tiles):
                                    (256, 256)])
 def test_banded_resident_matches_step_kernel_bitwise(ny, nx):
     """One band, two bands, a ragged band, the mini deck and two reference
-    decks: 17 steps in chunks of 6 (the flags reset between launches), 0
+    decks: 17 steps in chunks of 6 (the outbox reset between launches), 0
     differing values in f and bitwise-equal partials against the step
     kernel, and the cooperative form's state on the same input."""
     params, mask, f = _on_card(ny, nx, seed=ny + nx)

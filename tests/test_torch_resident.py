@@ -108,10 +108,12 @@ def test_zero_steps_and_f0_untouched():
 
 
 def test_cpu_run_counts_no_launch():
+    """On the CPU the plain version runs: no form of the kernel launches."""
+    assert not resident.takes_banded(16, 32, "cpu")
     jp, mask, f0 = make_deck(16, 32)
-    before = resident.launches
+    before = (resident.launches, resident.banded_launches)
     port_run(jp, mask, f0, 3)
-    assert resident.launches == before
+    assert (resident.launches, resident.banded_launches) == before
 
 
 def test_prepare_builds_nothing_on_cpu(monkeypatch):
@@ -164,11 +166,3 @@ def test_band_partition(ny, bands):
     assert resident.band_partition(ny) == bands
     assert resident.num_bands(ny) == len(bands)
     assert sum(h for _, h, _, _ in bands) == ny
-
-
-def test_cpu_takes_no_form():
-    assert not resident.takes_banded(64, 64, "cpu")
-    jp, mask, f0 = make_deck(16, 32)
-    before = (resident.launches, resident.banded_launches)
-    port_run(jp, mask, f0, 3)
-    assert (resident.launches, resident.banded_launches) == before
