@@ -17,17 +17,24 @@ Optional flags:
   --out-dir       where to write outputs (default: cwd)
   --iters         override maxIters from the deck
   --check-finite  fail loudly if the run produced NaN/Inf
+  --checkpoint-every  N: snapshot the state every N steps into
+                  --checkpoint-dir (default checkpoints)
+  --resume        continue from the newest readable snapshot there
+  --profile       TRACE_DIR: a torch.profiler trace of the Compute phase,
+                  written there as a Chrome trace (utils/profiling.py)
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 import torch
 
 from advanced_hpc_lbm_tpu_torch.models.d2q9_bgk import BACKENDS, Simulation
 from advanced_hpc_lbm_tpu_torch.parallel.halo import SHARD_KERNELS
+from advanced_hpc_lbm_tpu_torch.utils import profiling
 from advanced_hpc_lbm_tpu_torch.utils.timers import PhaseTimers
 
 
@@ -47,11 +54,25 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--device", default="cuda", help="torch device to run on")
     p.add_argument("--debug", action="store_true")
+    p.add_argument(
+        "--profile", metavar="TRACE_DIR", default=None,
+        help="write a torch.profiler trace of the Compute phase into TRACE_DIR "
+             "(a Chrome trace: chrome://tracing, Perfetto, TensorBoard)",
+    )
     p.add_argument("--out-dir", default=".")
     p.add_argument("--iters", type=int, default=None)
     p.add_argument(
         "--check-finite", action="store_true",
         help="fail loudly if the run produced NaN/Inf (numerical sanitizer)",
+    )
+    p.add_argument(
+        "--checkpoint-every", type=int, default=None, metavar="N",
+        help="snapshot the distribution array every N steps",
+    )
+    p.add_argument("--checkpoint-dir", default="checkpoints")
+    p.add_argument(
+        "--resume", action="store_true",
+        help="resume from the latest snapshot in --checkpoint-dir",
     )
     p.add_argument(
         "--devices", type=int, default=None,
@@ -108,7 +129,9 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     timers = PhaseTimers()
     sharding = dict(n_iters=args.iters, debug=args.debug, devices=args.devices,
-                    shard_kernel=args.shard_kernel, mesh=args.mesh, ca_steps=args.ca_steps)
+                    shard_kernel=args.shard_kernel, mesh=args.mesh, ca_steps=args.ca_steps,
+                    checkpoint_every=args.checkpoint_every,
+                    checkpoint_dir=args.checkpoint_dir, resume=args.resume)
 
     with timers.phase("init"):
         try:
@@ -117,19 +140,23 @@ def main(argv: list[str] | None = None) -> int:
                 backend=args.backend, device=_device(args.device),
             )
             # build and load the kernel here, so Compute times the steps
-            # alone; a grid that does not fit on the card, or a bad
-            # decomposition, stops here
+            # alone; a grid that does not fit on the card, a bad
+            # decomposition or a segment length it refuses stops here
             sim.warmup(**sharding)
         except (OSError, ValueError) as e:  # DeckError is a ValueError
             print(f"Error: {e}", file=sys.stderr)
             return 1
 
-    with timers.phase("compute"):
+    trace = profiling.trace(args.profile) if args.profile else contextlib.nullcontext()
+    with trace, timers.phase("compute"):
         # leave results on the device: the CLI times the device->host
-        # transfer as the Collate phase
+        # transfer as the Collate phase (a checkpointed run has gathered
+        # them already, and checks finiteness here)
         try:
             result = sim.run(check_finite=args.check_finite, fetch=False, **sharding)
-        except ValueError as e:  # the device-memory gate, or a refused tail
+        except (FloatingPointError, ValueError) as e:
+            # the device-memory gate, a refused tail, a resume point past
+            # the target
             print(f"Error: {e}", file=sys.stderr)
             return 1
 

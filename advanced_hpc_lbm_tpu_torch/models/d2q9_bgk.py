@@ -37,6 +37,10 @@ counterpart of the JAX package falling back to ``fused`` there.  On the
 sharded path the densities are each step's shard sums, added in shard
 order.
 
+``checkpoint_every`` / ``resume`` run the deck as segments of at most
+``checkpoint_every`` steps on the backend a straight run takes, with a
+snapshot (utils/checkpoint.py) after each (``_run_checkpointed``).
+
 Before it allocates a state, a run checks that the backend's device
 memory fits in 0.9 of the card's (``_check_single_chip_fit``), as the JAX
 package checks the TPU's HBM.
@@ -57,6 +61,7 @@ from advanced_hpc_lbm_tpu_torch.ops import (
 from advanced_hpc_lbm_tpu_torch.parallel import halo
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
 from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
+from advanced_hpc_lbm_tpu_torch.utils.checkpoint import CheckpointManager
 
 BACKENDS = ("auto", "step", "pallas", "resident", "pallask", "pallas2", "stream",
             "fused", "pipeline", "sharded")
@@ -272,20 +277,21 @@ class Simulation:
         return mem is None or (self._need_bytes("stream", False) + self._state_bytes()
                                + ny * nx <= FIT_MARGIN * mem)
 
-    def _check_single_chip_fit(self, debug: bool = False, iters: int | None = None) -> None:
+    def _check_single_chip_fit(self, debug: bool = False, lengths: tuple[int, ...] = ()) -> None:
         """Fail with an actionable message on grids whose run would not fit
         in the card's device memory, before any state is allocated, instead
         of a CUDA out-of-memory error inside the run: the counterpart of
-        the JAX package's gate, with its 0.9 margin.  With ``iters``, a
-        stream run whose tail's second state does not fit is refused too."""
+        the JAX package's gate, with its 0.9 margin.  A stream run of one
+        of ``lengths`` (its segments' step counts) whose tail's second
+        state does not fit is refused too."""
         mem = _device_memory_bytes(self.device)
         if mem is None:
             return
         need = self._need_bytes(self.backend, debug)
         if need <= FIT_MARGIN * mem:
-            if (self.backend == "stream" and not debug and iters is not None
-                    and not self._stream_tail_fits()):
-                stream_kernel.refuse_tail(iters)
+            if self.backend == "stream" and not debug and not self._stream_tail_fits():
+                for n in lengths:
+                    stream_kernel.refuse_tail(n)
             return
         ny, nx = self.params.ny, self.params.nx
         # suggest the streaming tier only where its own need fits
@@ -314,8 +320,10 @@ class Simulation:
             or mesh is not None
 
     @staticmethod
-    def _validate_flags(sharded: bool, *, ca_steps: int) -> None:
+    def _validate_flags(sharded: bool, *, ca_steps: int, checkpoint_every: int | None = None) -> None:
         """Flag-composition errors, raised from both warmup() and run()."""
+        if checkpoint_every is not None and checkpoint_every < 0:
+            raise ValueError(f"checkpoint_every must be >= 0, got {checkpoint_every}")
         if ca_steps > 1 and not sharded:
             raise ValueError(
                 "ca_steps > 1 is a property of the halo exchange and needs the sharded "
@@ -345,10 +353,14 @@ class Simulation:
         key = (iters, runner.mesh, runner.kernel, runner.ca_steps, debug)
         return self._runners.setdefault(key, runner)
 
-    def _run_on_device(self, iters: int, debug: bool) -> tuple[torch.Tensor, ...]:
-        # the loops start in f0's own buffer (donate), so a run holds two
-        # states at most, and stream without a tail one
-        f0 = self.initial_state()
+    def _run_on_device(self, iters: int, debug: bool,
+                       f0: torch.Tensor | None = None) -> tuple[torch.Tensor, ...]:
+        """The run from ``f0`` (default: the initial state), a contiguous
+        state on the device that the kernel loops take as their first
+        buffer (donate), so that a run holds two states at most, and stream
+        without a tail one."""
+        if f0 is None:
+            f0 = self.initial_state()
         if self.backend == "resident" and not debug:
             return resident.resident_run(f0, self._mask, self.params, n_iters=iters,
                                          donate=True)
@@ -374,6 +386,16 @@ class Simulation:
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
 
+    @staticmethod
+    def _segments(start: int, iters: int, every: int) -> list[int]:
+        """The step counts of the segments from step ``start`` to ``iters``
+        at most ``every`` steps each."""
+        out = []
+        while start < iters:
+            out.append(min(every, iters - start))
+            start += out[-1]
+        return out
+
     def warmup(
         self,
         *,
@@ -384,6 +406,9 @@ class Simulation:
         mesh: tuple[int, int] | None = None,
         ca_steps: int = 1,
         shard_devices=None,
+        checkpoint_every: int | None = None,
+        checkpoint_dir: str | os.PathLike = "checkpoints",
+        resume: bool = False,
     ) -> None:
         """Pay the one-time costs before the Compute timer starts: build the
         kernel library, load every kernel the backend launches onto the
@@ -394,17 +419,28 @@ class Simulation:
         throwaway step to load PyTorch's kernels.  A grid that does not
         fit on the card raises here, before anything is allocated.  Pass
         the sharded arguments the run will take (see :meth:`run`): a bad
-        decomposition raises here."""
+        decomposition raises here.  With ``checkpoint_every``/``resume``
+        it resolves the resume point as the run will (the newest readable
+        snapshot), does nothing when that is at or past the target, and
+        validates every segment length the run will take (the sharded
+        runner of each; a stream tail the card cannot hold raises)."""
+        iters = self.params.max_iters if n_iters is None else n_iters
         sharded = self._is_sharded(devices, mesh)
-        self._validate_flags(sharded, ca_steps=ca_steps)
+        self._validate_flags(sharded, ca_steps=ca_steps, checkpoint_every=checkpoint_every)
+        lengths: tuple[int, ...] = ()
+        if checkpoint_every or resume:
+            start = CheckpointManager(checkpoint_dir).latest_step() if resume else 0
+            if start >= iters:
+                return  # the resume point is at or past the target: nothing runs
+            lengths = tuple(dict.fromkeys(self._segments(start, iters, checkpoint_every or iters)))
         if sharded:
-            iters = self.params.max_iters if n_iters is None else n_iters
-            runner = self._sharded_runner(iters, devices, shard_kernel, mesh, ca_steps, debug,
-                                          shard_devices)
-            runner.prepare(self.obstacles)
+            for seg in lengths or (iters,):
+                runner = self._sharded_runner(seg, devices, shard_kernel, mesh, ca_steps, debug,
+                                              shard_devices)
+                runner.prepare(self.obstacles)
             self._sync(runner.mesh.devices)
             return
-        self._check_single_chip_fit()
+        self._check_single_chip_fit(debug, lengths)
         if self.backend == "step" or self.backend in WHOLE_RUN:
             step_kernel.prepare(self.device)
             if self.backend == "resident":
@@ -429,6 +465,9 @@ class Simulation:
         mesh: tuple[int, int] | None = None,
         ca_steps: int = 1,
         shard_devices=None,
+        checkpoint_every: int | None = None,
+        checkpoint_dir: str | os.PathLike = "checkpoints",
+        resume: bool = False,
     ) -> SimulationResult:
         """Execute the main loop on the device.
 
@@ -443,28 +482,34 @@ class Simulation:
         default: every shard on the CPU for a CPU run, the visible cards
         for a CUDA one).  The sharded state stays on the mesh until
         ``collate()``, which gathers it plane by plane.
+        ``checkpoint_every`` snapshots the state every N steps into
+        ``checkpoint_dir`` (utils/checkpoint.py); ``resume`` continues from
+        the newest readable snapshot there.  A checkpointed run gathers
+        its state to the host after every segment anyway, so it returns
+        host arrays whatever ``fetch`` says: ``collate()`` is then a no-op,
+        and ``check_finite`` applies before it returns.
         """
         iters = self.params.max_iters if n_iters is None else n_iters
         sharded = self._is_sharded(devices, mesh)
-        self._validate_flags(sharded, ca_steps=ca_steps)
+        self._validate_flags(sharded, ca_steps=ca_steps, checkpoint_every=checkpoint_every)
+        if checkpoint_every or resume:
+            result = self._run_checkpointed(
+                iters, checkpoint_every or iters, checkpoint_dir, resume, debug=debug,
+                sharded=sharded, devices=devices, shard_kernel=shard_kernel, mesh=mesh,
+                ca_steps=ca_steps, shard_devices=shard_devices)
+            if check_finite:
+                self._assert_finite(result)
+            return result
         if sharded:
             runner = self._sharded_runner(iters, devices, shard_kernel, mesh, ca_steps, debug,
                                           shard_devices)
             out = runner(None, self.obstacles)
             self._sync(runner.mesh.devices)
         else:
-            self._check_single_chip_fit(debug, iters)
+            self._check_single_chip_fit(debug, (iters,))
             out = self._run_on_device(iters, debug)
             self._sync()
-        f_final, av_vels = out[0], out[1]
-        densities = out[2] if debug else None
-        result = SimulationResult(
-            params=self.params,
-            f_final=f_final,
-            av_vels=av_vels,
-            densities=densities,
-        )
-        result._obstacles_cache = self.obstacles
+        result = self._result(out[0], out[1], out[2] if debug else None)
         if fetch:
             result.collate()
         if check_finite:
@@ -473,6 +518,96 @@ class Simulation:
             else:
                 result._check_finite_pending = True
         return result
+
+    def _result(self, f_final, av_vels, densities) -> SimulationResult:
+        result = SimulationResult(params=self.params, f_final=f_final, av_vels=av_vels,
+                                  densities=densities)
+        result._obstacles_cache = self.obstacles
+        return result
+
+    def _run_checkpointed(
+        self,
+        iters: int,
+        every: int,
+        checkpoint_dir: str | os.PathLike,
+        resume: bool,
+        *,
+        debug: bool,
+        sharded: bool,
+        devices: int | None,
+        shard_kernel: str,
+        mesh: tuple[int, int] | None,
+        ca_steps: int,
+        shard_devices,
+    ) -> SimulationResult:
+        """The segment loop: segments of ``every`` steps on the backend a
+        straight run takes, a snapshot after each.
+
+        Every distinct segment length is validated before the first
+        segment runs (the sharded runner of each; a stream tail the card
+        cannot hold), so a run that would fail in its last segment writes
+        no snapshot.  On one device the state stays on the device from
+        segment to segment, each segment's loop taking the last one's
+        buffer; a resumed state goes onto the device once, as one buffer.
+        A snapshot gathers the state plane by plane (``_to_host``), so it
+        needs no device memory.  On the sharded path each segment starts
+        from the host copy that its snapshot gathered: each runner builds
+        its own ghosted windows, and the last segment's windows are gone
+        before the next one's are allocated.
+        """
+        mgr = CheckpointManager(checkpoint_dir)
+        start = 0
+        f = None  # None: the initial state, made by the first segment's run
+        av_parts: list[np.ndarray] = []
+        dens_parts: list[np.ndarray] = []
+        if resume:
+            latest = mgr.latest()
+            if latest is not None:
+                start, f, av_prev, dens_prev = latest
+                if start > iters:
+                    raise ValueError(f"checkpoint at step {start} is beyond requested {iters}")
+                av_parts.append(av_prev[:start])
+                if debug:
+                    # a snapshot written without --debug has no density
+                    # history: those steps read NaN, so the later ones stay
+                    # aligned with av_vels
+                    dens_parts.append(dens_prev[:start] if dens_prev is not None
+                                      else np.full((start,), np.nan, np.float32))
+        segments = self._segments(start, iters, every)
+        if sharded:
+            runners = {seg: self._sharded_runner(seg, devices, shard_kernel, mesh, ca_steps,
+                                                 debug, shard_devices)
+                       for seg in dict.fromkeys(segments)}
+        else:
+            self._check_single_chip_fit(debug, tuple(dict.fromkeys(segments)))
+            if f is not None and segments:
+                f = torch.from_numpy(f).to(self.device)
+        host_f = f if isinstance(f, np.ndarray) else None
+        done = start
+        for seg in segments:
+            if sharded:
+                runner = runners[seg]
+                out = runner(host_f, self.obstacles)
+                self._sync(runner.mesh.devices)
+            else:
+                out = self._run_on_device(seg, debug, f)
+                self._sync()
+                f = out[0]
+            host_f = _to_host(out[0])
+            av_parts.append(_to_host(out[1]))
+            if debug:
+                dens_parts.append(_to_host(out[2]))
+            out = None  # a sharded state's windows go before the next segment's
+            done += seg
+            mgr.save(done, host_f, np.concatenate(av_parts),
+                     densities=np.concatenate(dens_parts) if debug else None)
+        if host_f is None:  # nothing ran and nothing was resumed
+            host_f = _to_host(self.initial_state())
+        return self._result(
+            host_f,
+            np.concatenate(av_parts) if av_parts else np.zeros((0,), np.float32),
+            np.concatenate(dens_parts) if dens_parts else None,
+        )
 
     @staticmethod
     def _assert_finite(result: SimulationResult) -> None:

@@ -5,8 +5,9 @@ composes the reference ops in one pass (forcing, pull-stream, BGK collide,
 bounce-back) and reduces ||u|| over the *post*-collision moments, as the
 JAX function does.  :func:`run_simulation` runs ``max_iters`` such steps as
 a Python loop that ping-pongs two preallocated state buffers and keeps the
-av history on the device.  The hand-written kernel's own loop is
-:func:`advanced_hpc_lbm_tpu_torch.ops.step_kernel.run`.
+av history on the device.  Both take an optional leading batch axis of
+independent decks (``parallel/batch.py``).  The hand-written kernel's own
+loop is :func:`advanced_hpc_lbm_tpu_torch.ops.step_kernel.run`.
 """
 
 from __future__ import annotations
@@ -37,13 +38,14 @@ def fused_step(
          fluid cells.
 
     Args:
-      f: (9, ny, nx) float32 distributions.
-      obstacles: (ny, nx) bool.
-      n_fluid: float32 0-dim tensor, the count of fluid cells.
+      f: (..., 9, ny, nx) float32 distributions: one deck, or a batch of
+        independent decks along a leading axis.
+      obstacles: (..., ny, nx) bool.
+      n_fluid: float32 (...) tensor, the count of fluid cells of each deck.
       params: run parameters.
-      out: optional (9, ny, nx) buffer for the next state (must not be f).
+      out: optional buffer like ``f`` for the next state (must not be f).
 
-    Returns (f_next, av_vel), av_vel a float32 0-dim tensor.
+    Returns (f_next, av_vel), av_vel a float32 (...) tensor.
     """
     f = reference.accelerate_flow(f, obstacles, params.accel_w1, params.accel_w2)
     streamed = reference.stream_pull(f)
@@ -52,14 +54,20 @@ def fused_step(
     feq = reference.equilibrium(rho, u_x, u_y)
     relaxed = streamed + float(params.omega_f32) * (feq - streamed)
 
-    reflected = streamed[_OPP.to(streamed.device)]
+    reflected = streamed[..., _OPP.to(streamed.device), :, :]
     if out is None:
         out = torch.empty_like(streamed)
-    torch.where(obstacles[None, :, :], reflected, relaxed, out=out)
+    torch.where(obstacles[..., None, :, :], reflected, relaxed, out=out)
 
     _, v_x, v_y = reference.macroscopic(out)
-    norm = torch.sqrt(v_x * v_x + v_y * v_y)
-    tot_u = torch.sum(torch.where(obstacles, 0.0, norm))
+    norm = torch.where(obstacles, 0.0, torch.sqrt(v_x * v_x + v_y * v_y))
+    if norm.dim() == 2:
+        return out, torch.sum(norm) / n_fluid
+    # each deck of a batch summed on its own, as one deck is: a reduction
+    # over the batched tensor splits its sums by the batch's size on a
+    # card, so a deck's av would depend on the batch it ran in
+    decks = norm.reshape(-1, *norm.shape[-2:])
+    tot_u = torch.stack([torch.sum(d) for d in decks]).reshape(norm.shape[:-2])
     return out, tot_u / n_fluid
 
 
@@ -90,18 +98,22 @@ def run_simulation(
     collect_density: bool = False,
 ) -> tuple[torch.Tensor, ...]:
     """Run the main loop on ``f0``'s device.  ``f0`` is not modified.
+    With a leading batch axis (``f0`` (B, 9, ny, nx), ``obstacles`` (B, ny,
+    nx)) the decks run side by side, for a step function that takes one
+    (``fused_step``).
 
-    Returns (f_final, av_vels[(n_iters,)]), plus the per-step total
-    densities when ``collect_density``.  Nothing is brought to the host.
+    Returns (f_final, av_vels[(..., n_iters)]), plus the per-step total
+    densities when ``collect_density`` (one deck).  Nothing is brought to
+    the host.
     """
     iters = params.max_iters if n_iters is None else n_iters
-    n_fluid = torch.sum(~obstacles).to(torch.float32)
+    n_fluid = torch.sum(~obstacles, dim=(-2, -1)).to(torch.float32)
     bufs = (f0.clone(), torch.empty_like(f0))
-    av = torch.empty(iters, dtype=torch.float32, device=f0.device)
+    av = torch.empty((*f0.shape[:-3], iters), dtype=torch.float32, device=f0.device)
     dens = torch.empty(iters, dtype=torch.float32, device=f0.device) if collect_density else None
     for t in range(iters):
         dst = bufs[(t + 1) % 2]
-        _, av[t] = step_fn(bufs[t % 2], obstacles, n_fluid, params, out=dst)
+        _, av[..., t] = step_fn(bufs[t % 2], obstacles, n_fluid, params, out=dst)
         if collect_density:
             dens[t] = reference.total_density(dst)
     f_final = bufs[iters % 2]

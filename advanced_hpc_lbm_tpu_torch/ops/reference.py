@@ -54,40 +54,41 @@ def accelerate_flow(
     cells where all three decremented speeds stay strictly positive.
 
     Args:
-      f: (9, ny, nx) distributions.
-      obstacles: (ny, nx) bool mask, True = blocked.
+      f: (..., 9, ny, nx) distributions (a leading batch axis is optional).
+      obstacles: (..., ny, nx) bool mask, True = blocked.
       w1, w2: forcing increments (params.accel_w1 / accel_w2).
     """
     w1, w2 = float(w1), float(w2)
-    jj = f.shape[1] - 2
-    row = f[:, jj, :]  # (9, nx)
+    jj = f.shape[-2] - 2
+    row = f[..., jj, :]  # (..., 9, nx)
     ok = (
-        (~obstacles[jj, :])
-        & (row[3] - w1 > 0.0)
-        & (row[6] - w2 > 0.0)
-        & (row[7] - w2 > 0.0)
+        (~obstacles[..., jj, :])
+        & (row[..., 3, :] - w1 > 0.0)
+        & (row[..., 6, :] - w2 > 0.0)
+        & (row[..., 7, :] - w2 > 0.0)
     )
     delta = torch.zeros_like(row)
-    delta[1] = w1
-    delta[5] = w2
-    delta[8] = w2
-    delta[3] = -w1
-    delta[6] = -w2
-    delta[7] = -w2
+    delta[..., 1, :] = w1
+    delta[..., 5, :] = w2
+    delta[..., 8, :] = w2
+    delta[..., 3, :] = -w1
+    delta[..., 6, :] = -w2
+    delta[..., 7, :] = -w2
     out = f.clone()
-    out[:, jj, :] = torch.where(ok[None, :], row + delta, row)
+    out[..., jj, :] = torch.where(ok[..., None, :], row + delta, row)
     return out
 
 
 def stream_pull(f: torch.Tensor) -> torch.Tensor:
     """Pull-scheme periodic streaming:
-    out[k, jj, ii] = f[k, jj - CY[k], ii - CX[k]] with wrap-around, one
-    ``torch.roll`` per speed plane."""
+    out[..., k, jj, ii] = f[..., k, jj - CY[k], ii - CX[k]] with
+    wrap-around, one ``torch.roll`` per speed plane."""
     planes = [
-        torch.roll(f[k], shifts=(int(lattice.CY[k]), int(lattice.CX[k])), dims=(0, 1))
+        torch.roll(f[..., k, :, :], shifts=(int(lattice.CY[k]), int(lattice.CX[k])),
+                   dims=(-2, -1))
         for k in range(lattice.NSPEEDS)
     ]
-    return torch.stack(planes)
+    return torch.stack(planes, dim=-3)
 
 
 def apply_bounce_back(f_streamed: torch.Tensor, obstacles: torch.Tensor) -> torch.Tensor:
@@ -98,15 +99,18 @@ def apply_bounce_back(f_streamed: torch.Tensor, obstacles: torch.Tensor) -> torc
 
 
 def macroscopic(f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Density and velocity moments: (rho, u_x, u_y), each (ny, nx)."""
-    rho = torch.sum(f, dim=0)
-    u_x = (f[1] + f[5] + f[8] - (f[3] + f[6] + f[7])) / rho
-    u_y = (f[2] + f[5] + f[6] - (f[4] + f[7] + f[8])) / rho
+    """Density and velocity moments of (..., 9, ny, nx) distributions:
+    (rho, u_x, u_y), each (..., ny, nx)."""
+    p = [f[..., k, :, :] for k in range(lattice.NSPEEDS)]
+    rho = torch.sum(f, dim=-3)
+    u_x = (p[1] + p[5] + p[8] - (p[3] + p[6] + p[7])) / rho
+    u_y = (p[2] + p[5] + p[6] - (p[4] + p[7] + p[8])) / rho
     return rho, u_x, u_y
 
 
 def equilibrium(rho: torch.Tensor, u_x: torch.Tensor, u_y: torch.Tensor) -> torch.Tensor:
-    """Second-order BGK equilibrium, (9, ny, nx):
+    """Second-order BGK equilibrium, (..., 9, ny, nx) from (..., ny, nx)
+    moments:
     feq_k = w_k * rho * (1 + cu/c_s^2 + cu^2/(2 c_s^4) - u^2/(2 c_s^2))
     with cu = c_k . u.  The scalar denominators are rounded in float32 on
     the host, as numpy does them in the JAX version."""
@@ -117,11 +121,11 @@ def equilibrium(rho: torch.Tensor, u_x: torch.Tensor, u_y: torch.Tensor) -> torc
     cx = torch.from_numpy(lattice.CX).to(rho)[:, None, None]
     cy = torch.from_numpy(lattice.CY).to(rho)[:, None, None]
     w = torch.from_numpy(lattice.W).to(rho)[:, None, None]
-    cu = cx * u_x[None] + cy * u_y[None]
+    cu = cx * u_x[..., None, :, :] + cy * u_y[..., None, :, :]
     return (
         w
-        * rho[None]
-        * (1.0 + cu / c_sq + (cu * cu) / two_c4 - u_sq[None] / two_c2)
+        * rho[..., None, :, :]
+        * (1.0 + cu / c_sq + (cu * cu) / two_c4 - u_sq[..., None, :, :] / two_c2)
     )
 
 

@@ -43,8 +43,11 @@ makes the destination's current stream wait for the copy (``copy_`` of
 CUDA tensors on two devices), which is the event ordering the exchange
 needs.  That multi-card path has not run on more than one card.
 
-Not ported: ``overlap`` (the overlapped 1-step jnp schedule), batching,
-multi-process runs and checkpointed sharded runs.
+Checkpointed sharded runs go through ``Simulation.run(checkpoint_every=...)``:
+each segment is a runner call from the host copy of the state that the
+last snapshot gathered.  Batches of independent decks are
+``parallel/batch.py``.  Not ported: ``overlap`` (the overlapped 1-step
+jnp schedule) and multi-process runs (``parallel/multihost.py``).
 """
 
 from __future__ import annotations

@@ -1,1 +1,2 @@
-"""Runtime utilities: I/O codecs, validation checker, timers."""
+"""Runtime utilities: I/O codecs, validation checker, timers, checkpoints,
+profiling."""

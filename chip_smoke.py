@@ -76,10 +76,31 @@ non-zero and prints no result:
              launches, mass conserved); then 4 shards of pallas, pallas
              K = 4 and stream beside single-device pallask from 2048^2 to
              8192^2
+  9. checkpoint  checkpointed runs against straight ones (0 differing
+             values in the state, the same final_state.dat, av within
+             rtol 1e-5, exact launches per segment): the 128x128 deck
+             (40 000 steps) through the CLI on auto (banded resident) with
+             --checkpoint-every 15000; the 1024x1024 deck on auto
+             (pallask) with --checkpoint-every 7000 against phase 5's
+             run, and killed at 10 000 then --resume'd to 20 000; a
+             4096x4096 deck on stream in place with checkpoint_every=1000
+             (peak device memory no higher than the straight run's, the
+             snapshots' write time); 1024x1024 on 4 shards of the card
+             (ring pallas and stream, 2x2 torus pallas), every 300 of
+             1000 steps
+  10. profile  --profile through the CLI on a 512x512 deck (pallask) and
+             the 128x128 deck (auto): the trace file, the ==done== block
+             and outputs as without it, each launched port kernel in the
+             trace by name as often as its counter, the device's busy
+             share of the Compute window and the top kernels; phase 7's
+             run is traced too (its host set-up before the first kernel)
+  11. batch  parallel/batch.batch_run of 4 decks of 1024x1024 for 200
+             steps against 4 sequential fused runs (rtol 1e-6), split over
+             [cuda:0, cuda:0] equal to the unsplit batch
   result     a JSON line of the kernels, then the device JSON line last
 
 Launch counts: every kernel module counts its launches; each run of
-phases 4-8 (the main path) sets the counts to 0 just before it and reads
+phases 4-11 (the main path) sets the counts to 0 just before it and reads
 them just after, and the kernels line reports their sum.  Times in the
 kernels line are per step; ``bound_ms`` is the least time of the same
 work on an H100 (bytes of each input read once and each output written
@@ -91,6 +112,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import hashlib
 import io
 import json
 import subprocess
@@ -129,7 +151,7 @@ BEFORE_US = {"step 1024^2": 32.37, "K=4 4096^2": 303.93, "K=4 1024^2": 23.20,
              "stream 4096^2": 476.92, "stream 8192^2": 1665.38,
              "stream 16384^2": 5945.41}
 
-# launches of each kernel over the main-path runs of phases 4-6
+# launches of each kernel over the main-path runs of phases 4-11
 MAIN_LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -592,16 +614,17 @@ def time_kstep(card: str) -> dict:
         for k in TIMED_K:
             row[k] = time_ms(lambda: kstep_kernel.run(f, mask, params, n_iters=n, k=k), 2) / n
         if size == 4096:
-            k = kstep_kernel.best_k(size, size)
-            out = torch.empty_like(f)
-            part = torch.empty(k, kstep_kernel.num_tiles(size, size), device=f.device)
-            row["plain"] = time_ms(lambda: kstep_kernel.plain_multi_step(
-                f, mask, params, k, out=out, partials=part), 2) / k
+            # the plain version at best_k (pallask) and at K = 2 (pallas2)
+            for key, k in (("plain", kstep_kernel.best_k(size, size)), ("plain K=2", 2)):
+                out = torch.empty_like(f)
+                part = torch.empty(k, kstep_kernel.num_tiles(size, size), device=f.device)
+                row[key] = time_ms(lambda: kstep_kernel.plain_multi_step(
+                    f, mask, params, k, out=out, partials=part), 2) / k
         times[(size, size)] = row
         ks = " ".join(f"K={k} {row[k] * 1e3:.2f} us ({size * size / row[k] / 1e6:.3f} GLUPS)"
                       for k in TIMED_K)
-        plain = (f", plain K={kstep_kernel.best_k(size, size)} {row['plain'] * 1e3:.2f} us"
-                 if "plain" in row else "")
+        plain = (f", plain K={kstep_kernel.best_k(size, size)} {row['plain'] * 1e3:.2f} us, "
+                 f"plain K=2 {row['plain K=2'] * 1e3:.2f} us" if "plain" in row else "")
         say(f"[3k kstep] {size}x{size} time per step ({n} steps): {ks}; step run loop "
             f"{s_ms * 1e3:.2f} us ({size * size / s_ms / 1e6:.3f} GLUPS){plain} | {card}")
     return times
@@ -838,7 +861,10 @@ def write_full_deck(d: Path, nx: int, ny: int, iters: int) -> tuple[Path, Path]:
     return params, obst
 
 
-def phase_full(card: str, times: dict) -> None:
+def phase_full(card: str, times: dict) -> dict:
+    """The 1024^2 deck; returns the library run's state and av and the
+    digest of auto's final_state.dat, the straight run phase 9 holds its
+    checkpointed runs to."""
     from advanced_hpc_lbm_tpu_torch import Simulation
     from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
 
@@ -846,7 +872,7 @@ def phase_full(card: str, times: dict) -> None:
     iters = 20_000
     with tempfile.TemporaryDirectory() as tmp:
         params_f, obst_f = write_full_deck(Path(tmp), nx, ny, iters)
-        histories = {}
+        histories, digests = {}, {}
         for backend in ("auto", "resident"):
             tag = f"[5 full] --backend {backend}:"
             rc, lines, n = run_cli([str(params_f), str(obst_f), "--backend", backend,
@@ -861,6 +887,7 @@ def phase_full(card: str, times: dict) -> None:
             if av_cli.shape != (iters,) or not np.all(np.isfinite(av_cli)) or not np.all(av_cli > 0):
                 fail(f"{tag} av history is not finite and positive")
             histories[backend] = av_cli
+            digests[backend] = digest(Path(tmp) / "final_state.dat")
             glups = iters * nx * ny / block["compute"] / 1e9
             say(f"{tag} {ny}x{nx}, {iters} steps: launches {n}, Compute "
                 f"{block['compute']:.4f} s = {glups:.3f} GLUPS (host loop included), "
@@ -891,6 +918,11 @@ def phase_full(card: str, times: dict) -> None:
         f"({r_ms * 1e3:.2f} us/step), step run loop {nx * ny / s_ms / 1e6:.3f} GLUPS "
         f"({s_ms * 1e3:.2f} us/step), plain step {nx * ny / p_ms / 1e6:.3f} GLUPS "
         f"({p_ms * 1e3:.2f} us/step) | {card}")
+    return {"f": res.f_final, "av": res.av_vels, "final_state": digests["auto"]}
+
+
+def digest(path: Path) -> str:
+    return hashlib.sha256(path.read_bytes()).hexdigest()
 
 
 def device_mass(f: torch.Tensor, rows: int = 1024) -> float:
@@ -1007,6 +1039,7 @@ def phase_capacity(card: str) -> None:
     from advanced_hpc_lbm_tpu_torch import LBMParams, Simulation
     from advanced_hpc_lbm_tpu_torch.models import d2q9_bgk
     from advanced_hpc_lbm_tpu_torch.ops import stream_kernel
+    from advanced_hpc_lbm_tpu_torch.utils import profiling
 
     n, iters = 36864, 64
     tag = f"[7 capacity] {n}x{n}, {iters} steps:"
@@ -1037,10 +1070,15 @@ def phase_capacity(card: str) -> None:
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     counts: dict = {}
-    with counted(counts):
-        t0 = time.perf_counter()
-        res = sim.run(fetch=False)
-        dt = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        with counted(counts), profiling.trace(tmp) as tr:
+            t0 = time.perf_counter()
+            res = sim.run(fetch=False)
+            dt = time.perf_counter() - t0
+        summary = trace_check(tag, tr.path, counts)
+        first_port = min(summary["kernels"][name][2] for name in set(TRACE_NAMES.values())
+                         if name in summary["kernels"])
+        set_up = host_ops_before(tr.path, first_port)
     peak = torch.cuda.max_memory_allocated() - before
     tier = stream_kernel.tier_bytes(n, n)
     want = expected_launches("stream", n, n, iters)
@@ -1063,6 +1101,12 @@ def phase_capacity(card: str) -> None:
         f"clock, run synchronised, in-place tier), peak allocated {peak / 1e9:.3f} GB "
         f"against tier_bytes {tier / 1e9:.3f} GB ({peak / state:.4f} of a state), mass drift "
         f"{drift:.3e} (limit 1e-4) | {card}")
+    say(f"{tag} profiled: window {summary['window_us'] / 1e6:.4f} s, host set-up before the "
+        f"first device activity {summary['first_device_us'] / 1e6:.4f} s and before the first "
+        f"port kernel {first_port / 1e6:.4f} s (the host's longest operators there: "
+        f"{set_up}), device busy {summary['busy_us'] / 1e6:.4f} s "
+        f"({summary['busy_share']:.4f} of the window); by device time: "
+        f"{top_kernels(summary)} | {card}")
     del res, f, av, sim
     torch.cuda.empty_cache()
 
@@ -1397,6 +1441,353 @@ def phase_sharded_sweep(card: str) -> dict:
     return times
 
 
+# ---- 9. checkpoint / resume ---------------------------------------------------------
+
+def segment_launches(expected, segments: list[int]) -> dict:
+    """Launches per kernel of runs of the given step counts, ``expected(n)``
+    giving one run's."""
+    total = collections.Counter()
+    for n in segments:
+        total.update(expected(n))
+    return {name: total[name] for name in kernel_counters()}
+
+
+def check_checkpointed(tag: str, out_dir: Path, ck_dir: Path, ref: dict) -> str:
+    """A checkpointed CLI run against the straight run ``ref`` (its state,
+    av and final_state.dat digest): the newest snapshot's state with 0
+    differing values, the same final_state.dat, av within rtol 1e-5."""
+    from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
+    from advanced_hpc_lbm_tpu_torch.utils.checkpoint import CheckpointManager
+
+    step, f, av_snap, _ = CheckpointManager(ck_dir).latest()
+    n_diff = int((f != ref["f"]).sum())
+    if n_diff:
+        fail(f"{tag} the last snapshot (step {step}) differs from the straight run in "
+             f"{n_diff} values")
+    if digest(out_dir / "final_state.dat") != ref["final_state"]:
+        fail(f"{tag} final_state.dat differs from the straight run's")
+    av = lbm_io.read_av_vels(out_dir / "av_vels.dat")
+    if not (np.allclose(av, ref["av"], rtol=AV_RTOL, atol=0.0)
+            and np.array_equal(av_snap, av.astype(np.float32))):
+        fail(f"{tag} av_vels.dat differs from the straight run's beyond rtol {AV_RTOL} "
+             f"or from the snapshot's history")
+    dav = float(np.max(np.abs(av - ref["av"]) / np.abs(ref["av"])))
+    return (f"0 of {f.size} values of the step-{step} snapshot differ from the straight run, "
+            f"final_state.dat equal, max rel dav {dav:.3e} (limit {AV_RTOL})")
+
+
+def straight_deck(tmp: Path, n: int, iters: int, backend: str = "auto") -> dict:
+    """The deck's straight run: the library's state and av, and the CLI's
+    final_state.dat digest."""
+    from advanced_hpc_lbm_tpu_torch import Simulation
+
+    params_f, obst_f = write_full_deck(tmp, n, n, iters)
+    out = tmp / "straight"
+    out.mkdir()
+    rc, lines, _ = run_cli([str(params_f), str(obst_f), "--backend", backend,
+                            "--out-dir", str(out)])
+    if rc != 0:
+        fail(f"[9 checkpoint] straight {n}x{n} run exited {rc}")
+    check_block(lines, "[9 checkpoint]")
+    res = Simulation.from_decks(params_f, obst_f, backend=backend, device="cuda").run()
+    return {"f": res.f_final, "av": res.av_vels, "final_state": digest(out / "final_state.dat"),
+            "deck": (params_f, obst_f)}
+
+
+def phase_checkpoint(card: str, full: dict) -> None:
+    from advanced_hpc_lbm_tpu_torch import Simulation
+
+    segments = Simulation._segments
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # the reference's 128^2 deck on auto (the banded resident kernel)
+        ref = straight_deck(tmp, 128, 40_000)
+        for i, (label, runs) in enumerate((
+                ("128x128 auto, 40000 steps, --checkpoint-every 15000",
+                 [(128, 40_000, 15_000, False)]),
+                ("1024x1024 auto, 20000 steps, --checkpoint-every 7000",
+                 [(1024, 20_000, 7_000, False)]),
+                ("1024x1024 auto, killed at 10000, --resume to 20000, --checkpoint-every 5000",
+                 [(1024, 10_000, 5_000, False), (1024, 20_000, 5_000, True)]))):
+            tag = f"[9 checkpoint] {label}:"
+            case = tmp / f"case{i}"
+            case.mkdir()
+            n = runs[0][0]
+            params_f, obst_f = (ref["deck"] if n == 128
+                                else write_full_deck(case, n, n, 20_000))
+            want_ref = ref if n == 128 else full
+            ck_dir, out_dir = case / "ck", case / "out"
+            out_dir.mkdir()
+            start, seconds, launches = 0, 0.0, []
+            for _, iters, every, resume in runs:
+                rc, lines, counts = run_cli(
+                    [str(params_f), str(obst_f), "--iters", str(iters), "--checkpoint-every",
+                     str(every), "--checkpoint-dir", str(ck_dir), "--out-dir", str(out_dir)]
+                    + (["--resume"] if resume else []))
+                if rc != 0:
+                    fail(f"{tag} CLI exited {rc}")
+                block = check_block(lines, tag)
+                seconds += block["compute"]
+                want = segment_launches(lambda k: expected_launches("auto", n, n, k),
+                                        segments(start, iters, every))
+                if counts != want:
+                    fail(f"{tag} launches {counts}, expected {want} (segments "
+                         f"{segments(start, iters, every)})")
+                launches.append({a: b for a, b in counts.items() if b})
+                start = iters
+            say(f"{tag} {check_checkpointed(tag, out_dir, ck_dir, want_ref)}; launches "
+                f"{' then '.join(map(str, launches))} (the segments' sum); Compute "
+                f"{seconds:.4f} s in all (snapshots included) | {card}")
+        phase_checkpoint_stream(card, tmp)
+        phase_checkpoint_sharded(card, tmp)
+
+
+def phase_checkpoint_stream(card: str, tmp: Path) -> None:
+    """4096^2 on the in-place stream tier through Simulation, 2000 steps,
+    checkpoint_every=1000: the straight run's state, no more device memory,
+    and the seconds of the snapshots' writes."""
+    from advanced_hpc_lbm_tpu_torch import Simulation
+    from advanced_hpc_lbm_tpu_torch.models.d2q9_bgk import _to_host
+    from advanced_hpc_lbm_tpu_torch.utils.checkpoint import CheckpointManager
+
+    n, iters, every = 4096, 2000, 1000
+    tag = f"[9 checkpoint] {n}x{n} stream in place, {iters} steps, checkpoint_every {every}:"
+    case = tmp / "stream"
+    case.mkdir()
+    params_f, obst_f = write_full_deck(case, n, n, iters)
+    sim = Simulation.from_decks(params_f, obst_f, backend="stream", device="cuda")
+    sim.warmup()
+    runs = {}
+    save, writes = CheckpointManager.save, []
+
+    def timed_save(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        path = save(self, *args, **kwargs)
+        writes.append(time.perf_counter() - t0)
+        return path
+
+    for label, kw in (("straight", {}),
+                      ("checkpointed", {"checkpoint_every": every,
+                                        "checkpoint_dir": str(case / "ck")})):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        counts: dict = {}
+        CheckpointManager.save = timed_save
+        try:
+            with counted(counts):
+                t0 = time.perf_counter()
+                res = sim.run(fetch=False, **kw)
+                dt = time.perf_counter() - t0
+        finally:
+            CheckpointManager.save = save
+        runs[label] = (_to_host(res.f_final), _to_host(res.av_vels), counts, dt,
+                       torch.cuda.max_memory_allocated() - before)
+        del res
+    (f_s, av_s, n_s, dt_s, peak_s), (f_c, av_c, n_c, dt_c, peak_c) = runs.values()
+    want = segment_launches(lambda k: expected_launches("stream", n, n, k), [every] * 2)
+    if n_s != expected_launches("stream", n, n, iters) or n_c != want:
+        fail(f"{tag} launches {n_s} (straight), {n_c} (checkpointed), expected {want}")
+    n_diff = int((f_c != f_s).sum())
+    if n_diff or not np.allclose(av_c, av_s, rtol=AV_RTOL, atol=0.0):
+        fail(f"{tag} {n_diff} values differ from the straight run, or av beyond rtol {AV_RTOL}")
+    if peak_c > peak_s:
+        fail(f"{tag} peak device memory {peak_c} B above the straight run's {peak_s} B")
+    if len(writes) != 2:
+        fail(f"{tag} {len(writes)} snapshots written, expected 2")
+    say(f"{tag} 0 of {f_c.size} values differ from the straight run, launches "
+        f"{ {a: b for a, b in n_c.items() if b} }; peak device memory {peak_c / 1e9:.4f} GB "
+        f"(straight {peak_s / 1e9:.4f} GB); {dt_c:.4f} s (straight {dt_s:.4f} s, host clock, "
+        f"run synchronised), of which the 2 snapshot writes ({f_c.nbytes / 1e9:.3f} GB each) "
+        f"{sum(writes):.4f} s | {card}")
+
+
+def phase_checkpoint_sharded(card: str, tmp: Path) -> None:
+    """1024^2 on 4 shards of the card, checkpoint_every=300 of 1000 steps,
+    against the straight sharded run."""
+    from advanced_hpc_lbm_tpu_torch import Simulation
+
+    n, iters, every = 1024, 1000, 300
+    four = [torch.device("cuda", 0)] * 4
+    case = tmp / "sharded"
+    case.mkdir()
+    params_f, obst_f = write_full_deck(case, n, n, iters)
+    for label, kw, kernel, k in (
+            ("ring pallas", {"devices": 4, "shard_kernel": "pallas"}, "pallas", 1),
+            ("ring stream", {"devices": 4, "shard_kernel": "stream"}, "stream", 8),
+            ("2x2 torus pallas", {"mesh": (2, 2), "shard_kernel": "pallas"}, "pallas", 1)):
+        tag = f"[9 checkpoint] {n}x{n} {label}, {iters} steps, checkpoint_every {every}:"
+        ck = {"checkpoint_every": every, "checkpoint_dir": str(case / label.replace(" ", "_"))}
+        sim = Simulation.from_decks(params_f, obst_f, backend="sharded", device="cuda")
+        sim.warmup(shard_devices=four, **kw)
+        straight = sim.run(shard_devices=four, **kw)
+        sim.warmup(shard_devices=four, **kw, **ck)
+        counts: dict = {}
+        with counted(counts):
+            res = sim.run(shard_devices=four, **kw, **ck)
+        segs = Simulation._segments(0, iters, every)
+        want = segment_launches(lambda s: sharded_expected(kernel, 4, "mesh" in kw, s, k), segs)
+        if counts != want:
+            fail(f"{tag} launches {counts}, expected {want}")
+        n_diff = int((res.f_final != straight.f_final).sum())
+        if n_diff or not np.allclose(res.av_vels, straight.av_vels, rtol=AV_RTOL, atol=0.0):
+            fail(f"{tag} {n_diff} values differ from the straight sharded run, or av beyond "
+                 f"rtol {AV_RTOL}")
+        say(f"{tag} 0 of {res.f_final.size} values differ from the straight sharded run, "
+            f"launches { {a: b for a, b in counts.items() if b} } | {card}")
+
+
+# ---- 10. profile -------------------------------------------------------------------------
+
+# the device function of each launch counter (the trace's kernel names)
+TRACE_NAMES = {"step_kernel": "step_kernel", "resident_kernel": "resident_kernel",
+               "resident_banded_kernel": "resident_banded_kernel",
+               "kstep_kernel": "kstep_kernel", "local_ca_kernel": "kstep_kernel",
+               "stream_kernel": "stream_kernel", "stream_snapshot": "snapshot_kernel",
+               "local_kernel": "local_step_kernel", "local2d_kernel": "local_step_kernel"}
+
+
+def trace_check(tag: str, path, counts: dict) -> dict:
+    """The trace's summary; fails unless each port kernel appears in it by
+    name as many times as its launch counters counted."""
+    from advanced_hpc_lbm_tpu_torch.utils import profiling
+
+    summary = profiling.trace_summary(path)
+    want = collections.Counter()
+    for name, n in counts.items():
+        want[TRACE_NAMES[name]] += n
+    got = {name: summary["kernels"].get(name, [0])[0] for name in set(TRACE_NAMES.values())}
+    if got != {name: want[name] for name in got}:
+        fail(f"{tag} kernel events in the trace {got} differ from the launch counters' "
+             f"{dict(want)} (all kernels in the trace: "
+             f"{ {k: v[0] for k, v in summary['kernels'].items()} })")
+    return summary
+
+
+def host_ops_before(path, until_us: float, n: int = 3) -> str:
+    """The host's outermost operator spans of a trace of profiling.trace
+    from the window's start to ``until_us`` after it, summed by name, the
+    longest n: what the host did before the device's work began."""
+    from advanced_hpc_lbm_tpu_torch.utils import profiling
+
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    t0 = next(float(e["ts"]) for e in events
+              if e.get("name") == profiling.WINDOW and e.get("cat") == "user_annotation")
+    ops = sorted((e for e in events if e.get("cat") == "cpu_op" and e.get("ph") == "X"
+                  and t0 <= float(e["ts"]) < t0 + until_us),
+                 key=lambda e: (float(e["ts"]), -float(e["dur"])))
+    outer, ends = collections.Counter(), {}
+    for e in ops:  # an op that starts after its thread's open span ends is outermost
+        a, b = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+        if a >= ends.get(e["tid"], -1.0):
+            outer[e["name"]] += b - a
+        ends[e["tid"]] = max(ends.get(e["tid"], -1.0), b)
+    return ", ".join(f"{name} {us / 1e6:.4f} s" for name, us in outer.most_common(n))
+
+
+def top_kernels(summary: dict, n: int = 4) -> str:
+    return ", ".join(f"{name} {launches} x {us / launches:.2f} us = {us / 1e3:.3f} ms"
+                     for name, (launches, us, _) in list(summary["kernels"].items())[:n])
+
+
+def phase_profile(card: str) -> None:
+    """--profile through the CLI: the trace exists, the ==done== block and
+    the outputs are those of the run without it, the trace shows every
+    launched port kernel by name as often as its counter; the device's
+    busy share of the Compute window and the top kernels by device time."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for n, iters, backend in ((512, 2000, "pallask"), (128, 40_000, "auto")):
+            tag = f"[10 profile] {n}x{n}, {iters} steps, --backend {backend}:"
+            case = tmp / str(n)
+            case.mkdir()
+            params_f, obst_f = write_full_deck(case, n, n, iters)
+            blocks, outs = {}, {}
+            for label, extra in (("plain", []), ("profiled", ["--profile", str(case / "trace")])):
+                out = case / label
+                out.mkdir()
+                rc, lines, counts = run_cli([str(params_f), str(obst_f), "--backend", backend,
+                                             "--out-dir", str(out), *extra])
+                if rc != 0:
+                    fail(f"{tag} CLI exited {rc} ({label})")
+                blocks[label] = check_block(lines, tag)
+                outs[label] = [digest(out / name) for name in ("final_state.dat", "av_vels.dat")]
+            if outs["plain"] != outs["profiled"]:
+                fail(f"{tag} --profile changed the output files")
+            traces = list((case / "trace").glob("*.pt.trace.json"))
+            if len(traces) != 1:
+                fail(f"{tag} {len(traces)} trace files in the trace directory, expected 1")
+            summary = trace_check(tag, traces[0], counts)
+            compute = blocks["profiled"]["compute"]
+            say(f"{tag} trace {traces[0].name} ({traces[0].stat().st_size / 1e6:.2f} MB); "
+                f"Compute {compute:.4f} s (without --profile {blocks['plain']['compute']:.4f} s), "
+                f"window {summary['window_us'] / 1e6:.4f} s, device busy "
+                f"{summary['busy_us'] / 1e6:.4f} s = {summary['busy_share']:.4f} of the window "
+                f"(idle {1 - summary['busy_share']:.4f}); first device activity after "
+                f"{summary['first_device_us'] / 1e3:.3f} ms; launches "
+                f"{ {a: b for a, b in counts.items() if b} } = the trace's; by device time: "
+                f"{top_kernels(summary)} | {card}")
+
+
+# ---- 11. batch ---------------------------------------------------------------------------
+
+def phase_batch(card: str) -> None:
+    """batch_run of 4 decks of 1024^2 for 200 steps on the card against 4
+    sequential fused runs (rtol 1e-6), and the batch split over [cuda:0,
+    cuda:0] against the unsplit batch."""
+    from advanced_hpc_lbm_tpu_torch import LBMParams, Simulation
+    from advanced_hpc_lbm_tpu_torch.parallel import batch
+
+    n, iters, decks = 1024, 200, 4
+    tag = f"[11 batch] {decks} decks of {n}x{n}, {iters} steps:"
+    params = LBMParams(nx=n, ny=n, max_iters=iters, reynolds_dim=10,
+                       density=0.1, accel=0.01, omega=1.85)
+    rng = np.random.RandomState(11)
+    masks = np.zeros((decks, n, n), dtype=bool)  # write_full_deck's geometry
+    masks[:, 0] = masks[:, -1] = True
+    masks[:, :, 0] = masks[:, :, -1] = True
+    masks[:, : n // 2, n // 3] = True
+    for b in range(decks):  # and each deck its own scattered obstacles
+        masks[b, rng.randint(1, n - 1, 64), rng.randint(0, n, 64)] = True
+    obst = torch.from_numpy(masks).cuda()
+    runs = {}
+    for label, devices in (("batch", None), ("split", ["cuda:0", "cuda:0"])):
+        counts: dict = {}
+        with counted(counts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fs, avs = batch.batch_run(batch.batch_initial_state(params, decks, "cuda"), obst,
+                                      params, devices=devices)
+            torch.cuda.synchronize()
+            runs[label] = (fs, avs, time.perf_counter() - t0)
+        if any(counts.values()):
+            fail(f"{tag} the batch launched port kernels: {counts}")
+    fs, avs, dt = runs["batch"]
+    if not (torch.equal(runs["split"][0], fs) and torch.equal(runs["split"][1], avs)):
+        fail(f"{tag} the batch split over two devices differs from the unsplit batch")
+    seq_dt, worst_f, worst_av, n_diff = 0.0, 0.0, 0.0, 0
+    for b in range(decks):
+        sim = Simulation(params, masks[b], backend="fused", device="cuda")
+        sim.warmup()
+        t0 = time.perf_counter()
+        res = sim.run(fetch=False)
+        seq_dt += time.perf_counter() - t0
+        if not (torch.allclose(fs[b], res.f_final, rtol=1e-6, atol=1e-8)
+                and torch.allclose(avs[b], res.av_vels, rtol=1e-6, atol=0.0)):
+            fail(f"{tag} deck {b} differs from its sequential fused run beyond rtol 1e-6")
+        worst_f = max(worst_f, (fs[b] - res.f_final).abs().max().item())
+        worst_av = max(worst_av, ((avs[b] - res.av_vels).abs() / res.av_vels.abs()).max().item())
+        n_diff += int((fs[b] != res.f_final).sum().item())
+        if not bool(torch.isfinite(fs[b]).all().item()):
+            fail(f"{tag} deck {b}: non-finite state")
+    say(f"{tag} against 4 sequential fused runs: max|df| {worst_f:.3e} ({n_diff} of "
+        f"{fs.numel()} values differ), max rel dav {worst_av:.3e} (limit 1e-6); split over "
+        f"[cuda:0, cuda:0] equal to the unsplit batch; batch {dt:.4f} s (split "
+        f"{runs['split'][2]:.4f} s), sequential {seq_dt:.4f} s (host clock, synchronised) "
+        f"| {card}")
+
+
 # ---- main -------------------------------------------------------------------
 
 def main() -> int:
@@ -1410,7 +1801,7 @@ def main() -> int:
     worst_l, l_times = phase_local(card)
     retime(card, step_times, k_times, s_times, l_times)
     phase_mini()
-    phase_full(card, res_times)
+    full = phase_full(card, res_times)
     phase_cli_big(card)
     phase_big(card, "6 big", 4096, ("pallask", "step"))
     phase_big(card, "6s big stream", 8192, ("stream", "pallask"))
@@ -1419,6 +1810,9 @@ def main() -> int:
     phase_sharded_full(card)
     phase_sharded_big(card)
     phase_sharded_sweep(card)
+    phase_checkpoint(card, full)
+    phase_profile(card)
+    phase_batch(card)
     say(f"[result] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"main-path launches {dict(MAIN_LAUNCHES)}")
     for name in kernel_counters():

@@ -373,6 +373,60 @@ def test_gate_refuses_a_grid_beyond_the_card_before_allocating():
     assert d2q9_bgk._device_memory_bytes("cuda") > 0
 
 
+# ---- checkpointed runs -------------------------------------------------------------
+
+@pytest.mark.parametrize("backend,shape,every", [
+    ("resident", (64, 64), 15),   # the banded form; segments of 15, 15, 10
+    ("resident", (256, 512), 15),  # the cooperative form
+    ("pallask", (100, 130), 13),  # K = 5: 2 passes and a 3-step tail per segment
+    ("stream", (170, 1100), 16),  # 2 passes per segment, no tail
+])
+def test_checkpointed_equals_straight_on_card(tmp_path, backend, shape, every):
+    """Segments on the card's kernels: the straight run's state with 0
+    differing values, av within rtol 1e-5, the launches the segments
+    take, and the state kept on the card between segments."""
+    params, mask_np, _ = make_case(*shape, seed=9)
+    sim = Simulation(params, mask_np, backend=backend, device="cuda")
+    sim.warmup()
+    straight = sim.run(n_iters=40)
+    counts = (step_kernel.launches, resident.launches + resident.banded_launches,
+              kstep_kernel.launches, stream_kernel.launches)
+    ck = sim.run(n_iters=40, checkpoint_every=every, checkpoint_dir=tmp_path)
+    after = (step_kernel.launches, resident.launches + resident.banded_launches,
+             kstep_kernel.launches, stream_kernel.launches)
+    segs = [every] * (40 // every) + ([40 % every] if 40 % every else [])
+    k = kstep_kernel.best_k(*shape)
+    want = {"resident": (0, len(segs), 0, 0),
+            "pallask": (sum(s % k for s in segs), 0, sum(s // k for s in segs), 0),
+            "stream": (sum(s % 8 for s in segs), 0, 0, sum(s // 8 for s in segs))}[backend]
+    assert tuple(a - b for a, b in zip(after, counts)) == want
+    assert int((torch.from_numpy(ck.f_final) != torch.from_numpy(straight.f_final)).sum()) == 0
+    np.testing.assert_allclose(ck.av_vels, straight.av_vels, rtol=1e-5)
+
+
+def test_resume_on_card_equals_straight(tmp_path):
+    params, mask_np, _ = make_case(128, 128, seed=10)
+    sim = Simulation(params, mask_np, backend="pallask", device="cuda")
+    sim.run(n_iters=23, checkpoint_every=10, checkpoint_dir=tmp_path)
+    resumed = sim.run(n_iters=41, checkpoint_every=10, checkpoint_dir=tmp_path, resume=True)
+    straight = sim.run(n_iters=41)
+    assert int((torch.from_numpy(resumed.f_final) != torch.from_numpy(straight.f_final)).sum()) == 0
+    np.testing.assert_allclose(resumed.av_vels, straight.av_vels, rtol=1e-5)
+
+
+def test_batch_on_card_matches_sequential_fused():
+    from advanced_hpc_lbm_tpu_torch.parallel import batch
+
+    params, mask_np, _ = make_case(64, 96, seed=11)
+    masks = torch.from_numpy(np.stack([mask_np, mask_np[::-1].copy()]))
+    fs, avs = batch.batch_run(batch.batch_initial_state(params, 2, "cuda"), masks, params,
+                              devices=["cuda:0", "cuda:0"])
+    for b in range(2):
+        one = Simulation(params, masks[b].numpy(), backend="fused", device="cuda").run()
+        np.testing.assert_allclose(fs[b].cpu().numpy(), one.f_final, rtol=1e-6, atol=1e-8)
+        np.testing.assert_allclose(avs[b].cpu().numpy(), one.av_vels, rtol=1e-6)
+
+
 # ---- the sharded path -----------------------------------------------------------
 
 def _local_window(h, w, seed, accel_rows):

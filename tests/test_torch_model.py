@@ -303,9 +303,11 @@ def test_cli_bad_deck_exits_1(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    # the sharded flags are ported: malformed values of them are refused
+    # the sharded, checkpoint and profile flags are ported: malformed
+    # values of them are refused; --multihost is not ported
     ["--devices", "two"], ["--mesh", "2by2"], ["--shard-kernel", "cuda"], ["--ca-steps", "x"],
-    ["--checkpoint-every", "5"], ["--resume"], ["--multihost"], ["--profile", "x"],
+    ["--checkpoint-every", "x"], ["--resume", "--checkpoint-every", "x"], ["--multihost"],
+    ["--profile"],
 ])
 def test_cli_rejects_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
