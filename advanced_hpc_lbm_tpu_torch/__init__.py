@@ -13,10 +13,11 @@ Layout:
              kernels' wrappers (step, resident, K-step, stream) and their
              build-at-first-use
   csrc/    — CUDA C++ sources of the kernels
-  parallel/ — device meshes, the halo-exchanged sharded runners, batches
-             of independent decks
+  parallel/ — device meshes (across processes too), the halo-exchanged
+             sharded runners, the multi-process bootstrap, batches of
+             independent decks
   utils/   — I/O codecs (with the native codec's build), validation
-             checker, timers, checkpoint/resume, profiling
+             checker, timers, checkpoint/resume, profiling, viz
 """
 
 from advanced_hpc_lbm_tpu_torch.params import LBMParams

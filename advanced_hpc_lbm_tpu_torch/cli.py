@@ -22,6 +22,16 @@ Optional flags:
   --resume        continue from the newest readable snapshot there
   --profile       TRACE_DIR: a torch.profiler trace of the Compute phase,
                   written there as a Chrome trace (utils/profiling.py)
+  --multihost     form the torch.distributed process group even where the
+                  environment shows no multi-process launch (torchrun and
+                  Slurm launches are detected: parallel/multihost.py)
+
+Under a multi-process launch (``torchrun --nproc-per-node N -m
+advanced_hpc_lbm_tpu_torch ...``, or ``srun`` with several tasks) every
+process runs this; ``--device cuda`` is each process's own card
+(``multihost.local_device``), the sharded mesh spans the processes, and
+only the primary process (rank 0) prints the ``==done==`` block and the
+``--debug`` lines and writes the outputs.  Errors print on every process.
 """
 
 from __future__ import annotations
@@ -31,8 +41,10 @@ import contextlib
 import sys
 
 import torch
+import torch.distributed as dist
 
 from advanced_hpc_lbm_tpu_torch.models.d2q9_bgk import BACKENDS, Simulation
+from advanced_hpc_lbm_tpu_torch.parallel import multihost
 from advanced_hpc_lbm_tpu_torch.parallel.halo import SHARD_KERNELS
 from advanced_hpc_lbm_tpu_torch.utils import profiling
 from advanced_hpc_lbm_tpu_torch.utils.timers import PhaseTimers
@@ -99,6 +111,13 @@ def build_parser() -> argparse.ArgumentParser:
              "avoiding ghost zones; 1-D ring or 2-D torus; with --shard-kernel "
              "pallas the K-step local kernel, 1-D only)",
     )
+    p.add_argument(
+        "--multihost", action="store_true",
+        help="form the torch.distributed process group (normally detected from "
+             "the environment: torchrun's MASTER_ADDR/WORLD_SIZE/RANK, Slurm "
+             "multi-task launches; parallel/multihost.py); outputs are written by "
+             "process 0 only",
+    )
     return p
 
 
@@ -112,11 +131,14 @@ def _parse_mesh(text: str) -> tuple[int, int]:
 
 
 def _device(name: str) -> torch.device:
-    """The requested device, or an error message that the CLI prints."""
+    """The requested device, or an error message that the CLI prints; a
+    bare ``cuda`` in a process group is the process's own card."""
     try:
         device = torch.device(name)
     except RuntimeError as e:
         raise ValueError(f"bad --device {name!r}: {e}") from None
+    if device.type == "cuda" and device.index is None and multihost.process_count() > 1:
+        device = multihost.local_device("cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise ValueError(
             f"--device {name} asks for CUDA, but no CUDA device is available "
@@ -127,6 +149,20 @@ def _device(name: str) -> torch.device:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    # first thing, before any device is used: under a multi-process launch
+    # this forms the process group (a no-op in a single process); a group
+    # formed here is taken down on the way out
+    formed = not dist.is_initialized() and multihost.maybe_initialize(
+        force=args.multihost, device_type=args.device.split(":")[0])
+    try:
+        return _main(args)
+    finally:
+        if formed:
+            dist.destroy_process_group()
+
+
+def _main(args: argparse.Namespace) -> int:
+    primary = multihost.is_primary()
     timers = PhaseTimers()
     sharding = dict(n_iters=args.iters, debug=args.debug, devices=args.devices,
                     shard_kernel=args.shard_kernel, mesh=args.mesh, ca_steps=args.ca_steps,
@@ -168,7 +204,7 @@ def main(argv: list[str] | None = None) -> int:
             print(f"Error: {e}", file=sys.stderr)
             return 1
 
-    if args.debug:
+    if args.debug and primary:
         for tt, (av, dens) in enumerate(zip(result.av_vels, result.densities)):
             print(f"==timestep: {tt}==")
             print(f"av velocity: {av:.12E}")
@@ -176,11 +212,14 @@ def main(argv: list[str] | None = None) -> int:
 
     # Reynolds is computed after the total timer stops, so it stays untimed
     reynolds = result.reynolds
-    print("==done==")
-    print(f"Reynolds number:\t\t{reynolds:.12E}")
-    for line in timers.report_lines():
-        print(line)
-    result.write(args.out_dir)
+    # one process speaks and writes: the reference's rank-0 collate and
+    # write; a single process is always the primary
+    if primary:
+        print("==done==")
+        print(f"Reynolds number:\t\t{reynolds:.12E}")
+        for line in timers.report_lines():
+            print(line)
+    result.write(args.out_dir)  # every process calls it, the primary writes
     return 0
 
 

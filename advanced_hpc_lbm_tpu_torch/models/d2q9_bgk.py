@@ -44,6 +44,15 @@ snapshot (utils/checkpoint.py) after each (``_run_checkpointed``).
 Before it allocates a state, a run checks that the backend's device
 memory fits in 0.9 of the card's (``_check_single_chip_fit``), as the JAX
 package checks the TPU's HBM.
+
+Under a multi-process launch (``parallel/multihost.py``) every process
+makes the same Simulation.  On the sharded path the mesh spans the
+processes, each driving its own shards, and ``collate()`` gathers the
+whole state into every process; any other backend runs the whole deck in
+each process on its own device.  Either way only the primary process
+writes (``SimulationResult.write``).  A checkpointed run is refused there:
+the JAX package's snapshot ``device_get``s a state that spans processes,
+which it cannot do.
 """
 
 from __future__ import annotations
@@ -58,7 +67,7 @@ import torch
 from advanced_hpc_lbm_tpu_torch.ops import (
     fused, kstep_kernel, reference, resident, step_kernel, stream_kernel,
 )
-from advanced_hpc_lbm_tpu_torch.parallel import halo
+from advanced_hpc_lbm_tpu_torch.parallel import halo, multihost
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
 from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
 from advanced_hpc_lbm_tpu_torch.utils.checkpoint import CheckpointManager
@@ -104,7 +113,8 @@ def _device_memory_bytes(device: torch.device | str) -> int | None:
 def _to_host(x):
     """A tensor as a numpy array; a state on the card plane by plane, so
     that the copy needs no device memory of its own; a sharded state plane
-    by plane and shard by shard."""
+    by plane and shard by shard, and one that spans processes gathered into
+    every process (collective: every process calls it)."""
     if isinstance(x, halo.ShardedState):
         return x.numpy()
     if not isinstance(x, torch.Tensor):
@@ -160,13 +170,15 @@ class SimulationResult:
         final_state_name: str = lbm_io.FINAL_STATE_FILE,
         av_vels_name: str = lbm_io.AV_VELS_FILE,
     ) -> tuple[str, str]:
-        """Write final_state.dat + av_vels.dat."""
+        """Write final_state.dat + av_vels.dat, from the primary process
+        only: every process calls it (a state that spans processes is
+        gathered first), and the files are written once."""
         fs = os.path.join(out_dir, final_state_name)
         av = os.path.join(out_dir, av_vels_name)
-        lbm_io.write_final_state(
-            fs, _to_host(self.f_final), self._obstacles_cache, self.params
-        )
-        lbm_io.write_av_vels(av, _to_host(self.av_vels))
+        f, av_vels = _to_host(self.f_final), _to_host(self.av_vels)
+        if multihost.is_primary():
+            lbm_io.write_final_state(fs, f, self._obstacles_cache, self.params)
+            lbm_io.write_av_vels(av, av_vels)
         return fs, av
 
     def collate(self) -> "SimulationResult":
@@ -320,10 +332,15 @@ class Simulation:
             or mesh is not None
 
     @staticmethod
-    def _validate_flags(sharded: bool, *, ca_steps: int, checkpoint_every: int | None = None) -> None:
+    def _validate_flags(sharded: bool, *, ca_steps: int, checkpoint_every: int | None = None,
+                        resume: bool = False) -> None:
         """Flag-composition errors, raised from both warmup() and run()."""
         if checkpoint_every is not None and checkpoint_every < 0:
             raise ValueError(f"checkpoint_every must be >= 0, got {checkpoint_every}")
+        if (checkpoint_every or resume) and multihost.process_count() > 1:
+            raise ValueError(
+                "checkpoint/resume runs in a single process: a snapshot gathers the state "
+                f"to one host, and this run has {multihost.process_count()} processes")
         if ca_steps > 1 and not sharded:
             raise ValueError(
                 "ca_steps > 1 is a property of the halo exchange and needs the sharded "
@@ -337,11 +354,13 @@ class Simulation:
         """The runner of a sharded configuration, cached under its resolved
         shard kernel so that run() reuses the device masks warmup() built
         in it.  The mesh takes
-        ``shard_devices`` (a device may repeat); by default on the CPU
-        every shard on the CPU, on CUDA the visible cards."""
+        ``shard_devices`` (a device may repeat; in a process group, this
+        process's); by default on the CPU every shard on the CPU (in a
+        process group, each process an equal share of them), on CUDA the
+        visible cards (in a process group, each process's own card)."""
         if shard_devices is None and self.device.type == "cpu":
             n = mesh[0] * mesh[1] if mesh is not None else (devices or 1)
-            shard_devices = [self.device] * n
+            shard_devices = [self.device] * -(-n // multihost.process_count())
         if mesh is not None:
             runner = halo.prepare_sharded_2d(self.params, iters, mesh, devices=shard_devices,
                                              kernel=shard_kernel, ca_steps=ca_steps,
@@ -426,7 +445,8 @@ class Simulation:
         runner of each; a stream tail the card cannot hold raises)."""
         iters = self.params.max_iters if n_iters is None else n_iters
         sharded = self._is_sharded(devices, mesh)
-        self._validate_flags(sharded, ca_steps=ca_steps, checkpoint_every=checkpoint_every)
+        self._validate_flags(sharded, ca_steps=ca_steps, checkpoint_every=checkpoint_every,
+                             resume=resume)
         lengths: tuple[int, ...] = ()
         if checkpoint_every or resume:
             start = CheckpointManager(checkpoint_dir).latest_step() if resume else 0
@@ -434,23 +454,26 @@ class Simulation:
                 return  # the resume point is at or past the target: nothing runs
             lengths = tuple(dict.fromkeys(self._segments(start, iters, checkpoint_every or iters)))
         if sharded:
-            for seg in lengths or (iters,):
-                runner = self._sharded_runner(seg, devices, shard_kernel, mesh, ca_steps, debug,
-                                              shard_devices)
-                runner.prepare(self.obstacles)
-            self._sync(runner.mesh.devices)
+            # the runners first: a mesh that spans processes is gathered
+            runners = [self._sharded_runner(seg, devices, shard_kernel, mesh, ca_steps, debug,
+                                            shard_devices) for seg in lengths or (iters,)]
+            with multihost.primary_first():
+                for runner in runners:
+                    runner.prepare(self.obstacles)
+            self._sync(runners[-1].devices)
             return
         self._check_single_chip_fit(debug, lengths)
-        if self.backend == "step" or self.backend in WHOLE_RUN:
-            step_kernel.prepare(self.device)
-            if self.backend == "resident":
-                resident.prepare(self.device)
-            elif self.backend == "stream":
-                stream_kernel.prepare(self.device)
-            elif self.backend in WHOLE_RUN:
-                kstep_kernel.prepare(self.device, self._k())
-        else:
-            self._run_on_device(1, False)
+        with multihost.primary_first():  # one process builds the kernels
+            if self.backend == "step" or self.backend in WHOLE_RUN:
+                step_kernel.prepare(self.device)
+                if self.backend == "resident":
+                    resident.prepare(self.device)
+                elif self.backend == "stream":
+                    stream_kernel.prepare(self.device)
+                elif self.backend in WHOLE_RUN:
+                    kstep_kernel.prepare(self.device, self._k())
+            else:
+                self._run_on_device(1, False)
         self._sync()
 
     def run(
@@ -491,7 +514,8 @@ class Simulation:
         """
         iters = self.params.max_iters if n_iters is None else n_iters
         sharded = self._is_sharded(devices, mesh)
-        self._validate_flags(sharded, ca_steps=ca_steps, checkpoint_every=checkpoint_every)
+        self._validate_flags(sharded, ca_steps=ca_steps, checkpoint_every=checkpoint_every,
+                             resume=resume)
         if checkpoint_every or resume:
             result = self._run_checkpointed(
                 iters, checkpoint_every or iters, checkpoint_dir, resume, debug=debug,
@@ -504,7 +528,7 @@ class Simulation:
             runner = self._sharded_runner(iters, devices, shard_kernel, mesh, ca_steps, debug,
                                           shard_devices)
             out = runner(None, self.obstacles)
-            self._sync(runner.mesh.devices)
+            self._sync(runner.devices)
         else:
             self._check_single_chip_fit(debug, (iters,))
             out = self._run_on_device(iters, debug)
@@ -588,7 +612,7 @@ class Simulation:
             if sharded:
                 runner = runners[seg]
                 out = runner(host_f, self.obstacles)
-                self._sync(runner.mesh.devices)
+                self._sync(runner.devices)
             else:
                 out = self._run_on_device(seg, debug, f)
                 self._sync()

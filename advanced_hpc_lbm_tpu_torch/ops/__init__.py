@@ -12,5 +12,7 @@
                     plain version and run loop.
 ``stream_kernel`` — the in-place K = 8 streaming CUDA kernel's wrapper,
                     plain version, run loop and single-buffer runner.
+``mxu_collide``   — BGK collision as one (21 x 9) float32 matrix product on
+                    the flat state (no backend uses it).
 ``_build``        — nvcc build-at-first-use of ``csrc/``, loaded with ctypes.
 """

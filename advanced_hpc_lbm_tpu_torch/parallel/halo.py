@@ -5,17 +5,18 @@ cut into row slabs over a 1-D ring (:func:`run_sharded`) or into blocks
 over a (my, mx) torus (:func:`run_sharded_2d`); global periodicity is the
 ring's (or torus's) wrap.  Where the JAX package runs one SPMD program
 (``shard_map`` + ``jit``, ``ppermute`` for halos, ``psum`` for the
-||u|| sums), this package is single-controller: one Python loop drives
-every shard, per-shard tensors live on the mesh's devices, halos travel as
-tensor copies between them, and the per-shard ||u|| sums are added in a
-fixed shard order on the mesh's first device and divided by the global
-fluid count.  Shard kernels (``kernel``):
+||u|| sums), this package is single-controller per process: one Python
+loop drives every shard of the process, per-shard tensors live on the
+mesh's devices, halos travel as tensor copies between them, and the
+per-shard ||u|| sums are added in a fixed shard order and divided by the
+global fluid count.  Shard kernels (``kernel``):
 
   jnp     the JAX package's name for its XLA-fused local step, here plain
           PyTorch like the ``fused`` backend: the 1-step form reduces
           ||u|| from the post-collision moments (``_av_partial``), the
           K-step (``ca_steps``) and torus forms from the pre-collision
-          ones, as the JAX functions do
+          ones, as the JAX functions do.  On a ring, ``overlap=True``
+          takes the overlapped schedule (:func:`_overlapped_step`)
   pallas  the hand-written local kernels (``ops/local_kernel.py``): one
           step per launch, or with ``ca_steps`` = K > 1 (ring only) K
           steps per exchange on the K-step kernel's local form
@@ -24,14 +25,14 @@ fluid count.  Shard kernels (``kernel``):
           exchange
   auto    :func:`resolve_shard_kernel`
 
-On the CPU the kernels run their plain versions.  The ``pallas`` and
-``stream`` shards keep their state in ghosted window buffers (``_Windows``,
-two per shard, ping-ponged): the exchange copies the neighbours' edge rows
-(then, on a torus, the edge columns of the row-extended windows, which
-carries the corners) into the ghost rows and columns, and the kernels read
-the window in place.  The last ``n % K`` steps of a K-step run, and a
-``--debug`` run of ``pallas`` with ``ca_steps`` or of ``stream``, run the
-1-step local kernel (the JAX package runs its ``jnp`` step there).
+On the CPU the kernels run their plain versions.  Every shard keeps its
+state in ghosted window buffers (``_Windows``, two per shard, ping-ponged):
+the exchange copies the neighbours' edge rows (then, on a torus, the edge
+columns of the row-extended windows, which carries the corners) into the
+ghost rows and columns, and the kernels read the window in place.  The
+last ``n % K`` steps of a K-step run, and a ``--debug`` run of ``pallas``
+with ``ca_steps`` or of ``stream``, run the 1-step local kernel (the JAX
+package runs its ``jnp`` step there).
 
 Exchange ordering.  The kernels write the next window's own cells and read
 the current one; the exchange writes the current window's ghost cells from
@@ -43,11 +44,43 @@ makes the destination's current stream wait for the copy (``copy_`` of
 CUDA tensors on two devices), which is the event ordering the exchange
 needs.  That multi-card path has not run on more than one card.
 
-Checkpointed sharded runs go through ``Simulation.run(checkpoint_every=...)``:
-each segment is a runner call from the host copy of the state that the
-last snapshot gathered.  Batches of independent decks are
-``parallel/batch.py``.  Not ported: ``overlap`` (the overlapped 1-step
-jnp schedule) and multi-process runs (``parallel/multihost.py``).
+Across processes (``parallel/multihost.py``).  A mesh may span processes
+(``Mesh.ranks``); each process allocates windows, masks and partial sums
+for its own shards only and launches only them.  A copy whose two ends
+lie in different processes becomes a send of the source's edge rows (or
+columns) and a receive into the destination's ghost cells.  Each exchange
+phase walks the mesh's copies in one global order, which every process
+computes alike: local copies run as ``copy_``, and the remote ones of the
+phase go out together as one ``torch.distributed.batch_isend_irecv``,
+every process posting its sends and receives in that order (tagged by the
+copy's place in it), so that each pair of ranks matches them.  They pass
+through contiguous staging buffers: on ``nccl`` buffers on the device; on
+``gloo``, which moves host tensors only, pinned host buffers, with a copy
+to the host before the send (which waits for the launches that wrote the
+rows, keeping the ordering rule) and a copy to the device after the
+receive (before the launches that read them).  This is how two processes
+share one card.  The ||u|| sums stay in shard order: each process's
+per-shard partials of a chunk of CHUNK steps are all-gathered once per
+chunk and added over the shards in shard order by every process, so a
+multi-process run is bitwise equal to the single-process run on the same
+mesh shape.  ``ShardedState.numpy`` gathers the remote shards into every
+process.
+
+Overlap (the counterpart of the JAX ``_local_fused_step_overlap``).  The
+1-step ``jnp`` ring step issues the exchange first (on CUDA on a side
+stream of each destination device, after an event of the main stream that
+follows the forcing; across processes the sends and receives above), then
+computes the interior rows [1, ly-1) from the own rows alone, then waits
+for the exchange (the main stream waits for the side stream's event) and
+computes the two edge rows.  The interior reads no ghost row, and the next
+step's exchange writes the other buffer's ghost rows only after the main
+stream's next event, so no copy overwrites a row that a launch still reads.
+The per-row math is the same, so the two schedules are bitwise equal.
+
+Checkpointed sharded runs go through ``Simulation.run(checkpoint_every=...)``
+in a single process: each segment is a runner call from the host copy of
+the state that the last snapshot gathered.  Batches of independent decks
+are ``parallel/batch.py``.
 """
 
 from __future__ import annotations
@@ -58,11 +91,13 @@ from collections.abc import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from advanced_hpc_lbm_tpu_torch.ops import (
     kernel_common, lattice, local_kernel, reference, step_kernel, stream_kernel,
 )
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
+from advanced_hpc_lbm_tpu_torch.parallel import multihost
 from advanced_hpc_lbm_tpu_torch.parallel.mesh import Mesh, make_y_mesh, make_yx_mesh
 
 SHARD_KERNELS = ("auto", "jnp", "pallas", "stream")
@@ -75,36 +110,70 @@ _OPP = torch.from_numpy(lattice.OPP).long()
 
 # ---- the state of a sharded run ----------------------------------------------------
 
+def _stage_device(device: torch.device) -> torch.device:
+    """Where a tensor of ``device`` passes through the process group: the
+    device itself on nccl, the host on gloo."""
+    return device if multihost.backend() == "nccl" else torch.device("cpu")
+
+
+def _staging(shape, device: torch.device) -> torch.Tensor:
+    """A contiguous buffer through which a view of a ``device`` tensor is
+    sent or received: pinned host memory for a CUDA tensor on gloo."""
+    stage = _stage_device(device)
+    return torch.empty(shape, dtype=torch.float32, device=stage,
+                       pin_memory=stage.type == "cpu" and device.type == "cuda")
+
+
 @dataclasses.dataclass
 class ShardedState:
     """The (9, ny, nx) state of a sharded run, left on the mesh:
     ``shards[s]`` is the own block of shard s (row-major over the mesh), a
-    view into its device's buffer."""
+    view into its device's buffer, or None where another process owns it.
+    ``block`` is the (ly, lx) of every shard."""
 
     mesh: Mesh
-    shards: list[torch.Tensor]
+    shards: list[torch.Tensor | None]
+    block: tuple[int, int]
 
     @property
     def shape(self) -> tuple[int, int, int]:
         my, mx = self.mesh.shape
-        _, ly, lx = self.shards[0].shape
+        ly, lx = self.block
         return lattice.NSPEEDS, my * ly, mx * lx
 
+    def _place(self, s: int) -> tuple[slice, slice]:
+        ly, lx = self.block
+        i, j = divmod(s, self.mesh.shape[1])
+        return slice(i * ly, (i + 1) * ly), slice(j * lx, (j + 1) * lx)
+
     def blocks(self):
-        """(rows, columns, own block) of every shard: the block is the
-        state's [:, rows, columns]."""
-        _, ly, lx = self.shards[0].shape
+        """(rows, columns, own block) of every shard of this process: the
+        block is the state's [:, rows, columns]."""
         for s, t in enumerate(self.shards):
-            i, j = divmod(s, self.mesh.shape[1])
-            yield slice(i * ly, (i + 1) * ly), slice(j * lx, (j + 1) * lx), t
+            if t is not None:
+                yield (*self._place(s), t)
 
     def numpy(self) -> np.ndarray:
         """The whole state on the host, gathered plane by plane and shard by
-        shard, so that no device holds more than its own shards."""
+        shard, so that no device holds more than its own shards.  Across
+        processes the owner of each shard broadcasts it plane by plane, and
+        every process gets the whole state (collective: every process
+        calls it)."""
         out = np.empty(self.shape, dtype=np.float32)
-        for rows, cols, t in self.blocks():
+        if not self.mesh.spans_processes:
+            for rows, cols, t in self.blocks():
+                for k in range(lattice.NSPEEDS):
+                    torch.from_numpy(out[k, rows, cols]).copy_(t[k])
+            return out
+        local = next(t for t in self.shards if t is not None)
+        stage = _staging(self.block, local.device)
+        for s, t in enumerate(self.shards):
+            rows, cols = self._place(s)
             for k in range(lattice.NSPEEDS):
-                torch.from_numpy(out[k, rows, cols]).copy_(t[k])
+                if t is not None:
+                    stage.copy_(t[k])
+                dist.broadcast(stage, src=self.mesh.owner(s))
+                torch.from_numpy(out[k, rows, cols]).copy_(stage)
         return out
 
 
@@ -181,6 +250,24 @@ def _local_fused_step(ext, own_obst, params: LBMParams, torus: bool):
     return torch.stack(new), torch.sum(torch.where(own_obst, 0.0, torch.sqrt(u_sq)))
 
 
+def _interior_rows(own, own_obst, params: LBMParams):
+    """Rows [1, ly-1) of the ring step from the shard's own rows alone: the
+    part of the overlapped step that needs no ghost row."""
+    return _stream_collide_rows(own, own_obst[1:-1], params, own.shape[1] - 2)
+
+
+def _overlapped_step(ext, interior, own_obst, params: LBMParams):
+    """The rest of the overlapped ring step, once the exchange has filled
+    the ghost rows of the (9, ly+2, nx) window ``ext``: its two edge rows,
+    each from its ghost row and two own rows, around ``interior``.  Returns
+    (next own block, ||u|| sum), bitwise those of :func:`_local_fused_step`."""
+    ly = own_obst.shape[0]
+    row0 = _stream_collide_rows(ext[:, 0:3], own_obst[0:1], params, 1)
+    row_last = _stream_collide_rows(ext[:, ly - 1:ly + 2], own_obst[ly - 1:ly], params, 1)
+    nxt = torch.cat([row0, interior, row_last], dim=1)
+    return nxt, _av_partial(nxt, own_obst)
+
+
 def _local_fused_ca_steps(w, obst_ext, accel_ext, params: LBMParams, k: int, ly: int, lx: int,
                           torus: bool, collect_density: bool):
     """K shrinking-window steps of one shard's +-K window (rows; and
@@ -214,51 +301,62 @@ def _local_fused_ca_steps(w, obst_ext, accel_ext, params: LBMParams, k: int, ly:
 
 
 def _run_jnp(mesh: Mesh, params: LBMParams, iters: int, g: int, f0,
-             masks: list[torch.Tensor], n_fluid: torch.Tensor, collect_density: bool):
+             masks: list, n_fluid: torch.Tensor, collect_density: bool, overlap: bool):
     """The jnp shard kernel on windows of g ghost rows: passes of g steps
     per exchange (g > 1), then 1-step exchanges, each forcing the own
-    block before the exchange as the JAX step does."""
+    block before the exchange as the JAX step does (overlapped where
+    ``overlap``)."""
     win = _Windows(mesh, params.ny, params.nx, g)
-    ly, lx, dev0 = win.ly, win.lx, mesh.devices[0]
+    ly, lx, local = win.ly, win.lx, win.local
     win.load(params, f0)
-    obst = [(m & stream_kernel.OBSTACLE) != 0 for m in masks]
-    accel = [(m[:, 0] & stream_kernel.FORCING) != 0 for m in masks]
-    own = [win.own_of(o) for o in obst]
-    own_accel = [a[win.g:win.g + ly] for a in accel]
-    av = torch.empty(iters, dtype=torch.float32, device=dev0)
-    dens = torch.empty(iters, dtype=torch.float32, device=dev0) if collect_density else None
+    obst = {s: (masks[s] & stream_kernel.OBSTACLE) != 0 for s in local}
+    accel = {s: (masks[s][:, 0] & stream_kernel.FORCING) != 0 for s in local}
+    own = {s: win.own_of(o) for s, o in obst.items()}
+    own_accel = {s: a[win.g:win.g + ly] for s, a in accel.items()}
+    av = torch.empty(iters, dtype=torch.float32, device=win.home)
+    dens = torch.empty(iters, dtype=torch.float32, device=win.home) if collect_density else None
+    av_sums, dens_sums = _StepSums(win, av), _StepSums(win, dens)
     passes = iters // g if g > 1 else 0
     b = 0
-    for p in range(passes):
+    for _ in range(passes):
         win.exchange(b)
-        out = [_local_fused_ca_steps(win.bufs[b][s], obst[s], accel[s], params, g, ly, lx,
-                                     mesh.torus, collect_density) for s in range(mesh.size)]
-        for s, (f, _, _) in enumerate(out):
+        out = {s: _local_fused_ca_steps(win.bufs[b][s], obst[s], accel[s], params, g, ly, lx,
+                                        mesh.torus, collect_density) for s in local}
+        for s, (f, _, _) in out.items():
             win.own(1 - b, s).copy_(f)
         b = 1 - b
         for t in range(g):
-            av[p * g + t] = _shard_sum([o[1][t] for o in out], dev0)
+            av_sums.put({s: o[1][t] for s, o in out.items()})
             if collect_density:
-                dens[p * g + t] = _shard_sum([o[2][t] for o in out], dev0)
-    for t in range(passes * g, iters):
-        for s in range(mesh.size):
+                dens_sums.put({s: o[2][t] for s, o in out.items()})
+    for _ in range(passes * g, iters):
+        for s in local:
             f = win.own(b, s)
             f.copy_(_masked_accelerate(f, own[s], own_accel[s], params.accel_w1,
                                        params.accel_w2))
-        win.exchange(b)
-        out = [_local_fused_step(win.halo1(win.bufs[b][s]), own[s], params, mesh.torus)
-               for s in range(mesh.size)]
-        for s, (f, _) in enumerate(out):
+        if overlap:
+            pending = win.start_exchange(b)
+            interior = {s: _interior_rows(win.own(b, s), own[s], params) for s in local}
+            win.finish_exchange(pending)
+            out = {s: _overlapped_step(win.halo1(win.bufs[b][s]), interior[s], own[s], params)
+                   for s in local}
+        else:
+            win.exchange(b)
+            out = {s: _local_fused_step(win.halo1(win.bufs[b][s]), own[s], params, mesh.torus)
+                   for s in local}
+        for s, (f, _) in out.items():
             win.own(1 - b, s).copy_(f)
         b = 1 - b
-        av[t] = _shard_sum([o[1] for o in out], dev0)
+        av_sums.put({s: o[1] for s, o in out.items()})
         if collect_density:
-            dens[t] = _shard_sum([win.own(b, s).sum() for s in range(mesh.size)], dev0)
+            dens_sums.put({s: win.own(b, s).sum() for s in local})
+    av_sums.flush()
+    dens_sums.flush()
     av /= n_fluid
     return win.state(b), av, dens
 
 
-# ---- the kernel shard kernels: ghosted windows -------------------------------------
+# ---- the windows, their exchange and the shard-order sums ----------------------------
 
 def _window_shape(mesh: Mesh, ny: int, nx: int, g: int) -> tuple[int, int, int, int]:
     """(ly, lx, h, w) of the shards' windows with g ghost rows (and on a
@@ -268,42 +366,127 @@ def _window_shape(mesh: Mesh, ny: int, nx: int, g: int) -> tuple[int, int, int, 
     return ly, lx, ly + 2 * g, lx + (2 * g if mesh.torus else 0)
 
 
+def _local_shards(mesh: Mesh) -> list[int]:
+    """The shards this process drives, in shard order."""
+    return [s for s in range(mesh.size) if mesh.is_local(s)]
+
+
+@dataclasses.dataclass
+class _Phase:
+    """The copies of one exchange phase as this process runs them: local
+    (destination, source) view pairs; then sends (source view, staging,
+    peer, tag) and receives (destination view, staging, peer, tag), posted
+    together."""
+
+    local: list = dataclasses.field(default_factory=list)
+    sends: list = dataclasses.field(default_factory=list)
+    recvs: list = dataclasses.field(default_factory=list)
+
+    def post(self) -> list:
+        """Stage the sends and post every transfer of the phase in the
+        phase's global order; returns the works to wait on.  Where CUDA
+        rows pass through host buffers (gloo), one synchronisation of
+        their devices' streams first: the copies to the host are done, and
+        so are the last exchange's copies out of the receive buffers,
+        before gloo reads or overwrites any buffer (one wait per phase,
+        not one per copy: two processes on one card pay a switch of
+        contexts for each)."""
+        ops = []
+        for src, buf, peer, tag in self.sends:
+            buf.copy_(src, non_blocking=True)
+            ops.append((tag, dist.P2POp(dist.isend, buf, peer, tag=tag)))
+        for _, buf, peer, tag in self.recvs:
+            ops.append((tag, dist.P2POp(dist.irecv, buf, peer, tag=tag)))
+        for d in self.host_staged:
+            torch.cuda.current_stream(d).synchronize()
+        ops.sort(key=lambda op: op[0])
+        return dist.batch_isend_irecv([op for _, op in ops]) if ops else []
+
+    def land(self, works: list) -> None:
+        """Wait for the phase's transfers and write the received rows into
+        the ghost cells, on the current streams, before the launches that
+        read them."""
+        for w in works:
+            w.wait()
+        for dst, buf, _, _ in self.recvs:
+            dst.copy_(buf, non_blocking=True)
+
+    @functools.cached_property
+    def host_staged(self) -> set:
+        """The CUDA devices whose rows this phase stages through host
+        buffers."""
+        return {view.device for view, buf, _, _ in self.sends + self.recvs
+                if view.is_cuda and not buf.is_cuda}
+
+
 class _Windows:
-    """Two ghosted window buffers per shard: the own block at rows [g,
-    g+ly) and columns [gc, gc+lx), with g ghost rows above and below and,
-    on a torus, gc = g ghost columns each side (gc = 0 on a ring, x
-    periodic).  ``exchange(b)`` fills buffer b's ghost cells from the
+    """Two ghosted window buffers per shard of this process: the own block
+    at rows [g, g+ly) and columns [gc, gc+lx), with g ghost rows above and
+    below and, on a torus, gc = g ghost columns each side (gc = 0 on a
+    ring, x periodic).  ``bufs[b][s]`` is None for a shard of another
+    process.  ``exchange(b)`` fills buffer b's ghost cells from the
     neighbours' own cells of the same buffer."""
 
     def __init__(self, mesh: Mesh, ny: int, nx: int, g: int):
         self.mesh, self.g = mesh, g
         self.ly, self.lx, self.h, self.w = _window_shape(mesh, ny, nx, g)
         self.gc = g if mesh.torus else 0
+        self.local = _local_shards(mesh)
+        self.home = mesh.devices[self.local[0]]
         self.bufs = [[torch.empty((lattice.NSPEEDS, self.h, self.w), dtype=torch.float32,
-                                  device=d) for d in mesh.devices] for _ in range(2)]
-        self.pairs = [self._copies(wins) for wins in self.bufs]
+                                  device=d) if mesh.is_local(s) else None
+                      for s, d in enumerate(mesh.devices)] for _ in range(2)]
+        self.phases = [self._phases(wins) for wins in self.bufs]
+        self._side: dict = {}
 
-    def _copies(self, wins: list[torch.Tensor]) -> list[tuple[torch.Tensor, torch.Tensor]]:
-        """(destination, source) views of one exchange, in order: phase 1,
-        the neighbours' edge rows over the y ring, own columns; phase 2 on
-        a torus, the edge columns of the row-extended windows over the x
-        ring, all rows, which carries the corners."""
+    def _pairs(self) -> list[list[tuple]]:
+        """(destination shard, its window slices, source shard, its window
+        slices) of one exchange, per phase, in the one global order every
+        process computes: phase 1, the neighbours' edge rows over the y
+        ring, own columns; phase 2 on a torus, the edge columns of the
+        row-extended windows over the x ring, all rows, which carries the
+        corners."""
         mesh, g, gc, ly, lx = self.mesh, self.g, self.gc, self.ly, self.lx
         mx = mesh.shape[1]
-        own_cols = slice(gc, gc + lx)
-        pairs = []
-        for s, w in enumerate(wins):
+        every, own_cols = slice(None), slice(gc, gc + lx)
+        rows = []
+        for s in range(mesh.size):
             i, j = divmod(s, mx)
-            below, above = wins[mesh.index(i - 1, j)], wins[mesh.index(i + 1, j)]
-            pairs.append((w[:, :g, own_cols], below[:, ly:ly + g, own_cols]))
-            pairs.append((w[:, g + ly:, own_cols], above[:, g:2 * g, own_cols]))
-        if mesh.torus:
-            for s, w in enumerate(wins):
-                i, j = divmod(s, mx)
-                left, right = wins[mesh.index(i, j - 1)], wins[mesh.index(i, j + 1)]
-                pairs.append((w[:, :, :gc], left[:, :, lx:lx + gc]))
-                pairs.append((w[:, :, gc + lx:], right[:, :, gc:2 * gc]))
-        return pairs
+            rows.append((s, (every, slice(0, g), own_cols),
+                         mesh.index(i - 1, j), (every, slice(ly, ly + g), own_cols)))
+            rows.append((s, (every, slice(g + ly, None), own_cols),
+                         mesh.index(i + 1, j), (every, slice(g, 2 * g), own_cols)))
+        if not mesh.torus:
+            return [rows]
+        cols = []
+        for s in range(mesh.size):
+            i, j = divmod(s, mx)
+            cols.append((s, (every, every, slice(0, gc)),
+                         mesh.index(i, j - 1), (every, every, slice(lx, lx + gc))))
+            cols.append((s, (every, every, slice(gc + lx, None)),
+                         mesh.index(i, j + 1), (every, every, slice(gc, 2 * gc))))
+        return [rows, cols]
+
+    def _phases(self, wins: list) -> list[_Phase]:
+        """The phases of an exchange of window buffers ``wins`` as this
+        process runs them: a copy between two of its shards is local; one
+        from or to another process's shard is a send or a receive through a
+        staging buffer, tagged by the copy's place in the phase."""
+        mesh = self.mesh
+        phases = []
+        for pairs in self._pairs():
+            phase = _Phase()
+            for tag, (d, d_idx, s, s_idx) in enumerate(pairs):
+                if mesh.is_local(d) and mesh.is_local(s):
+                    phase.local.append((wins[d][d_idx], wins[s][s_idx]))
+                elif mesh.is_local(s):
+                    src = wins[s][s_idx]
+                    phase.sends.append((src, _staging(src.shape, src.device), mesh.owner(d), tag))
+                elif mesh.is_local(d):
+                    dst = wins[d][d_idx]
+                    phase.recvs.append((dst, _staging(dst.shape, dst.device), mesh.owner(s), tag))
+            phases.append(phase)
+        return phases
 
     def own_of(self, x: torch.Tensor) -> torch.Tensor:
         """The own block of window-shaped ``x`` (a window or its mask)."""
@@ -313,26 +496,30 @@ class _Windows:
         return self.own_of(self.bufs[b][s])
 
     def load(self, params: LBMParams, f0) -> None:
-        """Buffer 0's own blocks from ``f0``, a (9, ny, nx) tensor or array,
-        or from the rest equilibrium when ``f0`` is None; each made on its
-        shard's device, never whole on one device."""
+        """Buffer 0's own blocks of this process's shards from ``f0``, a
+        (9, ny, nx) tensor or array, or from the rest equilibrium when
+        ``f0`` is None; each made on its shard's device, never whole on one
+        device."""
         if f0 is None:
             rest = torch.from_numpy(reference.rest_populations(params))[:, None, None]
-            for s, d in enumerate(self.mesh.devices):
+            for s in self.local:
                 # 9 values to the device, then broadcast there
-                self.own(0, s).copy_(rest.to(d).expand(lattice.NSPEEDS, self.ly, self.lx))
+                self.own(0, s).copy_(rest.to(self.mesh.devices[s])
+                                     .expand(lattice.NSPEEDS, self.ly, self.lx))
             return
         f0 = torch.as_tensor(f0)
         mx, ly, lx = self.mesh.shape[1], self.ly, self.lx
-        for s in range(self.mesh.size):
+        for s in self.local:
             i, j = divmod(s, mx)
             self.own(0, s).copy_(f0[:, i * ly:(i + 1) * ly, j * lx:(j + 1) * lx])
 
     def state(self, b: int) -> ShardedState:
         """Buffer b's own blocks as the run's result; the other buffers go
         now, not with the result."""
-        state = ShardedState(self.mesh, [self.own(b, s) for s in range(self.mesh.size)])
-        self.bufs[1 - b] = self.pairs = None
+        state = ShardedState(self.mesh, [self.own(b, s) if t is not None else None
+                                         for s, t in enumerate(self.bufs[b])],
+                             (self.ly, self.lx))
+        self.bufs[1 - b] = self.phases = None
         return state
 
     def halo1(self, x: torch.Tensor) -> torch.Tensor:
@@ -344,19 +531,122 @@ class _Windows:
         return x[..., g - 1:g + self.ly + 1, cols]
 
     def exchange(self, b: int) -> None:
-        for dst, src in self.pairs[b]:
-            dst.copy_(src)
+        """Fill buffer b's ghost cells, phase after phase: local copies,
+        then the remote transfers of the phase, waited for."""
+        for phase in self.phases[b]:
+            for dst, src in phase.local:
+                dst.copy_(src)
+            phase.land(phase.post())
 
+    def start_exchange(self, b: int):
+        """Issue a one-phase (ring) exchange of buffer b without waiting for
+        it: the local copies on a side stream of each CUDA destination
+        device, after an event of the current streams (that is, after the
+        launches issued so far); the remote transfers posted.  Returns what
+        :meth:`finish_exchange` waits for."""
+        (phase,) = self.phases[b]
+        events = []
+        if phase.local:
+            cuda = {w.device for w in self.bufs[b] if w is not None and w.is_cuda}
+            issued = {}
+            for d in cuda:
+                issued[d] = torch.cuda.Event()
+                issued[d].record(torch.cuda.current_stream(d))
+            for d in cuda:
+                if d not in self._side:
+                    self._side[d] = torch.cuda.Stream(d)
+                side = self._side[d]
+                for ev in issued.values():
+                    side.wait_event(ev)
+            for dst, src in phase.local:
+                if dst.device.type == "cuda":
+                    with torch.cuda.stream(self._side[dst.device]):
+                        dst.copy_(src)
+                else:
+                    dst.copy_(src)
+            for d in cuda:
+                done = torch.cuda.Event()
+                done.record(self._side[d])
+                events.append((d, done))
+        return phase, phase.post(), events
+
+    def finish_exchange(self, pending) -> None:
+        """Wait for an exchange that :meth:`start_exchange` issued: the
+        remote rows land, and each device's current stream waits for its
+        side stream's copies."""
+        phase, works, events = pending
+        phase.land(works)
+        for d, done in events:
+            torch.cuda.current_stream(d).wait_event(done)
+
+
+def _all_shards(win: _Windows, values: dict[int, torch.Tensor]) -> list[torch.Tensor]:
+    """Every shard's (L,) tensor in shard order, ``values`` holding this
+    process's: one all-gather of each process's stacked shards (padded to
+    the most shards a process owns)."""
+    mesh = win.mesh
+    owned = [[s for s in range(mesh.size) if mesh.owner(s) == r]
+             for r in range(multihost.process_count())]
+    first = values[win.local[0]]
+    stage = _stage_device(first.device)
+    mine = torch.zeros((max(map(len, owned)), first.numel()), dtype=torch.float32, device=stage)
+    for i, s in enumerate(win.local):
+        mine[i].copy_(values[s])
+    every = [torch.empty_like(mine) for _ in owned]
+    dist.all_gather(every, mine)
+    return [every[mesh.owner(s)][owned[mesh.owner(s)].index(s)] for s in range(mesh.size)]
+
+
+def _reduce(win: _Windows, values: dict[int, torch.Tensor], out: torch.Tensor, t0: int) -> None:
+    """``out[t0:t0+L]`` = the sum of every shard's (L,) per-step tensor in
+    shard order, ``values`` holding this process's; across processes after
+    one all-gather, every process adding alike."""
+    vals = (_all_shards(win, values) if win.mesh.spans_processes
+            else [values[s] for s in range(win.mesh.size)])
+    tot = _shard_sum(vals, out.device)
+    out[t0:t0 + tot.numel()] = tot
+
+
+class _StepSums:
+    """One 0-d sum per step and local shard, held for up to CHUNK steps on
+    the shard's device and then added over the shards (``_reduce``) into
+    ``out``; nothing where ``out`` is None.  Every process puts and
+    flushes at the same steps; a caller that collects nothing does not
+    put."""
+
+    def __init__(self, win: _Windows, out: torch.Tensor | None):
+        self.win, self.out, self.t0, self.n = win, out, 0, 0
+        self.held = {} if out is None else {
+            s: torch.empty(CHUNK, dtype=torch.float32, device=win.mesh.devices[s])
+            for s in win.local}
+
+    def put(self, values: dict[int, torch.Tensor]) -> None:
+        for s, v in values.items():
+            self.held[s][self.n] = v
+        self.n += 1
+        if self.n == CHUNK:
+            self.flush()
+
+    def flush(self) -> None:
+        if self.n:
+            _reduce(self.win, {s: h[:self.n] for s, h in self.held.items()}, self.out, self.t0)
+            self.t0, self.n = self.t0 + self.n, 0
+
+
+# ---- the kernel shard kernels: ghosted windows -------------------------------------
 
 def _window_masks(mesh: Mesh, ny: int, nx: int, g: int, obstacles: np.ndarray,
-                  exclude_ghosts: bool) -> list[torch.Tensor]:
+                  exclude_ghosts: bool) -> list:
     """Each shard's encoded window mask (+1 obstacle, +2 on images of row
     ny-2, +4 on the ghost cells where ``exclude_ghosts``), loop-invariant,
-    on its device."""
+    on its device; None for a shard of another process."""
     ly, lx, h, w = _window_shape(mesh, ny, nx, g)
     gc = g if mesh.torus else 0
     masks = []
     for s, d in enumerate(mesh.devices):
+        if not mesh.is_local(s):
+            masks.append(None)
+            continue
         i, j = divmod(s, mesh.shape[1])
         rows = (i * ly - g + np.arange(h)) % ny
         obst = torch.from_numpy(np.ascontiguousarray(_extended(obstacles, i, j, ly, lx, g, gc)))
@@ -372,40 +662,43 @@ def _window_masks(mesh: Mesh, ny: int, nx: int, g: int, obstacles: np.ndarray,
 def _drive(win: _Windows, launches: list, b: int, n: int, spl: int, tiles: int,
            av: torch.Tensor, t0: int, dens: torch.Tensor | None) -> int:
     """``n`` launches of ``spl`` steps each from window buffer ``b``: per
-    launch the exchange, then ``launches[b][s](partials)`` for every shard
-    s (from buffer b into buffer 1 - b).  The per-shard partials of a chunk
-    of launches are summed per step, then over the shards in shard order,
-    into ``av[t0:]``; with ``dens`` (spl = 1) each step's total density.
-    Returns the buffer of the last state."""
+    launch the exchange, then ``launches[b][s](partials)`` for every local
+    shard s (from buffer b into buffer 1 - b).  The per-shard partials of a
+    chunk of launches are summed per step, then over the shards in shard
+    order, into ``av[t0:]``; with ``dens`` (spl = 1) each step's total
+    density.  Returns the buffer of the last state."""
     devs = win.mesh.devices
     rows = max(1, min(CHUNK // spl, n))
-    parts = [torch.empty((rows, spl, tiles), dtype=torch.float32, device=d) for d in devs]
+    parts = {s: torch.empty((rows, spl, tiles), dtype=torch.float32, device=devs[s])
+             for s in win.local}
+    dens_sums = _StepSums(win, dens)
+    dens_sums.t0 = t0
     for p in range(n):
         win.exchange(b)
-        for launch, part in zip(launches[b], parts):
-            launch(part[p % rows] if spl > 1 else part[p % rows, 0])
+        for s, part in parts.items():
+            launches[b][s](part[p % rows] if spl > 1 else part[p % rows, 0])
         b = 1 - b
         if dens is not None:
-            dens[t0 + p] = _shard_sum([win.own(b, s).sum() for s in range(len(devs))], devs[0])
+            dens_sums.put({s: win.own(b, s).sum() for s in win.local})
         if (p + 1) % rows == 0 or p + 1 == n:
             p0 = p - p % rows
-            av[t0 + p0 * spl:t0 + (p + 1) * spl] = _shard_sum(
-                [part[:p + 1 - p0].sum(dim=2).reshape(-1) for part in parts], devs[0])
+            _reduce(win, {s: part[:p + 1 - p0].sum(dim=2).reshape(-1)
+                          for s, part in parts.items()}, av, t0 + p0 * spl)
+    dens_sums.flush()
     return b
 
 
 def _run_windows(mesh: Mesh, params: LBMParams, iters: int, kernel: str, g: int, f0,
-                 masks: list[torch.Tensor], n_fluid: torch.Tensor, collect_density: bool):
+                 masks: list, n_fluid: torch.Tensor, collect_density: bool):
     """``pallas`` or ``stream`` on windows of g ghost rows: passes of g
     steps (the K-step local form for ``pallas``, the stream kernel for
     ``stream``; none when g = 1), then the ``iters % g`` tail on the 1-step
     local kernel."""
     win = _Windows(mesh, params.ny, params.nx, g)
-    ly, lx = win.ly, win.lx
+    ly, lx, local = win.ly, win.lx, win.local
     win.load(params, f0)
-    dev0 = mesh.devices[0]
-    av = torch.empty(iters, dtype=torch.float32, device=dev0)
-    dens = torch.empty(iters, dtype=torch.float32, device=dev0) if collect_density else None
+    av = torch.empty(iters, dtype=torch.float32, device=win.home)
+    dens = torch.empty(iters, dtype=torch.float32, device=win.home) if collect_density else None
     passes, tail = divmod(iters, g) if g > 1 else (0, iters)
     b = 0
     if passes:
@@ -413,19 +706,20 @@ def _run_windows(mesh: Mesh, params: LBMParams, iters: int, kernel: str, g: int,
             window_pass = (stream_kernel.window_ca_steps_2d if mesh.torus
                            else stream_kernel.window_ca_steps)
             tiles = stream_kernel.num_tiles(win.h, win.w)
-            launches = [[functools.partial(_stream_window, window_pass, win.bufs[b][s], masks[s],
-                                           params, win.bufs[1 - b][s])
-                         for s in range(mesh.size)] for b in range(2)]
+            launches = [{s: functools.partial(_stream_window, window_pass, win.bufs[b][s],
+                                              masks[s], params, win.bufs[1 - b][s])
+                         for s in local} for b in range(2)]
         else:
             tiles = local_kernel.num_tiles(ly, lx)
-            launches = [[local_kernel.ca_launcher(win.bufs[b][s], masks[s], params, g,
-                                                  win.own(1 - b, s))
-                         for s in range(mesh.size)] for b in range(2)]
+            launches = [{s: local_kernel.ca_launcher(win.bufs[b][s], masks[s], params, g,
+                                                     win.own(1 - b, s))
+                         for s in local} for b in range(2)]
         b = _drive(win, launches, b, passes, g, tiles, av, 0, None)
     if tail:
-        launches = [[local_kernel.step_launcher(win.halo1(win.bufs[b][s]), win.halo1(masks[s]),
-                                                params, win.own(1 - b, s), torus=mesh.torus)
-                     for s in range(mesh.size)] for b in range(2)]
+        launches = [{s: local_kernel.step_launcher(win.halo1(win.bufs[b][s]),
+                                                   win.halo1(masks[s]), params,
+                                                   win.own(1 - b, s), torus=mesh.torus)
+                     for s in local} for b in range(2)]
         b = _drive(win, launches, b, tail, 1, local_kernel.num_partials(ly, lx), av,
                    passes * g, dens)
     av /= n_fluid
@@ -485,10 +779,11 @@ def resolve_shard_kernel(
 class ShardedRunner:
     """A validated sharded configuration: ``runner(f0, obstacles)`` runs
     it and returns (ShardedState, av_vels[, densities]); ``prepare()``
-    builds and loads its kernels without launching any."""
+    builds and loads its kernels without launching any.  In a process
+    group every process makes the same runner and calls it together."""
 
     def __init__(self, mesh: Mesh, params: LBMParams, n_iters: int, kernel: str,
-                 ca_steps: int, collect_density: bool):
+                 ca_steps: int, collect_density: bool, overlap: bool = False):
         my, mx = mesh.shape
         ny, nx = params.ny, params.nx
         if mesh.torus:
@@ -496,6 +791,11 @@ class ShardedRunner:
                 raise ValueError(f"grid {ny}x{nx} not divisible by mesh {my}x{mx}")
         elif ny % my:
             raise ValueError(f"ny={ny} not divisible by {my} devices")
+        idle = set(range(multihost.process_count())) - {mesh.owner(s) for s in range(mesh.size)}
+        if idle:
+            raise ValueError(f"a mesh of {mesh.size} shard(s) leaves process(es) "
+                             f"{sorted(idle)} of {multihost.process_count()} without a shard; "
+                             "give every process at least one")
         if kernel == "auto":
             kernel = resolve_shard_kernel(params, n_devices=None if mesh.torus else my,
                                           mesh_shape=mesh.shape if mesh.torus else None,
@@ -505,6 +805,15 @@ class ShardedRunner:
                              f"{', '.join(SHARD_KERNELS)}")
         if ca_steps < 1:
             raise ValueError(f"ca_steps must be >= 1, got {ca_steps}")
+        if overlap and (kernel != "jnp" or ca_steps > 1):
+            raise ValueError("overlap=True is the 1-step jnp local schedule; the CA/stream "
+                             "schedules already amortize the exchange (use ca_steps)")
+        if overlap and mesh.torus:
+            raise ValueError("overlap=True is the 1-step jnp schedule of the 1-D ring; "
+                             "the torus has none")
+        if overlap and ny // mesh.size < 3:
+            raise ValueError("overlap=True needs local slabs >= 3 rows (a 2-row slab has "
+                             "no halo-independent interior)")
         if mesh.torus and ca_steps > 1 and kernel == "pallas":
             raise ValueError(
                 "ca_steps > 1 with kernel='pallas' is not supported on the 2-D torus "
@@ -531,6 +840,7 @@ class ShardedRunner:
                              "ghost zones")
         self.mesh, self.params, self.n_iters = mesh, params, n_iters
         self.kernel, self.ca_steps, self.collect_density = kernel, ca_steps, collect_density
+        self.overlap = overlap
         # ghost depth of the windows: the steps per exchange, or 1 where
         # the run is 1-step exchanges (a kernel path's --debug runs the
         # 1-step local kernel)
@@ -538,14 +848,19 @@ class ShardedRunner:
         self.g = 1 if one_step else ca_steps
         self._setup_for, self._setup = None, None
 
+    @property
+    def devices(self) -> list[torch.device]:
+        """The devices of this process's shards, each once."""
+        return list(dict.fromkeys(self.mesh.devices[s] for s in _local_shards(self.mesh)))
+
     def prepare(self, obstacles=None) -> None:
-        """Build and load the kernels onto every CUDA device of the mesh,
-        launching none; with ``obstacles``, also build the run's
-        loop-invariant device masks now, so that a run with the same mask
-        object starts stepping at once."""
+        """Build and load the kernels onto every CUDA device of this
+        process's shards, launching none; with ``obstacles``, also build the
+        run's loop-invariant device masks now, so that a run with the same
+        mask object starts stepping at once.  It does not communicate."""
         if self.kernel != "jnp":
             ks = (self.g,) if self.kernel == "pallas" and self.g > 1 else ()
-            for d in dict.fromkeys(self.mesh.devices):
+            for d in self.devices:
                 local_kernel.prepare(d, ks)
                 if self.kernel == "stream":
                     stream_kernel.prepare(d)
@@ -554,7 +869,7 @@ class ShardedRunner:
 
     def _masks(self, obstacles) -> tuple:
         """(per-shard device masks, global fluid count) for ``obstacles``,
-        built once per mask object."""
+        the host mask every process reads, built once per mask object."""
         if self._setup_for is not obstacles:
             obst = np.asarray(obstacles.cpu() if isinstance(obstacles, torch.Tensor)
                               else obstacles) != 0
@@ -562,7 +877,7 @@ class ShardedRunner:
                 raise ValueError(f"obstacle mask {obst.shape} != grid "
                                  f"({self.params.ny}, {self.params.nx})")
             n_fluid = torch.tensor(float(np.count_nonzero(~obst)),
-                                   dtype=torch.float32).to(self.mesh.devices[0])
+                                   dtype=torch.float32).to(self.devices[0])
             masks = _window_masks(self.mesh, self.params.ny, self.params.nx, self.g, obst,
                                   exclude_ghosts=self.kernel == "stream" and self.g > 1)
             self._setup_for, self._setup = obstacles, (masks, n_fluid)
@@ -576,7 +891,7 @@ class ShardedRunner:
         with torch.no_grad():
             if self.kernel == "jnp":
                 f, av, dens = _run_jnp(self.mesh, self.params, self.n_iters, self.g, f0, masks,
-                                       n_fluid, self.collect_density)
+                                       n_fluid, self.collect_density, self.overlap)
             else:
                 f, av, dens = _run_windows(self.mesh, self.params, self.n_iters, self.kernel,
                                            self.g, f0, masks, n_fluid, self.collect_density)
@@ -586,11 +901,10 @@ class ShardedRunner:
 def make_sharded_runner(mesh: Mesh, params: LBMParams, n_iters: int, kernel: str = "jnp",
                         ca_steps: int = 1, collect_density: bool = False,
                         overlap: bool = False) -> ShardedRunner:
-    """The 1-D ring's runner (see :class:`ShardedRunner`)."""
-    if overlap:
-        raise ValueError("overlap=True (the overlapped 1-step jnp schedule) is not yet "
-                         "ported to the PyTorch package")
-    return ShardedRunner(mesh, params, n_iters, kernel, ca_steps, collect_density)
+    """The 1-D ring's runner (see :class:`ShardedRunner`); ``overlap`` takes
+    the overlapped 1-step jnp schedule (see the module docstring), bitwise
+    equal to the default one."""
+    return ShardedRunner(mesh, params, n_iters, kernel, ca_steps, collect_density, overlap)
 
 
 def make_sharded_runner_2d(mesh: Mesh, params: LBMParams, n_iters: int, *, kernel: str = "jnp",
@@ -604,7 +918,8 @@ def prepare_sharded(params: LBMParams, n_iters: int, *, n_devices: int | None = 
                     ca_steps: int = 1, collect_density: bool = False,
                     overlap: bool = False) -> ShardedRunner:
     """Validate the 1-D y decomposition over the first ``n_devices`` of
-    ``devices`` (default: the visible CUDA cards) and build its runner."""
+    ``devices`` (default: the visible CUDA cards; in a process group every
+    process's, in rank order) and build its runner."""
     mesh = make_y_mesh(n_devices, devices)
     return make_sharded_runner(mesh, params, n_iters, kernel=kernel, ca_steps=ca_steps,
                                collect_density=collect_density, overlap=overlap)

@@ -1,2 +1,2 @@
 """Runtime utilities: I/O codecs, validation checker, timers, checkpoints,
-profiling."""
+profiling, the ||u|| heatmap of a final state (``viz``)."""

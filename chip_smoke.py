@@ -97,11 +97,36 @@ non-zero and prints no result:
   11. batch  parallel/batch.batch_run of 4 decks of 1024x1024 for 200
              steps against 4 sequential fused runs (rtol 1e-6), split over
              [cuda:0, cuda:0] equal to the unsplit batch
+  12. multiprocess  two processes on the one card, in one launch of
+             torch.distributed.run --standalone --nproc-per-node 2 (each
+             process is this script with --rank-worker, which forms the
+             group and runs each run through the CLI or the library): the
+             sharded path with its mesh across the processes (gloo, halos
+             staged through pinned host buffers), each run held to the
+             one-process run on the same mesh shape with 0 differing
+             values, exact launches per rank, one ==done== block and the
+             outputs written once by rank 0: decks/mini_64x64 on a ring of
+             2 (pallas, --ca-steps 4, stream; golden at 1%), the 1024x1024
+             deck for 20 000 steps (pallas), a 2x1 torus of it for 1000
+             steps (pallas), an 8192x8192 ring on stream for 200 steps
+             (digests of the own blocks), and a --multihost run of a
+             128x128 deck on auto (each process runs the deck); the chosen
+             backend and each rank's device; times beside the one-process
+             runs
+  13. overlap  the overlapped jnp ring on 4 shards of the card (1024x1024,
+             1000 steps) bitwise equal to the default schedule, both
+             timed; ops/mxu_collide.collide_flat on a seeded 1024x1024
+             state against kernel_common.collide (rtol 2e-5 / atol 2e-7);
+             utils/viz.main on phase 5's final_state.dat (a PGM of the
+             grid's shape where matplotlib is missing)
   result     a JSON line of the kernels, then the device JSON line last
 
+Each phase's wall time follows it on a ``[time]`` line.
+
 Launch counts: every kernel module counts its launches; each run of
-phases 4-11 (the main path) sets the counts to 0 just before it and reads
-them just after, and the kernels line reports their sum.  Times in the
+phases 4-12 (the main path; in phase 12 each process of a launch) sets the
+counts to 0 just before it and reads them just after, and the kernels line
+reports their sum.  Times in the
 kernels line are per step; ``bound_ms`` is the least time of the same
 work on an H100 (bytes of each input read once and each output written
 once at 3.35 TB/s, or FLOPS_PER_CELL_STEP per cell and step at 67 TFLOP/s
@@ -110,11 +135,13 @@ float32, whichever is larger).
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import hashlib
 import io
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -151,7 +178,7 @@ BEFORE_US = {"step 1024^2": 32.37, "K=4 4096^2": 303.93, "K=4 1024^2": 23.20,
              "stream 4096^2": 476.92, "stream 8192^2": 1665.38,
              "stream 16384^2": 5945.41}
 
-# launches of each kernel over the main-path runs of phases 4-11
+# launches of each kernel over the main-path runs of phases 4-12
 MAIN_LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -861,10 +888,11 @@ def write_full_deck(d: Path, nx: int, ny: int, iters: int) -> tuple[Path, Path]:
     return params, obst
 
 
-def phase_full(card: str, times: dict) -> dict:
+def phase_full(card: str, times: dict, keep: Path) -> dict:
     """The 1024^2 deck; returns the library run's state and av and the
     digest of auto's final_state.dat, the straight run phase 9 holds its
-    checkpointed runs to."""
+    checkpointed runs to; auto's final_state.dat is kept in ``keep`` for
+    phase 13."""
     from advanced_hpc_lbm_tpu_torch import Simulation
     from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
 
@@ -888,6 +916,8 @@ def phase_full(card: str, times: dict) -> dict:
                 fail(f"{tag} av history is not finite and positive")
             histories[backend] = av_cli
             digests[backend] = digest(Path(tmp) / "final_state.dat")
+            if backend == "auto":
+                shutil.copy(Path(tmp) / "final_state.dat", keep / "final_state.dat")
             glups = iters * nx * ny / block["compute"] / 1e9
             say(f"{tag} {ny}x{nx}, {iters} steps: launches {n}, Compute "
                 f"{block['compute']:.4f} s = {glups:.3f} GLUPS (host loop included), "
@@ -1788,31 +1818,438 @@ def phase_batch(card: str) -> None:
         f"| {card}")
 
 
+# ---- 12. multi-process sharded runs on one card -------------------------------------
+
+# the one two-process launch of phase 12; a hang fails the phase here
+MP_TIMEOUT_S = 600
+
+
+def rank_worker(spec_path: str) -> int:
+    """One process of phase 12's two-process launch, started by
+    ``torch.distributed.run``: forms the process group as the CLI does first
+    thing, then runs each of the spec's runs in turn, the CLI (``cli``) or
+    the library (``lib``, for a grid whose final_state.dat would take
+    minutes to write), and writes what the parent checks into
+    ``<out>/rank<r>.json``: its backend and device, and per run its exit
+    code, stdout, launches and output writes; for ``lib`` also its run
+    time, a digest of each own block and the av history."""
+    import torch.distributed as dist
+
+    from advanced_hpc_lbm_tpu_torch import Simulation, cli
+    from advanced_hpc_lbm_tpu_torch.parallel import multihost
+    from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
+
+    spec = json.loads(Path(spec_path).read_text())
+    multihost.maybe_initialize(device_type="cuda")
+    rank, device = multihost.process_index(), multihost.local_device("cuda")
+    report = {"rank": rank, "world": multihost.process_count(), "backend": multihost.backend(),
+              "device": str(device), "name": torch.cuda.get_device_name(device), "runs": {}}
+    writes: collections.Counter = collections.Counter()
+
+    def counting(fn, key):
+        def write(*args, **kwargs):
+            writes[key] += 1
+            return fn(*args, **kwargs)
+        return write
+
+    lbm_io.write_final_state = counting(lbm_io.write_final_state, "final_state")
+    lbm_io.write_av_vels = counting(lbm_io.write_av_vels, "av_vels")
+    rc = 0
+    for name, run in spec["runs"].items():
+        writes.clear()
+        counts: dict = {}
+        out: dict = {}
+        buf = io.StringIO()
+        if "cli" in run:
+            with counted(counts), contextlib.redirect_stdout(buf):
+                out["rc"] = cli.main(run["cli"])
+        else:
+            lib = run["lib"]
+            sim = Simulation.from_decks(lib["params"], lib["obstacles"], backend="sharded",
+                                        device=device)
+            sim.warmup(**lib["run"])
+            with counted(counts):
+                t0 = time.perf_counter()
+                res = sim.run(fetch=False, **lib["run"])
+                out["seconds"] = time.perf_counter() - t0
+            out["blocks"] = {str(rows.start): block_digest(blk)
+                             for rows, _, blk in res.f_final.blocks()}
+            out["av"] = res.av_vels.cpu().tolist()
+            out["rc"] = 0
+            del res, sim
+        out.update(stdout=buf.getvalue().splitlines(), launches=counts, writes=dict(writes))
+        report["runs"][name] = out
+        rc = rc or out["rc"]
+    Path(spec["out"], f"rank{rank}.json").write_text(json.dumps(report))
+    dist.destroy_process_group()
+    return rc
+
+
+def block_digest(blk: torch.Tensor) -> str:
+    """sha256 of a shard's own block, plane by plane (each plane's own rows
+    are contiguous)."""
+    h = hashlib.sha256()
+    for k in range(blk.shape[0]):
+        h.update(blk[k].contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_group(cmd: list[str], cwd: Path, timeout: float) -> subprocess.CompletedProcess:
+    """Run ``cmd`` in a session of its own; on a timeout kill the whole
+    session (the launcher and its workers)."""
+    import os
+    import signal
+
+    proc = subprocess.Popen(cmd, cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        fail(f"[12 multiprocess] the launch did not end in {timeout} s; killed\n{err[-2000:]}")
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def two_processes(runs: dict, work: Path) -> list[dict]:
+    """Run ``runs`` (name -> ``cli`` argv or ``lib``) in one launch of two
+    processes on the card; returns the ranks' reports."""
+    spec = {"out": str(work), "runs": runs}
+    (work / "spec.json").write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    res = run_group([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc-per-node", "2", str(ROOT / "chip_smoke.py"), "--rank-worker",
+                     str(work / "spec.json")], work, MP_TIMEOUT_S)
+    if res.returncode != 0:
+        fail(f"[12 multiprocess] torch.distributed.run exited {res.returncode}\n"
+             f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+    reports = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+    say(f"[12 multiprocess] one launch of 2 processes, {len(runs)} runs in "
+        f"{time.perf_counter() - t0:.1f} s: backend {reports[0]['backend']}; ranks on "
+        + ", ".join(f"{r['device']} ({r['name']})" for r in reports))
+    return reports
+
+
+def check_ranks(tag: str, reports: list[dict], name: str, expected: dict) -> tuple[list, dict]:
+    """Both ranks of run ``name``: exit 0, the launches ``expected`` each,
+    the outputs written once and the ==done== block printed once, by rank
+    0.  Returns rank 0's block (cli runs) and rank 0's run report."""
+    runs = [rep["runs"][name] for rep in reports]
+    for r, run in enumerate(runs):
+        MAIN_LAUNCHES.update(run["launches"])
+        if run["rc"] != 0:
+            fail(f"{tag} rank {r} exited {run['rc']}")
+        if run["launches"] != expected:
+            fail(f"{tag} rank {r} launches {run['launches']}, expected {expected}")
+    cli_run = "seconds" not in runs[0]
+    want = [{"final_state": 1, "av_vels": 1}, {}] if cli_run else [{}, {}]
+    if [run["writes"] for run in runs] != want:
+        fail(f"{tag} output writes per rank {[run['writes'] for run in runs]}, expected {want}")
+    if not cli_run:
+        return [], runs[0]
+    if runs[1]["stdout"] or runs[0]["stdout"].count("==done==") != 1:
+        fail(f"{tag} stdout of the ranks: {runs[0]['stdout'][:8]} | {runs[1]['stdout'][:8]} "
+             "(expected one ==done== block, from rank 0)")
+    return runs[0]["stdout"], runs[0]
+
+
+def one_process(params_f, obst_f, out: Path, iters: int, run_kw: dict) -> tuple[float, dict]:
+    """The same configuration in this process on two shards of cuda:0
+    (the same mesh shape): its outputs written into ``out``; returns (host
+    seconds of the run, synchronised; launches)."""
+    from advanced_hpc_lbm_tpu_torch import Simulation
+
+    two = [torch.device("cuda", 0)] * 2
+    kw = {"n_iters": iters, "shard_devices": two, **run_kw}
+    sim = Simulation.from_decks(params_f, obst_f, backend="sharded", device="cuda")
+    sim.warmup(**kw)
+    counts: dict = {}
+    with counted(counts):
+        t0 = time.perf_counter()
+        res = sim.run(fetch=False, **kw)
+        dt = time.perf_counter() - t0
+    out.mkdir(parents=True, exist_ok=True)
+    res.write(out)
+    return dt, counts
+
+
+def differing_values(a: Path, b: Path) -> int:
+    """Values that differ between two output files of the same shape (0
+    where the bytes are equal)."""
+    x, y = a.read_bytes(), b.read_bytes()
+    if x == y:
+        return 0
+    xs, ys = x.split(), y.split()
+    return abs(len(xs) - len(ys)) + sum(p != q for p, q in zip(xs, ys))
+
+
+def same_outputs(tag: str, two: Path, one: Path) -> None:
+    for name in ("final_state.dat", "av_vels.dat"):
+        n = differing_values(two / name, one / name)
+        if n:
+            fail(f"{tag} {n} values of {name} differ from the one-process run")
+    if sorted(p.name for p in two.iterdir()) != ["av_vels.dat", "final_state.dat"]:
+        fail(f"{tag} the output directory holds {sorted(p.name for p in two.iterdir())}")
+
+
+MP_MINI = (  # (CLI flags, run keywords, kernel, K)
+    (["--shard-kernel", "pallas"], {"shard_kernel": "pallas"}, "pallas", 1),
+    (["--shard-kernel", "pallas", "--ca-steps", "4"], {"shard_kernel": "pallas", "ca_steps": 4},
+     "pallas", 4),
+    (["--shard-kernel", "stream"], {"shard_kernel": "stream"}, "stream", 8),
+)
+MP_FULL = (  # (label, grid, steps, CLI flags, run keywords, kernel, torus)
+    ("ring pallas", 1024, 20_000, ["--backend", "sharded", "--devices", "2", "--shard-kernel",
+                                   "pallas"], {"devices": 2, "shard_kernel": "pallas"},
+     "pallas", False),
+    ("2x1 torus pallas", 1024, 1000, ["--mesh", "2x1", "--shard-kernel", "pallas", "--iters",
+                                      "1000"], {"mesh": (2, 1), "shard_kernel": "pallas"},
+     "pallas", True),
+)
+MP_BIG = (8192, 200, {"devices": 2, "shard_kernel": "stream"})  # grid, steps, run keywords
+MP_AUTO = (128, 10_000)  # grid, steps of the --multihost run on auto
+
+
+def phase_multiprocess(card: str) -> dict:
+    """Two processes on cuda:0 in one launch of torch.distributed.run, each
+    run held to the one-process run on the same mesh shape."""
+    from advanced_hpc_lbm_tpu_torch import Simulation
+    from advanced_hpc_lbm_tpu_torch.utils import check
+
+    decks = ROOT / "decks"
+    mini = [str(decks / "mini_64x64.params"), str(decks / "mini_64x64.obstacles.dat")]
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        full = write_full_deck(tmp, 1024, 1024, 20_000)
+        n, iters, big_kw = MP_BIG
+        big = write_full_deck(tmp, n, n, iters)
+        small = write_full_deck(tmp, MP_AUTO[0], MP_AUTO[0], MP_AUTO[1])
+        runs = {}
+        for i, (flags, _, _, _) in enumerate(MP_MINI):
+            runs[f"mini{i}"] = {"cli": [*mini, "--backend", "sharded", "--devices", "2", *flags,
+                                        "--out-dir", str(tmp / f"mini{i}" / "two")]}
+        for label, _, _, flags, _, _, _ in MP_FULL:
+            runs[label] = {"cli": [*map(str, full), *flags, "--out-dir",
+                                   str(tmp / label.replace(" ", "_") / "two")]}
+        runs["big"] = {"lib": {"params": str(big[0]), "obstacles": str(big[1]), "run": big_kw}}
+        runs["auto"] = {"cli": [*map(str, small), "--multihost", "--out-dir",
+                                str(tmp / "auto" / "two")]}
+        for run in runs.values():
+            if "cli" in run:
+                Path(run["cli"][-1]).mkdir(parents=True)
+        reports = two_processes(runs, tmp)
+
+        for i, (flags, kw, kernel, k) in enumerate(MP_MINI):
+            tag = f"[12 multiprocess] mini --backend sharded --devices 2 {' '.join(flags)}:"
+            block, _ = check_ranks(tag, reports, f"mini{i}",
+                                   sharded_expected(kernel, 1, False, 500, k))
+            block = check_block(block, tag)
+            two, one = tmp / f"mini{i}" / "two", tmp / f"mini{i}" / "one"
+            one_process(*mini, one, 500, {"devices": 2, **kw})
+            same_outputs(tag, two, one)
+            stats = check.check_av_vels_only(str(decks / "mini_64x64.golden_av_vels.dat"),
+                                             str(two / "av_vels.dat"))
+            if not stats.passed(1.0):
+                fail(f"{tag} av_vels fail the golden: {stats.max_diff_pcnt:.4g}%")
+            say(f"{tag} 2 processes on one card, 500 steps: launches per rank "
+                f"{ {a: b for a, b in reports[0]['runs'][f'mini{i}']['launches'].items() if b} }, "
+                f"0 values of final_state.dat and av_vels.dat differ from the one-process "
+                f"2-shard run, golden max diff {stats.max_diff_pcnt:.4g}% (limit 1%), one "
+                f"==done== block and the outputs written once, by rank 0, Compute "
+                f"{block['compute']:.4f} s")
+
+        for label, n, iters, _, kw, kernel, torus in MP_FULL:
+            tag = f"[12 multiprocess] {n}x{n} {label}, {iters} steps:"
+            block, run = check_ranks(tag, reports, label,
+                                     sharded_expected(kernel, 1, torus, iters))
+            block = check_block(block, tag)
+            two = tmp / label.replace(" ", "_") / "two"
+            dt_one, _ = one_process(*full, two.parent / "one", iters, kw)
+            same_outputs(tag, two, two.parent / "one")
+            staging = (block["compute"] - dt_one) / iters  # one exchange per step
+            times[label] = (block["compute"] / iters, dt_one / iters)
+            say(f"{tag} 2 processes on one card: launches per rank "
+                f"{ {a: b for a, b in run['launches'].items() if b} }, 0 values of "
+                f"final_state.dat and av_vels.dat differ from the one-process run, Compute "
+                f"{block['compute']:.4f} s = {block['compute'] / iters * 1e6:.2f} us per step "
+                f"(one process, 2 shards: {dt_one / iters * 1e6:.2f} us, host clock, run "
+                f"synchronised); the difference per exchange {staging * 1e6:.2f} us | {card}")
+
+        # an 8192^2 ring on stream, through the library (its final_state.dat
+        # would take minutes to write): each own block's digest and the av
+        # history against the one-process 2-shard ring
+        n, iters, kw = MP_BIG
+        tag = f"[12 multiprocess] {n}x{n} ring stream, {iters} steps:"
+        _, run = check_ranks(tag, reports, "big", sharded_expected("stream", 1, False, iters))
+        two_dev = [torch.device("cuda", 0)] * 2
+        sim = Simulation.from_decks(*big, backend="sharded", device="cuda")
+        sim.warmup(shard_devices=two_dev, **kw)
+        t0 = time.perf_counter()
+        res = sim.run(fetch=False, shard_devices=two_dev, **kw)
+        dt_one = time.perf_counter() - t0
+        want = {str(rows.start): block_digest(blk) for rows, _, blk in res.f_final.blocks()}
+        av = res.av_vels.cpu().tolist()
+        del res, sim
+        ranks = [rep["runs"]["big"] for rep in reports]
+        if any(r["av"] != av for r in ranks):
+            fail(f"{tag} a rank's av history differs from the one-process run's")
+        if {**ranks[0]["blocks"], **ranks[1]["blocks"]} != want:
+            fail(f"{tag} the own blocks differ from the one-process run's")
+        dt_two = max(r["seconds"] for r in ranks)
+        times["8192 ring stream"] = (dt_two / iters, dt_one / iters)
+        say(f"{tag} 2 processes on one card: launches per rank "
+            f"{ {a: b for a, b in run['launches'].items() if b} }, both own blocks bitwise the "
+            f"one-process 2-shard ring's (sha256), av history equal on both ranks; "
+            f"{dt_two / iters * 1e6:.2f} us per step (slower rank; one process, 2 shards: "
+            f"{dt_one / iters * 1e6:.2f} us; host clock, run synchronised); the difference per "
+            f"exchange of 8 rows {(dt_two - dt_one) / (iters // 8) * 1e3:.3f} ms | {card}")
+
+        # a single-device backend under --multihost: each process runs the
+        # 128^2 deck on auto, rank 0 prints and writes
+        n, iters = MP_AUTO
+        tag = f"[12 multiprocess] {n}x{n} --multihost --backend auto, {iters} steps:"
+        block, run = check_ranks(tag, reports, "auto", expected_launches("auto", n, n, iters))
+        check_block(block, tag)
+        one = tmp / "auto" / "one"
+        one.mkdir()
+        rc, _, _ = run_cli([*map(str, small), "--out-dir", str(one)])
+        if rc != 0:
+            fail(f"{tag} the one-process CLI run exited {rc}")
+        same_outputs(tag, tmp / "auto" / "two", one)
+        say(f"{tag} each of 2 processes ran the deck: launches per rank "
+            f"{ {a: b for a, b in run['launches'].items() if b} }, rank 0's outputs equal "
+            f"the one-process run's (0 differing values), written once | {card}")
+    return times
+
+
+# ---- 13. the overlapped ring, the matrix collide, viz --------------------------------
+
+def phase_overlap(card: str, final_state: Path) -> None:
+    from advanced_hpc_lbm_tpu_torch import LBMParams
+    from advanced_hpc_lbm_tpu_torch.ops import kernel_common, mxu_collide, reference
+    from advanced_hpc_lbm_tpu_torch.parallel import halo
+    from advanced_hpc_lbm_tpu_torch.utils import viz
+
+    n, iters = 1024, 1000
+    tag = f"[13 overlap] {n}x{n}, {iters} steps, jnp on 4 shards of one card:"
+    params = LBMParams(nx=n, ny=n, max_iters=iters, reynolds_dim=10,
+                       density=0.1, accel=0.01, omega=1.85)
+    obst = np.zeros((n, n), dtype=bool)  # write_full_deck's geometry, in memory
+    obst[0] = obst[-1] = True
+    obst[:, 0] = obst[:, -1] = True
+    obst[: n // 2, n // 3] = True
+    four = [torch.device("cuda", 0)] * 4
+    runs, seconds = {}, {}
+    for overlap in (False, True):  # first touch of the allocations and streams
+        halo.run_sharded(None, obst, params, n_iters=20, devices=four, overlap=overlap)
+    for overlap in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[overlap] = halo.run_sharded(None, obst, params, devices=four, overlap=overlap)
+        torch.cuda.synchronize()
+        seconds[overlap] = time.perf_counter() - t0
+    (f_d, av_d), (f_o, av_o) = runs[False], runs[True]
+    diffs = sum(int((a != b).sum().item())
+                for (_, _, a), (_, _, b) in zip(f_d.blocks(), f_o.blocks()))
+    if diffs or not torch.equal(av_d, av_o):
+        fail(f"{tag} the overlapped run differs from the default: {diffs} values of the "
+             f"state, av equal {torch.equal(av_d, av_o)}")
+    del runs, f_d, f_o
+    say(f"{tag} overlap=True bitwise equal to overlap=False (state and av); "
+        f"{seconds[True] / iters * 1e6:.2f} us per step overlapped against "
+        f"{seconds[False] / iters * 1e6:.2f} (overlapped first, each after a 20-step run; "
+        f"host clock, runs synchronised) | {card}")
+
+    # the matrix collide on a seeded 1024^2 state, in full float32
+    tag = f"[13 mxu_collide] {n}x{n}:"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.RandomState(185)
+    f0 = reference.initial_state(params, "cpu").numpy() * rng.uniform(
+        0.7, 1.3, (9, n, n)).astype(np.float32)
+    mask = rng.rand(n, n) < 0.15
+    flat = torch.from_numpy(f0.reshape(9, -1)).cuda()
+    obst_flat = torch.from_numpy(mask.reshape(-1)).cuda()
+    planes = list(flat.reshape(9, n, n))
+    obst_t = obst_flat.reshape(n, n)
+    out, usq = mxu_collide.collide_flat(flat, obst_flat, params)
+    ref, ref_usq = kernel_common.collide(planes, obst_t, params)
+    ref = torch.stack(ref)
+    torch.cuda.synchronize()
+    if not torch.allclose(out.reshape(9, n, n), ref, rtol=2e-5, atol=2e-7):
+        fail(f"{tag} collide_flat differs from kernel_common.collide beyond rtol 2e-5 / "
+             "atol 2e-7")
+    if not torch.allclose(usq.reshape(n, n), ref_usq, rtol=5e-4, atol=1e-12):
+        fail(f"{tag} u_sq differs beyond rtol 5e-4")
+    err = float((out.reshape(9, n, n) - ref).abs().max().item())
+    mxu_ms = time_ms(lambda: mxu_collide.collide_flat(flat, obst_flat, params), 20)
+    vec_ms = time_ms(lambda: kernel_common.collide(planes, obst_t, params), 20)
+    say(f"{tag} collide_flat (a float32 torch.matmul, TF32 off) within rtol 2e-5 / atol 2e-7 "
+        f"of kernel_common.collide (max abs err {err:.3e}), u_sq within rtol 5e-4; "
+        f"{mxu_ms:.4f} ms per call against the plain vector collide's {vec_ms:.4f} ms "
+        f"(CUDA events, 20 calls) | {card}")
+
+    # the heatmap of phase 5's final_state.dat (a PGM where matplotlib is missing)
+    tag = "[13 viz] phase 5's final_state.dat:"
+    with tempfile.TemporaryDirectory() as tmp:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = viz.main([str(final_state), "-o", str(Path(tmp) / "final_state.png")])
+        path = Path(buf.getvalue().strip())
+        if rc != 0 or not path.exists():
+            fail(f"{tag} viz.main returned {rc}, wrote {path}")
+        data = path.read_bytes()
+        if path.suffix == ".pgm":
+            head = f"P5 {n} {n} 255\n".encode()
+            if not data.startswith(head) or len(data) != len(head) + n * n:
+                fail(f"{tag} the PGM is not a {n}x{n} image: {data[:20]!r}, {len(data)} bytes")
+        elif not data.startswith(b"\x89PNG"):
+            fail(f"{tag} {path.name} is not a PNG")
+    say(f"{tag} viz.main wrote {path.name}, a {n}x{n} heatmap of ||u|| ({len(data)} bytes)")
+
+
 # ---- main -------------------------------------------------------------------
 
-def main() -> int:
+def timed(phase, *args):
+    """Run a phase and print its wall time (the script's time limit is
+    shared by every phase)."""
     t0 = time.perf_counter()
+    out = phase(*args)
+    label = f" {args[1]}" if phase is phase_big else ""
+    say(f"[time] {phase.__name__}{label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank-worker":
+        return rank_worker(sys.argv[2])  # one process of a phase-12 launch
+    t0 = time.perf_counter()
+    keep = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    atexit.register(shutil.rmtree, keep, True)
     card = phase_card()
-    phase_build()
-    worst_step, step_times = phase_kernel(card)
-    worst_res, res_times = phase_resident(card)
-    worst_k, k_times = phase_kstep(card, res_times)
-    worst_s, s_times = phase_stream(card)
-    worst_l, l_times = phase_local(card)
-    retime(card, step_times, k_times, s_times, l_times)
-    phase_mini()
-    full = phase_full(card, res_times)
-    phase_cli_big(card)
-    phase_big(card, "6 big", 4096, ("pallask", "step"))
-    phase_big(card, "6s big stream", 8192, ("stream", "pallask"))
-    phase_capacity(card)
-    phase_sharded_mini()
-    phase_sharded_full(card)
-    phase_sharded_big(card)
-    phase_sharded_sweep(card)
-    phase_checkpoint(card, full)
-    phase_profile(card)
-    phase_batch(card)
+    timed(phase_build)
+    worst_step, step_times = timed(phase_kernel, card)
+    worst_res, res_times = timed(phase_resident, card)
+    worst_k, k_times = timed(phase_kstep, card, res_times)
+    worst_s, s_times = timed(phase_stream, card)
+    worst_l, l_times = timed(phase_local, card)
+    timed(retime, card, step_times, k_times, s_times, l_times)
+    timed(phase_mini)
+    full = timed(phase_full, card, res_times, keep)
+    timed(phase_cli_big, card)
+    timed(phase_big, card, "6 big", 4096, ("pallask", "step"))
+    timed(phase_big, card, "6s big stream", 8192, ("stream", "pallask"))
+    timed(phase_capacity, card)
+    timed(phase_sharded_mini)
+    timed(phase_sharded_full, card)
+    timed(phase_sharded_big, card)
+    timed(phase_sharded_sweep, card)
+    timed(phase_checkpoint, card, full)
+    timed(phase_profile, card)
+    timed(phase_batch, card)
+    timed(phase_multiprocess, card)
+    timed(phase_overlap, card, keep / "final_state.dat")
     say(f"[result] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"main-path launches {dict(MAIN_LAUNCHES)}")
     for name in kernel_counters():

@@ -502,3 +502,42 @@ def test_four_shards_of_one_card_equal_pallask(monkeypatch, shape, kw, counts):
     for rows, cols, blk in f.blocks():
         assert int((blk != ref_f[:, rows, cols]).sum()) == 0
     torch.testing.assert_close(av, ref_av, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("debug", [False, True])
+def test_overlap_on_card_equals_default(debug):
+    """The overlapped ring schedule on four shards of cuda:0 (the exchange
+    on a side stream while the interior rows compute): the state, av and
+    densities of the default schedule, bitwise."""
+    params, mask_np, f0 = make_case(64, 128, seed=9)
+    four = ["cuda:0"] * 4
+    outs = [halo.run_sharded(f0, mask_np, params, n_iters=11, devices=four, overlap=overlap,
+                             collect_density=debug) for overlap in (False, True)]
+    torch.cuda.synchronize()
+    (f_d, *rest_d), (f_o, *rest_o) = outs
+    for (_, _, a), (_, _, b) in zip(f_d.blocks(), f_o.blocks()):
+        assert torch.equal(a, b)
+    for a, b in zip(rest_d, rest_o):
+        assert torch.equal(a, b)
+
+
+def test_collide_flat_refuses_tf32_on_card(monkeypatch):
+    """The matrix collide in full float32 on the card matches the vector
+    collide; with TF32 allowed (either switch) it raises."""
+    from advanced_hpc_lbm_tpu_torch.ops import kernel_common, mxu_collide
+
+    params, mask_np, f0 = make_case(64, 128, seed=10)
+    flat = torch.from_numpy(f0.reshape(9, -1)).cuda()
+    obst = torch.from_numpy(mask_np.reshape(-1)).cuda()
+    out, usq = mxu_collide.collide_flat(flat, obst, params)
+    ref, ref_usq = kernel_common.collide(list(flat.reshape(9, 64, 128)), obst.reshape(64, 128),
+                                         params)
+    torch.testing.assert_close(out.reshape(9, 64, 128), torch.stack(ref), rtol=2e-5, atol=2e-7)
+    torch.testing.assert_close(usq.reshape(64, 128), ref_usq, rtol=5e-4, atol=1e-12)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="TF32"):
+        mxu_collide.collide_flat(flat, obst, params)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch, "get_float32_matmul_precision", lambda: "high")
+    with pytest.raises(RuntimeError, match="TF32"):
+        mxu_collide.collide_flat(flat, obst, params)

@@ -174,13 +174,16 @@ def test_auto_takes_the_banded_resident_form(monkeypatch):
 
 @pytest.mark.parametrize("backend", ["sharded"])
 def test_unported_backend_raises(backend):
-    """Every backend of the JAX package is ported; what stays unported of
-    ``sharded`` (the overlapped 1-step schedule) raises."""
+    """Every backend of the JAX package is ported, the overlapped 1-step
+    schedule of ``sharded`` too: what raises is what the JAX package
+    refuses (the overlap on another shard kernel than jnp)."""
     params, mask = _small_deck()
     assert backend in d2q9_bgk.BACKENDS
     Simulation(params, mask, backend=backend, device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
-        halo.make_sharded_runner(mesh.make_y_mesh(2, ["cpu"] * 2), params, 1, overlap=True)
+    ring = mesh.make_y_mesh(2, ["cpu"] * 2)
+    assert halo.make_sharded_runner(ring, params, 1, overlap=True).overlap
+    with pytest.raises(ValueError, match="1-step jnp"):
+        halo.make_sharded_runner(ring, params, 1, kernel="pallas", overlap=True)
 
 
 def test_unknown_backend_and_bad_mask_raise():
@@ -303,11 +306,11 @@ def test_cli_bad_deck_exits_1(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    # the sharded, checkpoint and profile flags are ported: malformed
-    # values of them are refused; --multihost is not ported
+    # every flag is ported: malformed values of them are refused
+    # (tests/test_torch_multihost.py runs --multihost itself)
     ["--devices", "two"], ["--mesh", "2by2"], ["--shard-kernel", "cuda"], ["--ca-steps", "x"],
-    ["--checkpoint-every", "x"], ["--resume", "--checkpoint-every", "x"], ["--multihost"],
-    ["--profile"],
+    ["--checkpoint-every", "x"], ["--resume", "--checkpoint-every", "x"], ["--multihost=yes"],
+    ["--profile"], ["--iters", "x"],
 ])
 def test_cli_rejects_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:

@@ -296,7 +296,8 @@ def test_local_ca_steps_thin_shards_match_jax_kernel(ly, lo, k, images):
     (8, {"kernel": "stream"}, "too thin"),
     (2, {"kernel": "stream", "ca_steps": 4}, "K=8 steps per exchange"),
     ((2, 2), {"kernel": "pallas", "ca_steps": 2}, "not supported on the 2-D torus"),
-    (2, {"overlap": True}, "not yet ported"),
+    (2, {"overlap": True, "kernel": "pallas"}, "1-step jnp"),
+    (16, {"overlap": True}, "interior"),
     (2, {"kernel": "cuda"}, "unknown shard kernel"),
 ])
 def test_refusals(shape, kw, message):
