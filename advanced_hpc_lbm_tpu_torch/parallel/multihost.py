@@ -35,10 +35,20 @@ Single-process runs never touch ``torch.distributed``: :func:`maybe_initialize`
 is a no-op unless the environment says multi-process (or ``force``).
 Exactly one process prints the results block and writes files:
 :func:`is_primary` (rank 0), which the CLI asks.
+
+A group that :func:`maybe_initialize` forms is taken down when the
+interpreter exits (an ``atexit`` handler, registered once), so a caller need
+not tear it down itself; one that does (``dist.destroy_process_group()``)
+leaves the handler nothing to do.  Left standing, the group's worker threads
+race the interpreter's finalisation, and a process that finished its work
+can die of SIGABRT on its way out ("terminate called without an active
+exception"), which ``torchrun`` reports as a failed run.  The handler holds
+no barrier: a survivor of a dead peer exits without waiting out ``TIMEOUT``.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import datetime
 import os
@@ -54,6 +64,7 @@ DEFAULT_PORT = "29500"  # torchrun's default MASTER_PORT
 # fails the run (the longest wait of a run is the primary's first kernel
 # build, about 20 s with nvcc, while the others hold at a barrier)
 TIMEOUT = datetime.timedelta(seconds=300)
+_teardown_registered = False
 
 
 def _first_slurm_host(nodelist: str) -> str:
@@ -179,7 +190,18 @@ def maybe_initialize(env=None, *, force: bool = False, device_type: str = "cuda"
                                 timeout=TIMEOUT)
     else:
         dist.init_process_group(backend, timeout=TIMEOUT, **kw)
+    global _teardown_registered
+    if not _teardown_registered:
+        atexit.register(_destroy_at_exit)
+        _teardown_registered = True
     return True
+
+
+def _destroy_at_exit() -> None:
+    """Take the group down before the interpreter finalises, unless the
+    caller already has.  No barrier, so a dead peer holds no one."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def process_count() -> int:

@@ -1832,9 +1832,9 @@ def rank_worker(spec_path: str) -> int:
     minutes to write), and writes what the parent checks into
     ``<out>/rank<r>.json``: its backend and device, and per run its exit
     code, stdout, launches and output writes; for ``lib`` also its run
-    time, a digest of each own block and the av history."""
-    import torch.distributed as dist
-
+    time, a digest of each own block and the av history.  It leaves the
+    group standing: the library takes it down at exit, and the launch's
+    exit code, which the parent checks, says whether that went cleanly."""
     from advanced_hpc_lbm_tpu_torch import Simulation, cli
     from advanced_hpc_lbm_tpu_torch.parallel import multihost
     from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
@@ -1881,7 +1881,6 @@ def rank_worker(spec_path: str) -> int:
         report["runs"][name] = out
         rc = rc or out["rc"]
     Path(spec["out"], f"rank{rank}.json").write_text(json.dumps(report))
-    dist.destroy_process_group()
     return rc
 
 
@@ -1920,6 +1919,7 @@ def two_processes(runs: dict, work: Path) -> list[dict]:
     res = run_group([sys.executable, "-m", "torch.distributed.run", "--standalone",
                      "--nproc-per-node", "2", str(ROOT / "chip_smoke.py"), "--rank-worker",
                      str(work / "spec.json")], work, MP_TIMEOUT_S)
+    say(f"[12 multiprocess] torch.distributed.run exit code {res.returncode}")
     if res.returncode != 0:
         fail(f"[12 multiprocess] torch.distributed.run exited {res.returncode}\n"
              f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")

@@ -12,7 +12,8 @@ bitwise to the single-process run on the same mesh shape (the halos are
 the same rows, the ||u|| sums are added in the same shard order), and
 within rtol 1e-5 / atol 1e-7 (f) and rtol 1e-5 (av) to the JAX package's
 sharded run on its virtual CPU devices, as tests/test_torch_sharded.py
-holds the single-process path.
+holds the single-process path.  A process that leaves the group standing
+exits 0: the library takes it down at exit.
 """
 
 import json
@@ -20,6 +21,8 @@ import os
 import socket
 import subprocess
 import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -41,6 +44,7 @@ ROOT = Path(__file__).resolve().parent.parent
 MINI = (str(ROOT / "decks/mini_64x64.params"), str(ROOT / "decks/mini_64x64.obstacles.dat"))
 MINI_GOLDEN = str(ROOT / "decks/mini_64x64.golden_av_vels.dat")
 TIMEOUT_S = 120  # each two-process launch; a deadlock fails here, not at the suite's limit
+CHILD_THREADS = 1  # intra-op threads of every run compared bitwise with a child's
 
 
 def make_case(ny, nx, seed=7):
@@ -169,8 +173,9 @@ def _launch(argvs: list[list[str]], env_of, cwd) -> list[subprocess.CompletedPro
     procs = [subprocess.Popen(argv, cwd=cwd, env=env_of(r), stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for r, argv in enumerate(argvs)]
+    deadline = time.monotonic() + TIMEOUT_S
     try:
-        outs = [p.communicate(timeout=TIMEOUT_S) for p in procs]
+        outs = [p.communicate(timeout=max(0.0, deadline - time.monotonic())) for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -185,9 +190,11 @@ def _base_env() -> dict:
            if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
                         "LOCAL_WORLD_SIZE", "SLURM_NTASKS", "SLURM_PROCID")}
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
-    # the plain versions' CPU sums split over the threads: the same count
-    # as this process, so that the two runs add in the same order
-    env["OMP_NUM_THREADS"] = str(torch.get_num_threads())
+    # the plain versions' CPU sums split over the threads: a small fixed
+    # count, the same in every run that a test compares bitwise, so that
+    # the runs add in the same order (and two children beside a loaded
+    # host's other workers do not each ask for every core)
+    env["OMP_NUM_THREADS"] = str(CHILD_THREADS)
     return env
 
 
@@ -264,10 +271,18 @@ def two_process_runs(tmp_path_factory):
 def _single_process(params, mask, f0, kw):
     kw = dict(kw)
     devices = ["cpu"] * kw.pop("shards")
-    if "mesh" in kw:
-        res = halo.run_sharded_2d(f0, mask, params, tuple(kw.pop("mesh")), devices=devices, **kw)
-    else:
-        res = halo.run_sharded(f0, mask, params, devices=devices, **kw)
+    # the children's thread count, so that the sums add as theirs do;
+    # restored after, so that no other case of this worker changes
+    threads = torch.get_num_threads()
+    torch.set_num_threads(CHILD_THREADS)
+    try:
+        if "mesh" in kw:
+            res = halo.run_sharded_2d(f0, mask, params, tuple(kw.pop("mesh")), devices=devices,
+                                      **kw)
+        else:
+            res = halo.run_sharded(f0, mask, params, devices=devices, **kw)
+    finally:
+        torch.set_num_threads(threads)
     return res[0].numpy(), *(r.numpy() for r in res[1:])
 
 
@@ -309,6 +324,71 @@ def test_two_processes_match_jax(two_process_runs, name):
                                 **JAX_KW[name])
     np.testing.assert_allclose(runs[name][0]["f"], np.asarray(ref[0]), **F_TOL)
     np.testing.assert_allclose(runs[name][0]["av"], np.asarray(ref[1]), rtol=AV_RTOL)
+
+
+# ---- exit: a group left standing -------------------------------------------------------
+
+# forms the group, runs checked collectives and returns without tearing the
+# group down; four more all_reduces are left in flight, so that the exit
+# meets the group's worker threads at work
+EXIT_WORKER = r"""
+import torch
+import torch.distributed as dist
+from advanced_hpc_lbm_tpu_torch.parallel import multihost
+
+assert multihost.maybe_initialize(device_type="cpu")
+world = multihost.process_count()
+x = torch.ones(64)
+for _ in range(20):
+    dist.all_reduce(x)
+    x /= world
+assert world == 2 and bool((x == 1).all())
+for _ in range(4):
+    dist.all_reduce(torch.ones_like(x), async_op=True)
+"""
+EXIT_PAIRS = 8
+
+
+@pytest.fixture(scope="module")
+def exits_without_teardown():
+    """EXIT_PAIRS launches of two processes, all started at once (so that
+    they load the host as a busy suite does), each launch with its own time
+    limit; the CompletedProcesses of each launch."""
+    def pair(_):
+        port = _free_port()
+
+        def env_of(rank):
+            return {**_base_env(), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                    "WORLD_SIZE": "2", "RANK": str(rank)}
+
+        return _launch([[sys.executable, "-c", EXIT_WORKER]] * 2, env_of, ROOT)
+
+    with ThreadPoolExecutor(EXIT_PAIRS) as pool:
+        return list(pool.map(pair, range(EXIT_PAIRS)))
+
+
+@pytest.mark.parametrize("pair", range(EXIT_PAIRS))
+def test_group_left_standing_exits_cleanly(exits_without_teardown, pair):
+    """Every process of a launch whose script leaves the group standing
+    exits 0: the library takes the group down at exit (left to the
+    interpreter's exit, most processes of this setting died of SIGABRT
+    after their work)."""
+    for p in exits_without_teardown[pair]:
+        assert p.returncode == 0, p.stderr[-3000:]
+
+
+def test_group_of_one_left_standing_exits_cleanly(tmp_path):
+    """``maybe_initialize(force=True)`` with no launch in the environment
+    forms a group of one process; returning without a teardown exits 0."""
+    script = ("import torch, torch.distributed as dist\n"
+              "from advanced_hpc_lbm_tpu_torch.parallel import multihost\n"
+              "assert multihost.maybe_initialize(force=True, device_type='cpu')\n"
+              "x = torch.ones(4)\n"
+              "dist.all_reduce(x)\n"
+              "assert multihost.process_count() == 1 and bool((x == 1).all())\n")
+    res = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=_base_env(),
+                         capture_output=True, text=True, timeout=TIMEOUT_S)
+    assert res.returncode == 0, res.stderr[-3000:]
 
 
 # ---- two processes: the CLI under torch.distributed.run ------------------------------------
