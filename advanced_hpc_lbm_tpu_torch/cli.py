@@ -176,8 +176,9 @@ def _main(args: argparse.Namespace) -> int:
                 backend=args.backend, device=_device(args.device),
             )
             # build and load the kernel here, so Compute times the steps
-            # alone; a grid that does not fit on the card, a bad
-            # decomposition or a segment length it refuses stops here
+            # alone; a negative --iters, a grid that does not fit on the
+            # card, a bad decomposition or a segment length it refuses
+            # stops here
             sim.warmup(**sharding)
         except (OSError, ValueError) as e:  # DeckError is a ValueError
             print(f"Error: {e}", file=sys.stderr)

@@ -326,6 +326,14 @@ class Simulation:
                else "; no single-card backend of this port fits it")
         )
 
+    def _iters(self, n_iters: int | None) -> int:
+        """The run's step count: ``n_iters``, or the deck's; a negative one
+        raises before anything is allocated, with the deck's wording."""
+        iters = self.params.max_iters if n_iters is None else n_iters
+        if iters < 0:
+            raise ValueError(f"max_iters must be >= 0, got {iters}")
+        return iters
+
     def _is_sharded(self, devices: int | None, mesh: tuple[int, int] | None) -> bool:
         """One definition of "this run is sharded" for warmup() and run()."""
         return self.backend == "sharded" or (devices is not None and devices > 1) \
@@ -443,7 +451,7 @@ class Simulation:
         snapshot), does nothing when that is at or past the target, and
         validates every segment length the run will take (the sharded
         runner of each; a stream tail the card cannot hold raises)."""
-        iters = self.params.max_iters if n_iters is None else n_iters
+        iters = self._iters(n_iters)
         sharded = self._is_sharded(devices, mesh)
         self._validate_flags(sharded, ca_steps=ca_steps, checkpoint_every=checkpoint_every,
                              resume=resume)
@@ -512,7 +520,7 @@ class Simulation:
         host arrays whatever ``fetch`` says: ``collate()`` is then a no-op,
         and ``check_finite`` applies before it returns.
         """
-        iters = self.params.max_iters if n_iters is None else n_iters
+        iters = self._iters(n_iters)
         sharded = self._is_sharded(devices, mesh)
         self._validate_flags(sharded, ca_steps=ca_steps, checkpoint_every=checkpoint_every,
                              resume=resume)

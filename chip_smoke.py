@@ -55,27 +55,39 @@ non-zero and prints no result:
              Simulation(backend="auto") for 64 steps: auto picks stream, the
              gate refuses pallask before allocating, the in-place tier's
              peak device memory against tier_bytes, finite, mass conserved
-  3l. local  the sharded path's kernels (the 1-D and 2-D local step and
-             the K-step kernel's local form) against their plain versions
-             on seeded shard windows, ly = 2 to 2048, 17x23 blocks, the
-             forcing row on a halo row, an own row and twice in a K-step
-             window (K = 2..8); then their times at the main path's shard
-             shapes
+  3l. local  the sharded path's kernels (the 1-D and 2-D local step, the
+             K-step kernel's local form and the stream kernel on a ring or
+             torus shard's window) against their plain versions on seeded
+             shard windows: ly = 2 to 4096, 17x23 blocks, the forcing row
+             on a halo row, an own row and twice in a K-step window (K =
+             2..8), and every shard shape that phases 8, 12 and 14 give
+             them on meshes of 2 and 4; a 12288x49152 shard of the 49152^2
+             ring of 4 cards (windows of more than 2^32 values, made on
+             the card) with the 1-D step, K = 4 and stream, the plain
+             version by blocks of 1024 own rows; then their times at the
+             main path's shard shapes
   3 retime  the K-step (both forms) and stream kernels' times beside
              PERF.md's from before their redesign, and the untouched step
              kernel's as the yardstick that the card matches
   8. sharded the main path on a device mesh: decks/mini_64x64 through the
-             CLI with --backend sharded (the ring of the one visible card:
-             pallas, --ca-steps 4, --shard-kernel stream; exact launches,
-             golden at 1%), the 1024x1024 deck through the CLI and the
-             library with --backend sharded (the same state as auto's, 0
+             CLI with --backend sharded (a ring of the visible cards, one
+             shard each: pallas, --ca-steps 4, --shard-kernel stream; exact
+             launches, golden at 1%), the 1024x1024 deck through the CLI and
+             the library with --backend sharded (the same state as auto's, 0
              differing values), and an 8192x8192 deck for 200 steps on 4
              shards of the card (a ring: pallas, pallas with ca_steps 4,
              stream; a 2x2 torus: pallas, stream) against single-device
              pallask (0 differing values, av within rtol 1e-5, exact
-             launches, mass conserved); then 4 shards of pallas, pallas
-             K = 4 and stream beside single-device pallask from 2048^2 to
-             8192^2
+             launches, mass conserved); on N >= 2 cards also those
+             configurations across the cards (a ring of N, and the same
+             ring laid on cuda:0; the tori on 4 cards), and the mini and
+             1024x1024 CLI runs held to the same mesh laid on cuda:0 alone
+             (0 differing values in both output files), each timed beside
+             that mesh and single-device pallask (or auto), with the
+             exchange timed alone; then 4 shards of pallas, pallas K = 4
+             and stream beside single-device pallask from 2048^2 to 8192^2.
+             Every timed library run of phases 8, 12 and 14 follows an
+             untimed run of 8 steps
   9. checkpoint  checkpointed runs against straight ones (0 differing
              values in the state, the same final_state.dat, av within
              rtol 1e-5, exact launches per segment): the 128x128 deck
@@ -97,34 +109,50 @@ non-zero and prints no result:
   11. batch  parallel/batch.batch_run of 4 decks of 1024x1024 for 200
              steps against 4 sequential fused runs (rtol 1e-6), split over
              [cuda:0, cuda:0] equal to the unsplit batch
-  12. multiprocess  two processes on the one card, in one launch of
-             torch.distributed.run --standalone --nproc-per-node 2 (each
-             process is this script with --rank-worker, which forms the
-             group and runs each run through the CLI or the library): the
-             sharded path with its mesh across the processes (gloo, halos
-             staged through pinned host buffers), each run held to the
-             one-process run on the same mesh shape with 0 differing
-             values, exact launches per rank, one ==done== block and the
-             outputs written once by rank 0: decks/mini_64x64 on a ring of
-             2 (pallas, --ca-steps 4, stream; golden at 1%), the 1024x1024
-             deck for 20 000 steps (pallas), a 2x1 torus of it for 1000
-             steps (pallas), an 8192x8192 ring on stream for 200 steps
-             (digests of the own blocks), and a --multihost run of a
-             128x128 deck on auto (each process runs the deck); the chosen
-             backend and each rank's device; times beside the one-process
-             runs
+  12. multiprocess  N processes in one launch of torch.distributed.run
+             --standalone --nproc-per-node N (each process is this script
+             with --rank-worker, which forms the group and runs each run
+             through the CLI or the library): with one card N = 2, both on
+             it over gloo (halos staged through pinned host buffers); with
+             two or more N = the cards, each on its own over nccl (halos
+             staged on the card; nccl on every rank is checked).  The
+             sharded path with its mesh across the processes, each run
+             held to the one-process run on the same mesh shape laid on
+             cuda:0 with 0 differing values, exact launches per rank, one
+             ==done== block and the outputs written once by rank 0:
+             decks/mini_64x64 on a ring of N (pallas, --ca-steps 4, stream;
+             golden at 1%), the 1024x1024 deck for 20 000 steps (pallas), a
+             2 x N/2 torus of it for 1000 steps (pallas), an 8192x8192 ring
+             on stream for 200 steps (digests of the own blocks), and a
+             --multihost run of a 128x128 deck on auto (each process runs
+             the deck); the chosen backend and each rank's device; times
+             beside the one-process runs (and on several cards beside
+             single-device pallask)
   13. overlap  the overlapped jnp ring on 4 shards of the card (1024x1024,
              1000 steps) bitwise equal to the default schedule, both
              timed; ops/mxu_collide.collide_flat on a seeded 1024x1024
              state against kernel_common.collide (rtol 2e-5 / atol 2e-7);
              utils/viz.main on phase 5's final_state.dat (a PGM of the
              grid's shape where matplotlib is missing)
+  14. cards  what the sharded path does only across N >= 2 visible cards,
+             beyond phases 8 and 12 (one line says it is skipped where one
+             card is visible): the peer access of each pair of cards and
+             `nvidia-smi topo -m`; on 4 cards the 1024x1024 deck for 1000
+             steps on a 2x2 torus of the cards (pallas) through the CLI,
+             held to the same mesh laid on cuda:0 alone with 0 differing
+             values; scripts/torch_mp_exchange.py's split of a 1024^2
+             exchange over nccl, N processes; on 4 cards a 49152x49152 grid
+             (one state 87.0 GB, more than a card holds) for 64 steps on a
+             ring of the 4 cards with pallas and with stream: the two
+             runs' own blocks equal by a digest computed on each card, mass
+             conserved, each card's peak memory, us per step and the
+             exchange timed alone
   result     a JSON line of the kernels, then the device JSON line last
 
 Each phase's wall time follows it on a ``[time]`` line.
 
 Launch counts: every kernel module counts its launches; each run of
-phases 4-12 (the main path; in phase 12 each process of a launch) sets the
+phases 4-14 (the main path; in phases 12 and 14 each process of a launch) sets the
 counts to 0 just before it and reads them just after, and the kernels line
 reports their sum.  Times in the
 kernels line are per step; ``bound_ms`` is the least time of the same
@@ -178,7 +206,7 @@ BEFORE_US = {"step 1024^2": 32.37, "K=4 4096^2": 303.93, "K=4 1024^2": 23.20,
              "stream 4096^2": 476.92, "stream 8192^2": 1665.38,
              "stream 16384^2": 5945.41}
 
-# launches of each kernel over the main-path runs of phases 4-12
+# launches of each kernel over the main-path runs of phases 4-14
 MAIN_LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -1153,10 +1181,13 @@ def bound(cells: int, steps_per_launch: int) -> tuple[float, str]:
 
 # ---- 3l. the local kernels of the sharded path ----------------------------------
 
-def window_case(h: int, w: int, seed: int, accel_rows: tuple[int, ...]):
+def window_case(h: int, w: int, seed: int, accel_rows: tuple[int, ...],
+                ghosts: tuple[int, int] = (0, 0)):
     """A seeded (9, h, w) shard window on the card and its encoded mask
     window, forced on ``accel_rows`` (window rows), where W is starved on
-    half of each forced row so that the guard fails there."""
+    half of each forced row so that the guard fails there; the outer
+    ``ghosts`` (rows, columns) of the mask +4, as the runner marks a
+    stream window's ghost cells."""
     from advanced_hpc_lbm_tpu_torch.ops import stream_kernel as sk
 
     params, mask_np, f0 = seeded_case(h, w, seed)
@@ -1164,21 +1195,78 @@ def window_case(h: int, w: int, seed: int, accel_rows: tuple[int, ...]):
         f0[3, r, : w // 2] = params.accel_w1 * np.float32(0.5)
     accel = np.zeros(h, dtype=bool)
     accel[list(accel_rows)] = True
-    enc = sk.encode_masks(torch.from_numpy(mask_np), torch.from_numpy(accel))
-    return params, torch.from_numpy(f0).cuda(), enc.cuda()
+    enc = sk.encode_masks(torch.from_numpy(mask_np), torch.from_numpy(accel)).cuda()
+    return params, torch.from_numpy(f0).cuda(), ghost_excluded(enc, *ghosts)
+
+
+def ghost_excluded(enc: torch.Tensor, gy: int, gx: int) -> torch.Tensor:
+    """``enc`` with +4 on its outer gy rows and gx columns."""
+    from advanced_hpc_lbm_tpu_torch.ops import stream_kernel as sk
+
+    if not (gy or gx):
+        return enc
+    h, w = enc.shape
+    ghost = torch.ones(h, w, dtype=torch.bool, device=enc.device)
+    ghost[gy:h - gy, gx:w - gx] = False
+    return sk.mark_reduction_excluded(enc, ghost)
+
+
+def device_window_case(h: int, w: int, seed: int, accel_rows: tuple[int, ...],
+                       ghosts: tuple[int, int] = (0, 0)):
+    """:func:`window_case` made on the card from a seeded CUDA generator,
+    for windows too large to build on the host: the rest state x
+    uniform(0.8, 1.2) plane by plane, the box rows, a block and h*w/2000
+    random obstacles."""
+    from advanced_hpc_lbm_tpu_torch.ops import reference
+    from advanced_hpc_lbm_tpu_torch.ops import stream_kernel as sk
+    from advanced_hpc_lbm_tpu_torch.params import LBMParams
+
+    params = LBMParams(nx=w, ny=h, max_iters=50, reynolds_dim=10,
+                       density=0.1, accel=0.005, omega=1.85)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    win = torch.empty(9, h, w, device="cuda")
+    for k, rest in enumerate(reference.rest_populations(params)):
+        win[k].uniform_(0.8, 1.2, generator=gen).mul_(float(rest))
+    for r in accel_rows:
+        win[3, r, : w // 2] = float(params.accel_w1 * np.float32(0.5))
+    obst = torch.zeros(h, w, dtype=torch.uint8, device="cuda")
+    obst[0] = obst[-1] = 1
+    obst[h // 2: h // 2 + 2, w // 3: w // 2] = 1
+    obst.view(-1)[torch.randint(0, h * w, (h * w // 2000,), generator=gen,
+                                device="cuda")] = 1
+    accel = torch.zeros(h, dtype=torch.bool, device="cuda")
+    accel[list(accel_rows)] = True
+    return params, win, ghost_excluded(sk.encode_masks(obst, accel), *ghosts)
+
+
+def local_ghosts(kind: str, k: int) -> tuple[int, int]:
+    """(rows, columns) of a kind's window on each side of the own block."""
+    return {"1d": (1, 0), "2d": (1, 1), "ca": (k, 0), "stream": (k, 0),
+            "stream2d": (k, k)}[kind]
 
 
 def local_launch(kind: str, k: int, params, win, enc, plain: bool = False):
-    """(run, out, partials) of one launch of a local kernel (``kind`` "1d",
-    "2d" or "ca") or its plain version on a window."""
+    """(run, own block of out, partials) of one launch on a window of a
+    local kernel (``kind`` "1d", "2d" or "ca"), of the stream kernel on a
+    ring or torus shard's window ("stream", "stream2d": out of place into a
+    tensor shaped like the window, whose own block is the shard's next
+    state) or of its plain version."""
     from advanced_hpc_lbm_tpu_torch.ops import local_kernel as lk
+    from advanced_hpc_lbm_tpu_torch.ops import stream_kernel as sk
 
     _, h, w = win.shape
+    gy, gx = local_ghosts(kind, k)
+    if kind.startswith("stream"):
+        out = torch.empty_like(win)
+        part = torch.empty(k, sk.num_tiles(h, w), device=win.device)
+        fn = (sk.plain_multi_step if plain else
+              sk.window_ca_steps_2d if kind == "stream2d" else sk.window_ca_steps)
+        return ((lambda: fn(win, enc, params, out=out, partials=part)),
+                out[:, gy:h - gy, gx:w - gx], part)
+    ly, lx = h - 2 * gy, w - 2 * gx
     if kind == "ca":
-        ly, lx = h - 2 * k, w
         part = torch.empty(k, lk.num_tiles(ly, lx), device=win.device)
     else:
-        ly, lx = h - 2, (w - 2 if kind == "2d" else w)
         part = torch.empty(lk.num_partials(ly, lx), device=win.device)
     out = torch.empty(9, ly, lx, device=win.device)
     if kind == "ca":
@@ -1208,7 +1296,30 @@ LOCAL_CASES = (
     ("ca", 5, 40, 130, (43,), "K = 5, a ragged tile"),
     ("ca", 6, 2, 64, (1, 13), "K = 6, ly = 2, forcing row twice"),
     ("ca", 7, 33, 96, (2, 40), "K = 7, forcing row twice"),
+    # the shards of the mini, 1024^2 and 8192^2 decks on meshes of 2 and 4
+    # (phases 8, 12 and 14: a card each, or one card)
+    ("1d", 1, 32, 64, (32,), "the mini deck's ring shard of 2"),
+    ("1d", 1, 16, 64, (16,), "the mini deck's ring shard of 4"),
+    ("ca", 4, 32, 64, (35,), "K = 4, the mini deck's ring shard of 2"),
+    ("ca", 4, 16, 64, (19,), "K = 4, the mini deck's ring shard of 4"),
+    ("stream", 8, 32, 64, (39,), "the mini deck's ring shard of 2"),
+    ("stream", 8, 16, 64, (23, 30), "the mini deck's ring shard of 4, forcing row twice"),
+    ("1d", 1, 512, 1024, (512,), "a 1024^2 ring shard of 2"),
+    ("1d", 1, 256, 1024, (256,), "a 1024^2 ring shard of 4"),
+    ("2d", 1, 512, 512, (512,), "a 1024^2 torus shard of 2x2"),
+    ("2d", 1, 512, 1024, (512,), "a 1024^2 torus shard of 2x1"),
+    ("1d", 1, 4096, 8192, (4096,), "an 8192^2 ring shard of 2"),
+    ("ca", 4, 4096, 8192, (4099,), "K = 4, an 8192^2 ring shard of 2"),
+    ("stream", 8, 4096, 8192, (4103,), "an 8192^2 ring shard of 2"),
+    ("stream", 8, 2048, 8192, (2055,), "an 8192^2 ring shard of 4"),
+    ("stream2d", 8, 4096, 4096, (4103,), "an 8192^2 torus shard of 2x2"),
 )
+
+# (own rows, own columns, (kind, K) ...): a 49152^2 ring shard of 4 cards
+# (phase 14), whose windows hold more than 2^32 values: built on the card
+# and held to the plain version by blocks of HUGE_ROWS own rows
+LOCAL_HUGE = (12288, 49152, (("1d", 1), ("ca", 4), ("stream", 8)))
+HUGE_ROWS = 1024
 
 # the main path's shard shape of each kind, timed
 LOCAL_TIMED = {"1d": (1, 2048, 8192), "2d": (1, 4096, 4096), "ca": (4, 2048, 8192)}
@@ -1228,34 +1339,91 @@ def local_bound(kind: str, k: int, ly: int, lx: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def held_to_plain(tag: str, fk, fp, sk_sum, sp_sum) -> tuple[float, int]:
+    """Fail unless a kernel's output ``fk`` is finite and within rtol/atol
+    of the plain version's ``fp`` and its ||u|| sums per step within
+    AV_RTOL; returns (max |df|, values that differ)."""
+    df, n_diff = diff_line(fk, fp)
+    if not bool(torch.isfinite(fk).all().item()):
+        fail(f"{tag}: non-finite output")
+    if not torch.allclose(fk, fp, rtol=F_RTOL, atol=F_ATOL):
+        fail(f"{tag}: f differs from the plain version beyond rtol {F_RTOL} atol {F_ATOL}")
+    if sk_sum is not None and not torch.allclose(sk_sum, sp_sum, rtol=AV_RTOL, atol=0.0):
+        fail(f"{tag}: ||u|| sums differ from the plain version beyond rtol {AV_RTOL}")
+    return df, n_diff
+
+
+def step_sums(kind: str, k: int, part: torch.Tensor) -> torch.Tensor:
+    """The ||u|| sum of each step of a launch's partials."""
+    return part.reshape(k if kind in ("ca", "stream", "stream2d") else 1, -1).sum(1)
+
+
+def huge_local(card: str, worst: dict) -> None:
+    """LOCAL_HUGE: each kernel once on the whole window, its plain version
+    on windows of HUGE_ROWS own rows (the rows they pull from are all in
+    the slice, so their own rows are exact; a stream slice's outer K rows
+    +4, so that its sums count its own rows only), compared block by
+    block on the card."""
+    ly, lx, kinds = LOCAL_HUGE
+    torch.cuda.empty_cache()  # what earlier phases left cached
+    for seed, (kind, k) in enumerate(kinds):
+        g, _ = local_ghosts(kind, k)
+        h = ly + 2 * g
+        params, win, enc = device_window_case(h, lx, 900 + seed, (ly - 2 + g,), (g, 0)
+                                              if kind == "stream" else (0, 0))
+        run_k, fk, pk = local_launch(kind, k, params, win, enc)
+        run_k()
+        torch.cuda.synchronize()
+        tag = (f"[3l local] {kind} K={k} {ly}x{lx} (a 49152^2 ring shard of 4 cards, a window "
+               f"of {9 * h * lx} values = {9 * h * lx / 2**32:.3f} x 2^32, the plain version "
+               f"by blocks of {HUGE_ROWS} rows)")
+        sk_sum = step_sums(kind, k, pk)
+        sp_sum = torch.zeros_like(sk_sum)
+        df, n_diff = 0.0, 0
+        for a in range(0, ly, HUGE_ROWS):
+            b = min(a + HUGE_ROWS, ly)
+            sub_enc = ghost_excluded(enc[a:b + 2 * g], g, 0) if kind == "stream" else \
+                enc[a:b + 2 * g]
+            run_p, fp, pp = local_launch(kind, k, params, win[:, a:b + 2 * g], sub_enc,
+                                         plain=True)
+            run_p()
+            d, n = held_to_plain(f"{tag}, own rows {a}-{b}", fk[:, a:b], fp, None, None)
+            df, n_diff = max(df, d), n_diff + n
+            sp_sum += step_sums(kind, k, pp)
+            del fp, pp, run_p
+        if not torch.allclose(sk_sum, sp_sum, rtol=AV_RTOL, atol=0.0):
+            fail(f"{tag}: ||u|| sums differ from the plain version beyond rtol {AV_RTOL}")
+        dsum = ((sk_sum - sp_sum).abs() / sp_sum.abs()).max().item()
+        worst[kind] = max(worst[kind], df)
+        say(f"{tag}: {n_diff} of {fk.numel()} values differ from the plain version, max|df| "
+            f"{df:.3e}, max rel d(||u|| sum) {dsum:.3e} | {card}")
+        del win, enc, fk, pk, run_k
+        torch.cuda.empty_cache()
+
+
 def phase_local(card: str) -> tuple[dict, dict]:
-    """Each local kernel against its plain version; returns (worst max
-    |df| per kind, (kernel ms, plain ms) per step per kind)."""
-    worst = {"1d": 0.0, "2d": 0.0, "ca": 0.0}
+    """Each local kernel, and the stream kernel on a shard's window, against
+    its plain version; returns (worst max |df| per kind, (kernel ms, plain
+    ms) per step per kind of the main path)."""
+    worst = {"1d": 0.0, "2d": 0.0, "ca": 0.0, "stream": 0.0, "stream2d": 0.0}
     for seed, (kind, k, ly, lx, rows, what) in enumerate(LOCAL_CASES):
-        g = k if kind == "ca" else 1
-        h, w = ly + 2 * g, (lx + 2 if kind == "2d" else lx)
-        params, win, enc = window_case(h, w, 700 + seed, rows)
+        gy, gx = local_ghosts(kind, k)
+        params, win, enc = window_case(ly + 2 * gy, lx + 2 * gx, 700 + seed, rows,
+                                       (gy, gx) if kind.startswith("stream") else (0, 0))
         run_k, fk, pk = local_launch(kind, k, params, win, enc)
         run_p, fp, pp = local_launch(kind, k, params, win, enc, plain=True)
         run_k()
         run_p()
         torch.cuda.synchronize()
         tag = f"[3l local] {kind} K={k} {ly}x{lx} ({what})"
-        df, n_diff = diff_line(fk, fp)
+        sk_sum, sp_sum = step_sums(kind, k, pk), step_sums(kind, k, pp)
+        df, n_diff = held_to_plain(tag, fk, fp, sk_sum, sp_sum)
         worst[kind] = max(worst[kind], df)
-        sk, sp = pk.reshape(k if kind == "ca" else 1, -1).sum(1), pp.reshape(
-            k if kind == "ca" else 1, -1).sum(1)
-        dsum = ((sk - sp).abs() / sp.abs()).max().item()
-        if not bool(torch.isfinite(fk).all().item()):
-            fail(f"{tag}: non-finite output")
-        if not torch.allclose(fk, fp, rtol=F_RTOL, atol=F_ATOL):
-            fail(f"{tag}: f differs from the plain version beyond rtol {F_RTOL} atol {F_ATOL}")
-        if not torch.allclose(sk, sp, rtol=AV_RTOL, atol=0.0):
-            fail(f"{tag}: ||u|| sums differ from the plain version beyond rtol {AV_RTOL}")
+        dsum = ((sk_sum - sp_sum).abs() / sp_sum.abs()).max().item()
         say(f"{tag}: {n_diff} of {fk.numel()} values differ from the plain version, "
             f"max|df| {df:.3e}, max rel d(||u|| sum) {dsum:.3e}")
         del win, enc, fk, fp
+    huge_local(card, worst)
     times = {}
     for seed, (kind, (k, ly, lx)) in enumerate(LOCAL_TIMED.items()):
         g = k if kind == "ca" else 1
@@ -1270,6 +1438,60 @@ def phase_local(card: str) -> tuple[dict, dict]:
             f"{b_ms * 1e3:.2f} us ({b_by}) | {card}")
         del win, enc
     return worst, times
+
+
+# ---- timing of the sharded runs (phases 8, 12 and 14) ------------------------------
+
+WARM_STEPS = 8  # the untimed run before each timed library run: a pass of stream
+EXCHANGE_REPEAT = 200  # exchanges timed alone, for the ratio to a step
+
+
+def timed_run(sim, counts: dict | None = None, **kw):
+    """``sim.warmup(**kw)``, an untimed run of WARM_STEPS steps (first-touch
+    allocations, NCCL's first messages), then the run of ``kw`` on the host
+    clock, synchronised, its launches counted into ``counts``: (result,
+    seconds).  Every timed library run of phases 8, 12 and 14 takes this
+    rule, so that any two of them compare alike."""
+    sim.warmup(**kw)
+    sim.run(fetch=False, **{**kw, "n_iters": WARM_STEPS})
+    with counted(counts) if counts is not None else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        res = sim.run(fetch=False, **kw)
+        dt = time.perf_counter() - t0
+    return res, dt
+
+
+def pallask_us(params_f, obst_f, iters: int) -> float:
+    """us per step of single-device pallask on a deck (:func:`timed_run`)."""
+    from advanced_hpc_lbm_tpu_torch import Simulation
+
+    sim = Simulation.from_decks(params_f, obst_f, backend="pallask", device="cuda")
+    _, dt = timed_run(sim, n_iters=iters)
+    return dt / iters * 1e6
+
+
+def sync_cards() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def exchange_us(mesh, ny: int, nx: int, g: int, repeat: int = EXCHANGE_REPEAT) -> float:
+    """us per halo exchange of a run's windows (g ghost rows) on ``mesh``,
+    the exchange alone: host clock, every card synchronised.  The windows
+    are left as allocated: the copies move whatever they hold.  Its ratio
+    to a step's time is that of two measurements, not a share traced
+    inside one run."""
+    from advanced_hpc_lbm_tpu_torch.parallel import halo
+
+    win = halo._Windows(mesh, ny, nx, g)
+    for b in range(4):
+        win.exchange(b % 2)
+    sync_cards()
+    t0 = time.perf_counter()
+    for t in range(repeat):
+        win.exchange(t % 2)
+    sync_cards()
+    return (time.perf_counter() - t0) / repeat * 1e6
 
 
 # ---- 8. the sharded path ----------------------------------------------------------
@@ -1292,41 +1514,60 @@ def sharded_expected(kernel: str, shards: int, torus: bool, iters: int, k: int =
     return want
 
 
-def phase_sharded_mini() -> None:
+def phase_sharded_mini(card: str) -> None:
+    """decks/mini_64x64 through the CLI on --backend sharded, a ring of the
+    visible cards, against the golden; on 2 or more cards also against
+    the same mesh laid on cuda:0 alone (0 differing values in both output
+    files), timed beside it and single-device pallask."""
     from advanced_hpc_lbm_tpu_torch.utils import check
 
     decks = ROOT / "decks"
-    for flags, kernel, k in ((["--backend", "sharded"], "pallas", 1),
-                             (["--backend", "sharded", "--ca-steps", "4"], "pallas", 4),
-                             (["--backend", "sharded", "--shard-kernel", "stream"], "stream", 8)):
+    mini = [str(decks / "mini_64x64.params"), str(decks / "mini_64x64.obstacles.dat")]
+    n, iters = torch.cuda.device_count(), 500
+    p_us = pallask_us(*mini, iters) if n >= 2 else None
+    for flags, kw, kernel, k in MP_MINI:
+        flags = ["--backend", "sharded", *flags]
         tag = f"[8 sharded mini] {' '.join(flags)}:"
         with tempfile.TemporaryDirectory() as tmp:
-            rc, lines, n = run_cli([str(decks / "mini_64x64.params"),
-                                    str(decks / "mini_64x64.obstacles.dat"), *flags,
-                                    "--out-dir", tmp])
+            out = Path(tmp) / "cards"
+            out.mkdir()
+            rc, lines, counts = run_cli([*mini, *flags, "--out-dir", str(out)])
             if rc != 0:
                 fail(f"{tag} CLI exited {rc}")
-            want = sharded_expected(kernel, torch.cuda.device_count(), False, 500, k)
-            if n != want:
-                fail(f"{tag} launches {n}, expected {want}")
+            want = sharded_expected(kernel, n, False, iters, k)
+            if counts != want:
+                fail(f"{tag} launches {counts}, expected {want}")
             block = check_block(lines, tag)
             stats = check.check_av_vels_only(
-                str(decks / "mini_64x64.golden_av_vels.dat"), str(Path(tmp) / "av_vels.dat"))
+                str(decks / "mini_64x64.golden_av_vels.dat"), str(out / "av_vels.dat"))
             if not stats.passed(1.0):
                 fail(f"{tag} av_vels fail the golden: {stats.max_diff_pcnt:.4g}%")
-        say(f"{tag} 64x64, 500 steps on {torch.cuda.device_count()} shard(s): launches "
-            f"{ {a: b for a, b in n.items() if b} }, Reynolds {block['reynolds']:.6E}, golden "
-            f"max diff {stats.max_diff_pcnt:.4g}% (limit 1%), Compute {block['compute']:.4f} s")
+            same = ""
+            if n >= 2:
+                dt_one, _ = one_process(*mini, Path(tmp) / "one", iters, {"devices": n, **kw}, n)
+                same_outputs(tag, out, Path(tmp) / "one")
+                same = (f"; 0 values of final_state.dat and av_vels.dat differ from the same "
+                        f"mesh on cuda:0; {block['compute'] / iters * 1e6:.2f} us per step "
+                        f"(Compute), the mesh on cuda:0 {dt_one / iters * 1e6:.2f}, "
+                        f"single-device pallask {p_us:.2f} | {card}")
+        say(f"{tag} 64x64, {iters} steps on {n} card(s), one shard each: launches "
+            f"{ {a: b for a, b in counts.items() if b} }, Reynolds {block['reynolds']:.6E}, golden "
+            f"max diff {stats.max_diff_pcnt:.4g}% (limit 1%), Compute {block['compute']:.4f} s"
+            + same)
 
 
 def phase_sharded_full(card: str) -> None:
-    """The 1024^2 deck of phase 5 on --backend sharded, through the CLI
-    (the same output files as auto's) and the library (the same state as
-    auto's, 0 differing values)."""
+    """The 1024^2 deck of phase 5 on --backend sharded, a ring of the
+    visible cards, through the CLI (the same output files as auto's) and
+    the library (the same state as auto's, 0 differing values); on 2 or
+    more cards the CLI run also against the same mesh laid on cuda:0 alone,
+    timed beside it and auto, with the exchange timed alone."""
     from advanced_hpc_lbm_tpu_torch import Simulation
+    from advanced_hpc_lbm_tpu_torch.parallel import mesh
     from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
 
     nx = ny = 1024
+    n_cards = torch.cuda.device_count()
     iters = 20_000
     tag = "[8 sharded full] --backend sharded:"
     with tempfile.TemporaryDirectory() as tmp:
@@ -1350,24 +1591,37 @@ def phase_sharded_full(card: str) -> None:
         av_s, av_a = (lbm_io.read_av_vels(outs[b][2] / "av_vels.dat") for b in ("sharded", "auto"))
         if not np.allclose(av_s, av_a, rtol=AV_RTOL, atol=0.0):
             fail(f"{tag} av_vels.dat differs from --backend auto's beyond rtol {AV_RTOL}")
+        across = ""
+        if n_cards >= 2:
+            dt_one, _ = one_process(params_f, obst_f, Path(tmp) / "one", iters,
+                                    {"devices": n_cards, "shard_kernel": "pallas"}, n_cards)
+            same_outputs(tag, d, Path(tmp) / "one")
+            step_us, one_us = block["compute"] / iters * 1e6, dt_one / iters * 1e6
+            ex = exchange_us(mesh.make_y_mesh(n_cards), ny, nx, 1)
+            across = (f"; 0 values of final_state.dat and av_vels.dat differ from the same mesh "
+                      f"on cuda:0; {step_us:.2f} us per step (Compute) against {one_us:.2f} for "
+                      f"the mesh on cuda:0 and {outs['auto'][1]['compute'] / iters * 1e6:.2f} "
+                      f"for auto (Compute); the exchange timed alone {ex:.2f} us, "
+                      f"{ex / step_us:.2f} of a step")
         ref = Simulation.from_decks(params_f, obst_f, device="cuda").run(fetch=False)
         sim = Simulation.from_decks(params_f, obst_f, backend="sharded", device="cuda")
         sim.warmup()
         counts: dict = {}
         with counted(counts):
             res = sim.run(fetch=False)
-    diffs = sum(int((blk != ref.f_final[:, rows, cols]).sum().item())
+    diffs = sum(int((blk != ref.f_final[:, rows, cols].to(blk.device)).sum().item())
                 for rows, cols, blk in res.f_final.blocks())
     if diffs or counts != want:
         fail(f"{tag} library run: {diffs} values differ from auto's state, launches {counts}")
     if not torch.allclose(res.av_vels, ref.av_vels, rtol=AV_RTOL, atol=0.0):
         fail(f"{tag} library av differs from auto's beyond rtol {AV_RTOL}")
-    say(f"{tag} {ny}x{nx}, {iters} steps on {torch.cuda.device_count()} shard(s): launches "
+    say(f"{tag} {ny}x{nx}, {iters} steps on {torch.cuda.device_count()} card(s), one shard "
+        f"each: launches "
         f"{ {a: b for a, b in n.items() if b} }, final_state.dat equal to auto's, av_vels.dat "
         f"within rtol {AV_RTOL}, "
         f"Compute {block['compute']:.4f} s = {iters * nx * ny / block['compute'] / 1e9:.3f} "
         f"GLUPS (auto: {outs['auto'][1]['compute']:.4f} s); library run: 0 of "
-        f"{ref.f_final.numel()} values differ from auto's state | {card}")
+        f"{ref.f_final.numel()} values differ from auto's state{across} | {card}")
 
 
 SHARDED_BIG = (  # (label, run keywords, kernel, K)
@@ -1379,57 +1633,84 @@ SHARDED_BIG = (  # (label, run keywords, kernel, K)
 )
 
 
-def phase_sharded_big(card: str) -> dict:
-    """An 8192^2 deck for 200 steps on 4 shards of the card against
-    single-device pallask; returns us per step per label."""
+def phase_sharded_big(card: str) -> None:
+    """An 8192^2 deck for 200 steps on SHARDED_BIG's configurations, on 4
+    shards of the card and, where 2 or more cards are visible, across
+    them (a ring of the cards, one shard each, and the same ring laid on
+    cuda:0 alone; the tori on 4 cards), each against single-device
+    pallask (0 differing values, av within rtol, exact launches, mass
+    conserved); the cards' av equal to the same mesh's on cuda:0."""
     from advanced_hpc_lbm_tpu_torch import Simulation
+    from advanced_hpc_lbm_tpu_torch.parallel import mesh
 
     n, iters = 8192, 200
-    four = [torch.device("cuda", 0)] * 4
-    times = {}
+    n_cards = torch.cuda.device_count()
+    cuda0 = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
         params_f, obst_f = write_full_deck(Path(tmp), n, n, iters)
         ref_sim = Simulation.from_decks(params_f, obst_f, backend="pallask", device="cuda")
-        ref_sim.warmup()
-        t0 = time.perf_counter()
-        ref = ref_sim.run(fetch=False)
-        times["single-device pallask"] = (time.perf_counter() - t0) / iters
+        ref, dt = timed_run(ref_sim)
+        p_us = dt / iters * 1e6
         mass0 = rest_mass(ref_sim.params)
         for label, kw, kernel, k in SHARDED_BIG:
-            tag = f"[8 sharded big] {n}x{n} {label}:"
-            sim = Simulation.from_decks(params_f, obst_f, backend="sharded", device="cuda")
-            sim.warmup(shard_devices=four, **kw)
-            counts: dict = {}
-            with counted(counts):
-                t0 = time.perf_counter()
-                res = sim.run(fetch=False, shard_devices=four, **kw)
-                dt = time.perf_counter() - t0
-            want = sharded_expected(kernel, 4, "mesh" in kw, iters, k)
-            if counts != want:
-                fail(f"{tag} launches {counts}, expected {want}")
-            diffs = 0
-            mass = 0.0
-            for rows, cols, blk in res.f_final.blocks():
-                if not bool(torch.isfinite(blk).all().item()):
-                    fail(f"{tag} non-finite state")
-                diffs += int((blk != ref.f_final[:, rows, cols]).sum().item())
-                mass += device_mass(blk)
-            drift = abs(mass - mass0) / mass0
-            dav = ((res.av_vels - ref.av_vels).abs() / ref.av_vels.abs()).max().item()
-            if diffs:
-                fail(f"{tag} {diffs} values differ from single-device pallask")
-            if not torch.allclose(res.av_vels, ref.av_vels, rtol=AV_RTOL, atol=0.0):
-                fail(f"{tag} av differs from single-device pallask beyond rtol {AV_RTOL}")
-            if drift > 1e-4:
-                fail(f"{tag} total density drifted by {drift:.3e} (limit 1e-4)")
-            times[label] = dt / iters
-            say(f"{tag} {iters} steps on 4 shards of one card: launches "
-                f"{ {a: b for a, b in counts.items() if b} }, 0 of {9 * n * n} values differ "
-                f"from single-device pallask, max rel dav {dav:.3e}, mass drift {drift:.3e}, "
-                f"{dt / iters * 1e6:.2f} us per step (host clock, run synchronised; "
-                f"pallask {times['single-device pallask'] * 1e6:.2f}) | {card}")
-            del res, sim
-    return times
+            torus = "mesh" in kw
+            places = [(kw, [cuda0] * 4)]  # (run keywords, shard devices; None: the cards)
+            if n_cards >= 2 and (not torus or n_cards >= 4):
+                kw_n = kw if torus else {**kw, "devices": n_cards}
+                if not torus and n_cards != 4:
+                    places.append((kw_n, [cuda0] * n_cards))
+                places.append((kw_n, None))
+            on_one = {}  # shards -> (av, us per step) of the mesh on cuda:0
+            for run_kw, devs in places:
+                shards = len(devs) if devs else (4 if torus else n_cards)
+                where = (f"{shards} shards of one card" if devs else
+                         f"{shards} cards, one shard each")
+                tag = f"[8 sharded big] {n}x{n} {label}, {where}:"
+                sim = Simulation.from_decks(params_f, obst_f, backend="sharded", device="cuda")
+                counts: dict = {}
+                res, dt = timed_run(sim, counts, **run_kw,
+                                    **({"shard_devices": devs} if devs else {}))
+                want = sharded_expected(kernel, shards, torus, iters, k)
+                if counts != want:
+                    fail(f"{tag} launches {counts}, expected {want}")
+                diffs = 0
+                mass = 0.0
+                on = []
+                for rows, cols, blk in res.f_final.blocks():
+                    if not bool(torch.isfinite(blk).all().item()):
+                        fail(f"{tag} non-finite state")
+                    diffs += int((blk != ref.f_final[:, rows, cols].to(blk.device)).sum().item())
+                    mass += device_mass(blk)
+                    on.append(str(blk.device))
+                drift = abs(mass - mass0) / mass0
+                dav = ((res.av_vels - ref.av_vels).abs() / ref.av_vels.abs()).max().item()
+                if diffs:
+                    fail(f"{tag} {diffs} values differ from single-device pallask")
+                if not torch.allclose(res.av_vels, ref.av_vels, rtol=AV_RTOL, atol=0.0):
+                    fail(f"{tag} av differs from single-device pallask beyond rtol {AV_RTOL}")
+                if drift > 1e-4:
+                    fail(f"{tag} total density drifted by {drift:.3e} (limit 1e-4)")
+                step_us = dt / iters * 1e6
+                across = ""
+                if devs:
+                    on_one[shards] = (res.av_vels.cpu(), step_us)
+                else:
+                    if sorted(on) != [f"cuda:{i}" for i in range(shards)]:
+                        fail(f"{tag} the shards lie on {on}, not one on each card")
+                    one_av, one_us = on_one[shards]
+                    if not torch.equal(res.av_vels.cpu(), one_av):
+                        fail(f"{tag} av differs from the same mesh on cuda:0")
+                    m = mesh.make_yx_mesh(2, 2) if torus else mesh.make_y_mesh(shards)
+                    ex = exchange_us(m, n, n, k) / k  # k steps per exchange
+                    across = (f", av equal to the same mesh's on cuda:0 ({one_us:.2f} us per "
+                              f"step); the exchange timed alone {ex:.2f} us per step ({k} "
+                              f"step(s) per exchange), {ex / step_us:.2f} of a step")
+                say(f"{tag} {iters} steps: launches "
+                    f"{ {a: b for a, b in counts.items() if b} }, 0 of {9 * n * n} values differ "
+                    f"from single-device pallask, max rel dav {dav:.3e}, mass drift {drift:.3e}, "
+                    f"{step_us:.2f} us per step (host clock, run synchronised; pallask "
+                    f"{p_us:.2f}){across} | {card}")
+                del res, sim
 
 
 def phase_sharded_sweep(card: str) -> dict:
@@ -1458,11 +1739,8 @@ def phase_sharded_sweep(card: str) -> dict:
                 ("stream", "sharded", {"devices": 4, "shard_kernel": "stream"})):
             sim = Simulation(params, obst, backend=backend, device="cuda")
             extra = {"shard_devices": four} if backend == "sharded" else {}
-            sim.warmup(**kw, **extra)
-            sim.run(n_iters=8, fetch=False, **kw, **extra)  # first-touch allocations
-            t0 = time.perf_counter()
-            sim.run(n_iters=steps, fetch=False, **kw, **extra)
-            row[label] = (time.perf_counter() - t0) / steps
+            _, dt = timed_run(sim, n_iters=steps, **kw, **extra)
+            row[label] = dt / steps
             del sim
         times[n] = row
         say(f"[8 sharded sweep] {n}x{n}, 4 ring shards of one card, {steps} steps: " + ", ".join(
@@ -1818,21 +2096,22 @@ def phase_batch(card: str) -> None:
         f"| {card}")
 
 
-# ---- 12. multi-process sharded runs on one card -------------------------------------
+# ---- 12. multi-process sharded runs ---------------------------------------------------
 
-# the one two-process launch of phase 12; a hang fails the phase here
+# each launch of phases 12 and 14; a hang fails the phase here
 MP_TIMEOUT_S = 600
 
 
 def rank_worker(spec_path: str) -> int:
-    """One process of phase 12's two-process launch, started by
+    """One process of a launch of phase 12 or 14, started by
     ``torch.distributed.run``: forms the process group as the CLI does first
     thing, then runs each of the spec's runs in turn, the CLI (``cli``) or
     the library (``lib``, for a grid whose final_state.dat would take
     minutes to write), and writes what the parent checks into
     ``<out>/rank<r>.json``: its backend and device, and per run its exit
     code, stdout, launches and output writes; for ``lib`` also its run
-    time, a digest of each own block and the av history.  It leaves the
+    time (:func:`timed_run`), a digest of each own block and the av
+    history.  It leaves the
     group standing: the library takes it down at exit, and the launch's
     exit code, which the parent checks, says whether that went cleanly."""
     from advanced_hpc_lbm_tpu_torch import Simulation, cli
@@ -1867,11 +2146,7 @@ def rank_worker(spec_path: str) -> int:
             lib = run["lib"]
             sim = Simulation.from_decks(lib["params"], lib["obstacles"], backend="sharded",
                                         device=device)
-            sim.warmup(**lib["run"])
-            with counted(counts):
-                t0 = time.perf_counter()
-                res = sim.run(fetch=False, **lib["run"])
-                out["seconds"] = time.perf_counter() - t0
+            res, out["seconds"] = timed_run(sim, counts, **lib["run"])
             out["blocks"] = {str(rows.start): block_digest(blk)
                              for rows, _, blk in res.f_final.blocks()}
             out["av"] = res.av_vels.cpu().tolist()
@@ -1893,7 +2168,8 @@ def block_digest(blk: torch.Tensor) -> str:
     return h.hexdigest()
 
 
-def run_group(cmd: list[str], cwd: Path, timeout: float) -> subprocess.CompletedProcess:
+def run_group(cmd: list[str], cwd: Path, timeout: float,
+              tag: str = "[12 multiprocess]") -> subprocess.CompletedProcess:
     """Run ``cmd`` in a session of its own; on a timeout kill the whole
     session (the launcher and its workers)."""
     import os
@@ -1906,32 +2182,39 @@ def run_group(cmd: list[str], cwd: Path, timeout: float) -> subprocess.Completed
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, err = proc.communicate()
-        fail(f"[12 multiprocess] the launch did not end in {timeout} s; killed\n{err[-2000:]}")
+        fail(f"{tag} the launch did not end in {timeout} s; killed\n{err[-2000:]}")
     return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
 
 
-def two_processes(runs: dict, work: Path) -> list[dict]:
-    """Run ``runs`` (name -> ``cli`` argv or ``lib``) in one launch of two
-    processes on the card; returns the ranks' reports."""
+def launch_processes(runs: dict, work: Path, n: int) -> list[dict]:
+    """Run ``runs`` (name -> ``cli`` argv or ``lib``) in one launch of n
+    processes; returns the ranks' reports."""
     spec = {"out": str(work), "runs": runs}
     (work / "spec.json").write_text(json.dumps(spec))
     t0 = time.perf_counter()
     res = run_group([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                     "--nproc-per-node", "2", str(ROOT / "chip_smoke.py"), "--rank-worker",
+                     "--nproc-per-node", str(n), str(ROOT / "chip_smoke.py"), "--rank-worker",
                      str(work / "spec.json")], work, MP_TIMEOUT_S)
-    say(f"[12 multiprocess] torch.distributed.run exit code {res.returncode}")
+    tag = "[12 multiprocess]"
+    say(f"{tag} torch.distributed.run exit code {res.returncode}")
     if res.returncode != 0:
-        fail(f"[12 multiprocess] torch.distributed.run exited {res.returncode}\n"
+        fail(f"{tag} torch.distributed.run exited {res.returncode}\n"
              f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
-    reports = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
-    say(f"[12 multiprocess] one launch of 2 processes, {len(runs)} runs in "
-        f"{time.perf_counter() - t0:.1f} s: backend {reports[0]['backend']}; ranks on "
-        + ", ".join(f"{r['device']} ({r['name']})" for r in reports))
+    reports = [json.loads((work / f"rank{r}.json").read_text()) for r in range(n)]
+    say(f"{tag} one launch of {n} processes, {len(runs)} runs in "
+        f"{time.perf_counter() - t0:.1f} s: backend {reports[0]['backend']} on "
+        f"{group_cards(reports)} card(s); ranks on "
+        + ", ".join(f"{r['device']} ({r['name']}, {r['backend']})" for r in reports))
     return reports
 
 
+def group_cards(reports: list[dict]) -> int:
+    """The cards the ranks of a launch ran on."""
+    return len({r["device"] for r in reports})
+
+
 def check_ranks(tag: str, reports: list[dict], name: str, expected: dict) -> tuple[list, dict]:
-    """Both ranks of run ``name``: exit 0, the launches ``expected`` each,
+    """Every rank of run ``name``: exit 0, the launches ``expected`` each,
     the outputs written once and the ==done== block printed once, by rank
     0.  Returns rank 0's block (cli runs) and rank 0's run report."""
     runs = [rep["runs"][name] for rep in reports]
@@ -1942,32 +2225,29 @@ def check_ranks(tag: str, reports: list[dict], name: str, expected: dict) -> tup
         if run["launches"] != expected:
             fail(f"{tag} rank {r} launches {run['launches']}, expected {expected}")
     cli_run = "seconds" not in runs[0]
-    want = [{"final_state": 1, "av_vels": 1}, {}] if cli_run else [{}, {}]
+    want = [{"final_state": 1, "av_vels": 1} if cli_run and r == 0 else {}
+            for r in range(len(runs))]
     if [run["writes"] for run in runs] != want:
         fail(f"{tag} output writes per rank {[run['writes'] for run in runs]}, expected {want}")
     if not cli_run:
         return [], runs[0]
-    if runs[1]["stdout"] or runs[0]["stdout"].count("==done==") != 1:
-        fail(f"{tag} stdout of the ranks: {runs[0]['stdout'][:8]} | {runs[1]['stdout'][:8]} "
-             "(expected one ==done== block, from rank 0)")
+    if any(run["stdout"] for run in runs[1:]) or runs[0]["stdout"].count("==done==") != 1:
+        fail(f"{tag} stdout of the ranks: " + " | ".join(str(run["stdout"][:8]) for run in runs)
+             + " (expected one ==done== block, from rank 0)")
     return runs[0]["stdout"], runs[0]
 
 
-def one_process(params_f, obst_f, out: Path, iters: int, run_kw: dict) -> tuple[float, dict]:
-    """The same configuration in this process on two shards of cuda:0
-    (the same mesh shape): its outputs written into ``out``; returns (host
-    seconds of the run, synchronised; launches)."""
+def one_process(params_f, obst_f, out: Path, iters: int, run_kw: dict,
+                shards: int = 2) -> tuple[float, dict]:
+    """The same configuration in this process on ``shards`` shards of
+    cuda:0 (the same mesh shape): its outputs written into ``out``;
+    returns (seconds of the run, :func:`timed_run`; launches)."""
     from advanced_hpc_lbm_tpu_torch import Simulation
 
-    two = [torch.device("cuda", 0)] * 2
-    kw = {"n_iters": iters, "shard_devices": two, **run_kw}
+    on_one = [torch.device("cuda", 0)] * shards
     sim = Simulation.from_decks(params_f, obst_f, backend="sharded", device="cuda")
-    sim.warmup(**kw)
     counts: dict = {}
-    with counted(counts):
-        t0 = time.perf_counter()
-        res = sim.run(fetch=False, **kw)
-        dt = time.perf_counter() - t0
+    res, dt = timed_run(sim, counts, n_iters=iters, shard_devices=on_one, **run_kw)
     out.mkdir(parents=True, exist_ok=True)
     res.write(out)
     return dt, counts
@@ -1998,38 +2278,49 @@ MP_MINI = (  # (CLI flags, run keywords, kernel, K)
      "pallas", 4),
     (["--shard-kernel", "stream"], {"shard_kernel": "stream"}, "stream", 8),
 )
-MP_FULL = (  # (label, grid, steps, CLI flags, run keywords, kernel, torus)
-    ("ring pallas", 1024, 20_000, ["--backend", "sharded", "--devices", "2", "--shard-kernel",
-                                   "pallas"], {"devices": 2, "shard_kernel": "pallas"},
-     "pallas", False),
-    ("2x1 torus pallas", 1024, 1000, ["--mesh", "2x1", "--shard-kernel", "pallas", "--iters",
-                                      "1000"], {"mesh": (2, 1), "shard_kernel": "pallas"},
-     "pallas", True),
-)
-MP_BIG = (8192, 200, {"devices": 2, "shard_kernel": "stream"})  # grid, steps, run keywords
+def mp_full(n: int) -> tuple:
+    """(label, grid, steps, CLI flags, run keywords, kernel, torus) of phase
+    12's 1024^2 runs on n processes: a ring of n, and a torus of 2 x n/2
+    (n x 1 for odd n)."""
+    my, mx = (2, n // 2) if n % 2 == 0 else (n, 1)
+    return (("ring pallas", 1024, 20_000, ["--backend", "sharded", "--devices", str(n),
+                                           "--shard-kernel", "pallas"],
+             {"devices": n, "shard_kernel": "pallas"}, "pallas", False),
+            (f"{my}x{mx} torus pallas", 1024, 1000, ["--mesh", f"{my}x{mx}", "--shard-kernel",
+                                                     "pallas", "--iters", "1000"],
+             {"mesh": (my, mx), "shard_kernel": "pallas"}, "pallas", True))
+
+
+MP_BIG = (8192, 200, {"shard_kernel": "stream"})  # grid, steps, run keywords (a ring of all)
 MP_AUTO = (128, 10_000)  # grid, steps of the --multihost run on auto
 
 
 def phase_multiprocess(card: str) -> dict:
-    """Two processes on cuda:0 in one launch of torch.distributed.run, each
-    run held to the one-process run on the same mesh shape."""
+    """N processes in one launch of torch.distributed.run: two on cuda:0
+    over gloo with one card, one on each card over nccl with two or more;
+    each run held to the one-process run on the same mesh shape laid on
+    cuda:0 alone, timed beside it (and on several cards beside
+    single-device pallask)."""
     from advanced_hpc_lbm_tpu_torch import Simulation
     from advanced_hpc_lbm_tpu_torch.utils import check
 
     decks = ROOT / "decks"
     mini = [str(decks / "mini_64x64.params"), str(decks / "mini_64x64.obstacles.dat")]
+    n_cards = torch.cuda.device_count()
+    n_proc = n_cards if n_cards >= 2 else 2
     times = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         full = write_full_deck(tmp, 1024, 1024, 20_000)
         n, iters, big_kw = MP_BIG
+        big_kw = {"devices": n_proc, **big_kw}
         big = write_full_deck(tmp, n, n, iters)
         small = write_full_deck(tmp, MP_AUTO[0], MP_AUTO[0], MP_AUTO[1])
         runs = {}
         for i, (flags, _, _, _) in enumerate(MP_MINI):
-            runs[f"mini{i}"] = {"cli": [*mini, "--backend", "sharded", "--devices", "2", *flags,
-                                        "--out-dir", str(tmp / f"mini{i}" / "two")]}
-        for label, _, _, flags, _, _, _ in MP_FULL:
+            runs[f"mini{i}"] = {"cli": [*mini, "--backend", "sharded", "--devices", str(n_proc),
+                                        *flags, "--out-dir", str(tmp / f"mini{i}" / "two")]}
+        for label, _, _, flags, _, _, _ in mp_full(n_proc):
             runs[label] = {"cli": [*map(str, full), *flags, "--out-dir",
                                    str(tmp / label.replace(" ", "_") / "two")]}
         runs["big"] = {"lib": {"params": str(big[0]), "obstacles": str(big[1]), "run": big_kw}}
@@ -2038,72 +2329,84 @@ def phase_multiprocess(card: str) -> dict:
         for run in runs.values():
             if "cli" in run:
                 Path(run["cli"][-1]).mkdir(parents=True)
-        reports = two_processes(runs, tmp)
+        reports = launch_processes(runs, tmp, n_proc)
+        backends = [rep["backend"] for rep in reports]
+        if n_cards >= 2 and (backends != ["nccl"] * n_proc or group_cards(reports) != n_proc):
+            fail(f"[12 multiprocess] the ranks ran {backends} on {group_cards(reports)} "
+                 f"card(s), expected nccl on {n_proc}")
+        where = (f"{n_proc} processes on {group_cards(reports)} card(s) over "
+                 f"{reports[0]['backend']}")
+        p_us = ({"full": pallask_us(*full, 20_000), "big": pallask_us(*big, iters)}
+                if n_cards >= 2 else None)
 
         for i, (flags, kw, kernel, k) in enumerate(MP_MINI):
-            tag = f"[12 multiprocess] mini --backend sharded --devices 2 {' '.join(flags)}:"
+            tag = (f"[12 multiprocess] mini --backend sharded --devices {n_proc} "
+                   f"{' '.join(flags)}:")
             block, _ = check_ranks(tag, reports, f"mini{i}",
                                    sharded_expected(kernel, 1, False, 500, k))
             block = check_block(block, tag)
             two, one = tmp / f"mini{i}" / "two", tmp / f"mini{i}" / "one"
-            one_process(*mini, one, 500, {"devices": 2, **kw})
+            one_process(*mini, one, 500, {"devices": n_proc, **kw}, n_proc)
             same_outputs(tag, two, one)
             stats = check.check_av_vels_only(str(decks / "mini_64x64.golden_av_vels.dat"),
                                              str(two / "av_vels.dat"))
             if not stats.passed(1.0):
                 fail(f"{tag} av_vels fail the golden: {stats.max_diff_pcnt:.4g}%")
-            say(f"{tag} 2 processes on one card, 500 steps: launches per rank "
+            say(f"{tag} {where}, 500 steps: launches per rank "
                 f"{ {a: b for a, b in reports[0]['runs'][f'mini{i}']['launches'].items() if b} }, "
                 f"0 values of final_state.dat and av_vels.dat differ from the one-process "
-                f"2-shard run, golden max diff {stats.max_diff_pcnt:.4g}% (limit 1%), one "
+                f"{n_proc}-shard run, golden max diff {stats.max_diff_pcnt:.4g}% (limit 1%), one "
                 f"==done== block and the outputs written once, by rank 0, Compute "
                 f"{block['compute']:.4f} s")
 
-        for label, n, iters, _, kw, kernel, torus in MP_FULL:
+        for label, n, iters, _, kw, kernel, torus in mp_full(n_proc):
             tag = f"[12 multiprocess] {n}x{n} {label}, {iters} steps:"
             block, run = check_ranks(tag, reports, label,
                                      sharded_expected(kernel, 1, torus, iters))
             block = check_block(block, tag)
             two = tmp / label.replace(" ", "_") / "two"
-            dt_one, _ = one_process(*full, two.parent / "one", iters, kw)
+            dt_one, _ = one_process(*full, two.parent / "one", iters, kw, n_proc)
             same_outputs(tag, two, two.parent / "one")
-            staging = (block["compute"] - dt_one) / iters  # one exchange per step
+            # on one card both runs do the same kernels' work: the rest is
+            # the exchange's (one per step)
+            staging = (block["compute"] - dt_one) / iters
             times[label] = (block["compute"] / iters, dt_one / iters)
-            say(f"{tag} 2 processes on one card: launches per rank "
+            say(f"{tag} {where}: launches per rank "
                 f"{ {a: b for a, b in run['launches'].items() if b} }, 0 values of "
                 f"final_state.dat and av_vels.dat differ from the one-process run, Compute "
                 f"{block['compute']:.4f} s = {block['compute'] / iters * 1e6:.2f} us per step "
-                f"(one process, 2 shards: {dt_one / iters * 1e6:.2f} us, host clock, run "
-                f"synchronised); the difference per exchange {staging * 1e6:.2f} us | {card}")
+                f"(one process, {n_proc} shards of cuda:0: {dt_one / iters * 1e6:.2f} us, "
+                f"host clock, run synchronised"
+                + (f"; single-device pallask {p_us['full']:.2f})" if p_us else
+                   f"); the difference per exchange {staging * 1e6:.2f} us") + f" | {card}")
 
         # an 8192^2 ring on stream, through the library (its final_state.dat
         # would take minutes to write): each own block's digest and the av
-        # history against the one-process 2-shard ring
-        n, iters, kw = MP_BIG
+        # history against the one-process ring of as many shards
+        n, iters, _ = MP_BIG
         tag = f"[12 multiprocess] {n}x{n} ring stream, {iters} steps:"
         _, run = check_ranks(tag, reports, "big", sharded_expected("stream", 1, False, iters))
-        two_dev = [torch.device("cuda", 0)] * 2
         sim = Simulation.from_decks(*big, backend="sharded", device="cuda")
-        sim.warmup(shard_devices=two_dev, **kw)
-        t0 = time.perf_counter()
-        res = sim.run(fetch=False, shard_devices=two_dev, **kw)
-        dt_one = time.perf_counter() - t0
+        res, dt_one = timed_run(sim, shard_devices=[torch.device("cuda", 0)] * n_proc, **big_kw)
         want = {str(rows.start): block_digest(blk) for rows, _, blk in res.f_final.blocks()}
         av = res.av_vels.cpu().tolist()
         del res, sim
         ranks = [rep["runs"]["big"] for rep in reports]
         if any(r["av"] != av for r in ranks):
             fail(f"{tag} a rank's av history differs from the one-process run's")
-        if {**ranks[0]["blocks"], **ranks[1]["blocks"]} != want:
+        if {h: d for r in ranks for h, d in r["blocks"].items()} != want:
             fail(f"{tag} the own blocks differ from the one-process run's")
         dt_two = max(r["seconds"] for r in ranks)
         times["8192 ring stream"] = (dt_two / iters, dt_one / iters)
-        say(f"{tag} 2 processes on one card: launches per rank "
-            f"{ {a: b for a, b in run['launches'].items() if b} }, both own blocks bitwise the "
-            f"one-process 2-shard ring's (sha256), av history equal on both ranks; "
-            f"{dt_two / iters * 1e6:.2f} us per step (slower rank; one process, 2 shards: "
-            f"{dt_one / iters * 1e6:.2f} us; host clock, run synchronised); the difference per "
-            f"exchange of 8 rows {(dt_two - dt_one) / (iters // 8) * 1e3:.3f} ms | {card}")
+        say(f"{tag} {where}: launches per rank "
+            f"{ {a: b for a, b in run['launches'].items() if b} }, every own block bitwise the "
+            f"one-process {n_proc}-shard ring's (sha256), av history equal on every rank; "
+            f"{dt_two / iters * 1e6:.2f} us per step (slowest rank; one process, {n_proc} "
+            f"shards of cuda:0: {dt_one / iters * 1e6:.2f} us"
+            + (f"; single-device pallask {p_us['big']:.2f}" if p_us else "")
+            + f"; each after an untimed {WARM_STEPS}-step run, host clock, run synchronised)"
+            + ("" if p_us else f"; the difference per exchange of 8 rows "
+               f"{(dt_two - dt_one) / (iters // 8) * 1e3:.3f} ms") + f" | {card}")
 
         # a single-device backend under --multihost: each process runs the
         # 128^2 deck on auto, rank 0 prints and writes
@@ -2117,7 +2420,7 @@ def phase_multiprocess(card: str) -> dict:
         if rc != 0:
             fail(f"{tag} the one-process CLI run exited {rc}")
         same_outputs(tag, tmp / "auto" / "two", one)
-        say(f"{tag} each of 2 processes ran the deck: launches per rank "
+        say(f"{tag} each of {n_proc} processes ran the deck: launches per rank "
             f"{ {a: b for a, b in run['launches'].items() if b} }, rank 0's outputs equal "
             f"the one-process run's (0 differing values), written once | {card}")
     return times
@@ -2209,6 +2512,177 @@ def phase_overlap(card: str, final_state: Path) -> None:
     say(f"{tag} viz.main wrote {path.name}, a {n}x{n} heatmap of ||u|| ({len(data)} bytes)")
 
 
+# ---- 14. the sharded path across cards ------------------------------------------------
+
+CARDS_TORUS = (1024, 1000)  # grid, steps of the 2x2 torus of 4 cards
+CARDS_HUGE = (49152, 64)  # grid, steps: one state 87.0 GB, on a ring of 4 cards
+
+
+def cards_topology(n: int) -> None:
+    """Peer access of each ordered pair of cards, and nvidia-smi's
+    topology matrix."""
+    pairs = [f"{i}->{j} {'yes' if torch.cuda.can_device_access_peer(i, j) else 'no'}"
+             for i in range(n) for j in range(n) if i != j]
+    say(f"[14 cards] {n} cards visible; peer access: " + ", ".join(pairs))
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True,
+                          timeout=60, check=False)
+    for ln in (topo.stdout or topo.stderr).strip().splitlines():
+        say(f"[14 cards] topo | {ln.rstrip()}")
+
+
+def device_digest(blk: torch.Tensor, rows: int = 1024) -> str:
+    """A digest of a shard's own block computed on its card: per plane and
+    block of rows, the int64 sums (mod 2^64) of the values' bits and of the
+    bits times their position in the plane + 1; only those sums leave the
+    card, hashed together."""
+    h = hashlib.sha256()
+    _, ly, lx = blk.shape
+    for k in range(blk.shape[0]):
+        for r in range(0, ly, rows):
+            bits = blk[k, r:r + rows].contiguous().view(torch.int32).to(torch.int64)
+            pos = torch.arange(r * lx + 1, r * lx + 1 + bits.numel(), dtype=torch.int64,
+                               device=blk.device).view(bits.shape)
+            h.update(torch.stack([bits.sum(), (bits * pos).sum()]).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def cards_torus(tmp: Path, card: str) -> None:
+    """The 1024^2 deck through the CLI on a 2x2 torus of 4 cards, held to
+    the same mesh laid on cuda:0 alone (0 differing values in both output
+    files), timed beside it and single-device pallask."""
+    from advanced_hpc_lbm_tpu_torch.parallel import mesh
+
+    size, iters = CARDS_TORUS
+    params_f, obst_f = write_full_deck(tmp, size, size, iters)
+    p_us = pallask_us(params_f, obst_f, iters)
+    tag = f"[14 cards] {size}x{size} 2x2 torus pallas, {iters} steps:"
+    (tmp / "cards").mkdir()
+    rc, lines, counts = run_cli([str(params_f), str(obst_f), "--backend", "sharded", "--mesh",
+                                 "2x2", "--shard-kernel", "pallas", "--out-dir",
+                                 str(tmp / "cards")])
+    if rc != 0:
+        fail(f"{tag} CLI exited {rc}")
+    want = sharded_expected("pallas", 4, True, iters)
+    if counts != want:
+        fail(f"{tag} launches {counts}, expected {want}")
+    block = check_block(lines, tag)
+    dt_one, _ = one_process(params_f, obst_f, tmp / "one", iters,
+                            {"mesh": (2, 2), "shard_kernel": "pallas"}, 4)
+    same_outputs(tag, tmp / "cards", tmp / "one")
+    step_us, one_us = block["compute"] / iters * 1e6, dt_one / iters * 1e6
+    ex = exchange_us(mesh.make_yx_mesh(2, 2), size, size, 1)
+    say(f"{tag} 4 cards, one shard each: launches "
+        f"{ {a: b for a, b in counts.items() if b} }, 0 values of final_state.dat and "
+        f"av_vels.dat differ from the same mesh on cuda:0; {step_us:.2f} us per step "
+        f"(Compute) against {one_us:.2f} for the mesh on cuda:0 and {p_us:.2f} for "
+        f"single-device pallask; the exchange timed alone {ex:.2f} us, {ex / step_us:.2f} of "
+        f"a step | {card}")
+
+
+def cards_exchange_split(n: int, tmp: Path, card: str) -> None:
+    """scripts/torch_mp_exchange.py on the 1024^2 ring, N processes over
+    nccl: where an exchange's time goes."""
+    tag = f"[14 cards] scripts/torch_mp_exchange.py, 1024x1024 ring of {n} processes:"
+    res = run_group([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc-per-node", str(n), str(ROOT / "scripts" / "torch_mp_exchange.py"),
+                     "--grid", "1024", "--repeat", "2000"], tmp, MP_TIMEOUT_S, tag)
+    line = next((ln for ln in res.stdout.splitlines() if ln.startswith("RESULT ")), None)
+    if res.returncode != 0 or line is None:
+        fail(f"{tag} exited {res.returncode}\n{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+    out = json.loads(line[len("RESULT "):])
+    if out["backend"] != "nccl" or out["cards"] != n:
+        fail(f"{tag} ran over {out['backend']} on {out['cards']} card(s), expected nccl on {n}")
+    say(f"{tag} over {out['backend']} on {out['cards']} cards, us per step: " + ", ".join(
+        f"{k} {v:.2f}" if not isinstance(v, list) else f"{k} " + "/".join(f"{x:.2f}" for x in v)
+        for k, v in out["us_per_step"].items()) + f" | {card}")
+
+
+def cards_huge(card: str) -> None:
+    """A 49152^2 grid, more than one card holds, for 64 steps on a ring of
+    4 cards with pallas and with stream: the two runs' own blocks equal by
+    a digest computed on each card, mass conserved, each card's peak
+    memory; nothing of the state is gathered to the host."""
+    from advanced_hpc_lbm_tpu_torch import LBMParams, Simulation
+    from advanced_hpc_lbm_tpu_torch.parallel import mesh
+
+    size, iters = CARDS_HUGE
+    params = LBMParams(nx=size, ny=size, max_iters=iters, reynolds_dim=10,
+                       density=0.1, accel=0.01, omega=1.85)
+    obst = np.zeros((size, size), dtype=bool)  # write_full_deck's geometry, in memory
+    obst[0] = obst[-1] = True
+    obst[:, 0] = obst[:, -1] = True
+    obst[: size // 2, size // 3] = True
+    mass0 = rest_mass(params)
+    cards = [torch.device("cuda", i) for i in range(4)]
+    digests = {}
+    torch.cuda.empty_cache()  # what earlier phases left cached on the cards
+    for kernel, g in (("pallas", 1), ("stream", 8)):
+        tag = f"[14 cards] {size}x{size} ring {kernel}, {iters} steps on 4 cards:"
+        kw = {"devices": 4, "shard_kernel": kernel}
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        sim = Simulation(params, obst, backend="sharded", device="cuda")
+        t0 = time.perf_counter()
+        sim.warmup(**kw)
+        setup = time.perf_counter() - t0
+        counts: dict = {}
+        with counted(counts):
+            t0 = time.perf_counter()
+            res = sim.run(fetch=False, **kw)
+            dt = time.perf_counter() - t0
+        peak = [torch.cuda.max_memory_allocated(d) / 1e9 for d in cards]
+        want = sharded_expected(kernel, 4, False, iters, g)
+        if counts != want:
+            fail(f"{tag} launches {counts}, expected {want}")
+        if not bool(torch.isfinite(res.av_vels).all().item()):
+            fail(f"{tag} non-finite av")
+        # comprehensions only: a loop variable left holding a block would
+        # keep its 21.7 GB window on the card through the next run
+        blocks = [blk for _, _, blk in res.f_final.blocks()]
+        if [blk.device for blk in blocks] != cards:
+            fail(f"{tag} the shards lie on {[str(b.device) for b in blocks]}")
+        if not all(bool(torch.isfinite(blk[k]).all().item())
+                   for blk in blocks for k in range(blk.shape[0])):
+            fail(f"{tag} non-finite state")
+        drift = abs(sum(device_mass(blk) for blk in blocks) - mass0) / mass0
+        if drift > 1e-4:
+            fail(f"{tag} total density drifted by {drift:.3e} (limit 1e-4)")
+        digests[kernel] = [device_digest(blk) for blk in blocks]
+        del res, sim, blocks
+        ex = exchange_us(mesh.make_y_mesh(4), size, size, g, repeat=20) / g
+        torch.cuda.empty_cache()  # the next run's windows are a few rows taller
+        step_us = dt / iters * 1e6
+        say(f"{tag} launches { {a: b for a, b in counts.items() if b} }, finite, mass drift "
+            f"{drift:.3e} (limit 1e-4), peak memory per card "
+            + " / ".join(f"{p:.2f}" for p in peak) + f" GB; set-up {setup:.2f} s, "
+            f"{step_us:.2f} us per step (host clock, run synchronised, the first run of its "
+            f"runner; no single card holds the grid); the exchange timed alone {ex:.2f} us per "
+            f"step ({g} step(s) per exchange), {ex / step_us:.2f} of a step | {card}")
+    if digests["pallas"] != digests["stream"]:
+        fail(f"[14 cards] {size}x{size}: the pallas and stream runs' own blocks differ "
+             f"(on-card digests {digests})")
+    say(f"[14 cards] {size}x{size}: the pallas and stream runs' own blocks equal shard by "
+        f"shard (on-card digests {', '.join(h[:12] for h in digests['pallas'])})")
+
+
+def phase_cards(card: str) -> None:
+    """What the sharded path does only across cards, beyond phases 8 and
+    12 (which take every visible card): peer access and topology, on 4
+    cards a 2x2 torus and a grid no card holds, the NCCL split; skipped
+    where one card is visible."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        say(f"[14 cards] skipped: {n} card visible")
+        return
+    cards_topology(n)
+    with tempfile.TemporaryDirectory() as tmp:
+        if n >= 4:
+            timed(cards_torus, Path(tmp), card)
+        timed(cards_exchange_split, n, Path(tmp), card)
+    if n >= 4:
+        timed(cards_huge, card)
+
+
 # ---- main -------------------------------------------------------------------
 
 def timed(phase, *args):
@@ -2223,7 +2697,7 @@ def timed(phase, *args):
 
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--rank-worker":
-        return rank_worker(sys.argv[2])  # one process of a phase-12 launch
+        return rank_worker(sys.argv[2])  # one process of a phase-12 or -14 launch
     t0 = time.perf_counter()
     keep = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     atexit.register(shutil.rmtree, keep, True)
@@ -2241,7 +2715,7 @@ def main() -> int:
     timed(phase_big, card, "6 big", 4096, ("pallask", "step"))
     timed(phase_big, card, "6s big stream", 8192, ("stream", "pallask"))
     timed(phase_capacity, card)
-    timed(phase_sharded_mini)
+    timed(phase_sharded_mini, card)
     timed(phase_sharded_full, card)
     timed(phase_sharded_big, card)
     timed(phase_sharded_sweep, card)
@@ -2250,6 +2724,7 @@ def main() -> int:
     timed(phase_batch, card)
     timed(phase_multiprocess, card)
     timed(phase_overlap, card, keep / "final_state.dat")
+    timed(phase_cards, card)
     say(f"[result] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"main-path launches {dict(MAIN_LAUNCHES)}")
     for name in kernel_counters():
@@ -2280,7 +2755,8 @@ def main() -> int:
          worst_k, big[best], big["plain"], bound(4096 * 4096, best)),
         ("stream_kernel", "stream_kernel.cu", "advanced_hpc_lbm_tpu/ops/pallas_stream.py:104",
          {"also_replaces": ["advanced_hpc_lbm_tpu/ops/kernel_common.py:207"]},
-         worst_s, st["stream"], st["plain"], bound(4096 * 4096, stream_kernel.K)),
+         max(worst_s, worst_l["stream"], worst_l["stream2d"]), st["stream"], st["plain"],
+         bound(4096 * 4096, stream_kernel.K)),
     ]
     # the local kernels per step at the main path's shard shapes (8192^2 over
     # 4 shards: 2048x8192 ring shards, 4096x4096 torus shards)

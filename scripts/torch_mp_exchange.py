@@ -1,31 +1,37 @@
-"""Where the time of a two-process ring step goes when both processes share
-one card.
+"""Where the time of a multi-process ring step goes.
 
-A ring of two shards of an n x n deck, one shard per process, each process
-on its own device (``multihost.local_device``; on a one-card machine both
-take cuda:0, and the process group runs gloo).  Each phase runs ``--repeat``
-times and is timed on the host clock, the device synchronised at its end:
+A ring of N shards of an n x n deck, one shard per process, each process
+on its own device (``multihost.local_device``).  Where every process has a
+card of its own the process group runs nccl and the halos are staged in
+buffers on the card; where processes share a card (on a one-card machine
+all take cuda:0) it runs gloo and stages them through pinned host buffers
+(``parallel/multihost.choose_backend``, ``halo._staging``).  Each phase
+runs ``--repeat`` times and is timed on the host clock, the device
+synchronised at its end:
 
   exchange  the halo exchange alone (``_Windows.exchange``): the edge rows
-            to pinned host buffers, the gloo send and receive, the ghost
-            rows back to the device
-  wire      the gloo sends and receives of those host buffers alone
-  copies    the exchange's copies alone: the edge rows to the host buffers,
-            one synchronisation, the buffers back to the ghost rows
+            to the staging buffers, the sends and receives, the ghost rows
+            from the staging buffers
+  wire      the sends and receives of those staging buffers alone (nccl:
+            between the cards; gloo: between host buffers)
+  copies    the exchange's copies alone: the edge rows to the staging
+            buffers, the synchronisation before the wire where they are
+            host buffers, the buffers back to the ghost rows
   compute   the 1-step local kernel on each process's own shard, without
-            an exchange: both processes' kernels on the card at once
+            an exchange: every process's kernel at once
   pipeline  exchange + a launch of the local kernel, per step: what a
             ``pallas`` ring run does (without its ||u|| sums)
-  alone     the compute phase with the other process idle at a barrier
-            (rank 0 steps, then rank 1)
+  alone     the compute phase with the other processes idle at a barrier
+            (rank 0 steps, then rank 1, ...)
 
 Run from the root of a checkout:
 
-    torchrun --standalone --nproc-per-node 2 scripts/torch_mp_exchange.py \
+    torchrun --standalone --nproc-per-node N scripts/torch_mp_exchange.py \
         [--grid 1024] [--repeat 2000] [--device cuda|cpu]
 
 Rank 0 prints ``RESULT`` and one JSON object: us per step of each phase,
-the backend, the card's name and power limit.
+the backend, the processes, the cards they ran on, the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -55,7 +61,7 @@ def main() -> int:
     p.add_argument("--device", default="cuda")
     a = p.parse_args()
     if not multihost.maybe_initialize(device_type=a.device):
-        raise SystemExit("run under torchrun with 2 processes")
+        raise SystemExit("run under torchrun with 2 or more processes")
     device = multihost.local_device(a.device)
     cuda = device.type == "cuda"
     rank = multihost.process_index()
@@ -66,7 +72,8 @@ def main() -> int:
     obst[0] = obst[-1] = True
     obst[:, 0] = obst[:, -1] = True
     obst[: n // 2, n // 3] = True
-    ring = mesh.make_y_mesh(2, [device])
+    world = multihost.process_count()
+    ring = mesh.make_y_mesh(world, [device])
     win = halo._Windows(ring, n, n, 1)
     win.load(params, None)
     masks = halo._window_masks(ring, n, n, 1, obst, exclude_ghosts=False)
@@ -107,7 +114,8 @@ def main() -> int:
         for phase in win.phases[t % 2]:
             for src, buf, _, _ in phase.sends:
                 buf.copy_(src, non_blocking=True)
-            sync()
+            for d in phase.host_staged:  # as _Phase.post: host buffers only
+                torch.cuda.current_stream(d).synchronize()
             for dst, buf, _, _ in phase.recvs:
                 dst.copy_(buf, non_blocking=True)
 
@@ -119,20 +127,22 @@ def main() -> int:
         "pipeline": timed(lambda t: (win.exchange(t % 2), step[t % 2](part))),
     }
     alone = []
-    for r in range(2):
+    for r in range(world):
         if r == rank:
             alone.append(timed_alone(step, part, a.repeat, sync))
         dist.barrier()
-    times = [None, None]
+    times = [None] * world
     dist.all_gather_object(times, alone[0])
     out["alone"] = times
+    devices = [None] * world
+    dist.all_gather_object(devices, str(device))
     if rank == 0:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=False).stdout.strip() if cuda else "cpu"
         print("RESULT " + json.dumps({
-            "n": n, "steps": a.repeat, "backend": multihost.backend(), "device": str(device),
-            "card": smi, "us_per_step": {k: (v * 1e6 if not isinstance(v, list)
+            "n": n, "steps": a.repeat, "backend": multihost.backend(), "processes": world,
+            "devices": devices, "cards": len(set(devices)) if cuda else 0, "card": smi, "us_per_step": {k: (v * 1e6 if not isinstance(v, list)
                                              else [x * 1e6 for x in v])
                                          for k, v in out.items()}}), flush=True)
     dist.destroy_process_group()

@@ -13,7 +13,9 @@ atol 1e-8, and av within rtol 1e-5 (the kernel sums ||u|| by a block tree,
 PyTorch by its own reduction order).  The resident, K-step and stream
 kernels run the step kernel's per-cell code, so their state equals the step
 kernel's with 0 differing values; so does the state of a sharded run on
-four shards of the one card.
+four shards of the one card.  A mesh across two or four cards equals the
+same mesh laid on cuda:0 alone with 0 differing values, av included (those
+cases skip where fewer cards are visible).
 """
 
 import numpy as np
@@ -519,6 +521,89 @@ def test_overlap_on_card_equals_default(debug):
         assert torch.equal(a, b)
     for a, b in zip(rest_d, rest_o):
         assert torch.equal(a, b)
+
+
+# ---- the sharded path across cards ----------------------------------------------------
+
+two_cards = pytest.mark.skipif("torch.cuda.device_count() < 2", reason="needs two CUDA cards")
+four_cards = pytest.mark.skipif("torch.cuda.device_count() < 4", reason="needs four CUDA cards")
+
+
+def _same_mesh(got, want) -> None:
+    """Two sharded results of one mesh shape: every own block with 0
+    differing values, the shards of ``got`` on distinct cards."""
+    blocks = list(got.blocks())
+    assert len({blk.device for _, _, blk in blocks}) == len(blocks)
+    for (_, _, a), (_, _, b) in zip(blocks, want.blocks()):
+        assert int((a != b.to(a.device)).sum()) == 0
+
+
+@two_cards
+@pytest.mark.parametrize("kw", [{"kernel": "pallas"}, {"kernel": "pallas", "ca_steps": 4},
+                                {"kernel": "stream"}], ids=["pallas", "pallas-K4", "stream"])
+def test_two_card_ring_equals_the_same_mesh_on_one_card(kw):
+    """A ring of two shards on cuda:0 and cuda:1 (copies between the cards)
+    against the same ring on cuda:0 alone: the state with 0 differing
+    values, av and the densities bitwise (the same sums in the same
+    order)."""
+    params, mask_np, f0 = make_case(256, 256, seed=12)
+    outs = [halo.run_sharded(f0, mask_np, params, n_iters=37, devices=devs, **kw)
+            for devs in (["cuda:0", "cuda:1"], ["cuda:0"] * 2)]
+    torch.cuda.synchronize()
+    (f, av), (ref_f, ref_av) = outs
+    _same_mesh(f, ref_f)
+    assert torch.equal(av, ref_av)
+
+
+@two_cards
+@pytest.mark.parametrize("debug", [False, True])
+def test_overlap_across_two_cards_equals_default(debug):
+    """The overlapped jnp ring with its shards on two cards (the exchange on
+    each destination card's side stream): the default schedule's state, av
+    and densities, bitwise, and those of the same ring on cuda:0 alone."""
+    params, mask_np, f0 = make_case(64, 128, seed=13)
+    two = ["cuda:0", "cuda:1"]
+    outs = [halo.run_sharded(f0, mask_np, params, n_iters=11, devices=devs, overlap=overlap,
+                             collect_density=debug)
+            for devs, overlap in ((two, False), (two, True), (["cuda:0"] * 2, True))]
+    torch.cuda.synchronize()
+    (f_d, *rest_d), (f_o, *rest_o), (f_1, *rest_1) = outs
+    _same_mesh(f_o, f_d)
+    _same_mesh(f_o, f_1)
+    for a, b, c in zip(rest_d, rest_o, rest_1):
+        assert torch.equal(a, b) and torch.equal(b, c)
+
+
+@two_cards
+def test_simulation_shards_over_every_visible_card():
+    """``--backend sharded`` takes the visible cards by default, one shard
+    each, and equals the same ring laid on cuda:0 alone."""
+    n = torch.cuda.device_count()
+    params, mask_np, _ = make_case(32 * n, 96, seed=14)
+    sim = Simulation(params, mask_np, backend="sharded", device="cuda")
+    res = sim.run(n_iters=21, fetch=False, shard_kernel="pallas")
+    ref = sim.run(n_iters=21, fetch=False, shard_kernel="pallas", devices=n,
+                  shard_devices=["cuda:0"] * n)
+    assert sorted(str(blk.device) for _, _, blk in res.f_final.blocks()) == [
+        f"cuda:{i}" for i in range(n)]
+    _same_mesh(res.f_final, ref.f_final)
+    assert torch.equal(res.av_vels, ref.av_vels)
+
+
+@four_cards
+@pytest.mark.parametrize("kw", [{"kernel": "pallas"}, {"kernel": "stream"}],
+                         ids=["pallas", "stream"])
+def test_four_card_torus_equals_the_same_mesh_on_one_card(kw):
+    """A 2x2 torus over four cards (rows, then the row-extended columns with
+    the corners, between the cards) against the same torus on cuda:0."""
+    params, mask_np, f0 = make_case(256, 256, seed=15)
+    four = ["cuda:0", "cuda:1", "cuda:2", "cuda:3"]
+    outs = [halo.run_sharded_2d(f0, mask_np, params, (2, 2), n_iters=37, devices=devs, **kw)
+            for devs in (four, ["cuda:0"] * 4)]
+    torch.cuda.synchronize()
+    (f, av), (ref_f, ref_av) = outs
+    _same_mesh(f, ref_f)
+    assert torch.equal(av, ref_av)
 
 
 def test_collide_flat_refuses_tf32_on_card(monkeypatch):

@@ -305,6 +305,31 @@ def test_cli_bad_deck_exits_1(tmp_path, capsys):
     assert rc == 1 and err.startswith("Error:")
 
 
+def test_cli_negative_iters_exits_1_without_a_traceback(tmp_path):
+    """A negative --iters is refused as the deck's maxIters is, with exit
+    code 1 and no traceback (the JAX CLI crashes there instead)."""
+    res = subprocess.run([sys.executable, "-m", "advanced_hpc_lbm_tpu_torch", *MINI,
+                          "--device", "cpu", "--iters", "-3", "--out-dir", str(tmp_path)],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 1, res.stdout + res.stderr
+    assert "Error: max_iters must be >= 0, got -3" in res.stderr.splitlines()
+    assert "Traceback" not in res.stdout + res.stderr
+    assert res.stdout == "" and not (tmp_path / "av_vels.dat").exists()
+
+
+@pytest.mark.parametrize("method", ["run", "warmup"])
+@pytest.mark.parametrize("backend,kw", [("auto", {}), ("sharded", {"devices": 2})])
+def test_negative_iters_raise_before_allocating(monkeypatch, method, backend, kw):
+    sim = Simulation(*_small_deck(), backend=backend, device="cpu")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a state was allocated")
+    monkeypatch.setattr(sim, "initial_state", refuse)
+    monkeypatch.setattr(halo._Windows, "__init__", refuse)
+    with pytest.raises(ValueError, match=r"^max_iters must be >= 0, got -1$"):
+        getattr(sim, method)(n_iters=-1, **kw)
+
+
 @pytest.mark.parametrize("flag", [
     # every flag is ported: malformed values of them are refused
     # (tests/test_torch_multihost.py runs --multihost itself)

@@ -13,7 +13,11 @@ the same rows, the ||u|| sums are added in the same shard order), and
 within rtol 1e-5 / atol 1e-7 (f) and rtol 1e-5 (av) to the JAX package's
 sharded run on its virtual CPU devices, as tests/test_torch_sharded.py
 holds the single-process path.  A process that leaves the group standing
-exits 0: the library takes it down at exit.
+exits 0: the library takes it down at exit.  The staging rule (buffers on
+the card under nccl, on the host under gloo) and the order in which each
+rank posts an exchange's sends and receives are checked in one process,
+with the transfers delivered by hand in the order nccl pairs them (the
+order a pair of ranks posts them, tags ignored).
 """
 
 import json
@@ -157,6 +161,95 @@ def test_checkpoint_is_refused_across_processes(monkeypatch, tmp_path):
         with pytest.raises(ValueError, match="single process"):
             sim.run(n_iters=4, checkpoint_dir=str(tmp_path), **kw)
     assert not list(tmp_path.iterdir())
+
+
+# ---- the exchange across processes: staging and order ------------------------------------
+
+@pytest.mark.parametrize("backend,where", [("nccl", "cuda:1"), ("gloo", "cpu"), (None, "cpu")])
+def test_staging_device_follows_the_backend(monkeypatch, backend, where):
+    """A card's rows pass through the process group from buffers on the card
+    under nccl, from host buffers under gloo (which moves host tensors
+    only); a CPU shard's stay on the CPU."""
+    monkeypatch.setattr(multihost, "backend", lambda: backend)
+    assert halo._stage_device(torch.device("cuda", 1)) == torch.device(where)
+    assert halo._stage_device(torch.device("cpu")) == torch.device("cpu")
+
+
+class _P2POp:
+    """What a ``torch.distributed.P2POp`` carries, without a process group."""
+
+    def __init__(self, op, tensor, peer, tag=0):
+        self.op, self.tensor, self.peer, self.tag = op, tensor, peer, tag
+
+
+PHASE_MESHES = {  # name: (mesh shape, torus, owning rank of each shard, ghost depth)
+    "ring of 2 over 2": ((2, 1), False, (0, 1), 1),
+    "ring of 4 over 4": ((4, 1), False, (0, 1, 2, 3), 1),
+    "ring of 4 over 2, K=2": ((4, 1), False, (0, 0, 1, 1), 2),
+    "torus 2x2 over 4": ((2, 2), True, (0, 1, 2, 3), 1),
+    "torus 2x1 over 2": ((2, 1), True, (0, 1), 1),
+    "torus 1x2 over 2": ((1, 2), True, (0, 1), 1),
+    "torus 2x4 over 4": ((2, 4), True, (0, 0, 1, 1, 2, 2, 3, 3), 1),
+    "torus 2x2 over 4, K=8": ((2, 2), True, (0, 1, 2, 3), 8),
+}
+
+
+@pytest.mark.parametrize("name", list(PHASE_MESHES))
+def test_remote_copies_pair_up_in_posting_order(monkeypatch, name):
+    """Each rank posts the remote copies of an exchange phase in the
+    phase's one global order, so a backend that pairs a send with a
+    receive by the order a pair of ranks posts them, ignoring tags (nccl),
+    pairs them right: for every ordered pair of ranks the sender's sends to
+    the receiver and the receiver's receives from the sender carry the same
+    (tag, shape) sequence, on a torus too, where a pair exchanges rows and
+    then columns (twice each where the mesh has 2 rows or columns).
+    Delivered in that order, phase after phase, the ranks' windows equal
+    one process's after its exchange, ghost cells and corners included."""
+    (my, mx), torus, ranks, g = PHASE_MESHES[name]
+    ly = lx = 2 * g + 2
+    ny, nx = my * ly, mx * lx
+    f0 = torch.from_numpy(np.random.RandomState(3).rand(9, ny, nx).astype(np.float32))
+    devices = (torch.device("cpu"),) * len(ranks)
+    posted = []
+    monkeypatch.setattr(torch.distributed, "P2POp", _P2POp)
+    monkeypatch.setattr(torch.distributed, "batch_isend_irecv",
+                        lambda ops: posted.append(ops) or [])
+
+    def windows(rank, owners):
+        monkeypatch.setattr(multihost, "process_index", lambda: rank)
+        win = halo._Windows(mesh.Mesh(devices, (my, mx), torus, owners), ny, nx, g)
+        win.load(None, f0)
+        return win
+
+    wins = {r: windows(r, ranks) for r in sorted(set(ranks))}
+    one = windows(0, ())
+    one.exchange(0)
+    n_remote = 0
+    for p in range(len(one.phases[0])):
+        ops = {}
+        for r, win in wins.items():
+            phase = win.phases[0][p]
+            for dst, src in phase.local:
+                dst.copy_(src)
+            posted.clear()
+            phase.post()
+            ops[r] = posted[0] if posted else []
+            n_remote += len(ops[r])
+            assert [op.tag for op in ops[r]] == sorted(op.tag for op in ops[r])
+        for a in wins:
+            for b in wins:
+                sends = [op for op in ops[a] if op.op is torch.distributed.isend and op.peer == b]
+                recvs = [op for op in ops[b] if op.op is torch.distributed.irecv and op.peer == a]
+                assert ([(op.tag, op.tensor.shape) for op in sends]
+                        == [(op.tag, op.tensor.shape) for op in recvs])
+                for s, r in zip(sends, recvs):
+                    r.tensor.copy_(s.tensor)
+        for win in wins.values():
+            win.phases[0][p].land([])
+    assert n_remote > 0
+    for win in wins.values():
+        for s in win.local:
+            assert torch.equal(win.bufs[0][s], one.bufs[0][s])
 
 
 # ---- two processes: the library -------------------------------------------------------
