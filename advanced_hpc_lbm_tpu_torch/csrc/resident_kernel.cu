@@ -96,16 +96,10 @@
 //   6.75 / 6.77 / 5.50: a corner cell waited on four flags one after
 //   another (H100 80GB HBM3, 700 W).
 
-// The cooperative form (resident_kernel), for every other grid:
-// * One cooperative launch per chunk.  The grid is as large as can be
-//   co-resident (occupancy x SMs), capped at the tile count; each block
-//   walks the step kernel's 32x8 tiles grid-stride and runs the shared
-//   per-cell step.  A grid barrier (cooperative_groups::this_grid().sync())
-//   separates the steps.  Every block runs every step and reaches every
-//   barrier: no early return.
-// * The state ping-pongs between two buffers in device memory and is read
-//   with plain loads (no read-only cache): a buffer is read after other
-//   blocks wrote it, across a barrier.
+// The grid-barrier form (resident_grid_kernel), the cooperative form's
+// predecessor, kept to be timed beside it: a persistent grid walks the
+// step kernel's 32x8 tiles grid-stride, one grid barrier per step, the
+// state ping-pongs between two buffers in device memory.
 //
 // Bound on this card: the launch latency and the host loop disappear (one
 // launch per chunk instead of one per step).  What is left per step is the
@@ -123,6 +117,7 @@
 #include <cooperative_groups.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "step_common.cuh"
 #include "window_common.cuh"
@@ -134,7 +129,7 @@ namespace {
 constexpr int kThreads = lbm::kTileX * lbm::kTileY;
 
 __global__ void __launch_bounds__(kThreads)
-    resident_kernel(float* a, float* b, const uint8_t* mask, float* partials,
+    resident_grid_kernel(float* a, float* b, const uint8_t* mask, float* partials,
                     int ny, int nx, int n_steps, lbm::StepConsts c) {
   __shared__ float red[kThreads];
   cg::grid_group grid = cg::this_grid();
@@ -429,6 +424,509 @@ __global__ void __launch_bounds__(kMaxBandThreads, 1)
   }
 }
 
+// ---- the cooperative form ---------------------------------------------------
+
+// A block of the cooperative form: 16 warps, one block per SM (its windows
+// take most of the SM's shared memory, its threads all of its registers at
+// 128 each).
+constexpr int kCoopThreads = 512;
+constexpr int kCoopWarps = kCoopThreads / 32;
+
+// The geometry of the cooperative form for K steps per round.  A window is
+// a band's own 8 rows by kW own columns (whole tiles) with K ghost rows
+// above and below and kA = K rounded up to 4 ghost columns left and right
+// (16-byte rows of device memory); it steps K times in place while the
+// next window, and the next window's ghost words, arrive in a second
+// buffer.  kW is 4 tiles, 2 at K = 4, so that two windows, the ghost words
+// and the ||u|| of K steps fit the card's 232 448 B of opt-in shared
+// memory.
+template <int K>
+struct Coop {
+  static constexpr int kW = (K <= 3 ? 4 : 2) * lbm::kTileX;  // own columns
+  static constexpr int kTiles = kW / lbm::kTileX;
+  static constexpr int kA = (K + 3) / 4 * 4;  // ghost columns loaded per side
+  static constexpr int kH = kBandRows + 2 * K;  // window rows
+  static constexpr int kP = kW + 2 * kA;        // window columns = row pitch
+  static constexpr int kGroups = kP / 4;        // 16-byte groups per window row
+  using Geo = lbm::WinGeo<kH, kP>;
+  // the ghost cells a window gathers from the outbox: K rows above and K
+  // below, the K columns beyond the own ones on either side; their 9
+  // words each, [2K][9][kGhostCols]
+  static constexpr int kGhostCols = kW + 2 * K;
+  static constexpr int kGhostCells = 2 * K * kGhostCols;
+  static constexpr int kGhostWords = kSpeeds * kGhostCells;
+  // ||u|| of the own cells, per step of a round: [K][kBandRows][kW]
+  static constexpr int kRedFloats = K * kBandRows * kW;
+  // in place: a band's first kA columns at the round's start, [9][8][kA]
+  static constexpr int kStashFloats = kSpeeds * kBandRows * kA;
+  static constexpr size_t kSmemBytes = 2 * static_cast<size_t>(Geo::kBytes) +
+                                       sizeof(Word) * kGhostWords +
+                                       sizeof(float) * (kRedFloats + kStashFloats);
+};
+
+// Words of one outbox slot of the cooperative form: for every band, 2K
+// edge rows (position e < K: own row e; e >= K: own row h - 2K + e, h the
+// band's rows) of 9 planes, nx wide.  A row that is both (h < 2K) is in
+// both positions; a position that is neither (h < K) is never written.
+__host__ __device__ constexpr long long coop_slot_words(int bands, int nx, int k) {
+  return 2LL * k * kSpeeds * bands * nx;
+}
+
+// v mod n for v within one n of [0, n), else by the general wrap (grids
+// smaller than a window).
+__device__ __forceinline__ int wrap_near(int v, int n) {
+  if (v < 0) {
+    v += n;
+  } else if (v >= n) {
+    v -= n;
+  }
+  return static_cast<unsigned>(v) < static_cast<unsigned>(n) ? v : lbm::wrap(v, n);
+}
+
+// An asynchronous 8-byte copy global -> shared (no wait).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// The kernel's arguments, a __grid_constant__ parameter (the out-of-line
+// functions below read them by reference).  `vec`: 16-byte window rows (nx
+// % 4 == 0, nx >= the window's pitch, ny >= K, aligned buffers).
+// `in_place`: every round reads and writes `a` (else rounds alternate
+// a -> b -> a).
+struct CoopArgs {
+  float* a;
+  float* b;
+  const uint8_t* mask;
+  float* partials;
+  Word* outbox;  // two slots of coop_slot_words
+  int ny, nx, n_steps, vec, in_place;
+  lbm::StepConsts c;
+};
+
+// Window i of a block's round: band q (rows y0 .. y0+h-1), own columns
+// x0 .. x0+w-1.  The block's bands are blockIdx.x, blockIdx.x + gridDim.x,
+// ...; each is walked window by window along x.
+struct CoopWin {
+  int q, y0, h, x0, w;
+  __device__ __forceinline__ CoopWin(int i, int nw, int kw, int ny, int nx) {
+    q = blockIdx.x + (i / nw) * gridDim.x;
+    y0 = q * kBandRows;
+    h = min(kBandRows, ny - y0);
+    x0 = (i % nw) * kw;
+    w = min(kw, nx - x0);
+  }
+};
+
+// Ghost cell m of window wn: where its plane-0 word lies in the outbox
+// slot (returned; plane s is s * nx further) and where its value goes in a
+// window plane (dst).  m runs over [2K edge rows][kW + 2K columns]; edge
+// row e < K is window row e (above the band), e >= K window row h + e
+// (below it).  The grid row it images belongs to band p at own row l: a
+// row above the band is one of p's bottom K rows, a row below one of its
+// top K rows, whatever the bands' heights.
+template <int K>
+__device__ __forceinline__ long long coop_ghost(const CoopArgs& a, const CoopWin& wn, int m,
+                                                int& dst) {
+  using C = Coop<K>;
+  const int cc = m % C::kGhostCols, e = m / C::kGhostCols;
+  const int r = e < K ? e : wn.h + e;
+  dst = r * C::kP + C::kA - K + cc;
+  const int gy = wrap_near(wn.y0 - K + r, a.ny);
+  const int gx = wrap_near(wn.x0 - K + cc, a.nx);
+  const int p = gy / kBandRows, l = gy - p * kBandRows;
+  const int pos = e < K ? l - min(kBandRows, a.ny - p * kBandRows) + 2 * K : l;
+  return static_cast<long long>(p * 2 * K + pos) * kSpeeds * a.nx + gx;
+}
+
+// Issue the copies of window `wn` (no wait): its own rows of `src` and the
+// mask of its own and ghost rows into `buf`, its ghost cells' outbox words
+// (slot `in`) into `ghost`.  Window cell (r, c) is grid cell (y0 - K + r,
+// x0 - kA + c), wrapped.
+template <int K>
+__device__ __noinline__ void coop_load(uint8_t* buf, Word* ghost, const CoopArgs& a,
+                                       const float* src, Word* in, const CoopWin& wn, int tid) {
+  using C = Coop<K>;
+  using G = typename C::Geo;
+  float* const wf = reinterpret_cast<float*>(buf);
+  uint8_t* const wm = buf + 4 * G::kFloats;
+  const size_t plane = static_cast<size_t>(a.ny) * a.nx;
+  const int rows = wn.h + 2 * K;  // the own rows and their ghost rows
+  if (a.vec) {
+    for (int m = tid; m < rows * C::kGroups; m += kCoopThreads) {
+      const int r = m / C::kGroups, g = m - r * C::kGroups;
+      int gx = wn.x0 - C::kA + 4 * g;  // a group wraps as a whole (nx % 4 == 0)
+      gx = gx < 0 ? gx + a.nx : (gx >= a.nx ? gx - a.nx : gx);
+      int gy = wn.y0 - K + r;
+      gy = gy < 0 ? gy + a.ny : (gy >= a.ny ? gy - a.ny : gy);
+      const size_t gi = static_cast<size_t>(gy) * a.nx + gx;
+      const int j = r * C::kP + 4 * g;
+      lbm::cp_async4(wm + j, a.mask + gi);
+      if (r >= K && r < K + wn.h) {
+#pragma unroll
+        for (int s = 0; s < kSpeeds; ++s) lbm::cp_async16(wf + s * G::kPlane + j, src + s * plane + gi);
+      }
+    }
+  } else {
+    for (int m = tid; m < rows * C::kP; m += kCoopThreads) {
+      const int r = m / C::kP, c = m - r * C::kP;
+      const size_t gi = static_cast<size_t>(wrap_near(wn.y0 - K + r, a.ny)) * a.nx +
+                        wrap_near(wn.x0 - C::kA + c, a.nx);
+      wm[m] = a.mask[gi];  // read only after the wait and barrier, like the copies
+      if (r >= K && r < K + wn.h) {
+#pragma unroll
+        for (int s = 0; s < kSpeeds; ++s) lbm::cp_async4(wf + s * G::kPlane + m, src + s * plane + gi);
+      }
+    }
+  }
+  for (int m = tid; m < C::kGhostCells; m += kCoopThreads) {
+    int dst;
+    const Word* const w = in + coop_ghost<K>(a, wn, m, dst);
+    const int e = m / C::kGhostCols, cc = m - e * C::kGhostCols;
+#pragma unroll
+    for (int s = 0; s < kSpeeds; ++s) {
+      cp_async8(ghost + (e * kSpeeds + s) * C::kGhostCols + cc, w + static_cast<long long>(s) * a.nx);
+    }
+  }
+}
+
+// Window wn's ghost cells from their copied outbox words into `buf`.  A
+// copy is an early read, not a wait: a word whose step is not `want`
+// (state t + 1) yet, or that came from a stale line, is read again with
+// volatile loads until it is.
+template <int K>
+__device__ __noinline__ void coop_ghosts(uint8_t* buf, const Word* ghost, const CoopArgs& a,
+                                         Word* in, const CoopWin& wn, unsigned want, int tid) {
+  using C = Coop<K>;
+  float* const wf = reinterpret_cast<float*>(buf);
+  for (int m = tid; m < C::kGhostCells; m += kCoopThreads) {
+    const int e = m / C::kGhostCols, cc = m - e * C::kGhostCols;
+    int dst;
+    Word* const src = in + coop_ghost<K>(a, wn, m, dst);
+#pragma unroll
+    for (int s = 0; s < kSpeeds; ++s) {
+      Word word = ghost[(e * kSpeeds + s) * C::kGhostCols + cc];
+      for (int polls = 0; static_cast<unsigned>(word >> 32) != want; ++polls) {
+        if (polls >= kMaxPolls) __trap();
+        word = ll_load(src + static_cast<long long>(s) * a.nx);
+      }
+      wf[s * C::Geo::kPlane + dst] = __uint_as_float(static_cast<unsigned>(word));
+    }
+  }
+}
+
+// Step S of a round, in place in the window: the rectangle rows [S, kH -
+// S) x columns [kA - K + S, kA + kW + K - S).  A thread's cells (tid, tid +
+// kCoopThreads, ...) are all computed into registers (their loads and
+// arithmetic interleave), a barrier ends the step's reads, they are
+// written back, and each own cell's ||u|| (0 on an obstacle and off the
+// grid) goes to red[(r - K) * kW + c - kA]; a second barrier publishes the
+// step.
+template <int K, int S, class Win>
+__device__ __forceinline__ void coop_step(const Win& win, float* planes,
+                                          const lbm::StepConsts& cc, float* red, unsigned own_h,
+                                          unsigned own_w) {
+  using C = Coop<K>;
+  constexpr int kRows = C::kH - 2 * S, kCols = C::kW + 2 * (K - S);
+  constexpr int kCells = kRows * kCols;
+  constexpr int kRounds = (kCells + kCoopThreads - 1) / kCoopThreads;
+  float v[kRounds][kSpeeds], norm[kRounds];
+  int off[kRounds], own[kRounds];
+#pragma unroll
+  for (int j = 0; j < kRounds; ++j) {
+    const int i = threadIdx.x + j * kCoopThreads;
+    if ((j + 1) * kCoopThreads <= kCells || i < kCells) {
+      int r, c;
+      lbm::cell_of<kRows, kCols>(i, r, c);
+      r += S;
+      c += C::kA - K + S;
+      off[j] = r * C::kP + c;
+      const bool obst = Win::obst_of(win.mask[off[j]]);
+      const float u_sq = lbm::cell_step(win, r, c, r - 1, r + 1, c - 1, c + 1, v[j], obst, cc);
+      const unsigned orow = r - K, ocol = c - C::kA;
+      own[j] = orow < kBandRows && ocol < C::kW ? static_cast<int>(orow * C::kW + ocol) : -1;
+      norm[j] = orow < own_h && ocol < own_w && !obst ? sqrtf(u_sq) : 0.0f;
+    }
+  }
+  __syncthreads();  // every read of the step is done
+#pragma unroll
+  for (int j = 0; j < kRounds; ++j) {
+    if ((j + 1) * kCoopThreads <= kCells || threadIdx.x + j * kCoopThreads < kCells) {
+#pragma unroll
+      for (int k = 0; k < kSpeeds; ++k) planes[k * C::Geo::kPlane + off[j]] = v[j][k];
+      if (own[j] >= 0) red[own[j]] = norm[j];
+    }
+  }
+  __syncthreads();  // the step's values are published
+}
+
+// Steps S..K of a round in the window `planes`; the ||u|| of step S into
+// red, of each later step into the next kBandRows x kW floats.
+template <int K, int S, bool kForce>
+__device__ __forceinline__ void coop_steps(float* planes, const uint8_t* mask,
+                                           const lbm::RowBits<(Coop<K>::kH + 31) / 32>& frow,
+                                           const lbm::StepConsts& cc, float* red,
+                                           unsigned own_h, unsigned own_w) {
+  using C = Coop<K>;
+  const lbm::Window<C::kH, C::kP, kForce, false> win{planes, mask, frow};
+  coop_step<K, S>(win, planes, cc, red, own_h, own_w);
+  if constexpr (S < K) {
+    coop_steps<K, S + 1, kForce>(planes, mask, frow, cc, red + kBandRows * C::kW, own_h, own_w);
+  }
+}
+
+// A round of k <= K steps is the last k steps of the K-step trapezoid:
+// steps s0 = K - k + 1 .. K.
+template <int K, int S, bool kForce>
+__device__ __forceinline__ void coop_steps_from(int s0, float* planes, const uint8_t* mask,
+                                                const lbm::RowBits<(Coop<K>::kH + 31) / 32>& frow,
+                                                const lbm::StepConsts& cc, float* red,
+                                                unsigned own_h, unsigned own_w) {
+  if constexpr (S < K) {
+    if (s0 > S) {
+      coop_steps_from<K, S + 1, kForce>(s0, planes, mask, frow, cc, red, own_h, own_w);
+      return;
+    }
+  }
+  coop_steps<K, S, kForce>(planes, mask, frow, cc, red, own_h, own_w);
+}
+
+// After a round of k steps from state t: window wn's own cells (in the
+// window `planes`) to dst, its edge rows into the outbox slot `out` marked
+// t + k + 1, and the ||u|| partial of each of its tiles and steps
+// (block_sum's order, see the banded form's note) to partials[t + s, tile].
+template <int K>
+__device__ __noinline__ void coop_store(const float* planes, const float* red, const CoopArgs& a,
+                                        float* dst, Word* out, const CoopWin& wn, int t, int k,
+                                        int tid) {
+  using C = Coop<K>;
+  constexpr int kPl = C::Geo::kPlane;
+  const size_t plane = static_cast<size_t>(a.ny) * a.nx;
+  for (int m = tid; m < kBandRows * C::kW; m += kCoopThreads) {
+    const int oy = m / C::kW, ox = m - oy * C::kW;
+    if (oy < wn.h && ox < wn.w) {
+      const size_t g = static_cast<size_t>(wn.y0 + oy) * a.nx + wn.x0 + ox;
+      const int j = (oy + K) * C::kP + ox + C::kA;
+#pragma unroll
+      for (int s = 0; s < kSpeeds; ++s) dst[s * plane + g] = planes[s * kPl + j];
+    }
+  }
+  const unsigned tag = t + k + 1;
+  for (int m = tid; m < 2 * K * C::kW; m += kCoopThreads) {
+    const int e = m / C::kW, ox = m - e * C::kW;
+    const int l = e < K ? e : wn.h - 2 * K + e;
+    if (ox < wn.w && l >= 0 && l < wn.h) {
+      Word* const p = out + static_cast<long long>(wn.q * 2 * K + e) * kSpeeds * a.nx + wn.x0 + ox;
+      const int j = (l + K) * C::kP + ox + C::kA;
+#pragma unroll
+      for (int s = 0; s < kSpeeds; ++s) ll_store(p + static_cast<long long>(s) * a.nx, planes[s * kPl + j], tag);
+    }
+  }
+  const int warp = tid >> 5, lane = tid & 31;
+  const int tiles_x = num_tiles_x(a.nx);
+  const size_t tiles = static_cast<size_t>(tiles_x) * num_bands(a.ny);
+  for (int pr = warp; pr < k * C::kTiles; pr += kCoopWarps) {
+    const int s = pr / C::kTiles, tile = pr - s * C::kTiles;
+    const float* const r = red + s * kBandRows * C::kW + tile * lbm::kTileX + lane;
+    constexpr int w = C::kW;
+    const float column = ((r[0] + r[4 * w]) + (r[2 * w] + r[6 * w])) +
+                         ((r[w] + r[5 * w]) + (r[3 * w] + r[7 * w]));
+    const float total = lbm::warp_sum(column);
+    const int tx = wn.x0 / lbm::kTileX + tile;
+    if (lane == 0 && tx < tiles_x) {
+      a.partials[static_cast<size_t>(t + s) * tiles + static_cast<size_t>(wn.q) * tiles_x + tx] =
+          total;
+    }
+  }
+}
+
+// In place, a band's last window wraps onto the band's first kA columns,
+// which its first window has overwritten by then: the first window keeps
+// them (state t, before its steps) in `stash`, and the last window takes
+// them from there once its own copies have landed.
+template <int K>
+__device__ __forceinline__ void coop_stash(float* wf, float* stash, const CoopArgs& a,
+                                           const CoopWin& wn, bool keep, int tid) {
+  using C = Coop<K>;
+  for (int m = tid; m < kSpeeds * wn.h * C::kA; m += kCoopThreads) {
+    const int d = m % C::kA, rest = m / C::kA;
+    const int l = rest % wn.h, s = rest / wn.h;
+    float* const kept = stash + (s * kBandRows + l) * C::kA + d;
+    float* const row = wf + s * C::Geo::kPlane + (K + l) * C::kP;
+    if (keep) {
+      *kept = row[C::kA + d];
+    } else {
+      const int c = a.nx - wn.x0 + C::kA + d;  // the window column of grid column d
+      if (c < C::kP) row[c] = *kept;
+    }
+  }
+}
+
+// One cooperative launch per chunk; blockDim = kCoopThreads.  Block b owns
+// bands b, b + gridDim.x, ...; every block is resident (the cooperative
+// launch guarantees it), as the polls need.  There is no grid barrier.
+template <int K>
+__global__ void __launch_bounds__(kCoopThreads, 1)
+    resident_kernel(const __grid_constant__ CoopArgs a) {
+  using C = Coop<K>;
+  using G = typename C::Geo;
+  extern __shared__ float4 coop_smem[];
+  uint8_t* const smem = reinterpret_cast<uint8_t*>(coop_smem);
+  Word* const ghost = reinterpret_cast<Word*>(smem + 2 * G::kBytes);
+  float* const red = reinterpret_cast<float*>(ghost + C::kGhostWords);
+  float* const stash = red + C::kRedFloats;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int bands = num_bands(a.ny);
+  if (static_cast<int>(blockIdx.x) >= bands) return;  // more blocks than bands
+  const int nw = (a.nx + C::kW - 1) / C::kW;          // windows per band
+  const int per_round = ((bands - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1) * nw;
+  const long long slot = coop_slot_words(bands, a.nx, K);
+  const size_t plane = static_cast<size_t>(a.ny) * a.nx;
+
+  // state 0: the edge rows of the block's bands into slot 0, marked 1
+  for (int q = blockIdx.x; q < bands; q += gridDim.x) {
+    const int y0 = q * kBandRows, h = min(kBandRows, a.ny - y0);
+    Word* const edge = a.outbox + static_cast<long long>(q) * 2 * K * kSpeeds * a.nx;
+    for (int m = tid; m < 2 * K * kSpeeds * a.nx; m += kCoopThreads) {
+      const int x = m % a.nx, rest = m / a.nx;
+      const int s = rest % kSpeeds, e = rest / kSpeeds;
+      const int l = e < K ? e : h - 2 * K + e;
+      if (l >= 0 && l < h) ll_store(edge + m, a.a[s * plane + static_cast<size_t>(y0 + l) * a.nx + x], 1);
+    }
+  }
+
+  int t = 0, r = 0;
+  for (; t < a.n_steps; ++r) {
+    const int k = min(K, a.n_steps - t);
+    const float* const src = a.in_place || r % 2 == 0 ? a.a : a.b;
+    float* const dst = a.in_place || r % 2 == 1 ? a.a : a.b;
+    Word* const in = a.outbox + (r % 2) * slot;
+    Word* const out = a.outbox + ((r + 1) % 2) * slot;
+    const unsigned want = t + 1;
+    {  // the round's first window: nothing of this round steps meanwhile
+      const CoopWin w0(0, nw, C::kW, a.ny, a.nx);
+      coop_load<K>(smem, ghost, a, src, in, w0, tid);
+      lbm::cp_async_commit();
+      lbm::cp_async_wait<0>();
+      __syncthreads();
+      coop_ghosts<K>(smem, ghost, a, in, w0, want, tid);
+    }
+    for (int i = 0; i < per_round; ++i) {
+      uint8_t* const cur = smem + (i % 2) * G::kBytes;
+      uint8_t* const nxt = smem + ((i + 1) % 2) * G::kBytes;
+      float* const planes = reinterpret_cast<float*>(cur);
+      const CoopWin wn(i, nw, C::kW, a.ny, a.nx);
+      const CoopWin wnext(i + 1, nw, C::kW, a.ny, a.nx);
+      const bool more = i + 1 < per_round;
+      __syncthreads();  // this window's ghost rows are in; the ghost words are free
+      if (more) coop_load<K>(nxt, ghost, a, src, in, wnext, tid);
+      lbm::cp_async_commit();
+      if (a.in_place && nw > 1 && i % nw == 0) coop_stash<K>(planes, stash, a, wn, true, tid);
+      {
+        const uint8_t* const wm = cur + 4 * G::kFloats;
+        const auto frow = lbm::row_bits<C::kH>(lane, [&](int rr) {
+          return rr < wn.h + 2 * K && wrap_near(wn.y0 - K + rr, a.ny) == a.ny - 2;
+        });
+        if (frow.any()) {
+          coop_steps_from<K, 1, true>(K - k + 1, planes, wm, frow, a.c, red, wn.h, wn.w);
+        } else {
+          coop_steps_from<K, 1, false>(K - k + 1, planes, wm, frow, a.c, red, wn.h, wn.w);
+        }
+      }
+      // in place, this window is written only once the next window's copies
+      // (which read its last kA columns) have landed
+      lbm::cp_async_wait<0>();
+      __syncthreads();
+      coop_store<K>(planes, red, a, dst, out, wn, t, k, tid);
+      if (more) {
+        if (a.in_place && nw > 1 && (i + 1) % nw == nw - 1) {
+          coop_stash<K>(reinterpret_cast<float*>(nxt), stash, a, wnext, false, tid);
+        }
+        coop_ghosts<K>(nxt, ghost, a, in, wnext, want, tid);
+      }
+    }
+    __syncthreads();  // the round's last window is stored and its buffers free
+    t += k;
+  }
+
+  // state n_steps back where the caller expects it: `a` for an even
+  // n_steps, else `b` (rounds alternate the buffers, or all are in `a`;
+  // each block copies its own rows, which only it wrote)
+  const float* const fin = a.in_place || r % 2 == 0 ? a.a : a.b;
+  float* const target = a.n_steps % 2 == 0 ? a.a : a.b;
+  if (fin != target) {
+    for (int q = blockIdx.x; q < bands; q += gridDim.x) {
+      const int y0 = q * kBandRows, h = min(kBandRows, a.ny - y0);
+      const size_t base = static_cast<size_t>(y0) * a.nx;
+      for (int m = tid; m < h * a.nx; m += kCoopThreads) {
+#pragma unroll
+        for (int s = 0; s < kSpeeds; ++s) target[s * plane + base + m] = fin[s * plane + base + m];
+      }
+    }
+  }
+}
+
+// ---- host side of the cooperative form ------------------------------------
+
+constexpr int kCoopMaxK = 4;
+constexpr int kMaxDevices = 64;
+// blocks of the cooperative form that can be co-resident, per device and K
+// (occupancy x SMs; 0: not prepared)
+int g_coop_blocks[kMaxDevices][kCoopMaxK + 1];
+
+// Calls fn(std::integral_constant<int, K>{}) for K = k, the one list of the
+// K the cooperative form is built for (COOP_K in ops/resident.py).
+template <class Fn>
+cudaError_t with_coop_k(int k, Fn fn) {
+  switch (k) {
+    case 1: return fn(std::integral_constant<int, 1>{});
+    case 2: return fn(std::integral_constant<int, 2>{});
+    case 3: return fn(std::integral_constant<int, 3>{});
+    case 4: return fn(std::integral_constant<int, 4>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Sets the kernel's shared-memory limit on the current device and counts
+// the blocks that can be co-resident there, unless done; *blocks gets them.
+template <int K>
+cudaError_t coop_prepared(int* blocks) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (g_coop_blocks[dev][K] == 0) {
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (err != cudaSuccess) return err;
+    if (!coop) return cudaErrorNotSupported;
+    err = cudaFuncSetAttribute(resident_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(Coop<K>::kSmemBytes));
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, resident_kernel<K>,
+                                                        kCoopThreads, Coop<K>::kSmemBytes);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;  // a block does not fit on an SM
+    g_coop_blocks[dev][K] = per_sm * sms;
+  }
+  *blocks = g_coop_blocks[dev][K];
+  return cudaSuccess;
+}
+
+// The K of the cooperative form for an (ny, nx) grid (ops/resident.py:
+// coop_k is the same rule).
+int coop_k(int ny, int nx) {
+  (void)ny;
+  (void)nx;
+  return 2;
+}
+
+// The blocks of a launch: one per band, no more than can be co-resident.
+int coop_grid(int ny, int max_blocks) {
+  return num_bands(ny) < max_blocks ? num_bands(ny) : max_blocks;
+}
+
 // ---- host side ------------------------------------------------------------
 
 // The grid of a cooperative launch: as many blocks as can be co-resident,
@@ -442,7 +940,7 @@ cudaError_t grid_blocks(int ny, int nx, int* blocks) {
   if (!coop) return cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, resident_kernel,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, resident_grid_kernel,
                                                       kThreads, 0);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
@@ -504,12 +1002,19 @@ bool banded_fits(int ny, int nx, int smem_optin, int max_bands) {
 // kernel's shared-memory limit.
 extern "C" int lbm_resident_prepare(void) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, resident_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, resident_grid_kernel);
   if (err != cudaSuccess) return lbm::status(err);
   err = cudaFuncGetAttributes(&attr, resident_banded_kernel);
   if (err != cudaSuccess) return lbm::status(err);
   int smem = 0, max_bands = 0;
   err = banded_limits(1, &smem, &max_bands);
+  if (err != cudaSuccess) return lbm::status(err);
+  for (int k = 1; k <= kCoopMaxK && err == cudaSuccess; ++k) {
+    err = with_coop_k(k, [](auto kk) {
+      int blocks = 0;
+      return coop_prepared<decltype(kk)::value>(&blocks);
+    });
+  }
   if (err != cudaSuccess) return lbm::status(err);
   int blocks = 0;
   return lbm::status(grid_blocks(1, 1, &blocks));
@@ -541,14 +1046,87 @@ extern "C" int lbm_resident_banded_scratch(int ny, int nx, long long* n_words) {
   return 0;
 }
 
-// n_steps steps on the state in `a`, ping-ponging with `b`: the state ends
+// The cooperative form's limits for K = k steps per round on the current
+// device (preparing the kernel there): the dynamic shared memory of a
+// block and the blocks that can be co-resident.
+extern "C" int lbm_resident_coop_limits(int k, int* smem_bytes, int* max_blocks) {
+  return lbm::status(with_coop_k(k, [&](auto kk) {
+    constexpr int K = decltype(kk)::value;
+    *smem_bytes = static_cast<int>(Coop<K>::kSmemBytes);
+    return coop_prepared<K>(max_blocks);
+  }));
+}
+
+// The K the cooperative form runs an (ny, nx) grid at.
+extern "C" int lbm_resident_coop_k(int ny, int nx) { return coop_k(ny, nx); }
+
+// The blocks of a cooperative launch of an ny-row grid at K = k on the
+// current device; a negative cudaError_t on failure.
+extern "C" int lbm_resident_coop_grid(int ny, int k) {
+  int max_blocks = 0;
+  const int err = lbm::status(with_coop_k(k, [&](auto kk) {
+    return coop_prepared<decltype(kk)::value>(&max_blocks);
+  }));
+  return err != 0 ? -err : coop_grid(ny, max_blocks);
+}
+
+// The scratch of a cooperative launch at K = k: the outbox, in 64-bit
+// words (two slots of edge rows).
+extern "C" int lbm_resident_coop_scratch(int ny, int nx, int k, long long* n_words) {
+  if (k < 1 || k > kCoopMaxK || ny < 1 || nx < 1) return static_cast<int>(cudaErrorInvalidValue);
+  *n_words = 2 * coop_slot_words(num_bands(ny), nx, k);
+  return 0;
+}
+
+// n_steps steps on the state in `a`: the state ends in `a` for an even
+// n_steps, in `b` for an odd one.  partials is (n_steps, tiles) float32,
+// tiles = ceil(ny/8) * ceil(nx/32).  `outbox` is the scratch that
+// lbm_resident_coop_scratch sizes for k; it is reset on `stream` before the
+// launch.  `in_place`: every round in `a` (then copied to `b` for an odd
+// n_steps), else the rounds alternate the buffers.  `k` <= 0 takes
+// lbm_resident_coop_k's; `blocks` is 0 (one block
+// per band, no more than can be co-resident) except in tests: fewer blocks
+// own several bands each, and a grid larger than can be co-resident is
+// refused with cudaErrorCooperativeLaunchTooLarge.  Launches on `stream`;
+// returns the launch's cudaError_t (0 = launched).
+extern "C" int lbm_resident_chunk(float* a, float* b, const uint8_t* mask, float* partials,
+                                  void* outbox, int ny, int nx, int n_steps, int blocks, int k,
+                                  int in_place, float w0_omega, float w1_omega, float w2_omega,
+                                  float one_minus_omega, float accel_w1, float accel_w2,
+                                  void* stream) {
+  if (ny < 1 || nx < 1 || n_steps < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (k <= 0) k = coop_k(ny, nx);
+  const lbm::StepConsts c{w0_omega,        w1_omega, w2_omega,
+                          one_minus_omega, accel_w1, accel_w2};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return lbm::status(with_coop_k(k, [&](auto kk) {
+    constexpr int K = decltype(kk)::value;
+    int max_blocks = 0;
+    cudaError_t err = coop_prepared<K>(&max_blocks);
+    if (err != cudaSuccess) return err;
+    const int grid = blocks > 0 ? blocks : coop_grid(ny, max_blocks);
+    err = cudaMemsetAsync(outbox, 0,
+                          sizeof(Word) * 2 * coop_slot_words(num_bands(ny), nx, K), st);
+    if (err != cudaSuccess) return err;
+    const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+    const bool vec = nx % 4 == 0 && nx >= Coop<K>::kP && ny >= K && aligned(a) && aligned(b) &&
+                     reinterpret_cast<uintptr_t>(mask) % 4 == 0;
+    CoopArgs args{a, b, mask, partials, static_cast<Word*>(outbox), ny, nx, n_steps,
+                  vec ? 1 : 0, in_place ? 1 : 0, c};
+    void* kargs[] = {&args};
+    return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(resident_kernel<K>), dim3(grid),
+                                       dim3(kCoopThreads), kargs, Coop<K>::kSmemBytes, st);
+  }));
+}
+
+// The grid-barrier form: n_steps steps on the state in `a`, ping-ponging with `b`: the state ends
 // in `a` for an even n_steps, in `b` for an odd one.  partials is
 // (n_steps, tiles) float32, tiles = ceil(ny/8) * ceil(nx/32).  `blocks` is
 // 0 (the co-resident limit) except in the test of a refused launch, where
 // a grid larger than can be co-resident is refused with
 // cudaErrorCooperativeLaunchTooLarge.  Launches on `stream`;
 // returns the launch's cudaError_t (0 = launched).
-extern "C" int lbm_resident_chunk(float* a, float* b, const uint8_t* mask,
+extern "C" int lbm_resident_grid_chunk(float* a, float* b, const uint8_t* mask,
                                   float* partials, int ny, int nx,
                                   int n_steps, int blocks, float w0_omega,
                                   float w1_omega, float w2_omega,
@@ -562,7 +1140,7 @@ extern "C" int lbm_resident_chunk(float* a, float* b, const uint8_t* mask,
                     one_minus_omega, accel_w1, accel_w2};
   void* args[] = {&a, &b, &mask, &partials, &ny, &nx, &n_steps, &c};
   return lbm::status(cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(resident_kernel), dim3(blocks),
+      reinterpret_cast<void*>(resident_grid_kernel), dim3(blocks),
       dim3(lbm::kTileX, lbm::kTileY), args, 0,
       static_cast<cudaStream_t>(stream)));
 }

@@ -14,8 +14,12 @@ two forms, chosen by the grid's shape before the launch
   cells in shared memory for the whole chunk and meet only their
   neighbours, through edge values that carry their step, instead of a
   grid barrier; each launch adds one to :data:`banded_launches`;
-* the cooperative form, a persistent grid with one grid barrier per step,
-  for every other grid; each launch adds one to :data:`launches`.
+* the cooperative form, for every other grid: a block owns bands of 8
+  rows (several where there are more bands than co-resident blocks) and
+  steps them K steps per round (:func:`coop_k`) window by window in shared
+  memory, on K ghost rows that the neighbouring bands publish at each
+  round's start, again without a grid barrier; each launch adds one to
+  :data:`launches`.
 
 A CUDA tensor never falls back to another form or to the plain version:
 the launch happens or the wrapper raises (a device without cooperative
@@ -48,6 +52,11 @@ CHUNK = 1000
 launches = 0
 banded_launches = 0
 
+# The K (steps per round) the cooperative form is built for (with_coop_k in
+# csrc/resident_kernel.cu), and its block size.
+COOP_K = (1, 2, 3, 4)
+COOP_THREADS = 512
+
 # A band of the banded form is one row of the step kernel's tiles.
 BAND_ROWS = step_kernel.BLOCK_Y
 # The widest grid the banded form takes (kMaxBandCols in
@@ -60,9 +69,9 @@ prepare_obstacles = step_kernel.prepare_obstacles
 
 def prepare(device: torch.device | str) -> None:
     """Build and load the kernel library and load both forms of the
-    resident kernel onto ``device`` without launching them (setting the
-    banded form's shared-memory limit); raises if the device takes no
-    cooperative launches."""
+    resident kernel onto ``device`` without launching them (setting their
+    shared-memory limits); raises if the device takes no cooperative
+    launches."""
     device = torch.device(device)
     if device.type != "cuda":
         return
@@ -128,6 +137,72 @@ def takes_banded(ny: int, nx: int, device: torch.device | str) -> bool:
     return banded_fits(ny, nx, *_banded_limits(index, nx))
 
 
+def coop_k(ny: int, nx: int) -> int:
+    """The cooperative form's steps per round for an (ny, nx) grid (the C
+    query ``lbm_resident_coop_k`` is the same rule)."""
+    return 2
+
+
+def coop_in_place(ny: int, nx: int) -> bool:
+    """Whether the cooperative form steps one state buffer in place (else
+    its rounds alternate the two)."""
+    return False
+
+
+def coop_window_cols(k: int) -> int:
+    """Own columns of the cooperative form's window at K = k: 4 tiles, 2
+    at K = 4."""
+    return (4 if k <= 3 else 2) * step_kernel.BLOCK_X
+
+
+def coop_smem_bytes(k: int) -> int:
+    """Dynamic shared memory of a cooperative block at K = k: two windows
+    (9 float32 planes and the mask bytes, rounded up to 16, of 8 + 2K rows
+    by the own columns and 4 ghost columns a side), the outbox words of a
+    window's ghost cells (2K rows by the own columns and K a side, 9 words
+    each), the ||u|| of K steps of the own cells, and the in-place stash of
+    a band's first 4 columns (9 planes by 8 rows)."""
+    cols = coop_window_cols(k)
+    rows, pitch = BAND_ROWS + 2 * k, cols + 8
+    window = 4 * 9 * rows * pitch + -(-rows * pitch // 16) * 16
+    ghost_words = 9 * 2 * k * (cols + 2 * k)
+    return 2 * window + 8 * ghost_words + 4 * (k * BAND_ROWS * cols + 9 * BAND_ROWS * 4)
+
+
+def coop_slot_words(ny: int, nx: int, k: int) -> int:
+    """64-bit words of one outbox slot of the cooperative form: 2K edge
+    rows of 9 planes per band, each a word per column (the float and the
+    step it belongs to); the outbox has two slots."""
+    return 2 * k * 9 * num_bands(ny) * nx
+
+
+def coop_blocks(ny: int, max_blocks: int) -> int:
+    """The blocks of a cooperative launch: one per band, no more than
+    ``max_blocks`` (those that can be co-resident)."""
+    return min(num_bands(ny), max_blocks)
+
+
+def coop_assignment(ny: int, blocks: int) -> list[list[int]]:
+    """The bands each block of a cooperative launch of ``blocks`` blocks
+    owns: block b takes bands b, b + blocks, ... (a block past the last
+    band owns none and returns at once)."""
+    return [list(range(b, num_bands(ny), blocks)) for b in range(blocks)]
+
+
+@functools.cache
+def _coop_limits(device_index: int, k: int) -> tuple[int, int]:
+    """(dynamic shared memory of a block, blocks that can be co-resident)
+    of the cooperative form at K = k on a CUDA device, from the kernel
+    library."""
+    lib = step_kernel._library()
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        torch.zeros(1, device=f"cuda:{device_index}")  # create the context first
+        step_kernel._raise_on(lib, lib.lbm_resident_coop_limits(
+            k, ctypes.byref(smem), ctypes.byref(blocks)), f"preparing the K={k} resident kernel")
+    return smem.value, blocks.value
+
+
 def plain_run(
     bufs: tuple[torch.Tensor, torch.Tensor],
     mask: torch.Tensor,
@@ -144,19 +219,24 @@ def plain_run(
 
 
 def _chunk_launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams,
-                    blocks: int = 0, form: str | None = None):
+                    blocks: int = 0, form: str | None = None, k: int | None = None,
+                    in_place: bool | None = None):
     """A function ``(bufs, n_steps, partials) -> None`` that runs one chunk
     on tensors shaped like ``f``: the kernel on CUDA (the form the shape
-    takes, :func:`takes_banded`), the plain version on the CPU.  Two test
-    hooks, which ``resident_run`` never passes: ``blocks`` > 0 overrides
-    the cooperative grid size (otherwise one block per band, or the
-    co-resident limit), the only way to make the card refuse a launch;
-    ``form="cooperative"`` runs the cooperative form on any grid."""
+    takes, :func:`takes_banded`), the plain version on the CPU.  Test
+    hooks, which ``resident_run`` never passes: ``blocks`` > 0 sets the
+    grid size (otherwise one block per band, or per band and segment, no
+    more than can be co-resident): fewer cooperative blocks own several
+    bands each, and a grid too large to be co-resident is the only way to
+    make the card refuse a launch; ``form="cooperative"`` runs the
+    cooperative form on any grid (``form="grid"`` its grid-barrier
+    predecessor); ``k`` sets the cooperative form's steps per round and
+    ``in_place`` whether its rounds step one buffer in place."""
     if f.device.type == "cpu":
         return lambda bufs, n, part: plain_run(bufs, mask, params, n, part)
     if f.device.type != "cuda":
         raise ValueError(f"no resident kernel for device {f.device}")
-    if form not in (None, "cooperative"):
+    if form not in (None, "cooperative", "grid"):
         raise ValueError(f"unknown form {form!r}")
     lib = step_kernel._library()
     _, ny, nx = f.shape
@@ -181,11 +261,27 @@ def _chunk_launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams,
             banded_launches += 1
         return banded
 
+    if form == "grid":
+        def grid(bufs, n, part):
+            err = lib.lbm_resident_grid_chunk(bufs[0].data_ptr(), bufs[1].data_ptr(), mask_ptr,
+                                              part.data_ptr(), ny, nx, n, blocks, *consts,
+                                              stream)
+            step_kernel._raise_on(lib, err, "resident kernel launch")
+        return grid
+
+    k = coop_k(ny, nx) if k is None else k
+    in_place = coop_in_place(ny, nx) if in_place is None else in_place
+    if k not in COOP_K:
+        raise ValueError(f"K must be one of {COOP_K}, got {k}")
+    # the bands' edge rows of two rounds, each value with its step (the
+    # launch resets it)
+    outbox = torch.empty(2 * coop_slot_words(ny, nx, k), dtype=torch.int64, device=f.device)
+
     def chunk(bufs, n, part):
         global launches
         err = lib.lbm_resident_chunk(bufs[0].data_ptr(), bufs[1].data_ptr(), mask_ptr,
-                                     part.data_ptr(), ny, nx, n, blocks,
-                                     *consts, stream)
+                                     part.data_ptr(), outbox.data_ptr(), ny, nx, n, blocks, k,
+                                     int(in_place), *consts, stream)
         step_kernel._raise_on(lib, err, "resident kernel launch")
         launches += 1
     return chunk

@@ -166,6 +166,7 @@ from __future__ import annotations
 import atexit
 import collections
 import contextlib
+import ctypes
 import hashlib
 import io
 import json
@@ -473,10 +474,11 @@ def plain_resident(f, mask, params, n, chunk):
     return bufs[n % 2], part.sum(dim=1) / (mask == 0).sum().to(torch.float32)
 
 
-def resident_form(f, mask, params, n, chunk, form):
+def resident_form(f, mask, params, n, chunk, form, k=None, blocks=0, in_place=None):
     """n steps of the resident kernel in chunks, in the form the shape takes
-    (``form`` None) or the cooperative one (the wrapper's test hook):
-    (state, av), as resident_run returns them."""
+    (``form`` None) or the one named (the wrapper's test hooks, with the
+    cooperative form's K, grid and stage): (state, av), as resident_run
+    returns them."""
     from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel
 
     if form is None:
@@ -486,7 +488,8 @@ def resident_form(f, mask, params, n, chunk, form):
     bufs = (f.clone(), torch.empty_like(f))
     part = torch.empty(chunk, step_kernel.num_partials(ny, nx), device=f.device)
     av = torch.empty(n, device=f.device)
-    launch = resident._chunk_launcher(f, mask, params, form=form)
+    launch = resident._chunk_launcher(f, mask, params, blocks=blocks, form=form, k=k,
+                                      in_place=in_place)
     for t0 in range(0, n, chunk):
         m = min(chunk, n - t0)
         launch((bufs[t0 % 2], bufs[(t0 + 1) % 2]), m, part)
@@ -505,7 +508,8 @@ BANDED_DECKS = ((64, 64), (128, 128), (128, 256), (256, 128), (256, 256))
 def check_banded_rule(card: str) -> None:
     """The C query lbm_resident_banded_fits equals resident.banded_fits on
     the card's limits; the small decks take the banded form, 512^2 and
-    1024^2 the cooperative one."""
+    1024^2 the cooperative one; the cooperative form's C queries equal its
+    Python rules."""
     from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel
 
     lib = step_kernel._library()
@@ -531,6 +535,38 @@ def check_banded_rule(card: str) -> None:
         f"{resident.band_smem_bytes(64)}, 128 {resident.band_smem_bytes(128)}, 256 "
         f"{resident.band_smem_bytes(256)} | ptxas: "
         + " | ".join(ptxas_report("resident")) + f" | {card}")
+    # the cooperative form: its C queries against the Python rules
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    coop = []
+    for k in resident.COOP_K:
+        c_smem, max_blocks = resident._coop_limits(dev, k)
+        words = ctypes.c_longlong()
+        for ny, nx in RULE_SHAPES:
+            step_kernel._raise_on(lib, lib.lbm_resident_coop_scratch(
+                ny, nx, k, ctypes.byref(words)), "sizing the cooperative outbox")
+            grid = lib.lbm_resident_coop_grid(ny, k)
+            if (words.value != 2 * resident.coop_slot_words(ny, nx, k)
+                    or grid != resident.coop_blocks(ny, max_blocks)):
+                fail(f"[3r resident] {ny}x{nx} K={k}: C outbox {words.value} words, grid "
+                     f"{grid}; Python {2 * resident.coop_slot_words(ny, nx, k)}, "
+                     f"{resident.coop_blocks(ny, max_blocks)}")
+        if c_smem != resident.coop_smem_bytes(k) or c_smem > smem:
+            fail(f"[3r resident] K={k}: C shared memory {c_smem} B, Python "
+                 f"{resident.coop_smem_bytes(k)} B, opt-in limit {smem} B")
+        coop.append(f"K={k} {c_smem} B, {max_blocks // sms} block(s) per SM")
+    for ny, nx in RULE_SHAPES:
+        if lib.lbm_resident_coop_k(ny, nx) != resident.coop_k(ny, nx):
+            fail(f"[3r resident] {ny}x{nx}: C K {lib.lbm_resident_coop_k(ny, nx)}, coop_k "
+                 f"{resident.coop_k(ny, nx)}")
+    say(f"[3r resident] cooperative form: C queries (K, outbox words, grid, shared memory) "
+        f"= the Python rules at {len(RULE_SHAPES)} shapes; K by shape "
+        + ", ".join(f"{n}^2 {resident.coop_k(n, n)}" for n in (512, 768, 1024, 2048, 4096))
+        + f"; {', '.join(coop)} | {card}")
+
+
+# shapes at which phase 3r runs the cooperative form at every built K, and
+# with fewer blocks than bands (a block owning several bands)
+COOP_K_SHAPES = ((256, 512), (100, 130), (17, 23), (24, 64), (16, 64), (8, 40))
 
 
 def phase_resident(card: str) -> tuple[dict, dict]:
@@ -540,23 +576,29 @@ def phase_resident(card: str) -> tuple[dict, dict]:
     from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel
 
     check_banded_rule(card)
-    shapes = ((1024, 1024), (256, 512), (256, 256), (128, 256), (128, 128), (64, 64),
-              (100, 130), (17, 23))
+    shapes = ((1024, 1024), (512, 512), (256, 512), (256, 256), (128, 256), (128, 128),
+              (64, 64), (100, 130), (17, 23))
     worst = {"banded": 0.0, "cooperative": 0.0}
     for seed, (ny, nx) in enumerate(shapes):
         banded = resident.takes_banded(ny, nx, "cuda")
-        forms = (None, "cooperative") if banded else (None,)
+        forms = ([(None, None, None), ("cooperative", None, None)] if banded
+                 else [(None, None, None)])
+        if (ny, nx) in COOP_K_SHAPES:
+            forms += [("cooperative", k, ip) for k in resident.COOP_K for ip in (False, True)]
         for n, chunk, guard in ((1, resident.CHUNK, False), (50, resident.CHUNK, False),
                                 (17, 6, True)):
             params, mask, f = on_card(ny, nx, 100 + seed, guard)
             fs, avs = step_kernel.run(f, mask, params, n_iters=n)
             fp, avp = plain_resident(f, mask, params, n, chunk)
-            for form in forms:
+            for form, k, ip in forms:
                 name = "banded" if banded and form is None else "cooperative"
-                tag = f"[3r resident] {name} {ny}x{nx} {n} step(s), chunk {chunk}" + (
-                    ", guard-failing row" if guard else "")
+                stage = resident.coop_in_place(ny, nx) if ip is None else ip
+                tag = (f"[3r resident] {name} {ny}x{nx} {n} step(s), chunk {chunk}"
+                       + (f", K={k if k else resident.coop_k(ny, nx)}"
+                          f"{', in place' if stage else ''}" if name != "banded" else "")
+                       + (", guard-failing row" if guard else ""))
                 resident.launches = resident.banded_launches = 0
-                fr, avr = resident_form(f, mask, params, n, chunk, form)
+                fr, avr = resident_form(f, mask, params, n, chunk, form, k, 0, ip)
                 torch.cuda.synchronize()
                 counts = (resident.banded_launches, resident.launches)
                 want = (-(-n // chunk), 0) if name == "banded" else (0, -(-n // chunk))
@@ -566,17 +608,57 @@ def phase_resident(card: str) -> tuple[dict, dict]:
                 say(f"{tag}: {sum(counts)} launch(es); "
                     f"{check_against(tag, fr, avr, fs, avs, 'step kernel', True)}; "
                     f"{check_against(tag, fr, avr, fp, avp, 'plain version', False)}")
+    coop_partials(card)
     return worst, time_whole_runs(card)
+
+
+def coop_partials(card: str) -> None:
+    """The cooperative form's per-tile partials bitwise equal to the step
+    kernel's, 17 steps in chunks of 6, at every built K; on 64 x 64 (8
+    bands) also with 1 and 3 blocks, which own several bands each."""
+    from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel
+
+    cases = [((ny, nx), k, 0, ip) for ny, nx in COOP_K_SHAPES + ((1024, 1024),)
+             for k in resident.COOP_K for ip in (False, True)]
+    cases += [((64, 64), k, blocks, ip) for k in resident.COOP_K for blocks in (1, 3)
+              for ip in (False, True)]
+    for (ny, nx), k, blocks, ip in cases:
+        params, mask, f = on_card(ny, nx, 500 + ny, True)
+        tiles = step_kernel.num_partials(ny, nx)
+        bufs = [f.clone(), torch.empty_like(f)]
+        ps = torch.empty(17, tiles, device="cuda")
+        for t in range(17):
+            step_kernel.step(bufs[t % 2], mask, params, out=bufs[(t + 1) % 2], partials=ps[t])
+        launch = resident._chunk_launcher(f, mask, params, blocks=blocks, form="cooperative",
+                                          k=k, in_place=ip)
+        rb = [f.clone(), torch.empty_like(f)]
+        pr = torch.empty(17, tiles, device="cuda")
+        for t0 in range(0, 17, 6):
+            m = min(6, 17 - t0)
+            launch((rb[t0 % 2], rb[(t0 + 1) % 2]), m, pr[t0:t0 + m])
+        torch.cuda.synchronize()
+        n_f, n_p = int((rb[1] != bufs[1]).sum().item()), int((pr != ps).sum().item())
+        if n_f or n_p:
+            fail(f"[3r resident] cooperative {ny}x{nx} K={k}{' in place' if ip else ''} blocks "
+                 f"{blocks or 'per band'}: "
+                 f"{n_f} state values and {n_p} partials differ from the step kernel")
+    say(f"[3r resident] cooperative form, 17 steps in chunks of 6 with a guard-failing row, "
+        f"partials and state bitwise equal to the step kernel's at K = "
+        f"{', '.join(map(str, resident.COOP_K))}, buffers alternating and in place, on "
+        f"{len(COOP_K_SHAPES) + 1} shapes, and on 64x64 with 1 and 3 blocks (8 bands) | {card}")
 
 
 def time_whole_runs(card: str) -> dict:
     """us per step of the resident kernel in the form the shape takes, the
     step kernel's run loop and the plain step at grids from 64^2 to 4096^2
     (one chunk of RUN_STEPS steps per timed run; the plain step one call at
-    a time); at 64^2, 128^2 and 256^2 the banded and the cooperative form in
-    turns (cooperative, banded, banded, cooperative).  Returns (resident,
-    step, plain, cooperative form) ms per step by grid."""
-    from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel
+    a time); at 64^2, 128^2 and 256^2 the banded and the cooperative form
+    in turns (cooperative, banded, banded, cooperative); from 512^2 the
+    cooperative form at every built K, its grid-barrier predecessor and
+    pallask (best_k) in turns, each twice (the order reversed the second
+    time).  Returns (resident, step, plain, cooperative form) ms per step
+    by grid."""
+    from advanced_hpc_lbm_tpu_torch.ops import kstep_kernel, resident, step_kernel
 
     times = {}
     for seed, n in enumerate((64, 128, 256, 512, 768, 1024, 2048, 4096)):
@@ -584,18 +666,39 @@ def time_whole_runs(card: str) -> dict:
         steps = RUN_STEPS if n <= 2048 else RUN_STEPS // 4
         reps = 3 if n <= 2048 else 1
 
-        def run(form=None):
-            return time_ms(lambda: resident_form(f, mask, params, steps, steps, form),
-                           reps) / steps
+        def run(form=None, k=None, in_place=None):
+            return time_ms(lambda: resident_form(f, mask, params, steps, steps, form, k, 0,
+                                                 in_place), reps) / steps
         if resident.takes_banded(n, n, "cuda"):
             c1, b1, b2, c2 = run("cooperative"), run(), run(), run("cooperative")
             r_ms, coop_ms = (b1 + b2) / 2, (c1 + c2) / 2
             forms = (f"banded {r_ms * 1e3:.2f} us ({b1 * 1e3:.2f}, {b2 * 1e3:.2f}), "
-                     f"cooperative {coop_ms * 1e3:.2f} us ({c1 * 1e3:.2f}, {c2 * 1e3:.2f}), "
-                     f"banded {coop_ms / r_ms - 1:+.1%} faster")
+                     f"cooperative K={resident.coop_k(n, n)}"
+                     f"{' in place' if resident.coop_in_place(n, n) else ''} {coop_ms * 1e3:.2f} us "
+                     f"({c1 * 1e3:.2f}, {c2 * 1e3:.2f}), banded {coop_ms / r_ms - 1:+.1%} faster")
         else:
-            r_ms = coop_ms = run()
-            forms = f"cooperative {r_ms * 1e3:.2f} us"
+            best = kstep_kernel.best_k(n, n)
+            timers = {"grid-barrier form": lambda: run("grid"),
+                      f"pallask K={best}": lambda: time_ms(
+                          lambda: kstep_kernel.run(f, mask, params, n_iters=steps, k=best),
+                          reps) / steps,
+                      **{f"K={k}{' in place' if ip else ''}": (
+                          lambda k=k, ip=ip: run("cooperative", k, ip))
+                         for k in resident.COOP_K for ip in (False, True)}}
+            got = {name: [fn()] for name, fn in timers.items()}
+            for name in reversed(list(timers)):
+                got[name].append(timers[name]())
+            mean = {name: sum(v) / 2 for name, v in got.items()}
+            rule = f"K={resident.coop_k(n, n)}" + (" in place" if resident.coop_in_place(n, n)
+                                                    else "")
+            r_ms = coop_ms = mean[rule]
+            forms = (f"cooperative {rule} {r_ms * 1e3:.2f} us; "
+                     + ", ".join(f"{name} {mean[name] * 1e3:.2f} us "
+                                 f"({v[0] * 1e3:.2f}, {v[1] * 1e3:.2f})"
+                                 for name, v in got.items())
+                     + f"; cooperative {mean['grid-barrier form'] / r_ms - 1:+.1%} faster than "
+                     f"the grid-barrier form, {mean[f'pallask K={best}'] / r_ms - 1:+.1%} than "
+                     f"pallask")
         s_ms = time_ms(lambda: step_kernel.run(f, mask, params, n_iters=steps), reps) / steps
         p_ms = (time_ms(step_timer(step_kernel.plain_step, params, mask, f), 20)
                 if n in (128, 1024) else float("nan"))
@@ -2733,19 +2836,21 @@ def main() -> int:
     from advanced_hpc_lbm_tpu_torch.ops import kstep_kernel, stream_kernel
 
     k_ms, p_ms = step_times[(1024, 1024)]
-    r_ms, _, rp_ms, coop_ms = res_times[(128, 128)]  # the reference's 128x128 deck
+    r_ms, _, rp_ms, _ = res_times[(128, 128)]  # the reference's 128x128 deck
+    _, _, cp_ms, coop_ms = res_times[(1024, 1024)]  # the 1024x1024 deck
     best = kstep_kernel.best_k(4096, 4096)
     big = k_times[(4096, 4096)]
     st = s_times[(4096, 4096)]
     src = "advanced_hpc_lbm_tpu_torch/csrc/"
-    # times per step: step at 1024^2, resident at 128^2 (one launch of
-    # RUN_STEPS steps), K-step and stream at 4096^2; no single PyTorch call
-    # computes a D2Q9 step, so library_ms is null
+    # times per step: step at 1024^2, the banded resident form at 128^2 and
+    # the cooperative one at 1024^2 (one launch of RUN_STEPS steps), K-step
+    # and stream at 4096^2; no single PyTorch call computes a D2Q9 step, so
+    # library_ms is null
     entries = [
         ("step_kernel", "step_kernel.cu", "advanced_hpc_lbm_tpu/ops/pallas_step.py:112", {},
          worst_step, k_ms, p_ms, bound(1024 * 1024, 1)),
         ("resident_kernel", "resident_kernel.cu", "advanced_hpc_lbm_tpu/ops/resident.py:88", {},
-         worst_res["cooperative"], coop_ms, rp_ms, bound(128 * 128, RUN_STEPS)),
+         worst_res["cooperative"], coop_ms, cp_ms, bound(1024 * 1024, RUN_STEPS)),
         ("resident_banded_kernel", "resident_kernel.cu",
          "advanced_hpc_lbm_tpu/ops/resident.py:88", {},
          worst_res["banded"], r_ms, rp_ms, bound(128 * 128, RUN_STEPS)),

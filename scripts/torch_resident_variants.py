@@ -1,4 +1,5 @@
-"""Variants of the banded resident kernel, timed side by side on one card.
+"""Variants of the resident kernel's two forms, timed side by side on one
+card.
 
 Each variant is a copy of ``advanced_hpc_lbm_tpu_torch/`` under
 ``build/scratch/var/<name>/`` whose ``csrc/resident_kernel.cu`` has text
@@ -6,12 +7,15 @@ edits applied.  Each copy builds its own kernel library and is timed in a
 process of its own, one after another: 50 steps against the step kernel
 (the number of differing values; the diagnostic variants differ on
 purpose) and two timings of 1000 steps of ``resident_run`` (us per step)
-at 64^2, 128^2 and 256^2.  Run from the root of a checkout on a CUDA card:
+at 64^2, 128^2 and 256^2 (the banded form's variants), or of the
+cooperative form at K = 1, 2 and 4 at 512^2 and 1024^2 (``coop_*``).  Run
+from the root of a checkout on a CUDA card:
 
     python scripts/torch_resident_variants.py [name ...]   # default: all
 
 Prints one ``RESULT <name> {size: [differing values, [us, us]]}`` line per
-variant.  The variants:
+variant (``{size K=k: ...}`` for the cooperative form).  The variants of
+the banded form:
 
   kernel       the kernel as it is
   nowait       ghost values used without waiting for their step
@@ -23,6 +27,17 @@ variant.  The variants:
                stores instead of volatile accesses
   wide         segments of up to 128 columns, 1024 threads of up to 64
                registers
+
+and of the cooperative form (the diagnostic ones give wrong results):
+
+  coop           the kernel as it is
+  coop_noghost   no ghost rows gathered from the outbox (no wait for the
+                 neighbours)
+  coop_nopublish nor edge rows published
+  coop_nostep    no cell step (the window is stored as loaded)
+  coop_nostore   the own cells not written back
+  coop_t768      768 threads per block (85 registers)
+  coop_t1024     1024 threads per block (64 registers)
 """
 
 import os
@@ -85,8 +100,47 @@ def wide(s: str) -> str:
     return replace(s, "__launch_bounds__(kMaxBandThreads, 1)", "__launch_bounds__(kMaxBandThreads)")
 
 
+def coop_noghost(s: str) -> str:
+    s = replace(s, "  for (int m = tid; m < C::kGhostCells; m += kCoopThreads) {\n    int dst;\n"
+                   "    const Word* const w",
+                "  for (int m = tid; m < 0; m += kCoopThreads) {\n    int dst;\n"
+                "    const Word* const w")
+    return replace(s, "  for (int m = tid; m < C::kGhostCells; m += kCoopThreads) {\n"
+                      "    const int e = m / C::kGhostCols, cc = m - e * C::kGhostCols;\n"
+                      "    int dst;\n    Word* const src",
+                   "  for (int m = tid; m < 0; m += kCoopThreads) {\n"
+                   "    const int e = m / C::kGhostCols, cc = m - e * C::kGhostCols;\n"
+                   "    int dst;\n    Word* const src")
+
+
+def coop_nopublish(s: str) -> str:
+    s = replace(coop_noghost(s), "ll_store(p + static_cast<long long>(s) * a.nx, "
+                                 "planes[s * kPl + j], tag);", "(void)p;")
+    return replace(s, "      if (l >= 0 && l < h) ll_store(", "      if (false) ll_store(")
+
+
+def coop_nostep(s: str) -> str:
+    return replace(s, "        if (frow.any()) {\n          coop_steps_from<K, 1, true>",
+                   "        if (true) {\n        } else if (frow.any()) {\n"
+                   "          coop_steps_from<K, 1, true>")
+
+
+def coop_nostore(s: str) -> str:
+    return replace(s, "for (int s = 0; s < kSpeeds; ++s) dst[s * plane + g] = planes[s * kPl + j];",
+                   "(void)g;")
+
+
+def coop_threads(n: int):
+    def edit(s: str) -> str:
+        return replace(s, "constexpr int kCoopThreads = 512;", f"constexpr int kCoopThreads = {n};")
+    return edit
+
+
 VARIANTS = {"kernel": [], "nowait": [nowait], "nocompute": [nocompute],
-            "late_gather": [late_gather], "relaxed": [relaxed], "wide": [wide]}
+            "late_gather": [late_gather], "relaxed": [relaxed], "wide": [wide],
+            "coop": [], "coop_noghost": [coop_noghost], "coop_nopublish": [coop_nopublish],
+            "coop_nostep": [coop_nostep], "coop_nostore": [coop_nostore],
+            "coop_t768": [coop_threads(768)], "coop_t1024": [coop_threads(1024)]}
 
 TIMER = r'''
 import sys, json
@@ -107,6 +161,26 @@ for n in (64, 128, 256):
 print("RESULT", {name!r}, json.dumps(out), flush=True)
 '''
 
+COOP_TIMER = r'''
+import sys, json
+sys.path.append({root!r})
+import chip_smoke as c
+from advanced_hpc_lbm_tpu_torch.ops import _build, step_kernel
+assert str(_build.CSRC).startswith({pkgdir!r}), _build.CSRC
+_build.build()
+out = {{}}
+for n in (512, 1024):
+    params, mask, f = c.on_card(n, n, 200 + n)
+    fs, _ = step_kernel.run(f, mask, params, n_iters=50)
+    for k in (1, 2, 4):
+        fr, _ = c.resident_form(f, mask, params, 50, 1000, "cooperative", k)
+        diff = int((fr != fs).sum().item())
+        ms = [c.time_ms(lambda: c.resident_form(f, mask, params, 1000, 1000, "cooperative", k),
+                        3) / 1000 for _ in range(2)]
+        out[f"{{n}} K={{k}}"] = (diff, [m * 1e3 for m in ms])
+print("RESULT", {name!r}, json.dumps(out), flush=True)
+'''
+
 
 def main() -> int:
     chosen = sys.argv[1:] or list(VARIANTS)
@@ -122,7 +196,8 @@ def main() -> int:
         src.write_text(text)
     for name in chosen:  # one at a time: each times on the whole card
         d = OUT / name
-        code = TIMER.format(root=str(ROOT), pkgdir=str(d), name=name)
+        timer = COOP_TIMER if name.startswith("coop") else TIMER
+        code = timer.format(root=str(ROOT), pkgdir=str(d), name=name)
         r = subprocess.run([sys.executable, "-c", code], cwd=d, capture_output=True, text=True,
                            env=dict(os.environ, PYTHONPATH=str(d)))
         lines = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT")]

@@ -18,6 +18,8 @@ same mesh laid on cuda:0 alone with 0 differing values, av included (those
 cases skip where fewer cards are visible).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -157,13 +159,67 @@ def test_banded_resident_matches_step_kernel_bitwise(ny, nx):
     assert int((fb != fc).sum()) == 0 and int((pb != pc).sum()) == 0
 
 
-def test_wide_grid_runs_the_cooperative_form():
-    params, mask, f = _on_card(256, 512, seed=9)
-    assert not resident.takes_banded(256, 512, "cuda")
+@pytest.mark.parametrize("ny,nx", [(256, 512), (512, 512)])
+def test_wide_grid_runs_the_cooperative_form(ny, nx):
+    """Grids the banded form refuses: resident_run launches the cooperative
+    form once per chunk, and its state and av equal the step run's bit for
+    bit."""
+    params, mask, f = _on_card(ny, nx, seed=9)
+    assert not resident.takes_banded(ny, nx, "cuda")
     before = (resident.launches, resident.banded_launches)
-    resident.resident_run(f, mask, params, n_iters=4, chunk=2)
+    fr, avr = resident.resident_run(f, mask, params, n_iters=17, chunk=6)
     torch.cuda.synchronize()
-    assert (resident.launches - before[0], resident.banded_launches - before[1]) == (2, 0)
+    assert (resident.launches - before[0], resident.banded_launches - before[1]) == (3, 0)
+    fs, avs = step_kernel.run(f, mask, params, n_iters=17, chunk=6)
+    assert int((fr != fs).sum()) == 0
+    assert int((avr != avs).sum()) == 0
+
+
+@pytest.mark.parametrize("in_place", [False, True], ids=["alternating", "in-place"])
+@pytest.mark.parametrize("k", resident.COOP_K)
+@pytest.mark.parametrize("ny,nx,blocks", [
+    (256, 512, 0), (512, 512, 0), (1024, 1024, 0),
+    (100, 130, 0), (17, 23, 0),  # ny % 8 != 0 and nx % 32 != 0 (the form hook)
+    (8, 40, 0), (16, 64, 0), (24, 64, 0),  # one, two and three bands
+    (64, 64, 1), (64, 64, 3),  # 8 bands on 1 and 3 blocks: a block owns several
+])
+def test_cooperative_resident_matches_step_kernel_bitwise(ny, nx, blocks, k, in_place):
+    """The cooperative form at every built K, its buffers alternating or
+    one in place: 17 steps in chunks of 6 (6 = 4 + 2 and 5 = 4 + 1 at K =
+    4: rounds of n mod K steps), a guard-failing forcing row, 0 differing
+    values in f and bitwise-equal partials against the step kernel."""
+    params, mask, f = _on_card(ny, nx, seed=ny + nx + k)
+    mask = step_kernel.prepare_obstacles(mask)
+    tiles = step_kernel.num_partials(ny, nx)
+    before = resident.launches
+    launcher = resident._chunk_launcher(f, mask, params, blocks=blocks, form="cooperative", k=k,
+                                        in_place=in_place)
+    fc, pc = _chunked_partials(launcher, f, 17, 6, tiles)
+    torch.cuda.synchronize()
+    assert resident.launches - before == 3
+    bufs = [f.clone(), torch.empty_like(f)]
+    ps = torch.empty(17, tiles, device="cuda")
+    for t in range(17):
+        step_kernel.step(bufs[t % 2], mask, params, out=bufs[(t + 1) % 2], partials=ps[t])
+    assert int((fc != bufs[1]).sum()) == 0
+    assert int((pc != ps).sum()) == 0
+
+
+@pytest.mark.parametrize("k", resident.COOP_K)
+def test_cooperative_rules_in_c_equal_python(k):
+    """The cooperative form's C queries against its Python rules on the
+    card: K by shape, the grid (one block per band up to the co-resident
+    limit), the outbox words, the shared memory of a block."""
+    lib = step_kernel._library()
+    smem, max_blocks = resident._coop_limits(torch.cuda.current_device(), k)
+    assert smem == resident.coop_smem_bytes(k)
+    assert max_blocks >= torch.cuda.get_device_properties(0).multi_processor_count
+    words = ctypes.c_longlong()
+    for ny, nx in [(8, 32), (17, 23), (256, 512), (1024, 1024), (4096, 4096), (8192, 64)]:
+        assert lib.lbm_resident_coop_k(ny, nx) == resident.coop_k(ny, nx)
+        assert lib.lbm_resident_coop_grid(ny, k) == resident.coop_blocks(ny, max_blocks)
+        assert lib.lbm_resident_coop_scratch(ny, nx, k, ctypes.byref(words)) == 0
+        assert words.value == 2 * resident.coop_slot_words(ny, nx, k)
 
 
 @pytest.mark.parametrize("ny,nx", [(8, 32), (64, 64), (256, 256), (1056, 64), (1064, 64),

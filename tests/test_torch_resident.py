@@ -166,3 +166,92 @@ def test_band_partition(ny, bands):
     assert resident.band_partition(ny) == bands
     assert resident.num_bands(ny) == len(bands)
     assert sum(h for _, h, _, _ in bands) == ny
+
+
+# ---- the cooperative form's rules ------------------------------------------------
+
+
+@pytest.mark.parametrize("ny,nx", [(512, 512), (768, 768), (1024, 1024), (2048, 2048),
+                                   (4096, 4096), (17, 23), (100, 130)])
+def test_coop_k_rule(ny, nx):
+    """One K per shape, decided before the launch, among those built."""
+    k = resident.coop_k(ny, nx)
+    assert k in resident.COOP_K
+    assert k == 2
+
+
+@pytest.mark.parametrize("k,smem", [(1, 124_608), (2, 168_128), (3, 212_224), (4, 136_064)])
+def test_coop_smem_bytes_fit_an_h100(k, smem):
+    """Two windows of 8 + 2K rows (128 own columns, 64 at K = 4, and 4
+    ghost columns a side; 9 float32 planes and the mask rounded up to 16),
+    the 9 outbox words of each of a window's 2K x (own columns + 2K) ghost
+    cells, K x 8 x the own columns of ||u|| and the in-place stash of 9 x 8
+    x 4 values: within the H100's 232 448 B of opt-in shared memory at
+    every built K."""
+    assert resident.coop_smem_bytes(k) == smem <= H100_SMEM
+
+
+@pytest.mark.parametrize("ny,nx,k,words", [
+    (1024, 1024, 2, 128 * 4 * 9 * 1024), (1024, 1024, 3, 128 * 6 * 9 * 1024),
+    (17, 23, 1, 3 * 2 * 9 * 23), (8, 32, 4, 1 * 8 * 9 * 32), (2048, 512, 2, 256 * 4 * 9 * 512),
+])
+def test_coop_slot_words(ny, nx, k, words):
+    """2K edge rows of 9 planes per band (a ragged band too), nx words
+    each; the outbox holds two slots."""
+    assert resident.coop_slot_words(ny, nx, k) == words
+
+
+@pytest.mark.parametrize("ny,blocks,owned", [
+    (8, 132, [[0]] + [[]] * 131),  # one band: its own neighbour both ways
+    (5, 1, [[0]]),
+    (16, 132, [[0], [1]] + [[]] * 130),  # two bands: each the other's neighbour
+    (17, 132, [[0], [1], [2]] + [[]] * 129),  # three bands, the last one row tall
+    (64, 3, [[0, 3, 6], [1, 4, 7], [2, 5]]),  # a block owns several bands
+    (64, 1, [list(range(8))]),
+    (4096, 132, [list(range(b, 512, 132)) for b in range(132)]),
+])
+def test_coop_assignment(ny, blocks, owned):
+    """Block b owns bands b, b + blocks, ...; every band has one owner."""
+    got = resident.coop_assignment(ny, blocks)
+    assert got == owned
+    assert sorted(q for bands in got for q in bands) == list(range(resident.num_bands(ny)))
+
+
+@pytest.mark.parametrize("ny,max_blocks,blocks", [
+    (1024, 132, 128), (2048, 132, 132), (8, 132, 1), (17, 132, 3), (512, 264, 64),
+])
+def test_coop_blocks(ny, max_blocks, blocks):
+    """One block per band, no more than can be co-resident."""
+    assert resident.coop_blocks(ny, max_blocks) == blocks
+
+
+def _edge_positions(h, k):
+    """The own row of a band of h rows that each outbox position holds
+    (csrc/resident_kernel.cu: position e < K own row e, e >= K own row
+    h - 2K + e; None where no row goes)."""
+    return [(e if e < h else None) if e < k else (h - 2 * k + e if h - 2 * k + e >= 0 else None)
+            for e in range(2 * k)]
+
+
+@pytest.mark.parametrize("k", resident.COOP_K)
+@pytest.mark.parametrize("ny", [1, 2, 3, 5, 8, 9, 10, 16, 17, 19, 24, 27, 100])
+def test_coop_ghost_rows_are_published(ny, k):
+    """Every ghost row a window gathers (the K rows above and the K below
+    its band, wrapped) is a row that its owning band publishes, at the
+    position the gather reads: the kernel's mapping, restated, on one
+    band, two, three, ragged last bands shorter than K and grids shorter
+    than K."""
+    bands = resident.band_partition(ny)
+    slot = {}
+    for q, (y0, h, _, _) in enumerate(bands):
+        for e, l in enumerate(_edge_positions(h, k)):
+            if l is not None:
+                slot[(q, e)] = y0 + l
+    for y0, h, _, _ in bands:
+        for r in [*range(k), *range(k + h, 2 * k + h)]:  # window rows of the ghosts
+            g = (y0 - k + r) % ny
+            p = g // resident.BAND_ROWS
+            l = g - p * resident.BAND_ROWS
+            hp = bands[p][1]
+            pos = l - hp + 2 * k if r < k else l
+            assert slot.get((p, pos)) == g, (y0, r, g, p, pos)
