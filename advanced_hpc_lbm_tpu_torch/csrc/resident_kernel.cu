@@ -426,50 +426,51 @@ __global__ void __launch_bounds__(kMaxBandThreads, 1)
 
 // ---- the cooperative form ---------------------------------------------------
 
-// A block of the cooperative form: 16 warps, one block per SM (its windows
-// take most of the SM's shared memory, its threads all of its registers at
-// 128 each).
+// A block of the cooperative form: 16 warps, one block per SM (its two
+// windows take most of the SM's shared memory, its threads all of its
+// registers at 128 each).
 constexpr int kCoopThreads = 512;
 constexpr int kCoopWarps = kCoopThreads / 32;
 
 // The geometry of the cooperative form for K steps per round.  A window is
-// a band's own 8 rows by kW own columns (whole tiles) with K ghost rows
-// above and below and kA = K rounded up to 4 ghost columns left and right
+// a band's 8 rows by kW = 4 tiles of own columns with K ghost rows above
+// and below and kA = K rounded up to 4 ghost columns left and right
 // (16-byte rows of device memory); it steps K times in place while the
-// next window, and the next window's ghost words, arrive in a second
-// buffer.  kW is 4 tiles, 2 at K = 4, so that two windows, the ghost words
-// and the ||u|| of K steps fit the card's 232 448 B of opt-in shared
-// memory.
+// next window arrives in a second buffer.
 template <int K>
 struct Coop {
-  static constexpr int kW = (K <= 3 ? 4 : 2) * lbm::kTileX;  // own columns
+  static constexpr int kW = 4 * lbm::kTileX;  // own columns
   static constexpr int kTiles = kW / lbm::kTileX;
   static constexpr int kA = (K + 3) / 4 * 4;  // ghost columns loaded per side
   static constexpr int kH = kBandRows + 2 * K;  // window rows
   static constexpr int kP = kW + 2 * kA;        // window columns = row pitch
   static constexpr int kGroups = kP / 4;        // 16-byte groups per window row
   using Geo = lbm::WinGeo<kH, kP>;
-  // the ghost cells a window gathers from the outbox: K rows above and K
-  // below, the K columns beyond the own ones on either side; their 9
-  // words each, [2K][9][kGhostCols]
-  static constexpr int kGhostCols = kW + 2 * K;
-  static constexpr int kGhostCells = 2 * K * kGhostCols;
-  static constexpr int kGhostWords = kSpeeds * kGhostCells;
-  // ||u|| of the own cells, per step of a round: [K][kBandRows][kW]
+  // ||u|| of the own cells, per step of a round: [K][8][kW]
   static constexpr int kRedFloats = K * kBandRows * kW;
-  // in place: a band's first kA columns at the round's start, [9][8][kA]
-  static constexpr int kStashFloats = kSpeeds * kBandRows * kA;
-  static constexpr size_t kSmemBytes = 2 * static_cast<size_t>(Geo::kBytes) +
-                                       sizeof(Word) * kGhostWords +
-                                       sizeof(float) * (kRedFloats + kStashFloats);
+  static constexpr size_t kSmemBytes =
+      2 * static_cast<size_t>(Geo::kBytes) + sizeof(float) * kRedFloats;
 };
 
-// Words of one outbox slot of the cooperative form: for every band, 2K
-// edge rows (position e < K: own row e; e >= K: own row h - 2K + e, h the
-// band's rows) of 9 planes, nx wide.  A row that is both (h < 2K) is in
-// both positions; a position that is neither (h < K) is never written.
-__host__ __device__ constexpr long long coop_slot_words(int bands, int nx, int k) {
-  return 2LL * k * kSpeeds * bands * nx;
+// Windows of a band nx wide, and the outbox's words: one per band and
+// window.
+__host__ __device__ constexpr int coop_windows(int nx) {
+  return (nx + 4 * lbm::kTileX - 1) / (4 * lbm::kTileX);
+}
+
+__host__ __device__ constexpr long long coop_flag_words(int ny, int nx) {
+  return static_cast<long long>(num_bands(ny)) * coop_windows(nx);
+}
+
+// The steps of round r of a chunk of n steps at K steps per round: rounds
+// of K and a last one of n mod K, with one round split in two where that
+// makes the number of rounds as even as n, so that the state ends in the
+// buffer the caller expects (ops/resident.py: coop_rounds).
+__host__ __device__ inline int coop_round_steps(int r, int n, int k) {
+  const int rounds = (n + k - 1) / k, tail = n - k * (rounds - 1);
+  if (rounds % 2 == n % 2) return r < rounds - 1 ? k : tail;
+  if (tail >= 2) return r < rounds - 1 ? k : (r == rounds - 1 ? tail - 1 : 1);
+  return r < rounds - 2 ? k : (r == rounds - 2 ? k - 1 : 1);
 }
 
 // v mod n for v within one n of [0, n), else by the general wrap (grids
@@ -483,69 +484,94 @@ __device__ __forceinline__ int wrap_near(int v, int n) {
   return static_cast<unsigned>(v) < static_cast<unsigned>(n) ? v : lbm::wrap(v, n);
 }
 
-// An asynchronous 8-byte copy global -> shared (no wait).
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
-}
-
 // The kernel's arguments, a __grid_constant__ parameter (the out-of-line
 // functions below read them by reference).  `vec`: 16-byte window rows (nx
 // % 4 == 0, nx >= the window's pitch, ny >= K, aligned buffers).
-// `in_place`: every round reads and writes `a` (else rounds alternate
-// a -> b -> a).
 struct CoopArgs {
   float* a;
   float* b;
   const uint8_t* mask;
   float* partials;
-  Word* outbox;  // two slots of coop_slot_words
-  int ny, nx, n_steps, vec, in_place;
+  Word* flags;  // coop_flag_words: [bands][windows]
+  int ny, nx, n_steps, vec;
   lbm::StepConsts c;
 };
 
-// Window i of a block's round: band q (rows y0 .. y0+h-1), own columns
-// x0 .. x0+w-1.  The block's bands are blockIdx.x, blockIdx.x + gridDim.x,
-// ...; each is walked window by window along x.
+// A window of a block's round: band q (rows y0 .. y0+h-1), window c (own
+// columns x0 .. x0+w-1).  The block's bands are blockIdx.x, blockIdx.x +
+// gridDim.x, ...; each is walked window by window along x.
 struct CoopWin {
-  int q, y0, h, x0, w;
-  __device__ __forceinline__ CoopWin(int i, int nw, int kw, int ny, int nx) {
-    q = blockIdx.x + (i / nw) * gridDim.x;
+  int q, y0, h, c, x0, w;
+  __device__ __forceinline__ void first(int band, int kw, const CoopArgs& a) {
+    q = band;
     y0 = q * kBandRows;
-    h = min(kBandRows, ny - y0);
-    x0 = (i % nw) * kw;
-    w = min(kw, nx - x0);
+    h = min(kBandRows, a.ny - y0);
+    c = x0 = 0;
+    w = min(kw, a.nx);
+  }
+  // The window after this one; false at the end of the block's round.
+  __device__ __forceinline__ bool next(int kw, int bands, const CoopArgs& a) {
+    if (x0 + kw < a.nx) {
+      ++c;
+      x0 += kw;
+      w = min(kw, a.nx - x0);
+    } else if (q + static_cast<int>(gridDim.x) < bands) {
+      first(q + gridDim.x, kw, a);
+    } else {
+      return false;
+    }
+    return true;
   }
 };
 
-// Ghost cell m of window wn: where its plane-0 word lies in the outbox
-// slot (returned; plane s is s * nx further) and where its value goes in a
-// window plane (dst).  m runs over [2K edge rows][kW + 2K columns]; edge
-// row e < K is window row e (above the band), e >= K window row h + e
-// (below it).  The grid row it images belongs to band p at own row l: a
-// row above the band is one of p's bottom K rows, a row below one of its
-// top K rows, whatever the bands' heights.
+// The flag that window wn's ghost cells wait for, entry e < 12 (one lane of
+// a warp each): the band of the nearest or the farthest ghost row above or
+// below (e / 3; a band that is only a row tall puts the farthest one in the
+// band beyond), at the window before, at or after wn's (e % 3, wrapped);
+// -1 where that row is wn's own band, which needs no flag.
 template <int K>
-__device__ __forceinline__ long long coop_ghost(const CoopArgs& a, const CoopWin& wn, int m,
-                                                int& dst) {
-  using C = Coop<K>;
-  const int cc = m % C::kGhostCols, e = m / C::kGhostCols;
-  const int r = e < K ? e : wn.h + e;
-  dst = r * C::kP + C::kA - K + cc;
-  const int gy = wrap_near(wn.y0 - K + r, a.ny);
-  const int gx = wrap_near(wn.x0 - K + cc, a.nx);
-  const int p = gy / kBandRows, l = gy - p * kBandRows;
-  const int pos = e < K ? l - min(kBandRows, a.ny - p * kBandRows) + 2 * K : l;
-  return static_cast<long long>(p * 2 * K + pos) * kSpeeds * a.nx + gx;
+__device__ __forceinline__ long long coop_flag(const CoopArgs& a, const CoopWin& wn, int e) {
+  const int side = e / 3;
+  const int dy = side == 0 ? -1 : side == 1 ? -K : side == 2 ? wn.h : wn.h + K - 1;
+  const int p = wrap_near(wn.y0 + dy, a.ny) / kBandRows;
+  if (p == wn.q) return -1;
+  const int nw = coop_windows(a.nx);
+  return static_cast<long long>(p) * nw + wrap_near(wn.c - 1 + e % 3, nw);
 }
 
-// Issue the copies of window `wn` (no wait): its own rows of `src` and the
-// mask of its own and ghost rows into `buf`, its ghost cells' outbox words
-// (slot `in`) into `ghost`.  Window cell (r, c) is grid cell (y0 - K + r,
-// x0 - kA + c), wrapped.
+// Lane e of warp 0 loads the flag of entry e (see coop_flag) into `word`
+// (no wait; 0 where no flag is needed).
 template <int K>
-__device__ __noinline__ void coop_load(uint8_t* buf, Word* ghost, const CoopArgs& a,
-                                       const float* src, Word* in, const CoopWin& wn, int tid) {
+__device__ __forceinline__ Word coop_flag_load(const CoopArgs& a, const CoopWin& wn, int lane) {
+  if (lane >= 12) return ~0ULL;
+  const long long f = coop_flag<K>(a, wn, lane);
+  return f < 0 ? ~0ULL : ll_load(a.flags + f);
+}
+
+// Warp 0 waits until every flag window wn's ghost cells need is at `want`
+// or later (state t, t + 1 the step it carries) and then fences, so that
+// the block's copies after the next barrier read what the flags' writers
+// stored before them.
+template <int K>
+__device__ __forceinline__ void coop_flag_wait(const CoopArgs& a, const CoopWin& wn, Word word,
+                                               unsigned want, int lane) {
+  for (int polls = 0; static_cast<unsigned>(word >> 32) < want; ++polls) {
+    if (polls >= kMaxPolls) __trap();
+    word = ll_load(a.flags + coop_flag<K>(a, wn, lane));
+  }
+  __syncwarp();
+  __threadfence();
+}
+
+// Issue the copies of window `wn` from `src` into `buf` (no wait): the
+// state and the mask of its own rows and of its K ghost rows above and
+// below.  Window cell (r, c) is grid cell (y0 - K + r, x0 - kA + c),
+// wrapped.  Other bands' rows are read from device memory, never from this
+// SM's L1 (cp.async.cg, or __ldcg on the 4-byte path): their bands wrote
+// them.
+template <int K>
+__device__ __noinline__ void coop_load(uint8_t* buf, const CoopArgs& a, const float* src,
+                                       const CoopWin& wn, int tid) {
   using C = Coop<K>;
   using G = typename C::Geo;
   float* const wf = reinterpret_cast<float*>(buf);
@@ -562,55 +588,22 @@ __device__ __noinline__ void coop_load(uint8_t* buf, Word* ghost, const CoopArgs
       const size_t gi = static_cast<size_t>(gy) * a.nx + gx;
       const int j = r * C::kP + 4 * g;
       lbm::cp_async4(wm + j, a.mask + gi);
-      if (r >= K && r < K + wn.h) {
 #pragma unroll
-        for (int s = 0; s < kSpeeds; ++s) lbm::cp_async16(wf + s * G::kPlane + j, src + s * plane + gi);
-      }
+      for (int s = 0; s < kSpeeds; ++s) lbm::cp_async16(wf + s * G::kPlane + j, src + s * plane + gi);
     }
   } else {
     for (int m = tid; m < rows * C::kP; m += kCoopThreads) {
       const int r = m / C::kP, c = m - r * C::kP;
-      const size_t gi = static_cast<size_t>(wrap_near(wn.y0 - K + r, a.ny)) * a.nx +
-                        wrap_near(wn.x0 - C::kA + c, a.nx);
+      const int gy = wrap_near(wn.y0 - K + r, a.ny);
+      const size_t gi = static_cast<size_t>(gy) * a.nx + wrap_near(wn.x0 - C::kA + c, a.nx);
       wm[m] = a.mask[gi];  // read only after the wait and barrier, like the copies
-      if (r >= K && r < K + wn.h) {
+      if (gy / kBandRows == wn.q) {
 #pragma unroll
         for (int s = 0; s < kSpeeds; ++s) lbm::cp_async4(wf + s * G::kPlane + m, src + s * plane + gi);
-      }
-    }
-  }
-  for (int m = tid; m < C::kGhostCells; m += kCoopThreads) {
-    int dst;
-    const Word* const w = in + coop_ghost<K>(a, wn, m, dst);
-    const int e = m / C::kGhostCols, cc = m - e * C::kGhostCols;
+      } else {
 #pragma unroll
-    for (int s = 0; s < kSpeeds; ++s) {
-      cp_async8(ghost + (e * kSpeeds + s) * C::kGhostCols + cc, w + static_cast<long long>(s) * a.nx);
-    }
-  }
-}
-
-// Window wn's ghost cells from their copied outbox words into `buf`.  A
-// copy is an early read, not a wait: a word whose step is not `want`
-// (state t + 1) yet, or that came from a stale line, is read again with
-// volatile loads until it is.
-template <int K>
-__device__ __noinline__ void coop_ghosts(uint8_t* buf, const Word* ghost, const CoopArgs& a,
-                                         Word* in, const CoopWin& wn, unsigned want, int tid) {
-  using C = Coop<K>;
-  float* const wf = reinterpret_cast<float*>(buf);
-  for (int m = tid; m < C::kGhostCells; m += kCoopThreads) {
-    const int e = m / C::kGhostCols, cc = m - e * C::kGhostCols;
-    int dst;
-    Word* const src = in + coop_ghost<K>(a, wn, m, dst);
-#pragma unroll
-    for (int s = 0; s < kSpeeds; ++s) {
-      Word word = ghost[(e * kSpeeds + s) * C::kGhostCols + cc];
-      for (int polls = 0; static_cast<unsigned>(word >> 32) != want; ++polls) {
-        if (polls >= kMaxPolls) __trap();
-        word = ll_load(src + static_cast<long long>(s) * a.nx);
+        for (int s = 0; s < kSpeeds; ++s) wf[s * G::kPlane + m] = __ldcg(src + s * plane + gi);
       }
-      wf[s * C::Geo::kPlane + dst] = __uint_as_float(static_cast<unsigned>(word));
     }
   }
 }
@@ -661,7 +654,7 @@ __device__ __forceinline__ void coop_step(const Win& win, float* planes,
 }
 
 // Steps S..K of a round in the window `planes`; the ||u|| of step S into
-// red, of each later step into the next kBandRows x kW floats.
+// red, of each later step into the next 8 x kW floats.
 template <int K, int S, bool kForce>
 __device__ __forceinline__ void coop_steps(float* planes, const uint8_t* mask,
                                            const lbm::RowBits<(Coop<K>::kH + 31) / 32>& frow,
@@ -692,13 +685,12 @@ __device__ __forceinline__ void coop_steps_from(int s0, float* planes, const uin
 }
 
 // After a round of k steps from state t: window wn's own cells (in the
-// window `planes`) to dst, its edge rows into the outbox slot `out` marked
-// t + k + 1, and the ||u|| partial of each of its tiles and steps
-// (block_sum's order, see the banded form's note) to partials[t + s, tile].
+// window `planes`) to dst, and the ||u|| partial of each of its tiles and
+// steps (block_sum's order, see the banded form's note) to partials[t + s,
+// tile].
 template <int K>
 __device__ __noinline__ void coop_store(const float* planes, const float* red, const CoopArgs& a,
-                                        float* dst, Word* out, const CoopWin& wn, int t, int k,
-                                        int tid) {
+                                        float* dst, const CoopWin& wn, int t, int k, int tid) {
   using C = Coop<K>;
   constexpr int kPl = C::Geo::kPlane;
   const size_t plane = static_cast<size_t>(a.ny) * a.nx;
@@ -709,17 +701,6 @@ __device__ __noinline__ void coop_store(const float* planes, const float* red, c
       const int j = (oy + K) * C::kP + ox + C::kA;
 #pragma unroll
       for (int s = 0; s < kSpeeds; ++s) dst[s * plane + g] = planes[s * kPl + j];
-    }
-  }
-  const unsigned tag = t + k + 1;
-  for (int m = tid; m < 2 * K * C::kW; m += kCoopThreads) {
-    const int e = m / C::kW, ox = m - e * C::kW;
-    const int l = e < K ? e : wn.h - 2 * K + e;
-    if (ox < wn.w && l >= 0 && l < wn.h) {
-      Word* const p = out + static_cast<long long>(wn.q * 2 * K + e) * kSpeeds * a.nx + wn.x0 + ox;
-      const int j = (l + K) * C::kP + ox + C::kA;
-#pragma unroll
-      for (int s = 0; s < kSpeeds; ++s) ll_store(p + static_cast<long long>(s) * a.nx, planes[s * kPl + j], tag);
     }
   }
   const int warp = tid >> 5, lane = tid & 31;
@@ -740,28 +721,6 @@ __device__ __noinline__ void coop_store(const float* planes, const float* red, c
   }
 }
 
-// In place, a band's last window wraps onto the band's first kA columns,
-// which its first window has overwritten by then: the first window keeps
-// them (state t, before its steps) in `stash`, and the last window takes
-// them from there once its own copies have landed.
-template <int K>
-__device__ __forceinline__ void coop_stash(float* wf, float* stash, const CoopArgs& a,
-                                           const CoopWin& wn, bool keep, int tid) {
-  using C = Coop<K>;
-  for (int m = tid; m < kSpeeds * wn.h * C::kA; m += kCoopThreads) {
-    const int d = m % C::kA, rest = m / C::kA;
-    const int l = rest % wn.h, s = rest / wn.h;
-    float* const kept = stash + (s * kBandRows + l) * C::kA + d;
-    float* const row = wf + s * C::Geo::kPlane + (K + l) * C::kP;
-    if (keep) {
-      *kept = row[C::kA + d];
-    } else {
-      const int c = a.nx - wn.x0 + C::kA + d;  // the window column of grid column d
-      if (c < C::kP) row[c] = *kept;
-    }
-  }
-}
-
 // One cooperative launch per chunk; blockDim = kCoopThreads.  Block b owns
 // bands b, b + gridDim.x, ...; every block is resident (the cooperative
 // launch guarantees it), as the polls need.  There is no grid barrier.
@@ -772,56 +731,45 @@ __global__ void __launch_bounds__(kCoopThreads, 1)
   using G = typename C::Geo;
   extern __shared__ float4 coop_smem[];
   uint8_t* const smem = reinterpret_cast<uint8_t*>(coop_smem);
-  Word* const ghost = reinterpret_cast<Word*>(smem + 2 * G::kBytes);
-  float* const red = reinterpret_cast<float*>(ghost + C::kGhostWords);
-  float* const stash = red + C::kRedFloats;
+  float* const red = reinterpret_cast<float*>(smem + 2 * G::kBytes);
   const int tid = threadIdx.x, lane = tid & 31;
+  const bool flagger = tid < 32;  // warp 0 waits for the neighbours' flags
   const int bands = num_bands(a.ny);
   if (static_cast<int>(blockIdx.x) >= bands) return;  // more blocks than bands
-  const int nw = (a.nx + C::kW - 1) / C::kW;          // windows per band
-  const int per_round = ((bands - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1) * nw;
-  const long long slot = coop_slot_words(bands, a.nx, K);
-  const size_t plane = static_cast<size_t>(a.ny) * a.nx;
 
-  // state 0: the edge rows of the block's bands into slot 0, marked 1
-  for (int q = blockIdx.x; q < bands; q += gridDim.x) {
-    const int y0 = q * kBandRows, h = min(kBandRows, a.ny - y0);
-    Word* const edge = a.outbox + static_cast<long long>(q) * 2 * K * kSpeeds * a.nx;
-    for (int m = tid; m < 2 * K * kSpeeds * a.nx; m += kCoopThreads) {
-      const int x = m % a.nx, rest = m / a.nx;
-      const int s = rest % kSpeeds, e = rest / kSpeeds;
-      const int l = e < K ? e : h - 2 * K + e;
-      if (l >= 0 && l < h) ll_store(edge + m, a.a[s * plane + static_cast<size_t>(y0 + l) * a.nx + x], 1);
-    }
-  }
-
-  int t = 0, r = 0;
-  for (; t < a.n_steps; ++r) {
-    const int k = min(K, a.n_steps - t);
-    const float* const src = a.in_place || r % 2 == 0 ? a.a : a.b;
-    float* const dst = a.in_place || r % 2 == 1 ? a.a : a.b;
-    Word* const in = a.outbox + (r % 2) * slot;
-    Word* const out = a.outbox + ((r + 1) % 2) * slot;
+  int t = 0;
+  for (int r = 0; t < a.n_steps; ++r) {
+    const int k = coop_round_steps(r, a.n_steps, K);
+    const float* const src = r % 2 == 0 ? a.a : a.b;
+    float* const dst = r % 2 == 0 ? a.b : a.a;
+    // state 0 is in place before the launch; state t > 0 of a neighbour's
+    // window is in `src` once its flag carries t + 1
     const unsigned want = t + 1;
-    {  // the round's first window: nothing of this round steps meanwhile
-      const CoopWin w0(0, nw, C::kW, a.ny, a.nx);
-      coop_load<K>(smem, ghost, a, src, in, w0, tid);
-      lbm::cp_async_commit();
-      lbm::cp_async_wait<0>();
-      __syncthreads();
-      coop_ghosts<K>(smem, ghost, a, in, w0, want, tid);
+    const bool wait = t > 0;
+    CoopWin wn, wnext;
+    wn.first(blockIdx.x, C::kW, a);
+    wnext = wn;
+    bool more = wnext.next(C::kW, bands, a);
+    if (wait && flagger) {
+      coop_flag_wait<K>(a, wn, coop_flag_load<K>(a, wn, lane), want, lane);
+      if (more) coop_flag_wait<K>(a, wnext, coop_flag_load<K>(a, wnext, lane), want, lane);
     }
-    for (int i = 0; i < per_round; ++i) {
+    __syncthreads();
+    coop_load<K>(smem, a, src, wn, tid);
+    lbm::cp_async_commit();
+    lbm::cp_async_wait<0>();
+    __syncthreads();
+    for (int i = 0;; ++i) {
       uint8_t* const cur = smem + (i % 2) * G::kBytes;
       uint8_t* const nxt = smem + ((i + 1) % 2) * G::kBytes;
       float* const planes = reinterpret_cast<float*>(cur);
-      const CoopWin wn(i, nw, C::kW, a.ny, a.nx);
-      const CoopWin wnext(i + 1, nw, C::kW, a.ny, a.nx);
-      const bool more = i + 1 < per_round;
-      __syncthreads();  // this window's ghost rows are in; the ghost words are free
-      if (more) coop_load<K>(nxt, ghost, a, src, in, wnext, tid);
+      // the next window's copies (its flags are in) while this one steps;
+      // the flags of the one after it on their way meanwhile
+      if (more) coop_load<K>(nxt, a, src, wnext, tid);
       lbm::cp_async_commit();
-      if (a.in_place && nw > 1 && i % nw == 0) coop_stash<K>(planes, stash, a, wn, true, tid);
+      CoopWin wafter = wnext;
+      const bool after = more && wafter.next(C::kW, bands, a);
+      const Word flag = wait && after && flagger ? coop_flag_load<K>(a, wafter, lane) : 0;
       {
         const uint8_t* const wm = cur + 4 * G::kFloats;
         const auto frow = lbm::row_bits<C::kH>(lane, [&](int rr) {
@@ -833,36 +781,23 @@ __global__ void __launch_bounds__(kCoopThreads, 1)
           coop_steps_from<K, 1, false>(K - k + 1, planes, wm, frow, a.c, red, wn.h, wn.w);
         }
       }
-      // in place, this window is written only once the next window's copies
-      // (which read its last kA columns) have landed
+      coop_store<K>(planes, red, a, dst, wn, t, k, tid);
+      if (wait && after && flagger) coop_flag_wait<K>(a, wafter, flag, want, lane);
       lbm::cp_async_wait<0>();
-      __syncthreads();
-      coop_store<K>(planes, red, a, dst, out, wn, t, k, tid);
-      if (more) {
-        if (a.in_place && nw > 1 && (i + 1) % nw == nw - 1) {
-          coop_stash<K>(reinterpret_cast<float*>(nxt), stash, a, wnext, false, tid);
-        }
-        coop_ghosts<K>(nxt, ghost, a, in, wnext, want, tid);
+      __syncthreads();  // this window is stored; the next one's copies have landed
+      if (tid == 0) {
+        // this window's state t + k is in dst, and its ghost rows of state
+        // t are read: its flag says so to the neighbours
+        __threadfence();
+        ll_store(a.flags + static_cast<long long>(wn.q) * coop_windows(a.nx) + wn.c, 0.0f,
+                 t + k + 1);
       }
+      if (!more) break;
+      wn = wnext;
+      wnext = wafter;
+      more = after;
     }
-    __syncthreads();  // the round's last window is stored and its buffers free
     t += k;
-  }
-
-  // state n_steps back where the caller expects it: `a` for an even
-  // n_steps, else `b` (rounds alternate the buffers, or all are in `a`;
-  // each block copies its own rows, which only it wrote)
-  const float* const fin = a.in_place || r % 2 == 0 ? a.a : a.b;
-  float* const target = a.n_steps % 2 == 0 ? a.a : a.b;
-  if (fin != target) {
-    for (int q = blockIdx.x; q < bands; q += gridDim.x) {
-      const int y0 = q * kBandRows, h = min(kBandRows, a.ny - y0);
-      const size_t base = static_cast<size_t>(y0) * a.nx;
-      for (int m = tid; m < h * a.nx; m += kCoopThreads) {
-#pragma unroll
-        for (int s = 0; s < kSpeeds; ++s) target[s * plane + base + m] = fin[s * plane + base + m];
-      }
-    }
   }
 }
 
@@ -923,9 +858,7 @@ int coop_k(int ny, int nx) {
 }
 
 // The blocks of a launch: one per band, no more than can be co-resident.
-int coop_grid(int ny, int max_blocks) {
-  return num_bands(ny) < max_blocks ? num_bands(ny) : max_blocks;
-}
+int coop_grid(int bands, int max_blocks) { return bands < max_blocks ? bands : max_blocks; }
 
 // ---- host side ------------------------------------------------------------
 
@@ -1067,31 +1000,29 @@ extern "C" int lbm_resident_coop_grid(int ny, int k) {
   const int err = lbm::status(with_coop_k(k, [&](auto kk) {
     return coop_prepared<decltype(kk)::value>(&max_blocks);
   }));
-  return err != 0 ? -err : coop_grid(ny, max_blocks);
+  return err != 0 ? -err : coop_grid(num_bands(ny), max_blocks);
 }
 
-// The scratch of a cooperative launch at K = k: the outbox, in 64-bit
-// words (two slots of edge rows).
-extern "C" int lbm_resident_coop_scratch(int ny, int nx, int k, long long* n_words) {
-  if (k < 1 || k > kCoopMaxK || ny < 1 || nx < 1) return static_cast<int>(cudaErrorInvalidValue);
-  *n_words = 2 * coop_slot_words(num_bands(ny), nx, k);
+// The scratch of a cooperative launch: its outbox of flags, in 64-bit
+// words (one per band and window).
+extern "C" int lbm_resident_coop_scratch(int ny, int nx, long long* n_words) {
+  if (ny < 1 || nx < 1) return static_cast<int>(cudaErrorInvalidValue);
+  *n_words = coop_flag_words(ny, nx);
   return 0;
 }
 
 // n_steps steps on the state in `a`: the state ends in `a` for an even
 // n_steps, in `b` for an odd one.  partials is (n_steps, tiles) float32,
-// tiles = ceil(ny/8) * ceil(nx/32).  `outbox` is the scratch that
-// lbm_resident_coop_scratch sizes for k; it is reset on `stream` before the
-// launch.  `in_place`: every round in `a` (then copied to `b` for an odd
-// n_steps), else the rounds alternate the buffers.  `k` <= 0 takes
-// lbm_resident_coop_k's; `blocks` is 0 (one block
+// tiles = ceil(ny/8) * ceil(nx/32).  `flags` is the scratch that
+// lbm_resident_coop_scratch sizes; it is reset on `stream` before the
+// launch.  `k` <= 0 takes lbm_resident_coop_k's.  `blocks` is 0 (one block
 // per band, no more than can be co-resident) except in tests: fewer blocks
 // own several bands each, and a grid larger than can be co-resident is
 // refused with cudaErrorCooperativeLaunchTooLarge.  Launches on `stream`;
 // returns the launch's cudaError_t (0 = launched).
 extern "C" int lbm_resident_chunk(float* a, float* b, const uint8_t* mask, float* partials,
-                                  void* outbox, int ny, int nx, int n_steps, int blocks, int k,
-                                  int in_place, float w0_omega, float w1_omega, float w2_omega,
+                                  void* flags, int ny, int nx, int n_steps, int blocks, int k,
+                                  float w0_omega, float w1_omega, float w2_omega,
                                   float one_minus_omega, float accel_w1, float accel_w2,
                                   void* stream) {
   if (ny < 1 || nx < 1 || n_steps < 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -1104,15 +1035,14 @@ extern "C" int lbm_resident_chunk(float* a, float* b, const uint8_t* mask, float
     int max_blocks = 0;
     cudaError_t err = coop_prepared<K>(&max_blocks);
     if (err != cudaSuccess) return err;
-    const int grid = blocks > 0 ? blocks : coop_grid(ny, max_blocks);
-    err = cudaMemsetAsync(outbox, 0,
-                          sizeof(Word) * 2 * coop_slot_words(num_bands(ny), nx, K), st);
+    const int grid = blocks > 0 ? blocks : coop_grid(num_bands(ny), max_blocks);
+    err = cudaMemsetAsync(flags, 0, sizeof(Word) * coop_flag_words(ny, nx), st);
     if (err != cudaSuccess) return err;
     const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
     const bool vec = nx % 4 == 0 && nx >= Coop<K>::kP && ny >= K && aligned(a) && aligned(b) &&
                      reinterpret_cast<uintptr_t>(mask) % 4 == 0;
-    CoopArgs args{a, b, mask, partials, static_cast<Word*>(outbox), ny, nx, n_steps,
-                  vec ? 1 : 0, in_place ? 1 : 0, c};
+    CoopArgs args{a, b, mask, partials, static_cast<Word*>(flags), ny, nx, n_steps,
+                  vec ? 1 : 0, c};
     void* kargs[] = {&args};
     return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(resident_kernel<K>), dim3(grid),
                                        dim3(kCoopThreads), kargs, Coop<K>::kSmemBytes, st);

@@ -279,10 +279,6 @@ class Simulation:
             return stream_kernel.tier_bytes(ny, nx)
         if backend in ("fused", "pipeline"):
             return 3 * self._state_bytes()
-        if backend == "resident" and not debug:
-            # the cooperative form's outbox: two slots of 64-bit words
-            return (2 * self._state_bytes() + ny * nx
-                    + 16 * resident.coop_slot_words(ny, nx, resident.coop_k(ny, nx)))
         return 2 * self._state_bytes() + ny * nx
 
     def _stream_tail_fits(self) -> bool:

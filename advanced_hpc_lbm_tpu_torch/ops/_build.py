@@ -114,14 +114,14 @@ def load() -> ctypes.CDLL:
         "lbm_step": ([ptr, ptr, ptr, ptr, i32, i32, *consts, ptr], i32),
         "lbm_step_prepare": ([], i32),
         "lbm_step_block_shape": ([ctypes.POINTER(i32)] * 2, None),
-        "lbm_resident_chunk": ([ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-                                *consts, ptr], i32),
+        "lbm_resident_chunk": ([ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, *consts,
+                                ptr], i32),
         "lbm_resident_grid_chunk": ([ptr, ptr, ptr, ptr, i32, i32, i32, i32, *consts, ptr], i32),
         "lbm_resident_prepare": ([], i32),
         "lbm_resident_coop_limits": ([i32, ctypes.POINTER(i32), ctypes.POINTER(i32)], i32),
         "lbm_resident_coop_k": ([i32, i32], i32),
         "lbm_resident_coop_grid": ([i32, i32], i32),
-        "lbm_resident_coop_scratch": ([i32, i32, i32, ctypes.POINTER(i64)], i32),
+        "lbm_resident_coop_scratch": ([i32, i32, ctypes.POINTER(i64)], i32),
         "lbm_resident_banded_chunk": ([ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                        *consts, ptr], i32),
         "lbm_resident_banded_limits": ([i32, ctypes.POINTER(i32), ctypes.POINTER(i32)], i32),

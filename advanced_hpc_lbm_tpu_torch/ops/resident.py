@@ -17,9 +17,9 @@ two forms, chosen by the grid's shape before the launch
 * the cooperative form, for every other grid: a block owns bands of 8
   rows (several where there are more bands than co-resident blocks) and
   steps them K steps per round (:func:`coop_k`) window by window in shared
-  memory, on K ghost rows that the neighbouring bands publish at each
-  round's start, again without a grid barrier; each launch adds one to
-  :data:`launches`.
+  memory, on K ghost rows that it reads from the neighbouring bands' state
+  in the round's buffer once their step-tagged flags say it is there, again
+  without a grid barrier; each launch adds one to :data:`launches`.
 
 A CUDA tensor never falls back to another form or to the plain version:
 the launch happens or the wrapper raises (a device without cooperative
@@ -56,6 +56,8 @@ banded_launches = 0
 # csrc/resident_kernel.cu), and its block size.
 COOP_K = (1, 2, 3, 4)
 COOP_THREADS = 512
+# Own columns of the cooperative form's window: 4 tiles.
+COOP_WINDOW_COLS = 4 * step_kernel.BLOCK_X
 
 # A band of the banded form is one row of the step kernel's tiles.
 BAND_ROWS = step_kernel.BLOCK_Y
@@ -143,37 +145,40 @@ def coop_k(ny: int, nx: int) -> int:
     return 2
 
 
-def coop_in_place(ny: int, nx: int) -> bool:
-    """Whether the cooperative form steps one state buffer in place (else
-    its rounds alternate the two)."""
-    return False
-
-
-def coop_window_cols(k: int) -> int:
-    """Own columns of the cooperative form's window at K = k: 4 tiles, 2
-    at K = 4."""
-    return (4 if k <= 3 else 2) * step_kernel.BLOCK_X
-
-
 def coop_smem_bytes(k: int) -> int:
     """Dynamic shared memory of a cooperative block at K = k: two windows
     (9 float32 planes and the mask bytes, rounded up to 16, of 8 + 2K rows
-    by the own columns and 4 ghost columns a side), the outbox words of a
-    window's ghost cells (2K rows by the own columns and K a side, 9 words
-    each), the ||u|| of K steps of the own cells, and the in-place stash of
-    a band's first 4 columns (9 planes by 8 rows)."""
-    cols = coop_window_cols(k)
-    rows, pitch = BAND_ROWS + 2 * k, cols + 8
+    by 128 own columns and 4 ghost columns a side) and the ||u|| of K steps
+    of the own cells."""
+    rows, pitch = BAND_ROWS + 2 * k, COOP_WINDOW_COLS + 8
     window = 4 * 9 * rows * pitch + -(-rows * pitch // 16) * 16
-    ghost_words = 9 * 2 * k * (cols + 2 * k)
-    return 2 * window + 8 * ghost_words + 4 * (k * BAND_ROWS * cols + 9 * BAND_ROWS * 4)
+    return 2 * window + 4 * k * BAND_ROWS * COOP_WINDOW_COLS
 
 
-def coop_slot_words(ny: int, nx: int, k: int) -> int:
-    """64-bit words of one outbox slot of the cooperative form: 2K edge
-    rows of 9 planes per band, each a word per column (the float and the
-    step it belongs to); the outbox has two slots."""
-    return 2 * k * 9 * num_bands(ny) * nx
+def coop_flag_words(ny: int, nx: int) -> int:
+    """64-bit words of the cooperative form's outbox: one flag per band
+    and window of 128 columns, carrying the step whose state the band's
+    window holds in the round's buffer."""
+    return num_bands(ny) * -(-nx // COOP_WINDOW_COLS)
+
+
+def coop_rounds(n_steps: int, k: int) -> list[int]:
+    """The steps of each round of a chunk at K = k: rounds of K and a last
+    one of n mod K, with one round split in two where that makes the
+    number of rounds as even as n_steps, so that the state ends in the
+    buffer the caller expects (coop_round_steps in
+    csrc/resident_kernel.cu)."""
+    if n_steps == 0:
+        return []
+    rounds = -(-n_steps // k)
+    tail = n_steps - k * (rounds - 1)
+    steps = [k] * (rounds - 1) + [tail]
+    if rounds % 2 != n_steps % 2:
+        if tail >= 2:
+            steps[-1:] = [tail - 1, 1]
+        else:
+            steps[-2:] = [k - 1, 1, 1]
+    return steps
 
 
 def coop_blocks(ny: int, max_blocks: int) -> int:
@@ -219,8 +224,7 @@ def plain_run(
 
 
 def _chunk_launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams,
-                    blocks: int = 0, form: str | None = None, k: int | None = None,
-                    in_place: bool | None = None):
+                    blocks: int = 0, form: str | None = None, k: int | None = None):
     """A function ``(bufs, n_steps, partials) -> None`` that runs one chunk
     on tensors shaped like ``f``: the kernel on CUDA (the form the shape
     takes, :func:`takes_banded`), the plain version on the CPU.  Test
@@ -230,8 +234,7 @@ def _chunk_launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams,
     bands each, and a grid too large to be co-resident is the only way to
     make the card refuse a launch; ``form="cooperative"`` runs the
     cooperative form on any grid (``form="grid"`` its grid-barrier
-    predecessor); ``k`` sets the cooperative form's steps per round and
-    ``in_place`` whether its rounds step one buffer in place."""
+    predecessor); ``k`` sets the cooperative form's steps per round."""
     if f.device.type == "cpu":
         return lambda bufs, n, part: plain_run(bufs, mask, params, n, part)
     if f.device.type != "cuda":
@@ -270,18 +273,17 @@ def _chunk_launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams,
         return grid
 
     k = coop_k(ny, nx) if k is None else k
-    in_place = coop_in_place(ny, nx) if in_place is None else in_place
     if k not in COOP_K:
         raise ValueError(f"K must be one of {COOP_K}, got {k}")
-    # the bands' edge rows of two rounds, each value with its step (the
-    # launch resets it)
-    outbox = torch.empty(2 * coop_slot_words(ny, nx, k), dtype=torch.int64, device=f.device)
+    # a flag per band and window: the step its state in the round's buffer
+    # belongs to (the launch resets them)
+    flags = torch.empty(coop_flag_words(ny, nx), dtype=torch.int64, device=f.device)
 
     def chunk(bufs, n, part):
         global launches
         err = lib.lbm_resident_chunk(bufs[0].data_ptr(), bufs[1].data_ptr(), mask_ptr,
-                                     part.data_ptr(), outbox.data_ptr(), ny, nx, n, blocks, k,
-                                     int(in_place), *consts, stream)
+                                     part.data_ptr(), flags.data_ptr(), ny, nx, n, blocks, k,
+                                     *consts, stream)
         step_kernel._raise_on(lib, err, "resident kernel launch")
         launches += 1
     return chunk

@@ -474,11 +474,11 @@ def plain_resident(f, mask, params, n, chunk):
     return bufs[n % 2], part.sum(dim=1) / (mask == 0).sum().to(torch.float32)
 
 
-def resident_form(f, mask, params, n, chunk, form, k=None, blocks=0, in_place=None):
+def resident_form(f, mask, params, n, chunk, form, k=None, blocks=0):
     """n steps of the resident kernel in chunks, in the form the shape takes
     (``form`` None) or the one named (the wrapper's test hooks, with the
-    cooperative form's K, grid and stage): (state, av), as resident_run
-    returns them."""
+    cooperative form's K and grid): (state, av), as resident_run returns
+    them."""
     from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel
 
     if form is None:
@@ -488,8 +488,7 @@ def resident_form(f, mask, params, n, chunk, form, k=None, blocks=0, in_place=No
     bufs = (f.clone(), torch.empty_like(f))
     part = torch.empty(chunk, step_kernel.num_partials(ny, nx), device=f.device)
     av = torch.empty(n, device=f.device)
-    launch = resident._chunk_launcher(f, mask, params, blocks=blocks, form=form, k=k,
-                                      in_place=in_place)
+    launch = resident._chunk_launcher(f, mask, params, blocks=blocks, form=form, k=k)
     for t0 in range(0, n, chunk):
         m = min(chunk, n - t0)
         launch((bufs[t0 % 2], bufs[(t0 + 1) % 2]), m, part)
@@ -501,6 +500,8 @@ def resident_form(f, mask, params, n, chunk, form, k=None, blocks=0, in_place=No
 RULE_SHAPES = ((8, 32), (17, 23), (64, 64), (128, 128), (128, 256), (256, 128), (256, 256),
                (1056, 64), (1064, 64), (64, 318), (64, 319), (256, 512), (512, 512),
                (1024, 1024))
+# the square grids that phase 3r times
+TIMED_SQUARES = tuple((n, n) for n in (64, 128, 256, 512, 768, 1024, 2048, 4096))
 # the small decks, which the banded form must take
 BANDED_DECKS = ((64, 64), (128, 128), (128, 256), (256, 128), (256, 256))
 
@@ -543,24 +544,24 @@ def check_banded_rule(card: str) -> None:
         words = ctypes.c_longlong()
         for ny, nx in RULE_SHAPES:
             step_kernel._raise_on(lib, lib.lbm_resident_coop_scratch(
-                ny, nx, k, ctypes.byref(words)), "sizing the cooperative outbox")
+                ny, nx, ctypes.byref(words)), "sizing the cooperative outbox")
             grid = lib.lbm_resident_coop_grid(ny, k)
-            if (words.value != 2 * resident.coop_slot_words(ny, nx, k)
+            if (words.value != resident.coop_flag_words(ny, nx)
                     or grid != resident.coop_blocks(ny, max_blocks)):
                 fail(f"[3r resident] {ny}x{nx} K={k}: C outbox {words.value} words, grid "
-                     f"{grid}; Python {2 * resident.coop_slot_words(ny, nx, k)}, "
+                     f"{grid}; Python {resident.coop_flag_words(ny, nx)}, "
                      f"{resident.coop_blocks(ny, max_blocks)}")
         if c_smem != resident.coop_smem_bytes(k) or c_smem > smem:
             fail(f"[3r resident] K={k}: C shared memory {c_smem} B, Python "
                  f"{resident.coop_smem_bytes(k)} B, opt-in limit {smem} B")
         coop.append(f"K={k} {c_smem} B, {max_blocks // sms} block(s) per SM")
-    for ny, nx in RULE_SHAPES:
+    for ny, nx in RULE_SHAPES + TIMED_SQUARES:
         if lib.lbm_resident_coop_k(ny, nx) != resident.coop_k(ny, nx):
             fail(f"[3r resident] {ny}x{nx}: C K {lib.lbm_resident_coop_k(ny, nx)}, coop_k "
                  f"{resident.coop_k(ny, nx)}")
     say(f"[3r resident] cooperative form: C queries (K, outbox words, grid, shared memory) "
-        f"= the Python rules at {len(RULE_SHAPES)} shapes; K by shape "
-        + ", ".join(f"{n}^2 {resident.coop_k(n, n)}" for n in (512, 768, 1024, 2048, 4096))
+        f"= the Python rules at {len(RULE_SHAPES) + len(TIMED_SQUARES)} shapes; K by shape "
+        + ", ".join(f"{n}^2 {resident.coop_k(n, n)}" for n, _ in TIMED_SQUARES)
         + f"; {', '.join(coop)} | {card}")
 
 
@@ -584,21 +585,19 @@ def phase_resident(card: str) -> tuple[dict, dict]:
         forms = ([(None, None, None), ("cooperative", None, None)] if banded
                  else [(None, None, None)])
         if (ny, nx) in COOP_K_SHAPES:
-            forms += [("cooperative", k, ip) for k in resident.COOP_K for ip in (False, True)]
+            forms += [("cooperative", k, None) for k in resident.COOP_K]
         for n, chunk, guard in ((1, resident.CHUNK, False), (50, resident.CHUNK, False),
                                 (17, 6, True)):
             params, mask, f = on_card(ny, nx, 100 + seed, guard)
             fs, avs = step_kernel.run(f, mask, params, n_iters=n)
             fp, avp = plain_resident(f, mask, params, n, chunk)
-            for form, k, ip in forms:
+            for form, k, _ in forms:
                 name = "banded" if banded and form is None else "cooperative"
-                stage = resident.coop_in_place(ny, nx) if ip is None else ip
                 tag = (f"[3r resident] {name} {ny}x{nx} {n} step(s), chunk {chunk}"
-                       + (f", K={k if k else resident.coop_k(ny, nx)}"
-                          f"{', in place' if stage else ''}" if name != "banded" else "")
+                       + (f", K={k or resident.coop_k(ny, nx)}" if name != "banded" else "")
                        + (", guard-failing row" if guard else ""))
                 resident.launches = resident.banded_launches = 0
-                fr, avr = resident_form(f, mask, params, n, chunk, form, k, 0, ip)
+                fr, avr = resident_form(f, mask, params, n, chunk, form, k)
                 torch.cuda.synchronize()
                 counts = (resident.banded_launches, resident.launches)
                 want = (-(-n // chunk), 0) if name == "banded" else (0, -(-n // chunk))
@@ -618,11 +617,10 @@ def coop_partials(card: str) -> None:
     bands) also with 1 and 3 blocks, which own several bands each."""
     from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel
 
-    cases = [((ny, nx), k, 0, ip) for ny, nx in COOP_K_SHAPES + ((1024, 1024),)
-             for k in resident.COOP_K for ip in (False, True)]
-    cases += [((64, 64), k, blocks, ip) for k in resident.COOP_K for blocks in (1, 3)
-              for ip in (False, True)]
-    for (ny, nx), k, blocks, ip in cases:
+    cases = [((ny, nx), k, 0) for ny, nx in COOP_K_SHAPES + ((1024, 1024),)
+             for k in resident.COOP_K]
+    cases += [((64, 64), k, blocks) for k in resident.COOP_K for blocks in (1, 3)]
+    for (ny, nx), k, blocks in cases:
         params, mask, f = on_card(ny, nx, 500 + ny, True)
         tiles = step_kernel.num_partials(ny, nx)
         bufs = [f.clone(), torch.empty_like(f)]
@@ -630,7 +628,7 @@ def coop_partials(card: str) -> None:
         for t in range(17):
             step_kernel.step(bufs[t % 2], mask, params, out=bufs[(t + 1) % 2], partials=ps[t])
         launch = resident._chunk_launcher(f, mask, params, blocks=blocks, form="cooperative",
-                                          k=k, in_place=ip)
+                                          k=k)
         rb = [f.clone(), torch.empty_like(f)]
         pr = torch.empty(17, tiles, device="cuda")
         for t0 in range(0, 17, 6):
@@ -639,13 +637,12 @@ def coop_partials(card: str) -> None:
         torch.cuda.synchronize()
         n_f, n_p = int((rb[1] != bufs[1]).sum().item()), int((pr != ps).sum().item())
         if n_f or n_p:
-            fail(f"[3r resident] cooperative {ny}x{nx} K={k}{' in place' if ip else ''} blocks "
-                 f"{blocks or 'per band'}: "
+            fail(f"[3r resident] cooperative {ny}x{nx} K={k}, blocks {blocks or 'per band'}: "
                  f"{n_f} state values and {n_p} partials differ from the step kernel")
     say(f"[3r resident] cooperative form, 17 steps in chunks of 6 with a guard-failing row, "
         f"partials and state bitwise equal to the step kernel's at K = "
-        f"{', '.join(map(str, resident.COOP_K))}, buffers alternating and in place, on "
-        f"{len(COOP_K_SHAPES) + 1} shapes, and on 64x64 with 1 and 3 blocks (8 bands) | {card}")
+        f"{', '.join(map(str, resident.COOP_K))} on {len(COOP_K_SHAPES) + 1} shapes, and on "
+        f"64x64 with 1 and 3 blocks (8 bands) | {card}")
 
 
 def time_whole_runs(card: str) -> dict:
@@ -666,15 +663,14 @@ def time_whole_runs(card: str) -> dict:
         steps = RUN_STEPS if n <= 2048 else RUN_STEPS // 4
         reps = 3 if n <= 2048 else 1
 
-        def run(form=None, k=None, in_place=None):
-            return time_ms(lambda: resident_form(f, mask, params, steps, steps, form, k, 0,
-                                                 in_place), reps) / steps
+        def run(form=None, k=None):
+            return time_ms(lambda: resident_form(f, mask, params, steps, steps, form, k),
+                           reps) / steps
         if resident.takes_banded(n, n, "cuda"):
             c1, b1, b2, c2 = run("cooperative"), run(), run(), run("cooperative")
             r_ms, coop_ms = (b1 + b2) / 2, (c1 + c2) / 2
             forms = (f"banded {r_ms * 1e3:.2f} us ({b1 * 1e3:.2f}, {b2 * 1e3:.2f}), "
-                     f"cooperative K={resident.coop_k(n, n)}"
-                     f"{' in place' if resident.coop_in_place(n, n) else ''} {coop_ms * 1e3:.2f} us "
+                     f"cooperative K={resident.coop_k(n, n)} {coop_ms * 1e3:.2f} us "
                      f"({c1 * 1e3:.2f}, {c2 * 1e3:.2f}), banded {coop_ms / r_ms - 1:+.1%} faster")
         else:
             best = kstep_kernel.best_k(n, n)
@@ -682,15 +678,12 @@ def time_whole_runs(card: str) -> dict:
                       f"pallask K={best}": lambda: time_ms(
                           lambda: kstep_kernel.run(f, mask, params, n_iters=steps, k=best),
                           reps) / steps,
-                      **{f"K={k}{' in place' if ip else ''}": (
-                          lambda k=k, ip=ip: run("cooperative", k, ip))
-                         for k in resident.COOP_K for ip in (False, True)}}
+                      **{f"K={k}": (lambda k=k: run("cooperative", k)) for k in resident.COOP_K}}
             got = {name: [fn()] for name, fn in timers.items()}
             for name in reversed(list(timers)):
                 got[name].append(timers[name]())
             mean = {name: sum(v) / 2 for name, v in got.items()}
-            rule = f"K={resident.coop_k(n, n)}" + (" in place" if resident.coop_in_place(n, n)
-                                                    else "")
+            rule = f"K={resident.coop_k(n, n)}"
             r_ms = coop_ms = mean[rule]
             forms = (f"cooperative {rule} {r_ms * 1e3:.2f} us; "
                      + ", ".join(f"{name} {mean[name] * 1e3:.2f} us "

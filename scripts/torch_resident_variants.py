@@ -31,9 +31,7 @@ the banded form:
 and of the cooperative form (the diagnostic ones give wrong results):
 
   coop           the kernel as it is
-  coop_noghost   no ghost rows gathered from the outbox (no wait for the
-                 neighbours)
-  coop_nopublish nor edge rows published
+  coop_nowait    no wait for the neighbours' flags within a round
   coop_nostep    no cell step (the window is stored as loaded)
   coop_nostore   the own cells not written back
   coop_t768      768 threads per block (85 registers)
@@ -100,23 +98,9 @@ def wide(s: str) -> str:
     return replace(s, "__launch_bounds__(kMaxBandThreads, 1)", "__launch_bounds__(kMaxBandThreads)")
 
 
-def coop_noghost(s: str) -> str:
-    s = replace(s, "  for (int m = tid; m < C::kGhostCells; m += kCoopThreads) {\n    int dst;\n"
-                   "    const Word* const w",
-                "  for (int m = tid; m < 0; m += kCoopThreads) {\n    int dst;\n"
-                "    const Word* const w")
-    return replace(s, "  for (int m = tid; m < C::kGhostCells; m += kCoopThreads) {\n"
-                      "    const int e = m / C::kGhostCols, cc = m - e * C::kGhostCols;\n"
-                      "    int dst;\n    Word* const src",
-                   "  for (int m = tid; m < 0; m += kCoopThreads) {\n"
-                   "    const int e = m / C::kGhostCols, cc = m - e * C::kGhostCols;\n"
-                   "    int dst;\n    Word* const src")
-
-
-def coop_nopublish(s: str) -> str:
-    s = replace(coop_noghost(s), "ll_store(p + static_cast<long long>(s) * a.nx, "
-                                 "planes[s * kPl + j], tag);", "(void)p;")
-    return replace(s, "      if (l >= 0 && l < h) ll_store(", "      if (false) ll_store(")
+def coop_nowait(s: str) -> str:
+    return replace(s, "      if (wait && after && flagger) coop_flag_wait<K>",
+                   "      if (false) coop_flag_wait<K>")
 
 
 def coop_nostep(s: str) -> str:
@@ -138,7 +122,7 @@ def coop_threads(n: int):
 
 VARIANTS = {"kernel": [], "nowait": [nowait], "nocompute": [nocompute],
             "late_gather": [late_gather], "relaxed": [relaxed], "wide": [wide],
-            "coop": [], "coop_noghost": [coop_noghost], "coop_nopublish": [coop_nopublish],
+            "coop": [], "coop_nowait": [coop_nowait],
             "coop_nostep": [coop_nostep], "coop_nostore": [coop_nostore],
             "coop_t768": [coop_threads(768)], "coop_t1024": [coop_threads(1024)]}
 

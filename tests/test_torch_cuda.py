@@ -175,7 +175,6 @@ def test_wide_grid_runs_the_cooperative_form(ny, nx):
     assert int((avr != avs).sum()) == 0
 
 
-@pytest.mark.parametrize("in_place", [False, True], ids=["alternating", "in-place"])
 @pytest.mark.parametrize("k", resident.COOP_K)
 @pytest.mark.parametrize("ny,nx,blocks", [
     (256, 512, 0), (512, 512, 0), (1024, 1024, 0),
@@ -183,17 +182,16 @@ def test_wide_grid_runs_the_cooperative_form(ny, nx):
     (8, 40, 0), (16, 64, 0), (24, 64, 0),  # one, two and three bands
     (64, 64, 1), (64, 64, 3),  # 8 bands on 1 and 3 blocks: a block owns several
 ])
-def test_cooperative_resident_matches_step_kernel_bitwise(ny, nx, blocks, k, in_place):
-    """The cooperative form at every built K, its buffers alternating or
-    one in place: 17 steps in chunks of 6 (6 = 4 + 2 and 5 = 4 + 1 at K =
-    4: rounds of n mod K steps), a guard-failing forcing row, 0 differing
-    values in f and bitwise-equal partials against the step kernel."""
+def test_cooperative_resident_matches_step_kernel_bitwise(ny, nx, blocks, k):
+    """The cooperative form at every built K: 17 steps in chunks of 6 and
+    5 (rounds of n mod K steps; at K = 4 rounds of 4 and 2, then 3, 1 and
+    1), a guard-failing forcing row, 0 differing values in f and
+    bitwise-equal partials against the step kernel."""
     params, mask, f = _on_card(ny, nx, seed=ny + nx + k)
     mask = step_kernel.prepare_obstacles(mask)
     tiles = step_kernel.num_partials(ny, nx)
     before = resident.launches
-    launcher = resident._chunk_launcher(f, mask, params, blocks=blocks, form="cooperative", k=k,
-                                        in_place=in_place)
+    launcher = resident._chunk_launcher(f, mask, params, blocks=blocks, form="cooperative", k=k)
     fc, pc = _chunked_partials(launcher, f, 17, 6, tiles)
     torch.cuda.synchronize()
     assert resident.launches - before == 3
@@ -209,7 +207,7 @@ def test_cooperative_resident_matches_step_kernel_bitwise(ny, nx, blocks, k, in_
 def test_cooperative_rules_in_c_equal_python(k):
     """The cooperative form's C queries against its Python rules on the
     card: K by shape, the grid (one block per band up to the co-resident
-    limit), the outbox words, the shared memory of a block."""
+    limit), the outbox's flag words, the shared memory of a block."""
     lib = step_kernel._library()
     smem, max_blocks = resident._coop_limits(torch.cuda.current_device(), k)
     assert smem == resident.coop_smem_bytes(k)
@@ -218,8 +216,8 @@ def test_cooperative_rules_in_c_equal_python(k):
     for ny, nx in [(8, 32), (17, 23), (256, 512), (1024, 1024), (4096, 4096), (8192, 64)]:
         assert lib.lbm_resident_coop_k(ny, nx) == resident.coop_k(ny, nx)
         assert lib.lbm_resident_coop_grid(ny, k) == resident.coop_blocks(ny, max_blocks)
-        assert lib.lbm_resident_coop_scratch(ny, nx, k, ctypes.byref(words)) == 0
-        assert words.value == 2 * resident.coop_slot_words(ny, nx, k)
+        assert lib.lbm_resident_coop_scratch(ny, nx, ctypes.byref(words)) == 0
+        assert words.value == resident.coop_flag_words(ny, nx)
 
 
 @pytest.mark.parametrize("ny,nx", [(8, 32), (64, 64), (256, 256), (1056, 64), (1064, 64),

@@ -176,29 +176,46 @@ def test_band_partition(ny, bands):
 def test_coop_k_rule(ny, nx):
     """One K per shape, decided before the launch, among those built."""
     k = resident.coop_k(ny, nx)
-    assert k in resident.COOP_K
-    assert k == 2
+    assert k in resident.COOP_K and k == 2
 
 
-@pytest.mark.parametrize("k,smem", [(1, 124_608), (2, 168_128), (3, 212_224), (4, 136_064)])
+@pytest.mark.parametrize("k,smem", [(1, 104_736), (2, 128_960), (3, 153_184), (4, 177_408)])
 def test_coop_smem_bytes_fit_an_h100(k, smem):
-    """Two windows of 8 + 2K rows (128 own columns, 64 at K = 4, and 4
-    ghost columns a side; 9 float32 planes and the mask rounded up to 16),
-    the 9 outbox words of each of a window's 2K x (own columns + 2K) ghost
-    cells, K x 8 x the own columns of ||u|| and the in-place stash of 9 x 8
-    x 4 values: within the H100's 232 448 B of opt-in shared memory at
+    """Two windows of 8 + 2K rows by 128 own columns and 4 ghost columns a
+    side (9 float32 planes and the mask rounded up to 16) and K x 8 x 128
+    ||u|| values: within the H100's 232 448 B of opt-in shared memory at
     every built K."""
     assert resident.coop_smem_bytes(k) == smem <= H100_SMEM
 
 
-@pytest.mark.parametrize("ny,nx,k,words", [
-    (1024, 1024, 2, 128 * 4 * 9 * 1024), (1024, 1024, 3, 128 * 6 * 9 * 1024),
-    (17, 23, 1, 3 * 2 * 9 * 23), (8, 32, 4, 1 * 8 * 9 * 32), (2048, 512, 2, 256 * 4 * 9 * 512),
+@pytest.mark.parametrize("ny,nx,words", [
+    (1024, 1024, 128 * 8), (4096, 4096, 512 * 32), (17, 23, 3 * 1), (8, 32, 1),
+    (100, 130, 13 * 2), (256, 512, 32 * 4),
 ])
-def test_coop_slot_words(ny, nx, k, words):
-    """2K edge rows of 9 planes per band (a ragged band too), nx words
-    each; the outbox holds two slots."""
-    assert resident.coop_slot_words(ny, nx, k) == words
+def test_coop_flag_words(ny, nx, words):
+    """The outbox: one 64-bit flag per band (a ragged one too) and window
+    of 128 columns (a ragged one too)."""
+    assert resident.coop_flag_words(ny, nx) == words
+
+
+@pytest.mark.parametrize("n,k,steps", [
+    (17, 4, [4, 4, 4, 4, 1]), (6, 4, [4, 2]), (5, 4, [3, 1, 1]), (6, 2, [2, 2, 1, 1]),
+    (1000, 3, [3] * 332 + [3, 1]), (1000, 2, [2] * 500), (3, 2, [1, 1, 1]), (1, 3, [1]),
+    (0, 2, []), (7, 1, [1] * 7),
+])
+def test_coop_rounds(n, k, steps):
+    """Rounds of K steps and a last one of n mod K, one round split in two
+    where the count's parity differs from n's: the state ends in the
+    buffer of the caller's contract (a for an even n, b for an odd one)."""
+    assert resident.coop_rounds(n, k) == steps
+
+
+@pytest.mark.parametrize("k", resident.COOP_K)
+def test_coop_rounds_keep_the_parity(k):
+    for n in range(200):
+        steps = resident.coop_rounds(n, k)
+        assert sum(steps) == n and all(1 <= s <= k for s in steps)
+        assert len(steps) % 2 == n % 2 and len(steps) <= -(-n // k) + 1
 
 
 @pytest.mark.parametrize("ny,blocks,owned", [
@@ -225,33 +242,47 @@ def test_coop_blocks(ny, max_blocks, blocks):
     assert resident.coop_blocks(ny, max_blocks) == blocks
 
 
-def _edge_positions(h, k):
-    """The own row of a band of h rows that each outbox position holds
-    (csrc/resident_kernel.cu: position e < K own row e, e >= K own row
-    h - 2K + e; None where no row goes)."""
-    return [(e if e < h else None) if e < k else (h - 2 * k + e if h - 2 * k + e >= 0 else None)
-            for e in range(2 * k)]
+def _flags_waited(ny, nx, k, q, c):
+    """The (band, window) flags a window of band q at window c waits for
+    (csrc/resident_kernel.cu coop_flag, restated): the bands of its
+    nearest and farthest ghost rows above and below, other than q, at
+    windows c - 1, c and c + 1, wrapped."""
+    y0 = q * resident.BAND_ROWS
+    h = min(resident.BAND_ROWS, ny - y0)
+    nw = -(-nx // resident.COOP_WINDOW_COLS)
+    out = set()
+    for dy in (-1, -k, h, h + k - 1):
+        p = ((y0 + dy) % ny) // resident.BAND_ROWS
+        if p != q:
+            out |= {(p, (c + d) % nw) for d in (-1, 0, 1)}
+    return out
 
 
 @pytest.mark.parametrize("k", resident.COOP_K)
-@pytest.mark.parametrize("ny", [1, 2, 3, 5, 8, 9, 10, 16, 17, 19, 24, 27, 100])
-def test_coop_ghost_rows_are_published(ny, k):
-    """Every ghost row a window gathers (the K rows above and the K below
-    its band, wrapped) is a row that its owning band publishes, at the
-    position the gather reads: the kernel's mapping, restated, on one
-    band, two, three, ragged last bands shorter than K and grids shorter
-    than K."""
-    bands = resident.band_partition(ny)
-    slot = {}
-    for q, (y0, h, _, _) in enumerate(bands):
-        for e, l in enumerate(_edge_positions(h, k)):
-            if l is not None:
-                slot[(q, e)] = y0 + l
-    for y0, h, _, _ in bands:
-        for r in [*range(k), *range(k + h, 2 * k + h)]:  # window rows of the ghosts
-            g = (y0 - k + r) % ny
-            p = g // resident.BAND_ROWS
-            l = g - p * resident.BAND_ROWS
-            hp = bands[p][1]
-            pos = l - hp + 2 * k if r < k else l
-            assert slot.get((p, pos)) == g, (y0, r, g, p, pos)
+@pytest.mark.parametrize("ny", [1, 2, 3, 5, 8, 9, 10, 16, 17, 19, 24, 27, 33, 100])
+@pytest.mark.parametrize("nx", [3, 130, 300])
+def test_coop_ghost_cells_are_flagged(ny, nx, k):
+    """Every ghost cell a window needs (K rows above and below, K columns
+    either side, wrapped) is its own band's (read from the state, no wait)
+    or lies in a (band, window) whose flag the window waits for; and the
+    waits are symmetric: a band whose cells a window reads waits, at the
+    window it reads them from, for that window's flag (so it cannot
+    overwrite them before they are read): one band, two, three, ragged
+    bands and windows, grids smaller than K."""
+    bands = resident.num_bands(ny)
+    nw = -(-nx // resident.COOP_WINDOW_COLS)
+    for q in range(bands):
+        y0 = q * resident.BAND_ROWS
+        h = min(resident.BAND_ROWS, ny - y0)
+        for c in range(nw):
+            x0 = c * resident.COOP_WINDOW_COLS
+            w = min(resident.COOP_WINDOW_COLS, nx - x0)
+            waited = _flags_waited(ny, nx, k, q, c)
+            for dy in [*range(-k, 0), *range(h, h + k)]:
+                p = ((y0 + dy) % ny) // resident.BAND_ROWS
+                if p == q:
+                    continue
+                for dx in range(-k, w + k):
+                    cp = ((x0 + dx) % nx) // resident.COOP_WINDOW_COLS
+                    assert (p, cp) in waited, (q, c, dy, dx, p, cp)
+                    assert (q, c) in _flags_waited(ny, nx, k, p, cp), (q, c, p, cp)
