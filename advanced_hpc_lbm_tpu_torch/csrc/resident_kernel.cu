@@ -1,18 +1,20 @@
 // A whole chunk of D2Q9-BGK timesteps in one launch, for NVIDIA Hopper
-// (sm_90a): a banded kernel for grids whose bands fit in shared memory,
-// and a cooperative persistent kernel for every other grid.
+// (sm_90a), in three forms: a banded kernel for grids whose bands fit in
+// shared memory, a cooperative kernel of K steps per round for grids with
+// a band for most SMs, and a grid-barrier kernel for the grids between.
 //
 // Replaces: advanced_hpc_lbm_tpu/ops/resident.py `_chunk_kernel` (the
 // whole-run Pallas kernel behind the `resident` backend).  On the TPU one
 // core runs the whole chunk with the state in VMEM, and its grid of one
 // program needs no barrier between steps.  Here many SMs share a chunk, and
-// the two forms differ in how they meet between steps.  Both run every
-// cell through step_common.cuh:cell_step in the same operand order, so the
-// state equals the step kernel's bit for bit, and both write the step
+// the forms differ in how they meet between steps.  All run every cell
+// through step_common.cuh:cell_step in the same operand order, so the
+// state equals the step kernel's bit for bit, and all write the step
 // kernel's per-tile ||u|| partials into partials[t, tile] (row-major 32x8
 // tiles), so that the caller's torch.sum(dim=1) gives the step backend's av
 // history bit for bit.  Which form runs is a rule on the shape, decided by
-// the wrapper before the launch (lbm_resident_banded_fits).
+// the wrapper before the launch (ops/resident.py: form_of, with
+// lbm_resident_banded_fits' rule and coop_fits).
 //
 // The banded form (resident_banded_kernel), for the small decks:
 // * Band b is the step kernel's tile row b: grid rows 8b .. 8b+7, the last
@@ -28,7 +30,7 @@
 //   (the rows above and below, the columns left and right, the corners),
 //   and the mask of the same cells.  The cells are read from `a` once at
 //   chunk start and written back once at chunk end, to `a` for an even
-//   n_steps, else to `b`, as the cooperative form leaves them.
+//   n_steps, else to `b`, as the other forms leave them.
 // * A step of a block needs only its ghost ring, the edge cells of its up
 //   to 8 neighbouring blocks (periodic wrap; with one band or one segment
 //   a block is its own neighbour).  Each edge cell's new values go out to
@@ -78,7 +80,7 @@
 //   A block itself needs less (at most 64 columns of the band).
 // * What bounds it: not the cells (at most 512 a block) and not the wait
 //   for the neighbours.  It runs 2.78 / 2.67 / 2.96 us per step at 64^2 /
-//   128^2 / 256^2 against the cooperative form's 4.05 / 3.75 / 4.09
+//   128^2 / 256^2 against the grid-barrier form's 4.05 / 3.75 / 4.09
 //   (chip_smoke.py 3r, H100 80GB HBM3, 700 W).  Without the wait for the
 //   neighbours' values it ran 2.60 / 2.53 / 2.96, with the cell step
 //   replaced by a copy 1.80 / 2.25 / 2.15 (scripts/
@@ -89,26 +91,84 @@
 //   the state in device memory and one int flag per band (stored after a
 //   fence, polled by one thread while the block waited), it ran 14.94 /
 //   18.36 / 20.07 us per step at 64^2 / 128^2 / 256^2 against the
-//   cooperative form's 3.56 / 3.80 / 4.19 (168 registers, 1 KB of
+//   grid-barrier form's 3.56 / 3.80 / 4.19 (168 registers, 1 KB of
 //   spills); with the band in shared memory, 1-4 rows per thread and
 //   only the edge rows waiting, 2.59 / 3.12 / 5.51 (one block per band
 //   left 100 SMs idle at 256^2); cut into segments with a flag per block,
 //   6.75 / 6.77 / 5.50: a corner cell waited on four flags one after
 //   another (H100 80GB HBM3, 700 W).
 
-// The grid-barrier form (resident_grid_kernel), the cooperative form's
-// predecessor, kept to be timed beside it: a persistent grid walks the
-// step kernel's 32x8 tiles grid-stride, one grid barrier per step, the
-// state ping-pongs between two buffers in device memory.
+// The cooperative form (resident_kernel<K>), for grids with a band for at
+// least 2/3 of the SMs (the 1024^2 deck and up):
+// * Bands and blocks.  A band is the step kernel's tile row (8 rows, the
+//   last one ragged).  One cooperative launch per chunk of as many blocks
+//   as bands, no more than can be co-resident (one per SM: two windows
+//   fill its shared memory, 512 threads its registers); block b owns
+//   bands b, b + gridDim.x, ... (4096^2: 512 bands on 132 blocks).  There
+//   is no grid barrier.
+// * Rounds.  A chunk runs in rounds of K steps (K = 3 by the shape rule
+//   coop_k; a last round of n mod K, and one round split in two where that
+//   makes the rounds as many, mod 2, as the steps, so that the state ends
+//   in `a` for an even n and in `b` for an odd one).  Round r reads buffer
+//   r % 2 and writes the other.  A block walks its bands' windows of 128
+//   columns: each window is its 8 rows with K ghost rows above and below
+//   and 4 ghost columns each side, copied by cp.async into shared memory
+//   while the previous window steps, then stepped K times in place
+//   (window_common.cuh's Window and forcing rows; each thread's cells staged
+//   in registers, two barriers a step: step s computes the rectangle K - s
+//   cells beyond the own ones) and its own cells written to the other
+//   buffer.  A round of k < K steps runs the trapezoid's last k steps.
+// * Meeting the neighbours.  A window's ghost rows are the neighbouring
+//   bands' rows of state t, read straight from the round's source buffer.
+//   Each band announces, per window, the step of the state it has written
+//   there: a 64-bit outbox word, [bands][windows], the step + 1 in its high
+//   half, stored with ll_store by one thread after the block's barrier and
+//   a fence.  Before a window's copies are issued, warp 0 polls the words
+//   of the bands that own its ghost rows at the windows before, at and after
+//   it (ll_load, then a fence), loaded one window ahead so that the loads
+//   fly while a window steps.  A poll that exceeds kMaxPolls traps.  The
+//   wrapper resets the outbox before every launch; round 0 waits for
+//   nothing (state 0 is in place before the launch).
+// * Write after read.  The round's source buffer plays the banded form's
+//   outbox slot of the round's parity.  A band overwrites its rows of that
+//   buffer at round r + 1 only after it has seen, at the windows it
+//   overwrites, the neighbours' words of round r + 1 (it needs their ghost
+//   rows of state t + k); a neighbour stores those words after the copies
+//   of its own window of round r, which read this band's rows of state t,
+//   have landed.  Reading ghost rows is symmetric (a band whose rows a
+//   window reads reads the window's band in turn), so no band overwrites
+//   rows that a neighbour still has to read, and no band runs more than a
+//   round ahead of a neighbour.  Other bands' rows are read from L2
+//   (cp.async.cg, __ldcg), never from a stale L1 line.
+// * ||u|| partials: each own cell's ||u|| (0 on an obstacle and off the
+//   grid) goes to shared memory per step, and a warp sums each tile in
+//   block_sum's order (as the banded form), to partials[t, tile].
+// * Bound: 72/K bytes per cell and step for the state (read and written
+//   once per round) and 9 for the ghost rows, 33 at K = 3.  It runs 25.43
+//   us per step at 1024^2, 89.11 at 2048^2, 340.23 at 4096^2 (K = 3), the
+//   grid-barrier form 41.00 / 147.40 / 582.37 (chip_smoke.py 3r, H100 80GB
+//   HBM3, 700 W); without its cell steps 10.5 us at 1024^2 and K = 4, so
+//   the steps, 16 warps a SM in rounds separated by barriers, take most of
+//   a round.  K = 1 / 2 / 4: 39.27 / 28.99 / 26.75 us at 1024^2.
+// * History: with a copy of each band's 2K edge rows in an outbox of
+//   step-tagged 64-bit words (value and step in one word, two slots), the
+//   outbox doubled the state's traffic (72 bytes per cell and step at K =
+//   2, the grid-barrier form's 73) and the form ran 41.96 us per step at
+//   1024^2; gathering ghosts by volatile loads issued after a window's steps
+//   cost 15 of 42.8 us (scripts/torch_resident_variants.py); bands of 16 or
+//   32 rows cut the outbox's share but left SMs idle (73.74 us at 1024^2);
+//   one state buffer stepped in place was within 3% of the pair.
 //
-// Bound on this card: the launch latency and the host loop disappear (one
-// launch per chunk instead of one per step).  What is left per step is the
-// step's traffic (73 B/cell) and the synchronisation: for the cooperative
-// form one grid barrier of a few microseconds; for the banded form the
-// chain of one round trip through L2 for the ghost values, two block
-// barriers and one cell step of latency.  The pair of buffers (72 B/cell)
-// fits in the 50 MB L2 up to about 690 000 cells; the 1024x1024 pair is
-// 75.5 MB and does not fit.
+// The grid-barrier form (resident_grid_kernel), for grids with fewer bands,
+// which the cooperative form would leave SMs idle on: a persistent grid as
+// large as can be co-resident walks the step kernel's 32x8 tiles
+// grid-stride, runs the per-cell step, and a grid barrier
+// (cooperative_groups::this_grid().sync()) separates the steps; the state
+// ping-pongs between two buffers in device memory, read with plain loads.
+// Its bound is each step's traffic (73 B/cell) and the barrier: 8.05 us
+// per step at 512^2 (64 bands) against the cooperative form's 12.86; 23.43
+// against 25.63 at 640x1024 (80 bands), 28.82 against 25.66 at 704x1024
+// (88 bands).
 //
 // Build (ops/_build.py): nvcc -gencode arch=compute_90a,code=sm_90a
 //   -std=c++17 -O3 -fmad=false -shared -Xcompiler -fPIC  (no -rdc: grid
@@ -129,8 +189,8 @@ namespace {
 constexpr int kThreads = lbm::kTileX * lbm::kTileY;
 
 __global__ void __launch_bounds__(kThreads)
-    resident_grid_kernel(float* a, float* b, const uint8_t* mask, float* partials,
-                    int ny, int nx, int n_steps, lbm::StepConsts c) {
+    resident_grid_kernel(float* a, float* b, const uint8_t* mask, float* partials, int ny,
+                         int nx, int n_steps, lbm::StepConsts c) {
   __shared__ float red[kThreads];
   cg::grid_group grid = cg::this_grid();
   const int tiles_x = (nx + lbm::kTileX - 1) / lbm::kTileX;
@@ -850,11 +910,11 @@ cudaError_t coop_prepared(int* blocks) {
 }
 
 // The K of the cooperative form for an (ny, nx) grid (ops/resident.py:
-// coop_k is the same rule).
+// coop_k is the same rule): 3, the fastest K on every grid timed.
 int coop_k(int ny, int nx) {
   (void)ny;
   (void)nx;
-  return 2;
+  return 3;
 }
 
 // The blocks of a launch: one per band, no more than can be co-resident.
@@ -930,9 +990,9 @@ bool banded_fits(int ny, int nx, int smem_optin, int max_bands) {
 
 }  // namespace
 
-// Loads both kernels onto the current device without launching them,
-// checks that the device takes cooperative launches, and sets the banded
-// kernel's shared-memory limit.
+// Loads every form's kernels onto the current device without launching
+// them, checks that the device takes cooperative launches, and sets the
+// banded and cooperative kernels' shared-memory limits.
 extern "C" int lbm_resident_prepare(void) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, resident_grid_kernel);
@@ -960,7 +1020,7 @@ extern "C" int lbm_resident_banded_limits(int nx, int* smem_optin, int* max_band
 }
 
 // 1 if the banded form takes an (ny, nx) grid on the current device, 0 if
-// the cooperative form runs it; a negative cudaError_t on failure.
+// another form runs it; a negative cudaError_t on failure.
 extern "C" int lbm_resident_banded_fits(int ny, int nx) {
   int smem = 0, max_bands = 0;
   const int err = lbm::status(banded_limits(nx, &smem, &max_bands));
@@ -1049,19 +1109,18 @@ extern "C" int lbm_resident_chunk(float* a, float* b, const uint8_t* mask, float
   }));
 }
 
-// The grid-barrier form: n_steps steps on the state in `a`, ping-ponging with `b`: the state ends
-// in `a` for an even n_steps, in `b` for an odd one.  partials is
-// (n_steps, tiles) float32, tiles = ceil(ny/8) * ceil(nx/32).  `blocks` is
-// 0 (the co-resident limit) except in the test of a refused launch, where
-// a grid larger than can be co-resident is refused with
-// cudaErrorCooperativeLaunchTooLarge.  Launches on `stream`;
+// The grid-barrier form: n_steps steps on the state in `a`, ping-ponging
+// with `b`: the state ends in `a` for an even n_steps, in `b` for an odd
+// one.  partials is (n_steps, tiles) float32, tiles = ceil(ny/8) *
+// ceil(nx/32).  `blocks` is 0 (the co-resident limit) except in the test
+// of a refused launch, where a grid larger than can be co-resident is
+// refused with cudaErrorCooperativeLaunchTooLarge.  Launches on `stream`;
 // returns the launch's cudaError_t (0 = launched).
 extern "C" int lbm_resident_grid_chunk(float* a, float* b, const uint8_t* mask,
-                                  float* partials, int ny, int nx,
-                                  int n_steps, int blocks, float w0_omega,
-                                  float w1_omega, float w2_omega,
-                                  float one_minus_omega, float accel_w1,
-                                  float accel_w2, void* stream) {
+                                       float* partials, int ny, int nx, int n_steps,
+                                       int blocks, float w0_omega, float w1_omega,
+                                       float w2_omega, float one_minus_omega,
+                                       float accel_w1, float accel_w2, void* stream) {
   if (blocks <= 0) {
     const cudaError_t err = grid_blocks(ny, nx, &blocks);
     if (err != cudaSuccess) return lbm::status(err);

@@ -10,7 +10,9 @@ Backends (each CUDA kernel runs its plain PyTorch version on the CPU):
             (ops/step_kernel.py)
   pallas    the JAX package's name for the per-step kernel: runs ``step``
   resident  the whole run in one cooperative launch per chunk of steps
-            (ops/resident.py)
+            (ops/resident.py): the banded form on the small decks, the
+            cooperative form (K = 3 steps per round) where the grid has a
+            band of 8 rows for 2/3 of the SMs, the grid-barrier form between
   pallask   K steps per launch on ghost-zone windows, K = best_k(ny, nx),
             the last iters % K steps on the step kernel (ops/kstep_kernel.py)
   pallas2   the same at K = 2
@@ -85,11 +87,13 @@ WHOLE_RUN = ("resident", "pallask", "pallas2", "stream")
 # instead: 2.98 / 2.97 / 3.22 us per step at 64^2 / 128^2 / 256^2 against
 # pallask's 3.49 / 3.98 / 3.81 (K = 5, host-paced), as the JAX ``auto``
 # runs its resident kernel on small grids.  Elsewhere the K-step kernel is
-# the fastest path (19.43 us per step at 1024^2, K = 3, against 32.59 for
-# step and 40.86 for the cooperative resident form) and faster than the
-# stream kernel on every grid timed from 2048^2 to 16384^2 (964 against
-# 1202 us per step at 8192^2, 3862 against 4154 at 16384^2).  Where it
-# does not fit, ``auto`` runs ``stream`` (``Simulation._resolve_backend``).
+# the fastest path (18.80 us per step at 1024^2, K = 3, against 32.51 for
+# step and 25.43 for the resident kernel's cooperative form, which the JAX
+# ``auto`` would run there; 59.89 against 89.11 at 2048^2, 242.16 against
+# 340.23 at 4096^2) and faster than the stream kernel on every grid timed
+# from 2048^2 to 16384^2 (964 against 1202 us per step at 8192^2, 3862
+# against 4154 at 16384^2).  Where it does not fit, ``auto`` runs
+# ``stream`` (``Simulation._resolve_backend``).
 AUTO_BACKEND = "pallask"
 
 

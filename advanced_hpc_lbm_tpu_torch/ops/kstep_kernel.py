@@ -22,6 +22,7 @@ state out of place and one ||u|| partial per step and tile,
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import functools
@@ -41,8 +42,10 @@ K_RANGE = range(2, 9)
 # Steps of ||u|| partials held before they are summed, as step_kernel.run.
 CHUNK = step_kernel.CHUNK
 
-# Kernel launches made by this module since the count was last reset.
+# Kernel launches made by this module since the count was last reset, and
+# the same launches by K (K = 2 is the port of pallas_multi's _kernel2).
 launches = 0
+launches_by_k: collections.Counter = collections.Counter()
 
 prepare_obstacles = step_kernel.prepare_obstacles
 
@@ -170,6 +173,7 @@ def _launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams, k: int):
                             ny, nx, k, *consts, stream)
         step_kernel._raise_on(lib, err, f"K={k} kernel launch")
         launches += 1
+        launches_by_k[k] += 1
     return one
 
 

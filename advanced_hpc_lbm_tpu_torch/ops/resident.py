@@ -6,8 +6,9 @@ The port's counterpart of ``advanced_hpc_lbm_tpu.ops.resident``
 is the wrapper: on a CUDA tensor it launches ``csrc/resident_kernel.cu``
 once per chunk of at most ``chunk`` steps; on a CPU tensor it runs
 :func:`plain_run`, a loop of ``step_kernel.plain_step``.  The kernel has
-two forms, chosen by the grid's shape before the launch
-(:func:`banded_fits` with the card's limits):
+three forms, chosen by the grid's shape before the launch
+(:func:`form_of`: :func:`banded_fits` with the card's limits, then
+:func:`coop_fits` with its SMs):
 
 * the banded form, for grids whose band of 8 rows fits in shared memory
   (the small decks): blocks of a band's segment of columns keep their
@@ -19,7 +20,12 @@ two forms, chosen by the grid's shape before the launch
   steps them K steps per round (:func:`coop_k`) window by window in shared
   memory, on K ghost rows that it reads from the neighbouring bands' state
   in the round's buffer once their step-tagged flags say it is there, again
-  without a grid barrier; each launch adds one to :data:`launches`.
+  without a grid barrier, for grids with a band for 2/3 of the SMs or more;
+  each launch adds one to :data:`launches`;
+* the grid-barrier form, its predecessor, for grids with fewer bands, where
+  the cooperative form would leave SMs idle: a persistent grid walks the
+  32x8 tiles, one grid barrier per step; each launch adds one to
+  :data:`grid_launches`.
 
 A CUDA tensor never falls back to another form or to the plain version:
 the launch happens or the wrapper raises (a device without cooperative
@@ -48,9 +54,10 @@ from advanced_hpc_lbm_tpu_torch.params import LBMParams
 CHUNK = 1000
 
 # Kernel launches made by this module since the count was last reset: of
-# the cooperative form, and of the banded form.
+# the cooperative form, the banded form and the grid-barrier form.
 launches = 0
 banded_launches = 0
+grid_launches = 0
 
 # The K (steps per round) the cooperative form is built for (with_coop_k in
 # csrc/resident_kernel.cu), and its block size.
@@ -141,8 +148,37 @@ def takes_banded(ny: int, nx: int, device: torch.device | str) -> bool:
 
 def coop_k(ny: int, nx: int) -> int:
     """The cooperative form's steps per round for an (ny, nx) grid (the C
-    query ``lbm_resident_coop_k`` is the same rule)."""
-    return 2
+    query ``lbm_resident_coop_k`` is the same rule): 3 on every grid, from
+    this port's times on an H100 80GB HBM3 at 700 W (chip_smoke.py 3r,
+    PERF.md, Findings): at 768^2, 1024^2, 2048^2 and 4096^2 K = 3 is the
+    fastest of 1..4 (25.47 us per step at 1024^2 against 39.56, 28.89 and
+    26.62), at 512^2 as fast as K = 4."""
+    return 3
+
+
+def coop_fits(ny: int, sms: int) -> bool:
+    """Whether the cooperative form runs a grid that the banded form does
+    not take, on a card of ``sms`` SMs: where its bands, one block each,
+    keep at least 2/3 of the SMs busy; on grids with fewer bands the
+    grid-barrier form, which spreads any grid over every SM, is the faster.
+    From this port's times on an H100 80GB HBM3 at 700 W (132 SMs,
+    chip_smoke.py 3r, grids 1024 wide): 23.43 against 25.63 us per step at
+    80 bands, 28.82 against 25.66 at 88 (grid-barrier, cooperative); 8.05
+    against 12.86 at 512^2 (64 bands)."""
+    return 3 * num_bands(ny) >= 2 * sms
+
+
+def form_of(ny: int, nx: int, device: torch.device | str) -> str:
+    """The form a CUDA device runs an (ny, nx) grid in: "banded",
+    "cooperative" or "grid" (the grid-barrier form); "plain" off CUDA."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "plain"
+    if takes_banded(ny, nx, device):
+        return "banded"
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return "cooperative" if coop_fits(ny, sms) else "grid"
 
 
 def coop_smem_bytes(k: int) -> int:
@@ -227,19 +263,19 @@ def _chunk_launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams,
                     blocks: int = 0, form: str | None = None, k: int | None = None):
     """A function ``(bufs, n_steps, partials) -> None`` that runs one chunk
     on tensors shaped like ``f``: the kernel on CUDA (the form the shape
-    takes, :func:`takes_banded`), the plain version on the CPU.  Test
+    takes, :func:`form_of`), the plain version on the CPU.  Test
     hooks, which ``resident_run`` never passes: ``blocks`` > 0 sets the
     grid size (otherwise one block per band, or per band and segment, no
     more than can be co-resident): fewer cooperative blocks own several
     bands each, and a grid too large to be co-resident is the only way to
-    make the card refuse a launch; ``form="cooperative"`` runs the
-    cooperative form on any grid (``form="grid"`` its grid-barrier
-    predecessor); ``k`` sets the cooperative form's steps per round."""
+    make the card refuse a launch; ``form`` ("banded", "cooperative" or
+    "grid") runs that form on any grid the kernel takes; ``k`` sets the
+    cooperative form's steps per round."""
     if f.device.type == "cpu":
         return lambda bufs, n, part: plain_run(bufs, mask, params, n, part)
     if f.device.type != "cuda":
         raise ValueError(f"no resident kernel for device {f.device}")
-    if form not in (None, "cooperative", "grid"):
+    if form not in (None, "banded", "cooperative", "grid"):
         raise ValueError(f"unknown form {form!r}")
     lib = step_kernel._library()
     _, ny, nx = f.shape
@@ -247,7 +283,8 @@ def _chunk_launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams,
     stream = torch.cuda.current_stream(f.device).cuda_stream
     mask_ptr = mask.data_ptr()
 
-    if form is None and takes_banded(ny, nx, f.device):
+    form = form or form_of(ny, nx, f.device)
+    if form == "banded":
         words = ctypes.c_longlong()
         step_kernel._raise_on(lib, lib.lbm_resident_banded_scratch(
             ny, nx, ctypes.byref(words)), "sizing the banded kernel's outbox")
@@ -266,10 +303,12 @@ def _chunk_launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams,
 
     if form == "grid":
         def grid(bufs, n, part):
+            global grid_launches
             err = lib.lbm_resident_grid_chunk(bufs[0].data_ptr(), bufs[1].data_ptr(), mask_ptr,
                                               part.data_ptr(), ny, nx, n, blocks, *consts,
                                               stream)
             step_kernel._raise_on(lib, err, "resident kernel launch")
+            grid_launches += 1
         return grid
 
     k = coop_k(ny, nx) if k is None else k

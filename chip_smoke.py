@@ -17,13 +17,21 @@ non-zero and prints no result:
              from seeded states, at 1024x1024, 64x64, 100x130 and 17x23,
              1 and 50 steps, plus a forcing row that fails the guard
   3r. resident  the form each shape takes (the C rule against
-             resident.banded_fits; the band's shared-memory bytes, ptxas's
-             registers and spills of both forms), then the resident kernel
-             against the step kernel (0 differing values) and its plain
-             version, 1024^2 to 17x23: 1 and 50 steps in one chunk, 17
-             steps in chunks of 6 with a guard-failing row, in both forms
-             where the banded one applies; then its time per step beside
-             the step kernel's run loop, both forms in turns at 64^2 to 256^2
+             resident.banded_fits, then coop_fits; the band's shared-memory
+             bytes; ptxas's registers and spills of every form; the
+             cooperative form's C queries against its Python rules, its K by
+             shape and blocks per SM), then the resident kernel against the
+             step kernel (0 differing values) and its plain version, 1024^2
+             to 17x23: 1 and 50 steps in one chunk, 17 steps in chunks of 6
+             with a guard-failing row, in every form (banded, cooperative,
+             grid-barrier) that takes the shape, the cooperative one at
+             every built K on six shapes (one, two and three bands), its
+             partials bitwise, also with 1 and 3 blocks for 8 bands; then
+             its time per step beside the step kernel's run loop: banded
+             and cooperative in turns at 64^2 to 256^2, from 512^2 to 4096^2
+             the cooperative form at K = 1..4, the grid-barrier form and
+             pallask in turns, and the two forms in turns at 80 to 96
+             bands of 1024 columns (coop_fits' threshold)
   3k. kstep  the K-step kernel (every built K; at 4096^2 K = 2, 4, 8 and
              best_k, the K pallask runs there) against the step kernel (0
              differing values) and its plain version at 4096^2, 1024^2,
@@ -43,6 +51,9 @@ non-zero and prints no result:
   5. full    the 1024x1024 deck (20 000 steps) through the CLI with auto
              and with resident: finite, positive av history, mass
              conserved, GLUPS of the run and of the kernel alone
+  5m. mid    a 512x512 deck (64 bands: the grid-barrier form) for 2000
+             steps through the CLI with resident and with pallas: exact
+             launches, av histories compared
   5b. cli big  a 4096x4096 deck for 2000 steps through the CLI with
              stream: the ==done== block, and final_state.dat written by
              the native codec, timed
@@ -147,7 +158,9 @@ non-zero and prints no result:
              runs' own blocks equal by a digest computed on each card, mass
              conserved, each card's peak memory, us per step and the
              exchange timed alone
-  result     a JSON line of the kernels, then the device JSON line last
+  result     a JSON line of the kernels (the K-step kernel's main-path
+             launches also by K, and its time at K = 2, the port of
+             pallas_multi's _kernel2), then the device JSON line last
 
 Each phase's wall time follows it on a ``[time]`` line.
 
@@ -207,8 +220,10 @@ BEFORE_US = {"step 1024^2": 32.37, "K=4 4096^2": 303.93, "K=4 1024^2": 23.20,
              "stream 4096^2": 476.92, "stream 8192^2": 1665.38,
              "stream 16384^2": 5945.41}
 
-# launches of each kernel over the main-path runs of phases 4-14
+# launches of each kernel over the main-path runs of phases 4-14, and the
+# K-step kernel's by K (in this process)
 MAIN_LAUNCHES: collections.Counter = collections.Counter()
+MAIN_K_LAUNCHES: collections.Counter = collections.Counter()
 
 
 def kernel_counters() -> dict:
@@ -222,6 +237,7 @@ def kernel_counters() -> dict:
     return {"step_kernel": (step_kernel, "launches"),
             "resident_kernel": (resident, "launches"),
             "resident_banded_kernel": (resident, "banded_launches"),
+            "resident_grid_kernel": (resident, "grid_launches"),
             "kstep_kernel": (kstep_kernel, "launches"),
             "stream_kernel": (stream_kernel, "launches"),
             "stream_snapshot": (stream_kernel, "snapshot_launches"),
@@ -233,13 +249,18 @@ def kernel_counters() -> dict:
 @contextlib.contextmanager
 def counted(into: dict):
     """Set every launch count to 0, run the body, then read the counts into
-    ``into`` and add them to MAIN_LAUNCHES."""
+    ``into`` and add them to MAIN_LAUNCHES (the K-step kernel's by K to
+    MAIN_K_LAUNCHES)."""
+    from advanced_hpc_lbm_tpu_torch.ops import kstep_kernel
+
     counters = kernel_counters()
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
+    kstep_kernel.launches_by_k.clear()
     yield
     into.update({name: getattr(mod, attr) for name, (mod, attr) in counters.items()})
     MAIN_LAUNCHES.update(into)
+    MAIN_K_LAUNCHES.update(kstep_kernel.launches_by_k)
 
 
 def fail(msg: str) -> None:
@@ -508,9 +529,9 @@ BANDED_DECKS = ((64, 64), (128, 128), (128, 256), (256, 128), (256, 256))
 
 def check_banded_rule(card: str) -> None:
     """The C query lbm_resident_banded_fits equals resident.banded_fits on
-    the card's limits; the small decks take the banded form, 512^2 and
-    1024^2 the cooperative one; the cooperative form's C queries equal its
-    Python rules."""
+    the card's limits; the small decks take the banded form, 512^2 the
+    grid-barrier one and 1024^2 the cooperative one; the cooperative form's
+    C queries equal its Python rules."""
     from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel
 
     lib = step_kernel._library()
@@ -523,13 +544,14 @@ def check_banded_rule(card: str) -> None:
         if c_rule != int(py_rule):
             fail(f"[3r resident] {ny}x{nx}: the C rule says {c_rule}, banded_fits {py_rule} "
                  f"(smem {smem} B, {blocks} co-resident blocks)")
-        rows.append(f"{ny}x{nx} {'banded' if py_rule else 'cooperative'} ({blocks} bands co-resident)")
+        rows.append(f"{ny}x{nx} {resident.form_of(ny, nx, 'cuda')} ({blocks} bands co-resident)")
     for ny, nx in BANDED_DECKS:
         if not resident.takes_banded(ny, nx, "cuda"):
             fail(f"[3r resident] {ny}x{nx} does not take the banded form")
-    for ny, nx in ((512, 512), (1024, 1024)):
-        if resident.takes_banded(ny, nx, "cuda"):
-            fail(f"[3r resident] {ny}x{nx} takes the banded form")
+    for (ny, nx), form in (((512, 512), "grid"), ((1024, 1024), "cooperative")):
+        if resident.form_of(ny, nx, "cuda") != form:
+            fail(f"[3r resident] {ny}x{nx} takes the {resident.form_of(ny, nx, 'cuda')} form, "
+                 f"expected the {form} one")
     smem = resident._banded_limits(dev, 64)[0]
     say(f"[3r resident] form by shape, C rule = banded_fits at {smem} B of opt-in shared "
         f"memory: {', '.join(rows)}; band bytes (2*9*10*nx*4 + 10*nx): nx=64 "
@@ -571,40 +593,44 @@ COOP_K_SHAPES = ((256, 512), (100, 130), (17, 23), (24, 64), (16, 64), (8, 40))
 
 
 def phase_resident(card: str) -> tuple[dict, dict]:
-    """Both forms against the step kernel (0 differing values) and the plain
-    version; returns (worst max |df| against the plain version per form,
-    times)."""
+    """Every form at every shape against the step kernel (0 differing
+    values) and the plain version; returns (worst max |df| against the
+    plain version per form, times)."""
     from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel
 
     check_banded_rule(card)
     shapes = ((1024, 1024), (512, 512), (256, 512), (256, 256), (128, 256), (128, 128),
               (64, 64), (100, 130), (17, 23))
-    worst = {"banded": 0.0, "cooperative": 0.0}
+    worst = {"banded": 0.0, "cooperative": 0.0, "grid": 0.0}
     for seed, (ny, nx) in enumerate(shapes):
-        banded = resident.takes_banded(ny, nx, "cuda")
-        forms = ([(None, None, None), ("cooperative", None, None)] if banded
-                 else [(None, None, None)])
+        taken = resident.form_of(ny, nx, "cuda")
+        # the form the shape takes (the wrapper's rule), then the other forms
+        # that take it through the test hook
+        forms = [(None, None)] + [(form, None) for form in ("cooperative", "grid")
+                                  if form != taken]
         if (ny, nx) in COOP_K_SHAPES:
-            forms += [("cooperative", k, None) for k in resident.COOP_K]
+            forms += [("cooperative", k) for k in resident.COOP_K]
         for n, chunk, guard in ((1, resident.CHUNK, False), (50, resident.CHUNK, False),
                                 (17, 6, True)):
             params, mask, f = on_card(ny, nx, 100 + seed, guard)
             fs, avs = step_kernel.run(f, mask, params, n_iters=n)
             fp, avp = plain_resident(f, mask, params, n, chunk)
-            for form, k, _ in forms:
-                name = "banded" if banded and form is None else "cooperative"
-                tag = (f"[3r resident] {name} {ny}x{nx} {n} step(s), chunk {chunk}"
-                       + (f", K={k or resident.coop_k(ny, nx)}" if name != "banded" else "")
+            for form, k in forms:
+                name = form or taken
+                tag = (f"[3r resident] {name}{'' if form else ' (the rule)'} {ny}x{nx} {n} "
+                       f"step(s), chunk {chunk}"
+                       + (f", K={k or resident.coop_k(ny, nx)}" if name == "cooperative" else "")
                        + (", guard-failing row" if guard else ""))
-                resident.launches = resident.banded_launches = 0
+                resident.launches = resident.banded_launches = resident.grid_launches = 0
                 fr, avr = resident_form(f, mask, params, n, chunk, form, k)
                 torch.cuda.synchronize()
-                counts = (resident.banded_launches, resident.launches)
-                want = (-(-n // chunk), 0) if name == "banded" else (0, -(-n // chunk))
+                counts = {"banded": resident.banded_launches, "cooperative": resident.launches,
+                          "grid": resident.grid_launches}
+                want = {other: -(-n // chunk) if other == name else 0 for other in counts}
                 if counts != want:
-                    fail(f"{tag}: (banded, cooperative) launches {counts}, expected {want}")
+                    fail(f"{tag}: launches {counts}, expected {want}")
                 worst[name] = max(worst[name], diff_line(fr, fp)[0])
-                say(f"{tag}: {sum(counts)} launch(es); "
+                say(f"{tag}: {sum(counts.values())} launch(es); "
                     f"{check_against(tag, fr, avr, fs, avs, 'step kernel', True)}; "
                     f"{check_against(tag, fr, avr, fp, avp, 'plain version', False)}")
     coop_partials(card)
@@ -651,57 +677,92 @@ def time_whole_runs(card: str) -> dict:
     (one chunk of RUN_STEPS steps per timed run; the plain step one call at
     a time); at 64^2, 128^2 and 256^2 the banded and the cooperative form
     in turns (cooperative, banded, banded, cooperative); from 512^2 the
-    cooperative form at every built K, its grid-barrier predecessor and
-    pallask (best_k) in turns, each twice (the order reversed the second
-    time).  Returns (resident, step, plain, cooperative form) ms per step
-    by grid."""
+    cooperative form at every built K, the grid-barrier form and pallask
+    (best_k) in turns, each twice (the order reversed the second time).
+    Returns (resident, step, plain, cooperative form, grid-barrier form) ms
+    per step by grid."""
     from advanced_hpc_lbm_tpu_torch.ops import kstep_kernel, resident, step_kernel
 
     times = {}
-    for seed, n in enumerate((64, 128, 256, 512, 768, 1024, 2048, 4096)):
+    for seed, (n, _) in enumerate(TIMED_SQUARES):
         params, mask, f = on_card(n, n, 200 + seed)
         steps = RUN_STEPS if n <= 2048 else RUN_STEPS // 4
         reps = 3 if n <= 2048 else 1
+        k_rule = resident.coop_k(n, n)
 
         def run(form=None, k=None):
             return time_ms(lambda: resident_form(f, mask, params, steps, steps, form, k),
                            reps) / steps
         if resident.takes_banded(n, n, "cuda"):
             c1, b1, b2, c2 = run("cooperative"), run(), run(), run("cooperative")
-            r_ms, coop_ms = (b1 + b2) / 2, (c1 + c2) / 2
+            r_ms, coop_ms, grid_ms = (b1 + b2) / 2, (c1 + c2) / 2, float("nan")
             forms = (f"banded {r_ms * 1e3:.2f} us ({b1 * 1e3:.2f}, {b2 * 1e3:.2f}), "
-                     f"cooperative K={resident.coop_k(n, n)} {coop_ms * 1e3:.2f} us "
-                     f"({c1 * 1e3:.2f}, {c2 * 1e3:.2f}), banded {coop_ms / r_ms - 1:+.1%} faster")
+                     f"cooperative K={k_rule} {coop_ms * 1e3:.2f} us ({c1 * 1e3:.2f}, "
+                     f"{c2 * 1e3:.2f}), banded {coop_ms / r_ms - 1:+.1%} faster")
         else:
             best = kstep_kernel.best_k(n, n)
             timers = {"grid-barrier form": lambda: run("grid"),
                       f"pallask K={best}": lambda: time_ms(
                           lambda: kstep_kernel.run(f, mask, params, n_iters=steps, k=best),
                           reps) / steps,
-                      **{f"K={k}": (lambda k=k: run("cooperative", k)) for k in resident.COOP_K}}
+                      **{f"cooperative K={k}": (lambda k=k: run("cooperative", k))
+                         for k in resident.COOP_K}}
             got = {name: [fn()] for name, fn in timers.items()}
             for name in reversed(list(timers)):
                 got[name].append(timers[name]())
             mean = {name: sum(v) / 2 for name, v in got.items()}
-            rule = f"K={resident.coop_k(n, n)}"
-            r_ms = coop_ms = mean[rule]
-            forms = (f"cooperative {rule} {r_ms * 1e3:.2f} us; "
+            coop_ms, grid_ms = mean[f"cooperative K={k_rule}"], mean["grid-barrier form"]
+            taken = resident.form_of(n, n, "cuda")
+            r_ms = coop_ms if taken == "cooperative" else grid_ms
+            forms = (f"{taken} form {r_ms * 1e3:.2f} us; "
                      + ", ".join(f"{name} {mean[name] * 1e3:.2f} us "
                                  f"({v[0] * 1e3:.2f}, {v[1] * 1e3:.2f})"
                                  for name, v in got.items())
-                     + f"; cooperative {mean['grid-barrier form'] / r_ms - 1:+.1%} faster than "
-                     f"the grid-barrier form, {mean[f'pallask K={best}'] / r_ms - 1:+.1%} than "
+                     + f"; cooperative (K={k_rule}) {grid_ms / coop_ms - 1:+.1%} faster than the "
+                     f"grid-barrier form, {mean[f'pallask K={best}'] / coop_ms - 1:+.1%} than "
                      f"pallask")
         s_ms = time_ms(lambda: step_kernel.run(f, mask, params, n_iters=steps), reps) / steps
         p_ms = (time_ms(step_timer(step_kernel.plain_step, params, mask, f), 20)
-                if n in (128, 1024) else float("nan"))
-        times[(n, n)] = (r_ms, s_ms, p_ms, coop_ms)
+                if n in (128, 512, 1024) else float("nan"))
+        times[(n, n)] = (r_ms, s_ms, p_ms, coop_ms, grid_ms)
         say(f"[3r resident] {n}x{n} time per step ({steps} steps, one chunk): resident "
             f"{forms} ({n * n / r_ms / 1e6:.3f} GLUPS), step run loop "
             f"{s_ms * 1e3:.2f} us ({n * n / s_ms / 1e6:.3f} GLUPS), plain "
             + (f"{p_ms * 1e3:.2f} us" if p_ms == p_ms else "not timed")
             + f" | {card}")
+    time_form_rule(card)
     return times
+
+
+# rows of the grids (1024 columns) at which phase 3r times the cooperative
+# and the grid-barrier form beside coop_fits' threshold (88 bands on 132
+# SMs): 80 to 96 bands
+RULE_ROWS = (640, 672, 696, 704, 768)
+
+
+def time_form_rule(card: str) -> None:
+    """The cooperative form (its K) and the grid-barrier form in turns at
+    band counts around coop_fits' threshold; one line each with what the
+    rule picks (a report: the rule is fixed in the code)."""
+    from advanced_hpc_lbm_tpu_torch.ops import resident
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for seed, ny in enumerate(RULE_ROWS):
+        nx = 1024
+        params, mask, f = on_card(ny, nx, 600 + seed)
+
+        def run(form):
+            return time_ms(lambda: resident_form(f, mask, params, RUN_STEPS, RUN_STEPS, form),
+                           2) / RUN_STEPS
+        g1, c1, c2, g2 = run("grid"), run("cooperative"), run("cooperative"), run("grid")
+        coop_ms, grid_ms = (c1 + c2) / 2, (g1 + g2) / 2
+        picked = resident.form_of(ny, nx, "cuda")
+        faster = "cooperative" if coop_ms < grid_ms else "grid"
+        say(f"[3r resident] {ny}x{nx} ({resident.num_bands(ny)} bands, {sms} SMs): cooperative "
+            f"K={resident.coop_k(ny, nx)} {coop_ms * 1e3:.2f} us ({c1 * 1e3:.2f}, "
+            f"{c2 * 1e3:.2f}), grid-barrier {grid_ms * 1e3:.2f} us ({g1 * 1e3:.2f}, "
+            f"{g2 * 1e3:.2f}); the rule picks {picked}, "
+            f"{'the faster' if picked == faster else 'the faster was ' + faster} | {card}")
 
 
 # ---- 3k. K-step kernel ----------------------------------------------------------
@@ -942,13 +1003,13 @@ def expected_launches(backend: str, ny: int, nx: int, iters: int) -> dict:
     if backend == "auto":
         backend = ("resident" if resident.takes_banded(ny, nx, "cuda")
                    else d2q9_bgk.AUTO_BACKEND)
+    forms = {"banded": "resident_banded_kernel", "cooperative": "resident_kernel",
+             "grid": "resident_grid_kernel"}
     want = dict.fromkeys(kernel_counters(), 0)
     if backend in ("step", "pallas"):
         want["step_kernel"] = iters
     elif backend == "resident":
-        form = ("resident_banded_kernel" if resident.takes_banded(ny, nx, "cuda")
-                else "resident_kernel")
-        want[form] = -(-iters // resident.CHUNK)
+        want[forms[resident.form_of(ny, nx, "cuda")]] = -(-iters // resident.CHUNK)
     elif backend == "stream":
         want["stream_kernel"], want["step_kernel"] = divmod(iters, stream_kernel.K)
         want["stream_snapshot"] = want["stream_kernel"]
@@ -1064,15 +1125,55 @@ def phase_full(card: str, times: dict, keep: Path) -> dict:
             fail(f"[5 full] library run ({sim.backend}) disagrees with the CLI's "
                  f"--backend {backend} av history")
     same = bool(np.array_equal(histories["auto"], histories["resident"]))
-    r_ms, s_ms, p_ms, _ = times[(ny, nx)]
+    r_ms, s_ms, p_ms = times[(ny, nx)][:3]
+    from advanced_hpc_lbm_tpu_torch.ops import resident
+
     say(f"[5 full] library run ({sim.backend}): launches {counts}, mass drift {drift:.3e} "
-        f"(limit 1e-4), av within rtol 1e-5 of both CLI runs; auto and resident av "
+        f"(limit 1e-4), av within rtol 1e-5 of both CLI runs; auto and resident (its "
+        f"{resident.form_of(ny, nx, 'cuda')} form, K={resident.coop_k(ny, nx)}) av "
         f"{'bitwise equal' if same else 'within rtol 1e-5'} | {card}")
     say(f"[5 full] {ny}x{nx} kernels alone: resident {nx * ny / r_ms / 1e6:.3f} GLUPS "
         f"({r_ms * 1e3:.2f} us/step), step run loop {nx * ny / s_ms / 1e6:.3f} GLUPS "
         f"({s_ms * 1e3:.2f} us/step), plain step {nx * ny / p_ms / 1e6:.3f} GLUPS "
         f"({p_ms * 1e3:.2f} us/step) | {card}")
     return {"f": res.f_final, "av": res.av_vels, "final_state": digests["auto"]}
+
+
+def phase_mid(card: str) -> None:
+    """A 512^2 deck (64 bands: the resident kernel's grid-barrier form)
+    through the CLI on resident and on pallas (the step kernel): exact
+    launches, the ==done== block, a finite positive av history, the two
+    runs' av histories compared."""
+    from advanced_hpc_lbm_tpu_torch.ops import resident
+    from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
+
+    n, iters = 512, 2000
+    form = resident.form_of(n, n, "cuda")
+    histories = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        params_f, obst_f = write_full_deck(Path(tmp), n, n, iters)
+        for backend in ("resident", "pallas"):
+            tag = f"[5m mid] --backend {backend}:"
+            rc, lines, counts = run_cli([str(params_f), str(obst_f), "--backend", backend,
+                                         "--out-dir", tmp])
+            if rc != 0:
+                fail(f"{tag} CLI exited {rc}")
+            want = expected_launches(backend, n, n, iters)
+            if counts != want:
+                fail(f"{tag} launches {counts}, expected {want}")
+            block = check_block(lines, tag)
+            av = lbm_io.read_av_vels(Path(tmp) / "av_vels.dat")
+            if av.shape != (iters,) or not np.all(np.isfinite(av)) or not np.all(av > 0):
+                fail(f"{tag} av history is not finite and positive")
+            histories[backend] = av
+            say(f"{tag} {n}x{n}, {iters} steps: launches "
+                f"{ {a: b for a, b in counts.items() if b} }, Compute {block['compute']:.4f} s "
+                f"= {iters * n * n / block['compute'] / 1e9:.3f} GLUPS | {card}")
+    if not np.allclose(histories["resident"], histories["pallas"], rtol=1e-5, atol=0.0):
+        fail("[5m mid] resident and pallas av histories differ beyond rtol 1e-5")
+    same = bool(np.array_equal(histories["resident"], histories["pallas"]))
+    say(f"[5m mid] resident ({form} form) and pallas av "
+        f"{'bitwise equal' if same else 'within rtol 1e-5'} | {card}")
 
 
 def digest(path: Path) -> str:
@@ -2046,6 +2147,7 @@ def phase_checkpoint_sharded(card: str, tmp: Path) -> None:
 # the device function of each launch counter (the trace's kernel names)
 TRACE_NAMES = {"step_kernel": "step_kernel", "resident_kernel": "resident_kernel",
                "resident_banded_kernel": "resident_banded_kernel",
+               "resident_grid_kernel": "resident_grid_kernel",
                "kstep_kernel": "kstep_kernel", "local_ca_kernel": "kstep_kernel",
                "stream_kernel": "stream_kernel", "stream_snapshot": "snapshot_kernel",
                "local_kernel": "local_step_kernel", "local2d_kernel": "local_step_kernel"}
@@ -2807,6 +2909,7 @@ def main() -> int:
     timed(retime, card, step_times, k_times, s_times, l_times)
     timed(phase_mini)
     full = timed(phase_full, card, res_times, keep)
+    timed(phase_mid, card)
     timed(phase_cli_big, card)
     timed(phase_big, card, "6 big", 4096, ("pallask", "step"))
     timed(phase_big, card, "6s big stream", 8192, ("stream", "pallask"))
@@ -2822,23 +2925,25 @@ def main() -> int:
     timed(phase_overlap, card, keep / "final_state.dat")
     timed(phase_cards, card)
     say(f"[result] all phases passed in {time.perf_counter() - t0:.1f} s; "
-        f"main-path launches {dict(MAIN_LAUNCHES)}")
+        f"main-path launches {dict(MAIN_LAUNCHES)}; K-step kernel's by K "
+        f"{dict(sorted(MAIN_K_LAUNCHES.items()))}")
     for name in kernel_counters():
         if MAIN_LAUNCHES[name] <= 0:
             fail(f"[result] {name} was not launched on the main path")
     from advanced_hpc_lbm_tpu_torch.ops import kstep_kernel, stream_kernel
 
     k_ms, p_ms = step_times[(1024, 1024)]
-    r_ms, _, rp_ms, _ = res_times[(128, 128)]  # the reference's 128x128 deck
-    _, _, cp_ms, coop_ms = res_times[(1024, 1024)]  # the 1024x1024 deck
+    r_ms, _, rp_ms = res_times[(128, 128)][:3]  # the reference's 128x128 deck
+    cp_ms, coop_ms = res_times[(1024, 1024)][2:4]  # the 1024x1024 deck
+    gp_ms, grid_ms = res_times[(512, 512)][2], res_times[(512, 512)][4]
     best = kstep_kernel.best_k(4096, 4096)
     big = k_times[(4096, 4096)]
     st = s_times[(4096, 4096)]
     src = "advanced_hpc_lbm_tpu_torch/csrc/"
-    # times per step: step at 1024^2, the banded resident form at 128^2 and
-    # the cooperative one at 1024^2 (one launch of RUN_STEPS steps), K-step
-    # and stream at 4096^2; no single PyTorch call computes a D2Q9 step, so
-    # library_ms is null
+    # times per step: step at 1024^2, the resident kernel's banded form at
+    # 128^2, its grid-barrier form at 512^2 and its cooperative form at
+    # 1024^2 (one launch of RUN_STEPS steps), K-step and stream at 4096^2;
+    # no single PyTorch call computes a D2Q9 step, so library_ms is null
     entries = [
         ("step_kernel", "step_kernel.cu", "advanced_hpc_lbm_tpu/ops/pallas_step.py:112", {},
          worst_step, k_ms, p_ms, bound(1024 * 1024, 1)),
@@ -2847,9 +2952,14 @@ def main() -> int:
         ("resident_banded_kernel", "resident_kernel.cu",
          "advanced_hpc_lbm_tpu/ops/resident.py:88", {},
          worst_res["banded"], r_ms, rp_ms, bound(128 * 128, RUN_STEPS)),
+        ("resident_grid_kernel", "resident_kernel.cu",
+         "advanced_hpc_lbm_tpu/ops/resident.py:88", {},
+         worst_res["grid"], grid_ms, gp_ms, bound(512 * 512, RUN_STEPS)),
         ("kstep_kernel", "kstep_kernel.cu", "advanced_hpc_lbm_tpu/ops/pallas_k.py:208",
          {"also_replaces": ["advanced_hpc_lbm_tpu/ops/pallas_k.py:143",
-                            "advanced_hpc_lbm_tpu/ops/pallas_multi.py:97"]},
+                            "advanced_hpc_lbm_tpu/ops/pallas_multi.py:97"],
+          "launches_by_k": {str(k): n for k, n in sorted(MAIN_K_LAUNCHES.items())},
+          "ms_k2": big[2]},
          worst_k, big[best], big["plain"], bound(4096 * 4096, best)),
         ("stream_kernel", "stream_kernel.cu", "advanced_hpc_lbm_tpu/ops/pallas_stream.py:104",
          {"also_replaces": ["advanced_hpc_lbm_tpu/ops/kernel_common.py:207"]},

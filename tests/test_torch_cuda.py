@@ -103,18 +103,28 @@ def _on_card(ny, nx, seed):
     return params, torch.from_numpy(mask_np).cuda(), torch.from_numpy(f0).cuda()
 
 
-@pytest.mark.parametrize("ny,nx", [(64, 64), (100, 130), (17, 23), (256, 512)])
+def _resident_counts():
+    return {"cooperative": resident.launches, "banded": resident.banded_launches,
+            "grid": resident.grid_launches}
+
+
+def _moved(before):
+    return {form: n - before[form] for form, n in _resident_counts().items()}
+
+
+@pytest.mark.parametrize("ny,nx", [(64, 64), (100, 130), (17, 23), (256, 512), (1024, 1024)])
 def test_resident_matches_step_and_plain_on_card(ny, nx):
     """Whichever form the shape takes: the banded one up to 256 x 318, the
-    cooperative one on 256 x 512."""
+    grid-barrier one on 256 x 512 (32 bands), the cooperative one on
+    1024 x 1024."""
     params, mask, f = _on_card(ny, nx, seed=3)
-    banded = resident.takes_banded(ny, nx, "cuda")
-    assert banded is (nx <= 318)
-    before = (resident.launches, resident.banded_launches)
+    form = resident.form_of(ny, nx, "cuda")
+    assert form == ("banded" if nx <= 318 else "grid" if ny == 256 else "cooperative")
+    before = _resident_counts()
     fr, avr = resident.resident_run(f, mask, params, n_iters=17, chunk=6)
     torch.cuda.synchronize()
-    moved = (resident.launches - before[0], resident.banded_launches - before[1])
-    assert moved == ((0, 3) if banded else (3, 0))  # chunks of 6, 6 and 5 steps
+    # chunks of 6, 6 and 5 steps
+    assert _moved(before) == {name: 3 if name == form else 0 for name in before}
     fs, avs = step_kernel.run(f, mask, params, n_iters=17)
     assert int((fr != fs).sum()) == 0
     torch.testing.assert_close(avr, avs, rtol=1e-5, atol=0.0)
@@ -144,10 +154,10 @@ def test_banded_resident_matches_step_kernel_bitwise(ny, nx):
     mask = step_kernel.prepare_obstacles(mask)
     assert resident.takes_banded(ny, nx, "cuda")
     tiles = step_kernel.num_partials(ny, nx)
-    before = (resident.launches, resident.banded_launches)
+    before = _resident_counts()
     fb, pb = _chunked_partials(resident._chunk_launcher(f, mask, params), f, 17, 6, tiles)
     torch.cuda.synchronize()
-    assert (resident.launches - before[0], resident.banded_launches - before[1]) == (0, 3)
+    assert _moved(before) == {"cooperative": 0, "banded": 3, "grid": 0}
     bufs = [f.clone(), torch.empty_like(f)]
     ps = torch.empty(17, tiles, device="cuda")
     for t in range(17):
@@ -159,17 +169,21 @@ def test_banded_resident_matches_step_kernel_bitwise(ny, nx):
     assert int((fb != fc).sum()) == 0 and int((pb != pc).sum()) == 0
 
 
-@pytest.mark.parametrize("ny,nx", [(256, 512), (512, 512)])
+@pytest.mark.parametrize("ny,nx", [(256, 512), (512, 512), (1024, 1024), (2048, 512)])
 def test_wide_grid_runs_the_cooperative_form(ny, nx):
-    """Grids the banded form refuses: resident_run launches the cooperative
-    form once per chunk, and its state and av equal the step run's bit for
-    bit."""
+    """Grids the banded form refuses: resident_run launches, once per
+    chunk, the cooperative form where its bands keep 3/4 of the SMs busy
+    and the grid-barrier form below (coop_fits), and the state and av equal
+    the step run's bit for bit."""
     params, mask, f = _on_card(ny, nx, seed=9)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    form = "cooperative" if resident.coop_fits(ny, sms) else "grid"
     assert not resident.takes_banded(ny, nx, "cuda")
-    before = (resident.launches, resident.banded_launches)
+    assert resident.form_of(ny, nx, "cuda") == form
+    before = _resident_counts()
     fr, avr = resident.resident_run(f, mask, params, n_iters=17, chunk=6)
     torch.cuda.synchronize()
-    assert (resident.launches - before[0], resident.banded_launches - before[1]) == (3, 0)
+    assert _moved(before) == {name: 3 if name == form else 0 for name in before}
     fs, avs = step_kernel.run(f, mask, params, n_iters=17, chunk=6)
     assert int((fr != fs).sum()) == 0
     assert int((avr != avs).sum()) == 0
@@ -230,13 +244,15 @@ def test_banded_rule_in_c_equals_python(ny, nx):
     assert lib.lbm_resident_banded_fits(ny, nx) == int(resident.banded_fits(ny, nx, smem, blocks))
 
 
-def test_oversized_cooperative_grid_raises():
+@pytest.mark.parametrize("form", ["cooperative", "grid"])
+def test_oversized_cooperative_grid_raises(form):
     """10**6 blocks exceed any card's co-resident limit (132 SMs x at most
-    32 blocks): the launch is refused, and the wrapper raises."""
+    32 blocks): the cooperative launch of either form is refused, and the
+    wrapper raises."""
     params, mask, f = _on_card(64, 64, seed=4)
     mask = step_kernel.prepare_obstacles(mask)
     part = torch.empty(2, step_kernel.num_partials(64, 64), device="cuda")
-    run_chunk = resident._chunk_launcher(f, mask, params, blocks=10**6, form="cooperative")
+    run_chunk = resident._chunk_launcher(f, mask, params, blocks=10**6, form=form)
     with pytest.raises(RuntimeError, match="resident kernel launch failed"):
         run_chunk((f.clone(), torch.empty_like(f)), 2, part)
     # the refusal is not reported again by the next launch
@@ -252,10 +268,10 @@ def test_refused_banded_launch_raises():
     mask = step_kernel.prepare_obstacles(mask)
     part = torch.empty(2, step_kernel.num_partials(64, 64), device="cuda")
     run_chunk = resident._chunk_launcher(f, mask, params, blocks=10**6)
-    before = (resident.launches, resident.banded_launches)
+    before = _resident_counts()
     with pytest.raises(RuntimeError, match="resident kernel launch failed"):
         run_chunk((f.clone(), torch.empty_like(f)), 2, part)
-    assert (resident.launches, resident.banded_launches) == before
+    assert _resident_counts() == before
     resident.resident_run(f, mask, params, n_iters=2)
     torch.cuda.synchronize()
 
@@ -353,8 +369,7 @@ def test_simulation_launch_counts(backend, counts):
     sim = Simulation(params, mask_np, backend=backend, device="cuda")
     sim.warmup()
     def counts_now():
-        return (step_kernel.launches, resident.launches + resident.banded_launches,
-                kstep_kernel.launches)
+        return (step_kernel.launches, sum(_resident_counts().values()), kstep_kernel.launches)
     before = counts_now()
     res = sim.run(n_iters=25)
     after = counts_now()
@@ -433,7 +448,8 @@ def test_gate_refuses_a_grid_beyond_the_card_before_allocating():
 
 @pytest.mark.parametrize("backend,shape,every", [
     ("resident", (64, 64), 15),   # the banded form; segments of 15, 15, 10
-    ("resident", (256, 512), 15),  # the cooperative form
+    ("resident", (256, 512), 15),  # the grid-barrier form
+    ("resident", (1024, 1024), 15),  # the cooperative form
     ("pallask", (100, 130), 13),  # K = 5: 2 passes and a 3-step tail per segment
     ("stream", (170, 1100), 16),  # 2 passes per segment, no tail
 ])
@@ -445,10 +461,10 @@ def test_checkpointed_equals_straight_on_card(tmp_path, backend, shape, every):
     sim = Simulation(params, mask_np, backend=backend, device="cuda")
     sim.warmup()
     straight = sim.run(n_iters=40)
-    counts = (step_kernel.launches, resident.launches + resident.banded_launches,
+    counts = (step_kernel.launches, sum(_resident_counts().values()),
               kstep_kernel.launches, stream_kernel.launches)
     ck = sim.run(n_iters=40, checkpoint_every=every, checkpoint_dir=tmp_path)
-    after = (step_kernel.launches, resident.launches + resident.banded_launches,
+    after = (step_kernel.launches, sum(_resident_counts().values()),
              kstep_kernel.launches, stream_kernel.launches)
     segs = [every] * (40 // every) + ([40 % every] if 40 % every else [])
     k = kstep_kernel.best_k(*shape)

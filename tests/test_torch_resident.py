@@ -110,10 +110,11 @@ def test_zero_steps_and_f0_untouched():
 def test_cpu_run_counts_no_launch():
     """On the CPU the plain version runs: no form of the kernel launches."""
     assert not resident.takes_banded(16, 32, "cpu")
+    assert resident.form_of(1024, 1024, "cpu") == "plain"
     jp, mask, f0 = make_deck(16, 32)
-    before = (resident.launches, resident.banded_launches)
+    before = (resident.launches, resident.banded_launches, resident.grid_launches)
     port_run(jp, mask, f0, 3)
-    assert (resident.launches, resident.banded_launches) == before
+    assert (resident.launches, resident.banded_launches, resident.grid_launches) == before
 
 
 def test_prepare_builds_nothing_on_cpu(monkeypatch):
@@ -176,7 +177,19 @@ def test_band_partition(ny, bands):
 def test_coop_k_rule(ny, nx):
     """One K per shape, decided before the launch, among those built."""
     k = resident.coop_k(ny, nx)
-    assert k in resident.COOP_K and k == 2
+    assert k in resident.COOP_K and k == 3
+
+
+@pytest.mark.parametrize("ny,sms,coop", [
+    (1024, 132, True), (768, 132, True), (704, 132, True), (697, 132, True),
+    (696, 132, False), (640, 132, False), (512, 132, False), (4096, 132, True),
+    (256, 132, False), (512, 96, True),
+])
+def test_coop_fits_rule(ny, sms, coop):
+    """The cooperative form runs where its bands keep at least 2/3 of the
+    SMs busy (88 bands on 132 SMs; a ragged band counts), the grid-barrier
+    form below."""
+    assert resident.coop_fits(ny, sms) is coop
 
 
 @pytest.mark.parametrize("k,smem", [(1, 104_736), (2, 128_960), (3, 153_184), (4, 177_408)])
