@@ -231,8 +231,9 @@ constexpr int kMaxBandThreads = kMaxSegTiles * lbm::kTileX * kBandRows;
 constexpr int kGather = 3;
 constexpr int kMaxPolls = 1 << 24;  // ~seconds of polling: a fault, not a wait
 
-// An outbox value: the float's bits, and above them the step it belongs to
-// plus one (0, the reset value, belongs to no step).
+// An outbox word: a float's bits, and above them the step it belongs to
+// plus one (0, the reset value, belongs to no step); the cooperative
+// form's flag words carry the step alone.
 using Word = unsigned long long;
 
 __host__ __device__ constexpr int num_bands(int ny) {

@@ -60,9 +60,8 @@ banded_launches = 0
 grid_launches = 0
 
 # The K (steps per round) the cooperative form is built for (with_coop_k in
-# csrc/resident_kernel.cu), and its block size.
+# csrc/resident_kernel.cu).
 COOP_K = (1, 2, 3, 4)
-COOP_THREADS = 512
 # Own columns of the cooperative form's window: 4 tiles.
 COOP_WINDOW_COLS = 4 * step_kernel.BLOCK_X
 

@@ -8,7 +8,7 @@ process of its own, one after another: 50 steps against the step kernel
 (the number of differing values; the diagnostic variants differ on
 purpose) and two timings of 1000 steps of ``resident_run`` (us per step)
 at 64^2, 128^2 and 256^2 (the banded form's variants), or of the
-cooperative form at K = 1, 2 and 4 at 512^2 and 1024^2 (``coop_*``).  Run
+cooperative form at K = 2, 3 and 4 at 512^2 and 1024^2 (``coop_*``).  Run
 from the root of a checkout on a CUDA card:
 
     python scripts/torch_resident_variants.py [name ...]   # default: all
@@ -32,10 +32,8 @@ and of the cooperative form (the diagnostic ones give wrong results):
 
   coop           the kernel as it is
   coop_nowait    no wait for the neighbours' flags within a round
-  coop_nostep    no cell step (the window is stored as loaded)
+  coop_nostep    the cell step replaced by a copy
   coop_nostore   the own cells not written back
-  coop_t768      768 threads per block (85 registers)
-  coop_t1024     1024 threads per block (64 registers)
 """
 
 import os
@@ -104,9 +102,10 @@ def coop_nowait(s: str) -> str:
 
 
 def coop_nostep(s: str) -> str:
-    return replace(s, "        if (frow.any()) {\n          coop_steps_from<K, 1, true>",
-                   "        if (true) {\n        } else if (frow.any()) {\n"
-                   "          coop_steps_from<K, 1, true>")
+    return replace(s, "      const float u_sq = lbm::cell_step(win, r, c, r - 1, r + 1, c - 1, c + 1, "
+                      "v[j], obst, cc);",
+                   "      const float u_sq = 0.0f;\n"
+                   "      for (int q = 0; q < kSpeeds; ++q) v[j][q] = win.f(q, r, c);")
 
 
 def coop_nostore(s: str) -> str:
@@ -114,17 +113,10 @@ def coop_nostore(s: str) -> str:
                    "(void)g;")
 
 
-def coop_threads(n: int):
-    def edit(s: str) -> str:
-        return replace(s, "constexpr int kCoopThreads = 512;", f"constexpr int kCoopThreads = {n};")
-    return edit
-
-
 VARIANTS = {"kernel": [], "nowait": [nowait], "nocompute": [nocompute],
             "late_gather": [late_gather], "relaxed": [relaxed], "wide": [wide],
             "coop": [], "coop_nowait": [coop_nowait],
-            "coop_nostep": [coop_nostep], "coop_nostore": [coop_nostore],
-            "coop_t768": [coop_threads(768)], "coop_t1024": [coop_threads(1024)]}
+            "coop_nostep": [coop_nostep], "coop_nostore": [coop_nostore]}
 
 TIMER = r'''
 import sys, json
@@ -156,7 +148,7 @@ out = {{}}
 for n in (512, 1024):
     params, mask, f = c.on_card(n, n, 200 + n)
     fs, _ = step_kernel.run(f, mask, params, n_iters=50)
-    for k in (1, 2, 4):
+    for k in (2, 3, 4):
         fr, _ = c.resident_form(f, mask, params, 50, 1000, "cooperative", k)
         diff = int((fr != fs).sum().item())
         ms = [c.time_ms(lambda: c.resident_form(f, mask, params, 1000, 1000, "cooperative", k),
