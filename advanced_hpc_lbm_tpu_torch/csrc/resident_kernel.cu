@@ -147,9 +147,10 @@
 //   once per round) and 9 for the ghost rows, 33 at K = 3.  It runs 25.43
 //   us per step at 1024^2, 89.11 at 2048^2, 340.23 at 4096^2 (K = 3), the
 //   grid-barrier form 41.00 / 147.40 / 582.37 (chip_smoke.py 3r, H100 80GB
-//   HBM3, 700 W); without its cell steps 10.5 us at 1024^2 and K = 4, so
-//   the steps, 16 warps a SM in rounds separated by barriers, take most of
-//   a round.  K = 1 / 2 / 4: 39.27 / 28.99 / 26.75 us at 1024^2.
+//   HBM3, 700 W).  At 1024^2 its cell steps alone take 19.2 us, at the
+//   K-step kernel's rate per SM, and overlap its copies (15.0 alone) by ~9
+//   (scripts/torch_resident_variants.py).  K = 1 / 2 / 4: 39.27 / 28.99 /
+//   26.75 us at 1024^2.
 // * History: with a copy of each band's 2K edge rows in an outbox of
 //   step-tagged 64-bit words (value and step in one word, two slots), the
 //   outbox doubled the state's traffic (72 bytes per cell and step at K =

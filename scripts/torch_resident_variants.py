@@ -34,6 +34,8 @@ and of the cooperative form (the diagnostic ones give wrong results):
   coop_nowait    no wait for the neighbours' flags within a round
   coop_nostep    the cell step replaced by a copy
   coop_nostore   the own cells not written back
+  coop_nocopy    neither the windows after a round's first copied in nor
+                 any written back (the cell steps and the waits alone)
 """
 
 import os
@@ -108,6 +110,11 @@ def coop_nostep(s: str) -> str:
                    "      for (int q = 0; q < kSpeeds; ++q) v[j][q] = win.f(q, r, c);")
 
 
+def coop_nocopy(s: str) -> str:
+    s = replace(s, "      if (more) coop_load<K>(nxt, a, src, wnext, tid);", "")
+    return replace(s, "      coop_store<K>(planes, red, a, dst, wn, t, k, tid);", "")
+
+
 def coop_nostore(s: str) -> str:
     return replace(s, "for (int s = 0; s < kSpeeds; ++s) dst[s * plane + g] = planes[s * kPl + j];",
                    "(void)g;")
@@ -116,7 +123,8 @@ def coop_nostore(s: str) -> str:
 VARIANTS = {"kernel": [], "nowait": [nowait], "nocompute": [nocompute],
             "late_gather": [late_gather], "relaxed": [relaxed], "wide": [wide],
             "coop": [], "coop_nowait": [coop_nowait],
-            "coop_nostep": [coop_nostep], "coop_nostore": [coop_nostore]}
+            "coop_nostep": [coop_nostep], "coop_nostore": [coop_nostore],
+            "coop_nocopy": [coop_nocopy]}
 
 TIMER = r'''
 import sys, json
