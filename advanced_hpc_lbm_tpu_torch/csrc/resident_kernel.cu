@@ -99,7 +99,7 @@
 //   another (H100 80GB HBM3, 700 W).
 
 // The cooperative form (resident_kernel<K>), for grids with a band for at
-// least 2/3 of the SMs (the 1024^2 deck and up):
+// least 5/8 of the SMs (the 1024^2 deck and up):
 // * Bands and blocks.  A band is the step kernel's tile row (8 rows, the
 //   last one ragged).  One cooperative launch per chunk of as many blocks
 //   as bands, no more than can be co-resident (one per SM: two windows
@@ -166,10 +166,10 @@
 // grid-stride, runs the per-cell step, and a grid barrier
 // (cooperative_groups::this_grid().sync()) separates the steps; the state
 // ping-pongs between two buffers in device memory, read with plain loads.
-// Its bound is each step's traffic (73 B/cell) and the barrier: 8.05 us
-// per step at 512^2 (64 bands) against the cooperative form's 12.86; 23.43
-// against 25.63 at 640x1024 (80 bands), 28.82 against 25.66 at 704x1024
-// (88 bands).
+// Its bound is each step's traffic (73 B/cell) and the barrier: 8.03 us
+// per step at 512^2 (64 bands) against the cooperative form's 12.89; 23.53
+// against 25.54 at 640x1024 (80 bands), 28.28 against 25.52 at 672x1024
+// (84 bands).
 //
 // Build (ops/_build.py): nvcc -gencode arch=compute_90a,code=sm_90a
 //   -std=c++17 -O3 -fmad=false -shared -Xcompiler -fPIC  (no -rdc: grid

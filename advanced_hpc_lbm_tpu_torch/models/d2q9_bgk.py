@@ -12,7 +12,7 @@ Backends (each CUDA kernel runs its plain PyTorch version on the CPU):
   resident  the whole run in one cooperative launch per chunk of steps
             (ops/resident.py): the banded form on the small decks, the
             cooperative form (K = 3 steps per round) where the grid has a
-            band of 8 rows for 2/3 of the SMs, the grid-barrier form between
+            band of 8 rows for 5/8 of the SMs, the grid-barrier form between
   pallask   K steps per launch on ghost-zone windows, K = best_k(ny, nx),
             the last iters % K steps on the step kernel (ops/kstep_kernel.py)
   pallas2   the same at K = 2

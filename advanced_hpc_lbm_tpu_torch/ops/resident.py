@@ -15,13 +15,13 @@ three forms, chosen by the grid's shape before the launch
   cells in shared memory for the whole chunk and meet only their
   neighbours, through edge values that carry their step, instead of a
   grid barrier; each launch adds one to :data:`banded_launches`;
-* the cooperative form, for every other grid: a block owns bands of 8
-  rows (several where there are more bands than co-resident blocks) and
-  steps them K steps per round (:func:`coop_k`) window by window in shared
+* the cooperative form, for the other grids with a band of 8 rows for
+  5/8 of the SMs or more (the 1024^2 deck and up): a block owns bands
+  (several where there are more bands than co-resident blocks) and steps
+  them K steps per round (:func:`coop_k`) window by window in shared
   memory, on K ghost rows that it reads from the neighbouring bands' state
   in the round's buffer once their step-tagged flags say it is there, again
-  without a grid barrier, for grids with a band for 2/3 of the SMs or more;
-  each launch adds one to :data:`launches`;
+  without a grid barrier; each launch adds one to :data:`launches`;
 * the grid-barrier form, its predecessor, for grids with fewer bands, where
   the cooperative form would leave SMs idle: a persistent grid walks the
   32x8 tiles, one grid barrier per step; each launch adds one to
@@ -76,7 +76,7 @@ prepare_obstacles = step_kernel.prepare_obstacles
 
 
 def prepare(device: torch.device | str) -> None:
-    """Build and load the kernel library and load both forms of the
+    """Build and load the kernel library and load every form of the
     resident kernel onto ``device`` without launching them (setting their
     shared-memory limits); raises if the device takes no cooperative
     launches."""
@@ -150,21 +150,21 @@ def coop_k(ny: int, nx: int) -> int:
     query ``lbm_resident_coop_k`` is the same rule): 3 on every grid, from
     this port's times on an H100 80GB HBM3 at 700 W (chip_smoke.py 3r,
     PERF.md, Findings): at 768^2, 1024^2, 2048^2 and 4096^2 K = 3 is the
-    fastest of 1..4 (25.47 us per step at 1024^2 against 39.56, 28.89 and
-    26.62), at 512^2 as fast as K = 4."""
+    fastest of 1..4 (25.43 us per step at 1024^2 against 39.27, 28.99 and
+    26.75), at 512^2 as fast as K = 4."""
     return 3
 
 
 def coop_fits(ny: int, sms: int) -> bool:
     """Whether the cooperative form runs a grid that the banded form does
     not take, on a card of ``sms`` SMs: where its bands, one block each,
-    keep at least 2/3 of the SMs busy; on grids with fewer bands the
-    grid-barrier form, which spreads any grid over every SM, is the faster.
-    From this port's times on an H100 80GB HBM3 at 700 W (132 SMs,
-    chip_smoke.py 3r, grids 1024 wide): 23.43 against 25.63 us per step at
-    80 bands, 28.82 against 25.66 at 88 (grid-barrier, cooperative); 8.05
-    against 12.86 at 512^2 (64 bands)."""
-    return 3 * num_bands(ny) >= 2 * sms
+    keep at least 5/8 of the SMs busy (83 bands on 132); on grids with fewer
+    bands the grid-barrier form, which spreads any grid over every SM, is
+    the faster.  From this port's times on an H100 80GB HBM3 at 700 W (132
+    SMs, chip_smoke.py 3r, grids 1024 wide): 23.53 against 25.54 us per
+    step at 80 bands, 28.28 against 25.52 at 84 (grid-barrier,
+    cooperative); 8.03 against 12.89 at 512^2 (64 bands)."""
+    return 8 * num_bands(ny) >= 5 * sms
 
 
 def form_of(ny: int, nx: int, device: torch.device | str) -> str:

@@ -30,7 +30,7 @@ non-zero and prints no result:
              its time per step beside the step kernel's run loop: banded
              and cooperative in turns at 64^2 to 256^2, from 512^2 to 4096^2
              the cooperative form at K = 1..4, the grid-barrier form and
-             pallask in turns, and the two forms in turns at 80 to 96
+             pallask in turns, and the two forms in turns at 80 to 88
              bands of 1024 columns (coop_fits' threshold)
   3k. kstep  the K-step kernel (every built K; at 4096^2 K = 2, 4, 8 and
              best_k, the K pallask runs there) against the step kernel (0
@@ -735,9 +735,9 @@ def time_whole_runs(card: str) -> dict:
 
 
 # rows of the grids (1024 columns) at which phase 3r times the cooperative
-# and the grid-barrier form beside coop_fits' threshold (88 bands on 132
-# SMs): 80 to 96 bands
-RULE_ROWS = (640, 672, 696, 704, 768)
+# and the grid-barrier form beside coop_fits' threshold (83 bands on 132
+# SMs): 80 to 88 bands
+RULE_ROWS = (640, 656, 664, 672, 704)
 
 
 def time_form_rule(card: str) -> None:

@@ -172,7 +172,7 @@ def test_banded_resident_matches_step_kernel_bitwise(ny, nx):
 @pytest.mark.parametrize("ny,nx", [(256, 512), (512, 512), (1024, 1024), (2048, 512)])
 def test_wide_grid_runs_the_cooperative_form(ny, nx):
     """Grids the banded form refuses: resident_run launches, once per
-    chunk, the cooperative form where its bands keep 3/4 of the SMs busy
+    chunk, the cooperative form where its bands keep 5/8 of the SMs busy
     and the grid-barrier form below (coop_fits), and the state and av equal
     the step run's bit for bit."""
     params, mask, f = _on_card(ny, nx, seed=9)
