@@ -36,6 +36,8 @@ and of the cooperative form (the diagnostic ones give wrong results):
   coop_nostore   the own cells not written back
   coop_nocopy    neither the windows after a round's first copied in nor
                  any written back (the cell steps and the waits alone)
+  coop_t768      768 threads per block (at most 85 registers)
+  coop_t1024     1024 threads per block (at most 64 registers)
 """
 
 import os
@@ -115,6 +117,12 @@ def coop_nocopy(s: str) -> str:
     return replace(s, "      coop_store<K>(planes, red, a, dst, wn, t, k, tid);", "")
 
 
+def coop_threads(n: int):
+    def edit(s: str) -> str:
+        return replace(s, "constexpr int kCoopThreads = 512;", f"constexpr int kCoopThreads = {n};")
+    return edit
+
+
 def coop_nostore(s: str) -> str:
     return replace(s, "for (int s = 0; s < kSpeeds; ++s) dst[s * plane + g] = planes[s * kPl + j];",
                    "(void)g;")
@@ -124,7 +132,8 @@ VARIANTS = {"kernel": [], "nowait": [nowait], "nocompute": [nocompute],
             "late_gather": [late_gather], "relaxed": [relaxed], "wide": [wide],
             "coop": [], "coop_nowait": [coop_nowait],
             "coop_nostep": [coop_nostep], "coop_nostore": [coop_nostore],
-            "coop_nocopy": [coop_nocopy]}
+            "coop_nocopy": [coop_nocopy], "coop_t768": [coop_threads(768)],
+            "coop_t1024": [coop_threads(1024)]}
 
 TIMER = r'''
 import sys, json
