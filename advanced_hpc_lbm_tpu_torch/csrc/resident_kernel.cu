@@ -548,7 +548,9 @@ __device__ __forceinline__ int wrap_near(int v, int n) {
 
 // The kernel's arguments, a __grid_constant__ parameter (the out-of-line
 // functions below read them by reference).  `vec`: 16-byte window rows (nx
-// % 4 == 0, nx >= the window's pitch, ny >= K, aligned buffers).
+// % 4 == 0, nx >= the window's pitch, ny >= K, aligned buffers).  A tile
+// is a segment of a band: seg_windows consecutive windows (the last
+// segment ragged), segs of them per band (coop_segments).
 struct CoopArgs {
   float* a;
   float* b;
@@ -556,29 +558,41 @@ struct CoopArgs {
   float* partials;
   Word* flags;  // coop_flag_words: [bands][windows]
   int ny, nx, n_steps, vec;
+  int segs, seg_windows;
   lbm::StepConsts c;
 };
 
+// Whether this block owns window cw of band p: its tile p * segs + cw /
+// seg_windows is blockIdx.x, blockIdx.x + gridDim.x, ...
+__device__ __forceinline__ bool coop_owns(const CoopArgs& a, int p, int cw) {
+  return static_cast<unsigned>(p * a.segs + cw / a.seg_windows) % gridDim.x == blockIdx.x;
+}
+
 // A window of a block's round: band q (rows y0 .. y0+h-1), window c (own
-// columns x0 .. x0+w-1).  The block's bands are blockIdx.x, blockIdx.x +
-// gridDim.x, ...; each is walked window by window along x.
+// columns x0 .. x0+w-1) of tile `tile`, whose windows end before c_end.
+// The block's tiles are blockIdx.x, blockIdx.x + gridDim.x, ..., in
+// band-major order (tile = q * segs + segment); each is walked window by
+// window along x.
 struct CoopWin {
-  int q, y0, h, c, x0, w;
-  __device__ __forceinline__ void first(int band, int kw, const CoopArgs& a) {
-    q = band;
+  int tile, q, y0, h, c, c_end, x0, w;
+  __device__ __forceinline__ void first(int t, int kw, const CoopArgs& a) {
+    tile = t;
+    q = t / a.segs;
     y0 = q * kBandRows;
     h = min(kBandRows, a.ny - y0);
-    c = x0 = 0;
-    w = min(kw, a.nx);
+    c = (t - q * a.segs) * a.seg_windows;
+    c_end = min(c + a.seg_windows, coop_windows(a.nx));
+    x0 = c * kw;
+    w = min(kw, a.nx - x0);
   }
   // The window after this one; false at the end of the block's round.
-  __device__ __forceinline__ bool next(int kw, int bands, const CoopArgs& a) {
-    if (x0 + kw < a.nx) {
+  __device__ __forceinline__ bool next(int kw, int tiles, const CoopArgs& a) {
+    if (c + 1 < c_end) {
       ++c;
       x0 += kw;
       w = min(kw, a.nx - x0);
-    } else if (q + static_cast<int>(gridDim.x) < bands) {
-      first(q + gridDim.x, kw, a);
+    } else if (tile + static_cast<int>(gridDim.x) < tiles) {
+      first(tile + gridDim.x, kw, a);
     } else {
       return false;
     }
@@ -586,26 +600,36 @@ struct CoopWin {
   }
 };
 
-// The flag that window wn's ghost cells wait for, entry e < 12 (one lane of
-// a warp each): the band of the nearest or the farthest ghost row above or
-// below (e / 3; a band that is only a row tall puts the farthest one in the
-// band beyond), at the window before, at or after wn's (e % 3, wrapped);
-// -1 where that row is wn's own band, which needs no flag.
+// Lanes of warp 0 that wait for flags, one entry each (coop_flag).
+constexpr int kFlagLanes = 25;
+
+// The flag that window wn's ghost cells wait for, entry e < kFlagLanes: the
+// (band, window) of grid cell (y0 + dy, x0 + dx), wrapped, for dy in {-K,
+// -1, 0, h, h + K - 1} (e / 5) and dx in {-K, -1, 0, w, w + K - 1} (e % 5).
+// The K ghost rows above span at most the bands of their first and last
+// row (only the last band is shorter than 8 rows, and K <= 4), the K ghost
+// columns left at most the windows of their first and last column (only
+// the last window is narrower than 128), and likewise below and right: so
+// the 25 entries name every (band, window) that the window's cells and
+// ghost cells touch, its corners included.  -1 where this block owns that
+// window: it wrote the window's state in the previous round, and writes
+// the next one only to the other buffer.
 template <int K>
 __device__ __forceinline__ long long coop_flag(const CoopArgs& a, const CoopWin& wn, int e) {
-  const int side = e / 3;
-  const int dy = side == 0 ? -1 : side == 1 ? -K : side == 2 ? wn.h : wn.h + K - 1;
+  const int i = e / 5, j = e - 5 * i;
+  const int dy = i == 0 ? -K : i == 1 ? -1 : i == 2 ? 0 : i == 3 ? wn.h : wn.h + K - 1;
+  const int dx = j == 0 ? -K : j == 1 ? -1 : j == 2 ? 0 : j == 3 ? wn.w : wn.w + K - 1;
   const int p = wrap_near(wn.y0 + dy, a.ny) / kBandRows;
-  if (p == wn.q) return -1;
-  const int nw = coop_windows(a.nx);
-  return static_cast<long long>(p) * nw + wrap_near(wn.c - 1 + e % 3, nw);
+  const int cw = wrap_near(wn.x0 + dx, a.nx) / Coop<K>::kW;
+  if (coop_owns(a, p, cw)) return -1;
+  return static_cast<long long>(p) * coop_windows(a.nx) + cw;
 }
 
 // Lane e of warp 0 loads the flag of entry e (see coop_flag) into `word`
-// (no wait; 0 where no flag is needed).
+// (no wait; all ones where no flag is needed).
 template <int K>
 __device__ __forceinline__ Word coop_flag_load(const CoopArgs& a, const CoopWin& wn, int lane) {
-  if (lane >= 12) return ~0ULL;
+  if (lane >= kFlagLanes) return ~0ULL;
   const long long f = coop_flag<K>(a, wn, lane);
   return f < 0 ? ~0ULL : ll_load(a.flags + f);
 }
@@ -628,9 +652,9 @@ __device__ __forceinline__ void coop_flag_wait(const CoopArgs& a, const CoopWin&
 // Issue the copies of window `wn` from `src` into `buf` (no wait): the
 // state and the mask of its own rows and of its K ghost rows above and
 // below.  Window cell (r, c) is grid cell (y0 - K + r, x0 - kA + c),
-// wrapped.  Other bands' rows are read from device memory, never from this
-// SM's L1 (cp.async.cg, or __ldcg on the 4-byte path): their bands wrote
-// them.
+// wrapped.  Cells of windows that other blocks own are read from device
+// memory, never from this SM's L1 (cp.async.cg, or __ldcg on the 4-byte
+// path): other SMs wrote them.
 template <int K>
 __device__ __noinline__ void coop_load(uint8_t* buf, const CoopArgs& a, const float* src,
                                        const CoopWin& wn, int tid) {
@@ -656,10 +680,10 @@ __device__ __noinline__ void coop_load(uint8_t* buf, const CoopArgs& a, const fl
   } else {
     for (int m = tid; m < rows * C::kP; m += kCoopThreads) {
       const int r = m / C::kP, c = m - r * C::kP;
-      const int gy = wrap_near(wn.y0 - K + r, a.ny);
-      const size_t gi = static_cast<size_t>(gy) * a.nx + wrap_near(wn.x0 - C::kA + c, a.nx);
+      const int gy = wrap_near(wn.y0 - K + r, a.ny), gx = wrap_near(wn.x0 - C::kA + c, a.nx);
+      const size_t gi = static_cast<size_t>(gy) * a.nx + gx;
       wm[m] = a.mask[gi];  // read only after the wait and barrier, like the copies
-      if (gy / kBandRows == wn.q) {
+      if (coop_owns(a, gy / kBandRows, gx / C::kW)) {
 #pragma unroll
         for (int s = 0; s < kSpeeds; ++s) lbm::cp_async4(wf + s * G::kPlane + m, src + s * plane + gi);
       } else {
@@ -784,7 +808,7 @@ __device__ __noinline__ void coop_store(const float* planes, const float* red, c
 }
 
 // One cooperative launch per chunk; blockDim = kCoopThreads.  Block b owns
-// bands b, b + gridDim.x, ...; every block is resident (the cooperative
+// tiles b, b + gridDim.x, ...; every block is resident (the cooperative
 // launch guarantees it), as the polls need.  There is no grid barrier.
 template <int K>
 __global__ void __launch_bounds__(kCoopThreads, 1)
@@ -796,8 +820,8 @@ __global__ void __launch_bounds__(kCoopThreads, 1)
   float* const red = reinterpret_cast<float*>(smem + 2 * G::kBytes);
   const int tid = threadIdx.x, lane = tid & 31;
   const bool flagger = tid < 32;  // warp 0 waits for the neighbours' flags
-  const int bands = num_bands(a.ny);
-  if (static_cast<int>(blockIdx.x) >= bands) return;  // more blocks than bands
+  const int tiles = num_bands(a.ny) * a.segs;
+  if (static_cast<int>(blockIdx.x) >= tiles) return;  // more blocks than tiles
 
   int t = 0;
   for (int r = 0; t < a.n_steps; ++r) {
@@ -811,7 +835,7 @@ __global__ void __launch_bounds__(kCoopThreads, 1)
     CoopWin wn, wnext;
     wn.first(blockIdx.x, C::kW, a);
     wnext = wn;
-    bool more = wnext.next(C::kW, bands, a);
+    bool more = wnext.next(C::kW, tiles, a);
     if (wait && flagger) {
       coop_flag_wait<K>(a, wn, coop_flag_load<K>(a, wn, lane), want, lane);
       if (more) coop_flag_wait<K>(a, wnext, coop_flag_load<K>(a, wnext, lane), want, lane);
@@ -830,7 +854,7 @@ __global__ void __launch_bounds__(kCoopThreads, 1)
       if (more) coop_load<K>(nxt, a, src, wnext, tid);
       lbm::cp_async_commit();
       CoopWin wafter = wnext;
-      const bool after = more && wafter.next(C::kW, bands, a);
+      const bool after = more && wafter.next(C::kW, tiles, a);
       const Word flag = wait && after && flagger ? coop_flag_load<K>(a, wafter, lane) : 0;
       {
         const uint8_t* const wm = cur + 4 * G::kFloats;
@@ -919,8 +943,30 @@ int coop_k(int ny, int nx) {
   return 3;
 }
 
-// The blocks of a launch: one per band, no more than can be co-resident.
-int coop_grid(int bands, int max_blocks) { return bands < max_blocks ? bands : max_blocks; }
+// Segments per band of the cooperative form on `blocks` co-resident blocks
+// (ops/resident.py: coop_segments is the same rule).  Where there are at
+// least as many bands as blocks, one: every block has a band.  Else the
+// count that makes the most windows a block steps per round,
+// ceil(bands * segs / blocks) * ceil(windows / segs), least; on a tie the
+// fewest segments, whose edges make windows wait for column neighbours.
+// (A count whose segments would leave the last one empty never wins: the
+// fewer segments of the same width tie and take it.)
+int coop_segments(int bands, int windows, int blocks) {
+  if (bands >= blocks) return 1;
+  int best = 1, most = windows;
+  for (int segs = 2; segs <= windows; ++segs) {
+    const long long m = (static_cast<long long>(bands) * segs + blocks - 1) / blocks *
+                        ((windows + segs - 1) / segs);
+    if (m < most) {
+      best = segs;
+      most = static_cast<int>(m);
+    }
+  }
+  return best;
+}
+
+// The blocks of a launch: one per tile, no more than can be co-resident.
+int coop_grid(int tiles, int max_blocks) { return tiles < max_blocks ? tiles : max_blocks; }
 
 // ---- host side ------------------------------------------------------------
 
@@ -1055,14 +1101,30 @@ extern "C" int lbm_resident_coop_limits(int k, int* smem_bytes, int* max_blocks)
 // The K the cooperative form runs an (ny, nx) grid at.
 extern "C" int lbm_resident_coop_k(int ny, int nx) { return coop_k(ny, nx); }
 
-// The blocks of a cooperative launch of an ny-row grid at K = k on the
-// current device; a negative cudaError_t on failure.
-extern "C" int lbm_resident_coop_grid(int ny, int k) {
+// The co-resident blocks of the cooperative form at K = k on the current
+// device, or a negative cudaError_t.
+static int coop_max_blocks(int k) {
   int max_blocks = 0;
   const int err = lbm::status(with_coop_k(k, [&](auto kk) {
     return coop_prepared<decltype(kk)::value>(&max_blocks);
   }));
-  return err != 0 ? -err : coop_grid(num_bands(ny), max_blocks);
+  return err != 0 ? -err : max_blocks;
+}
+
+// The segments per band of a cooperative launch of an (ny, nx) grid at K =
+// k on the current device; a negative cudaError_t on failure.
+extern "C" int lbm_resident_coop_segments(int ny, int nx, int k) {
+  const int max_blocks = coop_max_blocks(k);
+  if (max_blocks < 0) return max_blocks;
+  if (ny < 1 || nx < 1) return -static_cast<int>(cudaErrorInvalidValue);
+  return coop_segments(num_bands(ny), coop_windows(nx), max_blocks);
+}
+
+// The blocks of a cooperative launch of an (ny, nx) grid at K = k on the
+// current device; a negative cudaError_t on failure.
+extern "C" int lbm_resident_coop_grid(int ny, int nx, int k) {
+  const int segs = lbm_resident_coop_segments(ny, nx, k);
+  return segs < 0 ? segs : coop_grid(num_bands(ny) * segs, coop_max_blocks(k));
 }
 
 // The scratch of a cooperative launch: its outbox of flags, in 64-bit
@@ -1078,10 +1140,11 @@ extern "C" int lbm_resident_coop_scratch(int ny, int nx, long long* n_words) {
 // tiles = ceil(ny/8) * ceil(nx/32).  `flags` is the scratch that
 // lbm_resident_coop_scratch sizes; it is reset on `stream` before the
 // launch.  `k` <= 0 takes lbm_resident_coop_k's.  `blocks` is 0 (one block
-// per band, no more than can be co-resident) except in tests: fewer blocks
-// own several bands each, and a grid larger than can be co-resident is
-// refused with cudaErrorCooperativeLaunchTooLarge.  Launches on `stream`;
-// returns the launch's cudaError_t (0 = launched).
+// per tile, no more than can be co-resident) except in tests: fewer blocks
+// own several tiles each, and a grid larger than can be co-resident is
+// refused with cudaErrorCooperativeLaunchTooLarge; the tiles are the
+// rule's (coop_segments on the co-resident blocks) either way.  Launches
+// on `stream`; returns the launch's cudaError_t (0 = launched).
 extern "C" int lbm_resident_chunk(float* a, float* b, const uint8_t* mask, float* partials,
                                   void* flags, int ny, int nx, int n_steps, int blocks, int k,
                                   float w0_omega, float w1_omega, float w2_omega,
@@ -1097,14 +1160,19 @@ extern "C" int lbm_resident_chunk(float* a, float* b, const uint8_t* mask, float
     int max_blocks = 0;
     cudaError_t err = coop_prepared<K>(&max_blocks);
     if (err != cudaSuccess) return err;
-    const int grid = blocks > 0 ? blocks : coop_grid(num_bands(ny), max_blocks);
+    // the rule's tiles: windows per segment, and segments of that width
+    const int windows = coop_windows(nx);
+    const int rule = coop_segments(num_bands(ny), windows, max_blocks);
+    const int seg_windows = (windows + rule - 1) / rule;
+    const int segs = (windows + seg_windows - 1) / seg_windows;
+    const int grid = blocks > 0 ? blocks : coop_grid(num_bands(ny) * segs, max_blocks);
     err = cudaMemsetAsync(flags, 0, sizeof(Word) * coop_flag_words(ny, nx), st);
     if (err != cudaSuccess) return err;
     const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
     const bool vec = nx % 4 == 0 && nx >= Coop<K>::kP && ny >= K && aligned(a) && aligned(b) &&
                      reinterpret_cast<uintptr_t>(mask) % 4 == 0;
     CoopArgs args{a, b, mask, partials, static_cast<Word*>(flags), ny, nx, n_steps,
-                  vec ? 1 : 0, c};
+                  vec ? 1 : 0, segs, seg_windows, c};
     void* kargs[] = {&args};
     return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(resident_kernel<K>), dim3(grid),
                                        dim3(kCoopThreads), kargs, Coop<K>::kSmemBytes, st);

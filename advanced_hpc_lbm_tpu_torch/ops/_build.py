@@ -120,7 +120,8 @@ def load() -> ctypes.CDLL:
         "lbm_resident_prepare": ([], i32),
         "lbm_resident_coop_limits": ([i32, ctypes.POINTER(i32), ctypes.POINTER(i32)], i32),
         "lbm_resident_coop_k": ([i32, i32], i32),
-        "lbm_resident_coop_grid": ([i32, i32], i32),
+        "lbm_resident_coop_segments": ([i32, i32, i32], i32),
+        "lbm_resident_coop_grid": ([i32, i32, i32], i32),
         "lbm_resident_coop_scratch": ([i32, i32, ctypes.POINTER(i64)], i32),
         "lbm_resident_banded_chunk": ([ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                        *consts, ptr], i32),

@@ -190,11 +190,16 @@ def coop_smem_bytes(k: int) -> int:
     return 2 * window + 4 * k * BAND_ROWS * COOP_WINDOW_COLS
 
 
+def coop_windows(nx: int) -> int:
+    """Windows of 128 columns across a grid nx wide, the last one ragged."""
+    return -(-nx // COOP_WINDOW_COLS)
+
+
 def coop_flag_words(ny: int, nx: int) -> int:
     """64-bit words of the cooperative form's outbox: one flag per band
     and window of 128 columns, carrying the step whose state the band's
     window holds in the round's buffer."""
-    return num_bands(ny) * -(-nx // COOP_WINDOW_COLS)
+    return num_bands(ny) * coop_windows(nx)
 
 
 def coop_rounds(n_steps: int, k: int) -> list[int]:
@@ -216,17 +221,49 @@ def coop_rounds(n_steps: int, k: int) -> list[int]:
     return steps
 
 
-def coop_blocks(ny: int, max_blocks: int) -> int:
-    """The blocks of a cooperative launch: one per band, no more than
+def coop_segments(ny: int, nx: int, blocks: int) -> int:
+    """Segments per band of the cooperative form on ``blocks`` co-resident
+    blocks (the C query ``lbm_resident_coop_segments`` is the same rule).
+    A tile, the unit a block owns, is a segment: a run of ceil(windows /
+    segs) consecutive windows of a band, the last one ragged.  Where there
+    are at least as many bands as blocks, one segment: every block has a
+    band.  Else the count that makes the most windows a block steps per
+    round, ceil(bands * segs / blocks) * ceil(windows / segs), least; on a
+    tie the fewest segments, whose edges make windows wait for column
+    neighbours.  On 132 blocks: 1 at 1024^2 (128 bands), 2048^2 and 4096^2;
+    2 at 512^2 (2 windows a block), 8 at 640x1024 (5), 3 at 672x1024 (6)."""
+    bands, windows = num_bands(ny), coop_windows(nx)
+    if bands >= blocks:
+        return 1
+    best, most = 1, windows
+    for segs in range(2, windows + 1):
+        m = -(-bands * segs // blocks) * -(-windows // segs)
+        if m < most:
+            best, most = segs, m
+    return best
+
+
+def coop_tiles(ny: int, nx: int, segs: int) -> list[tuple[int, int, int]]:
+    """The tiles of a cooperative launch in band-major order: (band, first
+    window, end window) each, ``segs`` segments of ceil(windows / segs)
+    windows per band, the last one ragged."""
+    windows = coop_windows(nx)
+    width = -(-windows // segs)
+    return [(q, c, min(c + width, windows))
+            for q in range(num_bands(ny)) for c in range(0, windows, width)]
+
+
+def coop_blocks(ny: int, nx: int, max_blocks: int) -> int:
+    """The blocks of a cooperative launch: one per tile, no more than
     ``max_blocks`` (those that can be co-resident)."""
-    return min(num_bands(ny), max_blocks)
+    return min(len(coop_tiles(ny, nx, coop_segments(ny, nx, max_blocks))), max_blocks)
 
 
-def coop_assignment(ny: int, blocks: int) -> list[list[int]]:
-    """The bands each block of a cooperative launch of ``blocks`` blocks
-    owns: block b takes bands b, b + blocks, ... (a block past the last
-    band owns none and returns at once)."""
-    return [list(range(b, num_bands(ny), blocks)) for b in range(blocks)]
+def coop_assignment(ny: int, nx: int, segs: int, blocks: int) -> list[list[tuple[int, int, int]]]:
+    """The tiles (see :func:`coop_tiles`) each block of a cooperative launch
+    of ``blocks`` blocks owns: block b takes tiles b, b + blocks, ... (a
+    block past the last tile owns none and returns at once)."""
+    return [coop_tiles(ny, nx, segs)[b::blocks] for b in range(blocks)]
 
 
 @functools.cache

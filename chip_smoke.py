@@ -525,6 +525,12 @@ RULE_SHAPES = ((8, 32), (17, 23), (64, 64), (128, 128), (128, 256), (256, 128), 
 TIMED_SQUARES = tuple((n, n) for n in (64, 128, 256, 512, 768, 1024, 2048, 4096))
 # the small decks, which the banded form must take
 BANDED_DECKS = ((64, 64), (128, 128), (128, 256), (256, 128), (256, 256))
+# grids with fewer bands than an H100 has SMs, where the cooperative form
+# cuts bands into segments of windows (and a 1024^2 deck, where it does
+# not): phase 3r holds its tiles' C rule to resident.coop_segments there and
+# times it beside the grid-barrier form and pallask
+TILED_GRIDS = ((512, 512), (256, 512), (256, 1024), (640, 1024), (656, 1024), (672, 1024),
+               (8, 4096), (1024, 1024))
 
 
 def check_banded_rule(card: str) -> None:
@@ -564,15 +570,16 @@ def check_banded_rule(card: str) -> None:
     for k in resident.COOP_K:
         c_smem, max_blocks = resident._coop_limits(dev, k)
         words = ctypes.c_longlong()
-        for ny, nx in RULE_SHAPES:
+        for ny, nx in RULE_SHAPES + TILED_GRIDS + TIMED_SQUARES:
             step_kernel._raise_on(lib, lib.lbm_resident_coop_scratch(
                 ny, nx, ctypes.byref(words)), "sizing the cooperative outbox")
-            grid = lib.lbm_resident_coop_grid(ny, k)
-            if (words.value != resident.coop_flag_words(ny, nx)
-                    or grid != resident.coop_blocks(ny, max_blocks)):
+            grid = lib.lbm_resident_coop_grid(ny, nx, k)
+            segs = lib.lbm_resident_coop_segments(ny, nx, k)
+            want = (resident.coop_flag_words(ny, nx), resident.coop_blocks(ny, nx, max_blocks),
+                    resident.coop_segments(ny, nx, max_blocks))
+            if (words.value, grid, segs) != want:
                 fail(f"[3r resident] {ny}x{nx} K={k}: C outbox {words.value} words, grid "
-                     f"{grid}; Python {resident.coop_flag_words(ny, nx)}, "
-                     f"{resident.coop_blocks(ny, max_blocks)}")
+                     f"{grid}, {segs} segments a band; Python {want}")
         if c_smem != resident.coop_smem_bytes(k) or c_smem > smem:
             fail(f"[3r resident] K={k}: C shared memory {c_smem} B, Python "
                  f"{resident.coop_smem_bytes(k)} B, opt-in limit {smem} B")
@@ -581,9 +588,14 @@ def check_banded_rule(card: str) -> None:
         if lib.lbm_resident_coop_k(ny, nx) != resident.coop_k(ny, nx):
             fail(f"[3r resident] {ny}x{nx}: C K {lib.lbm_resident_coop_k(ny, nx)}, coop_k "
                  f"{resident.coop_k(ny, nx)}")
-    say(f"[3r resident] cooperative form: C queries (K, outbox words, grid, shared memory) "
-        f"= the Python rules at {len(RULE_SHAPES) + len(TIMED_SQUARES)} shapes; K by shape "
-        + ", ".join(f"{n}^2 {resident.coop_k(n, n)}" for n, _ in TIMED_SQUARES)
+    max_blocks = resident._coop_limits(dev, resident.coop_k(1024, 1024))[1]
+    say(f"[3r resident] cooperative form: C queries (K, outbox words, segments, grid, shared "
+        f"memory) = the Python rules at {len(RULE_SHAPES + TILED_GRIDS + TIMED_SQUARES)} shapes; "
+        f"K by shape " + ", ".join(f"{n}^2 {resident.coop_k(n, n)}" for n, _ in TIMED_SQUARES)
+        + "; segments a band, tiles and blocks: " + ", ".join(
+            f"{ny}x{nx} {resident.coop_segments(ny, nx, max_blocks)}, "
+            f"{len(resident.coop_tiles(ny, nx, resident.coop_segments(ny, nx, max_blocks)))}, "
+            f"{resident.coop_blocks(ny, nx, max_blocks)}" for ny, nx in TILED_GRIDS + TIMED_SQUARES)
         + f"; {', '.join(coop)} | {card}")
 
 
@@ -599,8 +611,8 @@ def phase_resident(card: str) -> tuple[dict, dict]:
     from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel
 
     check_banded_rule(card)
-    shapes = ((1024, 1024), (512, 512), (256, 512), (256, 256), (128, 256), (128, 128),
-              (64, 64), (100, 130), (17, 23))
+    shapes = ((1024, 1024), (672, 1024), (640, 1024), (512, 512), (256, 512), (8, 4096),
+              (256, 256), (128, 256), (128, 128), (64, 64), (100, 130), (17, 23))
     worst = {"banded": 0.0, "cooperative": 0.0, "grid": 0.0}
     for seed, (ny, nx) in enumerate(shapes):
         taken = resident.form_of(ny, nx, "cuda")
@@ -637,15 +649,25 @@ def phase_resident(card: str) -> tuple[dict, dict]:
     return worst, time_whole_runs(card)
 
 
+# grids at which phase 3r holds the cooperative form's partials at every
+# built K: segmented bands (512^2: 2 segments a band, 256x1024: 4,
+# 640x1024: 8, 672x1024: 3, 8x4096: 32 on an H100) and one segment
+# (1024^2); and (grid, blocks) with fewer blocks than tiles
+COOP_TILED_SHAPES = ((512, 512), (256, 1024), (640, 1024), (672, 1024), (8, 4096), (1024, 1024))
+COOP_FEW_BLOCKS = (((64, 64), 1), ((64, 64), 3), ((512, 512), 7), ((8, 4096), 5),
+                   ((640, 1024), 37))
+
+
 def coop_partials(card: str) -> None:
     """The cooperative form's per-tile partials bitwise equal to the step
-    kernel's, 17 steps in chunks of 6, at every built K; on 64 x 64 (8
-    bands) also with 1 and 3 blocks, which own several bands each."""
+    kernel's, 17 steps in chunks of 6 with a guard-failing row, at every
+    built K; also with fewer blocks than tiles, which own several tiles
+    each."""
     from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel
 
-    cases = [((ny, nx), k, 0) for ny, nx in COOP_K_SHAPES + ((1024, 1024),)
+    cases = [((ny, nx), k, 0) for ny, nx in COOP_K_SHAPES + COOP_TILED_SHAPES
              for k in resident.COOP_K]
-    cases += [((64, 64), k, blocks) for k in resident.COOP_K for blocks in (1, 3)]
+    cases += [(shape, k, blocks) for k in resident.COOP_K for shape, blocks in COOP_FEW_BLOCKS]
     for (ny, nx), k, blocks in cases:
         params, mask, f = on_card(ny, nx, 500 + ny, True)
         tiles = step_kernel.num_partials(ny, nx)
@@ -663,12 +685,13 @@ def coop_partials(card: str) -> None:
         torch.cuda.synchronize()
         n_f, n_p = int((rb[1] != bufs[1]).sum().item()), int((pr != ps).sum().item())
         if n_f or n_p:
-            fail(f"[3r resident] cooperative {ny}x{nx} K={k}, blocks {blocks or 'per band'}: "
+            fail(f"[3r resident] cooperative {ny}x{nx} K={k}, blocks {blocks or 'per tile'}: "
                  f"{n_f} state values and {n_p} partials differ from the step kernel")
     say(f"[3r resident] cooperative form, 17 steps in chunks of 6 with a guard-failing row, "
         f"partials and state bitwise equal to the step kernel's at K = "
-        f"{', '.join(map(str, resident.COOP_K))} on {len(COOP_K_SHAPES) + 1} shapes, and on "
-        f"64x64 with 1 and 3 blocks (8 bands) | {card}")
+        f"{', '.join(map(str, resident.COOP_K))} on "
+        f"{len(COOP_K_SHAPES + COOP_TILED_SHAPES)} shapes, and with fewer blocks than tiles: "
+        + ", ".join(f"{ny}x{nx} {b}" for (ny, nx), b in COOP_FEW_BLOCKS) + f" | {card}")
 
 
 def time_whole_runs(card: str) -> dict:
@@ -734,34 +757,40 @@ def time_whole_runs(card: str) -> dict:
     return times
 
 
-# rows of the grids (1024 columns) at which phase 3r times the cooperative
-# and the grid-barrier form beside coop_fits' threshold (83 bands on 132
-# SMs): 80 to 88 bands
-RULE_ROWS = (640, 656, 664, 672, 704)
-
-
 def time_form_rule(card: str) -> None:
-    """The cooperative form (its K) and the grid-barrier form in turns at
-    band counts around coop_fits' threshold; one line each with what the
-    rule picks (a report: the rule is fixed in the code)."""
-    from advanced_hpc_lbm_tpu_torch.ops import resident
+    """The cooperative form (its K, the rule's tiles), the grid-barrier form
+    and pallask (best_k) in turns (cooperative, grid-barrier, pallask, then
+    back) at the TILED_GRIDS that time_whole_runs does not time; one line
+    each with what the rule picks (a report: the rule is fixed in the
+    code)."""
+    from advanced_hpc_lbm_tpu_torch.ops import kstep_kernel, resident
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for seed, ny in enumerate(RULE_ROWS):
-        nx = 1024
+    max_blocks = resident._coop_limits(0, 3)[1]
+    for seed, (ny, nx) in enumerate(TILED_GRIDS):
+        if (ny, nx) in TIMED_SQUARES:
+            continue
         params, mask, f = on_card(ny, nx, 600 + seed)
+        best = kstep_kernel.best_k(ny, nx)
 
         def run(form):
             return time_ms(lambda: resident_form(f, mask, params, RUN_STEPS, RUN_STEPS, form),
                            2) / RUN_STEPS
-        g1, c1, c2, g2 = run("grid"), run("cooperative"), run("cooperative"), run("grid")
-        coop_ms, grid_ms = (c1 + c2) / 2, (g1 + g2) / 2
+
+        def pallask():
+            return time_ms(lambda: kstep_kernel.run(f, mask, params, n_iters=RUN_STEPS, k=best),
+                           2) / RUN_STEPS
+        c1, g1, p1 = run("cooperative"), run("grid"), pallask()
+        p2, g2, c2 = pallask(), run("grid"), run("cooperative")
+        got = {"cooperative": (c1, c2), "grid": (g1, g2), f"pallask K={best}": (p1, p2)}
+        mean = {name: sum(v) / 2 for name, v in got.items()}
         picked = resident.form_of(ny, nx, "cuda")
-        faster = "cooperative" if coop_ms < grid_ms else "grid"
-        say(f"[3r resident] {ny}x{nx} ({resident.num_bands(ny)} bands, {sms} SMs): cooperative "
-            f"K={resident.coop_k(ny, nx)} {coop_ms * 1e3:.2f} us ({c1 * 1e3:.2f}, "
-            f"{c2 * 1e3:.2f}), grid-barrier {grid_ms * 1e3:.2f} us ({g1 * 1e3:.2f}, "
-            f"{g2 * 1e3:.2f}); the rule picks {picked}, "
+        faster = "cooperative" if mean["cooperative"] < mean["grid"] else "grid"
+        segs = resident.coop_segments(ny, nx, max_blocks)
+        say(f"[3r resident] {ny}x{nx} ({resident.num_bands(ny)} bands, {segs} segments a band, "
+            f"{resident.coop_blocks(ny, nx, max_blocks)} blocks): "
+            + ", ".join(f"{name} {mean[name] * 1e3:.2f} us ({v[0] * 1e3:.2f}, {v[1] * 1e3:.2f})"
+                        for name, v in got.items())
+            + f"; the rule picks {picked}, "
             f"{'the faster' if picked == faster else 'the faster was ' + faster} | {card}")
 
 

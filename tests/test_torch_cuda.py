@@ -195,12 +195,16 @@ def test_wide_grid_runs_the_cooperative_form(ny, nx):
     (100, 130, 0), (17, 23, 0),  # ny % 8 != 0 and nx % 32 != 0 (the form hook)
     (8, 40, 0), (16, 64, 0), (24, 64, 0),  # one, two and three bands
     (64, 64, 1), (64, 64, 3),  # 8 bands on 1 and 3 blocks: a block owns several
+    # bands cut into segments of windows (on an H100: 4, 8, 3 and 32 a band)
+    (256, 1024, 0), (640, 1024, 0), (672, 1024, 0), (8, 4096, 0),
+    (512, 512, 7), (8, 4096, 5), (640, 1024, 37),  # fewer blocks than tiles
 ])
 def test_cooperative_resident_matches_step_kernel_bitwise(ny, nx, blocks, k):
     """The cooperative form at every built K: 17 steps in chunks of 6 and
     5 (rounds of n mod K steps; at K = 4 rounds of 4 and 2, then 3, 1 and
     1), a guard-failing forcing row, 0 differing values in f and
-    bitwise-equal partials against the step kernel."""
+    bitwise-equal partials against the step kernel; one segment a band and
+    several, a block per tile and fewer."""
     params, mask, f = _on_card(ny, nx, seed=ny + nx + k)
     mask = step_kernel.prepare_obstacles(mask)
     tiles = step_kernel.num_partials(ny, nx)
@@ -220,16 +224,23 @@ def test_cooperative_resident_matches_step_kernel_bitwise(ny, nx, blocks, k):
 @pytest.mark.parametrize("k", resident.COOP_K)
 def test_cooperative_rules_in_c_equal_python(k):
     """The cooperative form's C queries against its Python rules on the
-    card: K by shape, the grid (one block per band up to the co-resident
-    limit), the outbox's flag words, the shared memory of a block."""
+    card: K by shape, the segments a band (one at 1024^2, 2048^2, 4096^2),
+    the grid (one block per tile up to the co-resident limit), the
+    outbox's flag words, the shared memory of a block."""
     lib = step_kernel._library()
     smem, max_blocks = resident._coop_limits(torch.cuda.current_device(), k)
     assert smem == resident.coop_smem_bytes(k)
     assert max_blocks >= torch.cuda.get_device_properties(0).multi_processor_count
     words = ctypes.c_longlong()
-    for ny, nx in [(8, 32), (17, 23), (256, 512), (1024, 1024), (4096, 4096), (8192, 64)]:
+    for ny, nx in [(8, 32), (17, 23), (256, 512), (1024, 1024), (4096, 4096), (8192, 64),
+                   (512, 512), (256, 1024), (640, 1024), (656, 1024), (672, 1024), (8, 4096),
+                   (2048, 2048), (100, 130)]:
         assert lib.lbm_resident_coop_k(ny, nx) == resident.coop_k(ny, nx)
-        assert lib.lbm_resident_coop_grid(ny, k) == resident.coop_blocks(ny, max_blocks)
+        segs = resident.coop_segments(ny, nx, max_blocks)
+        assert lib.lbm_resident_coop_segments(ny, nx, k) == segs
+        if ny in (1024, 2048, 4096) and ny == nx:
+            assert segs == 1
+        assert lib.lbm_resident_coop_grid(ny, nx, k) == resident.coop_blocks(ny, nx, max_blocks)
         assert lib.lbm_resident_coop_scratch(ny, nx, ctypes.byref(words)) == 0
         assert words.value == resident.coop_flag_words(ny, nx)
 

@@ -231,71 +231,130 @@ def test_coop_rounds_keep_the_parity(k):
         assert len(steps) % 2 == n % 2 and len(steps) <= -(-n // k) + 1
 
 
-@pytest.mark.parametrize("ny,blocks,owned", [
-    (8, 132, [[0]] + [[]] * 131),  # one band: its own neighbour both ways
-    (5, 1, [[0]]),
-    (16, 132, [[0], [1]] + [[]] * 130),  # two bands: each the other's neighbour
-    (17, 132, [[0], [1], [2]] + [[]] * 129),  # three bands, the last one row tall
-    (64, 3, [[0, 3, 6], [1, 4, 7], [2, 5]]),  # a block owns several bands
-    (64, 1, [list(range(8))]),
-    (4096, 132, [list(range(b, 512, 132)) for b in range(132)]),
+@pytest.mark.parametrize("ny,nx,segs,blocks,owned", [
+    (8, 64, 1, 132, [[(0, 0, 1)]] + [[]] * 131),  # one band: its own neighbour both ways
+    (5, 64, 1, 1, [[(0, 0, 1)]]),
+    (16, 64, 1, 132, [[(0, 0, 1)], [(1, 0, 1)]] + [[]] * 130),  # two bands
+    (17, 64, 1, 132, [[(0, 0, 1)], [(1, 0, 1)], [(2, 0, 1)]] + [[]] * 129),  # the last one row
+    (64, 64, 1, 3, [[(0, 0, 1), (3, 0, 1), (6, 0, 1)], [(1, 0, 1), (4, 0, 1), (7, 0, 1)],
+                    [(2, 0, 1), (5, 0, 1)]]),  # a block owns several bands
+    (64, 64, 1, 1, [[(q, 0, 1) for q in range(8)]]),
+    (4096, 4096, 1, 132, [[(q, 0, 32) for q in range(b, 512, 132)] for b in range(132)]),
+    (512, 512, 2, 128, [[(b // 2, 2 * (b % 2), 2 * (b % 2) + 2)] for b in range(128)]),
+    (16, 640, 2, 3, [[(0, 0, 3), (1, 3, 5)], [(0, 3, 5)], [(1, 0, 3)]]),  # a ragged segment
+    (8, 4096, 32, 5, [[(0, c, c + 1) for c in range(b, 32, 5)] for b in range(5)]),
+    (672, 1024, 3, 132, [[(t // 3, 3 * (t % 3), min(3 * (t % 3) + 3, 8)) for t in range(b, 252, 132)]
+                         for b in range(132)]),
 ])
-def test_coop_assignment(ny, blocks, owned):
-    """Block b owns bands b, b + blocks, ...; every band has one owner."""
-    got = resident.coop_assignment(ny, blocks)
+def test_coop_assignment(ny, nx, segs, blocks, owned):
+    """Block b owns tiles b, b + blocks, ... in band-major order (a tile is
+    a segment of a band's windows, the last one ragged); every tile has
+    one owner, and every band's windows are cut into its tiles without a
+    gap or an overlap."""
+    got = resident.coop_assignment(ny, nx, segs, blocks)
     assert got == owned
-    assert sorted(q for bands in got for q in bands) == list(range(resident.num_bands(ny)))
+    tiles = sorted(t for ts in got for t in ts)
+    assert tiles == sorted(resident.coop_tiles(ny, nx, segs))
+    assert len(set(tiles)) == len(tiles) == resident.num_bands(ny) * len(
+        resident.coop_tiles(1, nx, segs))
+    for q in range(resident.num_bands(ny)):
+        cuts = [(c0, c1) for p, c0, c1 in tiles if p == q]
+        assert [c for c0, c1 in cuts for c in range(c0, c1)] == list(
+            range(resident.coop_windows(nx)))
 
 
-@pytest.mark.parametrize("ny,max_blocks,blocks", [
-    (1024, 132, 128), (2048, 132, 132), (8, 132, 1), (17, 132, 3), (512, 264, 64),
+@pytest.mark.parametrize("ny,nx,max_blocks,blocks", [
+    (1024, 64, 132, 128), (2048, 64, 132, 132), (8, 64, 132, 1), (17, 64, 132, 3),
+    (512, 64, 264, 64),  # one window: a block per band
+    (1024, 1024, 132, 128), (2048, 2048, 132, 132), (4096, 4096, 132, 132),
+    (512, 512, 132, 128), (256, 512, 132, 128), (640, 1024, 132, 132), (8, 4096, 132, 32),
+    (17, 23, 132, 3), (100, 130, 132, 26),
 ])
-def test_coop_blocks(ny, max_blocks, blocks):
-    """One block per band, no more than can be co-resident."""
-    assert resident.coop_blocks(ny, max_blocks) == blocks
+def test_coop_blocks(ny, nx, max_blocks, blocks):
+    """One block per tile, no more than can be co-resident."""
+    assert resident.coop_blocks(ny, nx, max_blocks) == blocks
 
 
-def _flags_waited(ny, nx, k, q, c):
+@pytest.mark.parametrize("ny,nx,blocks,segs", [
+    (1024, 1024, 132, 1), (2048, 2048, 132, 1), (4096, 4096, 132, 1),  # bands spread evenly
+    (1048, 1024, 132, 1),  # 131 bands: 8 windows a block either way
+    (512, 512, 132, 2), (640, 1024, 132, 8), (656, 1024, 132, 8), (672, 1024, 132, 3),
+    (256, 512, 132, 4), (256, 1024, 132, 4), (8, 4096, 132, 32), (800, 1024, 132, 8),
+    (100, 130, 132, 2), (17, 23, 132, 1), (512, 512, 264, 4), (2048, 512, 132, 1),
+])
+def test_coop_segments_rule(ny, nx, blocks, segs):
+    """Segments per band: one where the bands alone give every block one;
+    else the count whose tiles make the most windows a block steps per
+    round least (512^2: 2 windows a block; 640x1024: 5; 672x1024: 6, not
+    8), the fewest on a tie (1024^2: 8 windows a block for 1, 2, 4 or 8)."""
+    assert resident.coop_segments(ny, nx, blocks) == segs
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 132, 264])
+def test_coop_segments_leave_no_segment_empty(blocks):
+    """Whatever the rule picks, every segment holds at least one window and
+    the count is the one that its width gives: the kernel's tiles are the
+    rule's."""
+    for ny in (8, 64, 512, 1000, 1100):
+        for windows in range(1, 40):
+            nx = windows * resident.COOP_WINDOW_COLS - 5
+            segs = resident.coop_segments(ny, nx, blocks)
+            width = -(-windows // segs)
+            assert 1 <= segs <= windows and -(-windows // width) == segs
+            assert len(resident.coop_tiles(ny, nx, segs)) == resident.num_bands(ny) * segs
+
+
+def _owner(nx, segs, blocks):
+    """Block owning window c of band p (csrc/resident_kernel.cu coop_owns)."""
+    width = -(-resident.coop_windows(nx) // segs)
+    return lambda p, c: (p * segs + c // width) % blocks
+
+
+def _flags_waited(ny, nx, k, q, c, owner):
     """The (band, window) flags a window of band q at window c waits for
-    (csrc/resident_kernel.cu coop_flag, restated): the bands of its
-    nearest and farthest ghost rows above and below, other than q, at
-    windows c - 1, c and c + 1, wrapped."""
-    y0 = q * resident.BAND_ROWS
-    h = min(resident.BAND_ROWS, ny - y0)
-    nw = -(-nx // resident.COOP_WINDOW_COLS)
-    out = set()
-    for dy in (-1, -k, h, h + k - 1):
-        p = ((y0 + dy) % ny) // resident.BAND_ROWS
-        if p != q:
-            out |= {(p, (c + d) % nw) for d in (-1, 0, 1)}
-    return out
+    (csrc/resident_kernel.cu coop_flag, restated): the bands of rows y0 -
+    K, y0 - 1, y0, y0 + h, y0 + h + K - 1 by the windows of columns x0 - K,
+    x0 - 1, x0, x0 + w, x0 + w + K - 1, wrapped, but those that the
+    window's own block owns."""
+    y0, x0 = q * resident.BAND_ROWS, c * resident.COOP_WINDOW_COLS
+    h, w = min(resident.BAND_ROWS, ny - y0), min(resident.COOP_WINDOW_COLS, nx - x0)
+    me = owner(q, c)
+    return {(((y0 + dy) % ny) // resident.BAND_ROWS, ((x0 + dx) % nx) // resident.COOP_WINDOW_COLS)
+            for dy in (-k, -1, 0, h, h + k - 1) for dx in (-k, -1, 0, w, w + k - 1)} - {
+        (p, cw) for p in range(resident.num_bands(ny))
+        for cw in range(resident.coop_windows(nx)) if owner(p, cw) == me}
 
 
 @pytest.mark.parametrize("k", resident.COOP_K)
 @pytest.mark.parametrize("ny", [1, 2, 3, 5, 8, 9, 10, 16, 17, 19, 24, 27, 33, 100])
-@pytest.mark.parametrize("nx", [3, 130, 300])
+@pytest.mark.parametrize("nx", [3, 130, 300, 385, 1000])
 def test_coop_ghost_cells_are_flagged(ny, nx, k):
     """Every ghost cell a window needs (K rows above and below, K columns
-    either side, wrapped) is its own band's (read from the state, no wait)
-    or lies in a (band, window) whose flag the window waits for; and the
-    waits are symmetric: a band whose cells a window reads waits, at the
-    window it reads them from, for that window's flag (so it cannot
-    overwrite them before they are read): one band, two, three, ragged
-    bands and windows, grids smaller than K."""
-    bands = resident.num_bands(ny)
-    nw = -(-nx // resident.COOP_WINDOW_COLS)
-    for q in range(bands):
-        y0 = q * resident.BAND_ROWS
-        h = min(resident.BAND_ROWS, ny - y0)
-        for c in range(nw):
-            x0 = c * resident.COOP_WINDOW_COLS
-            w = min(resident.COOP_WINDOW_COLS, nx - x0)
-            waited = _flags_waited(ny, nx, k, q, c)
-            for dy in [*range(-k, 0), *range(h, h + k)]:
-                p = ((y0 + dy) % ny) // resident.BAND_ROWS
-                if p == q:
-                    continue
-                for dx in range(-k, w + k):
-                    cp = ((x0 + dx) % nx) // resident.COOP_WINDOW_COLS
-                    assert (p, cp) in waited, (q, c, dy, dx, p, cp)
-                    assert (q, c) in _flags_waited(ny, nx, k, p, cp), (q, c, p, cp)
+    either side, the corners, wrapped) lies in a window that the window's
+    own block owns (it wrote it in the previous round: read from the
+    state, no wait) or in a (band, window) whose flag the window waits for,
+    and the window waits for no other; and the waits are symmetric: a
+    window whose cells another reads waits, at that window, for the
+    reader's flag (so it cannot overwrite them before they are read).
+    Over 1 to 4 segments per band, a block per tile and a third as many
+    blocks; one band, two, three, ragged bands and windows (385: a last
+    window of one column, narrower than K), grids smaller than K."""
+    bands, windows = resident.num_bands(ny), resident.coop_windows(nx)
+    for segs in range(1, min(4, windows) + 1):
+        tiles = len(resident.coop_tiles(ny, nx, segs))
+        for blocks in sorted({tiles, max(1, tiles // 3)}):
+            owner = _owner(nx, segs, blocks)
+            waited = {(q, c): _flags_waited(ny, nx, k, q, c, owner)
+                      for q in range(bands) for c in range(windows)}
+            for (q, c), flags in waited.items():
+                y0, x0 = q * resident.BAND_ROWS, c * resident.COOP_WINDOW_COLS
+                h = min(resident.BAND_ROWS, ny - y0)
+                w = min(resident.COOP_WINDOW_COLS, nx - x0)
+                row_bands = {((y0 + dy) % ny) // resident.BAND_ROWS for dy in range(-k, h + k)}
+                col_windows = {((x0 + dx) % nx) // resident.COOP_WINDOW_COLS
+                               for dx in range(-k, w + k)}
+                needed = {(p, cw) for p in row_bands for cw in col_windows
+                          if owner(p, cw) != owner(q, c)}
+                assert flags == needed, (segs, blocks, q, c, flags ^ needed)
+                for p, cw in needed:
+                    assert (q, c) in waited[(p, cw)], (segs, blocks, q, c, p, cw)
