@@ -565,7 +565,8 @@ struct CoopArgs {
 // Whether this block owns window cw of band p: its tile p * segs + cw /
 // seg_windows is blockIdx.x, blockIdx.x + gridDim.x, ...
 __device__ __forceinline__ bool coop_owns(const CoopArgs& a, int p, int cw) {
-  return static_cast<unsigned>(p * a.segs + cw / a.seg_windows) % gridDim.x == blockIdx.x;
+  const int tile = a.segs == 1 ? p : p * a.segs + cw / a.seg_windows;
+  return static_cast<unsigned>(tile) % gridDim.x == blockIdx.x;
 }
 
 // A window of a block's round: band q (rows y0 .. y0+h-1), window c (own
@@ -600,7 +601,7 @@ struct CoopWin {
   }
 };
 
-// Lanes of warp 0 that wait for flags, one entry each (coop_flag).
+// Lanes of the flagging warp that wait for flags, one entry each (coop_flag).
 constexpr int kFlagLanes = 25;
 
 // The flag that window wn's ghost cells wait for, entry e < kFlagLanes: the
@@ -625,8 +626,8 @@ __device__ __forceinline__ long long coop_flag(const CoopArgs& a, const CoopWin&
   return static_cast<long long>(p) * coop_windows(a.nx) + cw;
 }
 
-// Lane e of warp 0 loads the flag of entry e (see coop_flag) into `word`
-// (no wait; all ones where no flag is needed).
+// Lane e of the flagging warp loads the flag of entry e (see coop_flag)
+// into `word` (no wait; all ones where no flag is needed).
 template <int K>
 __device__ __forceinline__ Word coop_flag_load(const CoopArgs& a, const CoopWin& wn, int lane) {
   if (lane >= kFlagLanes) return ~0ULL;
@@ -634,10 +635,10 @@ __device__ __forceinline__ Word coop_flag_load(const CoopArgs& a, const CoopWin&
   return f < 0 ? ~0ULL : ll_load(a.flags + f);
 }
 
-// Warp 0 waits until every flag window wn's ghost cells need is at `want`
-// or later (state t, t + 1 the step it carries) and then fences, so that
-// the block's copies after the next barrier read what the flags' writers
-// stored before them.
+// The flagging warp waits until every flag window wn's ghost cells need is
+// at `want` or later (state t, t + 1 the step it carries) and then fences,
+// so that the block's copies after the next barrier read what the flags'
+// writers stored before them.
 template <int K>
 __device__ __forceinline__ void coop_flag_wait(const CoopArgs& a, const CoopWin& wn, Word word,
                                                unsigned want, int lane) {
@@ -819,7 +820,10 @@ __global__ void __launch_bounds__(kCoopThreads, 1)
   uint8_t* const smem = reinterpret_cast<uint8_t*>(coop_smem);
   float* const red = reinterpret_cast<float*>(smem + 2 * G::kBytes);
   const int tid = threadIdx.x, lane = tid & 31;
-  const bool flagger = tid < 32;  // warp 0 waits for the neighbours' flags
+  // The last warp waits for the neighbours' flags: it has the fewest cells
+  // in a round's first steps (the ragged last pass over a step's cells) and
+  // no tile sum to take in coop_store at K < 4.
+  const bool flagger = tid >= kCoopThreads - 32;
   const int tiles = num_bands(a.ny) * a.segs;
   if (static_cast<int>(blockIdx.x) >= tiles) return;  // more blocks than tiles
 
