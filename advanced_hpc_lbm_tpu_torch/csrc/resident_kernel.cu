@@ -1,20 +1,21 @@
 // A whole chunk of D2Q9-BGK timesteps in one launch, for NVIDIA Hopper
-// (sm_90a), in three forms: a banded kernel for grids whose bands fit in
-// shared memory, a cooperative kernel of K steps per round for grids with
-// a band for most SMs, and a grid-barrier kernel for the grids between.
+// (sm_90a), in two forms: a banded kernel for grids whose bands fit in
+// shared memory, and a cooperative kernel of K steps per round for every
+// other grid.
 //
 // Replaces: advanced_hpc_lbm_tpu/ops/resident.py `_chunk_kernel` (the
 // whole-run Pallas kernel behind the `resident` backend).  On the TPU one
 // core runs the whole chunk with the state in VMEM, and its grid of one
 // program needs no barrier between steps.  Here many SMs share a chunk, and
-// the forms differ in how they meet between steps.  All run every cell
-// through step_common.cuh:cell_step in the same operand order, so the
-// state equals the step kernel's bit for bit, and all write the step
-// kernel's per-tile ||u|| partials into partials[t, tile] (row-major 32x8
-// tiles), so that the caller's torch.sum(dim=1) gives the step backend's av
-// history bit for bit.  Which form runs is a rule on the shape, decided by
-// the wrapper before the launch (ops/resident.py: form_of, with
-// lbm_resident_banded_fits' rule and coop_fits).
+// each form meets only its neighbours between steps, through values or
+// flags that carry their step, never through a grid barrier.  Both run
+// every cell through step_common.cuh:cell_step in the same operand order,
+// so the state equals the step kernel's bit for bit, and both write the
+// step kernel's per-tile ||u|| partials into partials[t, tile] (row-major
+// 32x8 tiles), so that the caller's torch.sum(dim=1) gives the step
+// backend's av history bit for bit.  Which form runs is a rule on the
+// shape, decided by the wrapper before the launch (ops/resident.py:
+// form_of, with lbm_resident_banded_fits' rule).
 //
 // The banded form (resident_banded_kernel), for the small decks:
 // * Band b is the step kernel's tile row b: grid rows 8b .. 8b+7, the last
@@ -79,8 +80,8 @@
 //   128x256 and 256^2 decks and the 64^2 mini deck, not 512^2 or 1024^2.
 //   A block itself needs less (at most 64 columns of the band).
 // * What bounds it: not the cells (at most 512 a block) and not the wait
-//   for the neighbours.  It runs 2.78 / 2.67 / 2.96 us per step at 64^2 /
-//   128^2 / 256^2 against the grid-barrier form's 4.05 / 3.75 / 4.09
+//   for the neighbours.  It runs 2.72 / 2.69 / 2.97 us per step at 64^2 /
+//   128^2 / 256^2 against the cooperative form's 4.53 / 4.94 / 3.69
 //   (chip_smoke.py 3r, H100 80GB HBM3, 700 W).  Without the wait for the
 //   neighbours' values it ran 2.60 / 2.53 / 2.96, with the cell step
 //   replaced by a copy 1.80 / 2.25 / 2.15 (scripts/
@@ -90,7 +91,7 @@
 // * History: with one thread per column stepping all 8 rows of a band,
 //   the state in device memory and one int flag per band (stored after a
 //   fence, polled by one thread while the block waited), it ran 14.94 /
-//   18.36 / 20.07 us per step at 64^2 / 128^2 / 256^2 against the
+//   18.36 / 20.07 us per step at 64^2 / 128^2 / 256^2 against a
 //   grid-barrier form's 3.56 / 3.80 / 4.19 (168 registers, 1 KB of
 //   spills); with the band in shared memory, 1-4 rows per thread and
 //   only the edge rows waiting, 2.59 / 3.12 / 5.51 (one block per band
@@ -98,84 +99,99 @@
 //   6.75 / 6.77 / 5.50: a corner cell waited on four flags one after
 //   another (H100 80GB HBM3, 700 W).
 
-// The cooperative form (resident_kernel<K>), for grids with a band for at
-// least 5/8 of the SMs (the 1024^2 deck and up):
-// * Bands and blocks.  A band is the step kernel's tile row (8 rows, the
-//   last one ragged).  One cooperative launch per chunk of as many blocks
-//   as bands, no more than can be co-resident (one per SM: two windows
-//   fill its shared memory, 512 threads its registers); block b owns
-//   bands b, b + gridDim.x, ... (4096^2: 512 bands on 132 blocks).  There
-//   is no grid barrier.
+// The cooperative form (resident_kernel<K>), for every grid the banded
+// form does not take (512^2 and up, and any grid wider than 318 columns):
+// * Tiles and blocks.  A band is the step kernel's tile row (8 rows, the
+//   last one ragged), cut into windows of 128 columns (the last one
+//   ragged).  A tile is a segment of a band: seg_windows consecutive
+//   windows, segs segments a band, the last one ragged.  One cooperative
+//   launch per chunk of as many blocks as tiles, no more than can be
+//   co-resident (one per SM: two windows fill its shared memory, 512
+//   threads its registers); block b owns tiles b, b + gridDim.x, ... in
+//   band-major order.  There is no grid barrier.
+// * Segments (coop_segments, a rule on the shape and the co-resident
+//   blocks).  Where there are at least as many bands as blocks, one a
+//   band: a block owns whole bands (4096^2: 512 bands on 132 blocks).
+//   Else the count that makes the most windows a block steps per round,
+//   ceil(bands * segs / blocks) * ceil(windows / segs), least, the fewest
+//   on a tie: 1024^2 keeps one (8 windows a block for 1, 2, 4 or 8),
+//   512^2 takes 2 (2 windows a block on 128 blocks, where whole bands gave
+//   4 on 64 and left 68 SMs idle), 640x1024 8 (5 windows, not 8),
+//   672x1024 3 (6), 8x4096 32 (one window on each of 32 blocks).
 // * Rounds.  A chunk runs in rounds of K steps (K = 3 by the shape rule
 //   coop_k; a last round of n mod K, and one round split in two where that
 //   makes the rounds as many, mod 2, as the steps, so that the state ends
 //   in `a` for an even n and in `b` for an odd one).  Round r reads buffer
-//   r % 2 and writes the other.  A block walks its bands' windows of 128
-//   columns: each window is its 8 rows with K ghost rows above and below
-//   and 4 ghost columns each side, copied by cp.async into shared memory
-//   while the previous window steps, then stepped K times in place
+//   r % 2 and writes the other.  A block walks its tiles' windows: each
+//   window is its 8 rows with K ghost rows above and below and 4 ghost
+//   columns each side, copied by cp.async into shared memory while the
+//   previous window steps, then stepped K times in place
 //   (window_common.cuh's Window and forcing rows; each thread's cells staged
 //   in registers, two barriers a step: step s computes the rectangle K - s
 //   cells beyond the own ones) and its own cells written to the other
 //   buffer.  A round of k < K steps runs the trapezoid's last k steps.
-// * Meeting the neighbours.  A window's ghost rows are the neighbouring
-//   bands' rows of state t, read straight from the round's source buffer.
-//   Each band announces, per window, the step of the state it has written
-//   there: a 64-bit outbox word, [bands][windows], the step + 1 in its high
-//   half, stored with ll_store by one thread after the block's barrier and
-//   a fence.  Before a window's copies are issued, warp 0 polls the words
-//   of the bands that own its ghost rows at the windows before, at and after
-//   it (ll_load, then a fence), loaded one window ahead so that the loads
-//   fly while a window steps.  A poll that exceeds kMaxPolls traps.  The
-//   wrapper resets the outbox before every launch; round 0 waits for
-//   nothing (state 0 is in place before the launch).
+// * Meeting the neighbours.  A window's ghost cells (K rows above and
+//   below, K columns either side, the corners) are read straight from the
+//   round's source buffer.  Each window announces the step of the state it
+//   has written there: a 64-bit outbox word, [bands][windows], the step + 1
+//   in its high half, stored with ll_store by one thread after the block's
+//   barrier and a fence.  Before a window's copies are issued, the block's
+//   last warp polls the words of every (band, window) within K cells of it
+//   that another block owns (coop_flag: the bands of its first and last
+//   ghost rows above and below and its own, by the windows of its first and
+//   last ghost columns left and right and its own), then fences; the words
+//   are loaded one window ahead, so that the loads fly while a window
+//   steps, by the last warp, which has the fewest cells in a round's first
+//   steps.  A window this block owns needs no wait: the block wrote its
+//   state in the previous round, and writes the next one only to the other
+//   buffer.  A poll that exceeds kMaxPolls traps.  The wrapper resets the
+//   outbox before every launch; round 0 waits for nothing (state 0 is in
+//   place before the launch).
 // * Write after read.  The round's source buffer plays the banded form's
-//   outbox slot of the round's parity.  A band overwrites its rows of that
-//   buffer at round r + 1 only after it has seen, at the windows it
-//   overwrites, the neighbours' words of round r + 1 (it needs their ghost
-//   rows of state t + k); a neighbour stores those words after the copies
-//   of its own window of round r, which read this band's rows of state t,
-//   have landed.  Reading ghost rows is symmetric (a band whose rows a
-//   window reads reads the window's band in turn), so no band overwrites
-//   rows that a neighbour still has to read, and no band runs more than a
-//   round ahead of a neighbour.  Other bands' rows are read from L2
-//   (cp.async.cg, __ldcg), never from a stale L1 line.
+//   outbox slot of the round's parity.  A window overwrites its cells of
+//   that buffer at round r + 1 only after it has seen the words of round
+//   r + 1 of every window within K cells that another block owns (it needs
+//   their state t + k); each stores its word after the copies of its own
+//   window of round r, which read this window's cells of state t, have
+//   landed.  Being within K cells is symmetric, across rows and columns
+//   alike: every window that reads this one's cells is one this one waits
+//   for, or one this block owns, whose reads of round r ended before the
+//   block began round r + 1.  So no window overwrites cells that a
+//   neighbour still has to read, and no block runs more than a round
+//   ahead of a neighbour.  Cells of windows that other blocks own are read
+//   from L2 (cp.async.cg, __ldcg), never from a stale L1 line.
 // * ||u|| partials: each own cell's ||u|| (0 on an obstacle and off the
 //   grid) goes to shared memory per step, and a warp sums each tile in
 //   block_sum's order (as the banded form), to partials[t, tile].
 // * Bound: 72/K bytes per cell and step for the state (read and written
-//   once per round) and 9 for the ghost rows, 33 at K = 3.  It runs 25.43
-//   us per step at 1024^2, 89.11 at 2048^2, 340.23 at 4096^2 (K = 3), the
-//   grid-barrier form 41.00 / 147.40 / 582.37 (chip_smoke.py 3r, H100 80GB
-//   HBM3, 700 W).  At 1024^2 its cell steps alone take 19.2 us, at the
-//   K-step kernel's rate per SM, and overlap its copies (15.0 alone) by ~9
-//   (scripts/torch_resident_variants.py).  K = 1 / 2 / 4: 39.27 / 28.99 /
-//   26.75 us at 1024^2.
+//   once per round) and 9 for the ghost rows, 33 at K = 3.  It runs 25.08
+//   us per step at 1024^2, 86.99 at 2048^2, 330.85 at 4096^2 (one segment
+//   a band), 6.96 at 512^2, 13.44 at 768^2, 13.58 at 640x1024, 17.20 at
+//   672x1024, 3.80 at 256x512 and 3.83 at 8x4096 (segmented), K = 3
+//   (chip_smoke.py 3r, H100 80GB HBM3, 700 W).  At 1024^2 its cell steps
+//   alone take 19.2 us, at the K-step kernel's rate per SM, and overlap its
+//   copies (15.0 alone) by ~9 (scripts/torch_resident_variants.py).  K = 1
+//   / 2 / 4: 39.08 / 28.27 / 30.46 us at 1024^2.
 // * History: with a copy of each band's 2K edge rows in an outbox of
 //   step-tagged 64-bit words (value and step in one word, two slots), the
 //   outbox doubled the state's traffic (72 bytes per cell and step at K =
-//   2, the grid-barrier form's 73) and the form ran 41.96 us per step at
-//   1024^2; gathering ghosts by volatile loads issued after a window's steps
-//   cost 15 of 42.8 us (scripts/torch_resident_variants.py); bands of 16 or
-//   32 rows cut the outbox's share but left SMs idle (73.74 us at 1024^2);
-//   one state buffer stepped in place was within 3% of the pair.
-//
-// The grid-barrier form (resident_grid_kernel), for grids with fewer bands,
-// which the cooperative form would leave SMs idle on: a persistent grid as
-// large as can be co-resident walks the step kernel's 32x8 tiles
-// grid-stride, runs the per-cell step, and a grid barrier
-// (cooperative_groups::this_grid().sync()) separates the steps; the state
-// ping-pongs between two buffers in device memory, read with plain loads.
-// Its bound is each step's traffic (73 B/cell) and the barrier: 8.03 us
-// per step at 512^2 (64 bands) against the cooperative form's 12.89; 23.53
-// against 25.54 at 640x1024 (80 bands), 28.28 against 25.52 at 672x1024
-// (84 bands).
+//   2) and the form ran 41.96 us per step at 1024^2; gathering ghosts by
+//   volatile loads issued after a window's steps cost 15 of 42.8 us
+//   (scripts/torch_resident_variants.py); bands of 16 or 32 rows cut the
+//   outbox's share but left SMs idle (73.74 us at 1024^2); one state
+//   buffer stepped in place was within 3% of the pair.  With whole bands
+//   as the unit a block owns, grids of fewer bands than SMs left SMs idle
+//   (512^2: 12.67 us on 64 blocks, scripts/torch_resident_turns.py), and
+//   a grid-barrier form (a persistent grid over the 32x8 tiles, one grid
+//   barrier per step, 73 bytes per cell and step) ran them instead: 7.90
+//   us at 512^2, 5.24 at 256x512, 8.21 at 256x1024, 23.37 at 640x1024,
+//   24.12 at 656x1024, 3.98 at 8x4096 and 40.65 at 1024^2, slower than the
+//   segmented tiles on each (chip_smoke.py 3r, the same call), and was
+//   retired.  Warp 0 as the flagging warp cost 1.5-1.8% at 1024^2 to
+//   4096^2 (scripts/torch_resident_turns.py).
 //
 // Build (ops/_build.py): nvcc -gencode arch=compute_90a,code=sm_90a
-//   -std=c++17 -O3 -fmad=false -shared -Xcompiler -fPIC  (no -rdc: grid
-//   sync needs none on CUDA >= 11)
-
-#include <cooperative_groups.h>
+//   -std=c++17 -O3 -fmad=false -shared -Xcompiler -fPIC
 
 #include <cstdint>
 #include <type_traits>
@@ -183,38 +199,7 @@
 #include "step_common.cuh"
 #include "window_common.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
-
-constexpr int kThreads = lbm::kTileX * lbm::kTileY;
-
-__global__ void __launch_bounds__(kThreads)
-    resident_grid_kernel(float* a, float* b, const uint8_t* mask, float* partials, int ny,
-                         int nx, int n_steps, lbm::StepConsts c) {
-  __shared__ float red[kThreads];
-  cg::grid_group grid = cg::this_grid();
-  const int tiles_x = (nx + lbm::kTileX - 1) / lbm::kTileX;
-  const int tiles = tiles_x * ((ny + lbm::kTileY - 1) / lbm::kTileY);
-  const int tid = threadIdx.y * lbm::kTileX + threadIdx.x;
-  const size_t plane = static_cast<size_t>(ny) * nx;
-
-  for (int t = 0; t < n_steps; ++t) {
-    // step t reads the buffer that step t-1 wrote
-    const float* src_f = (t % 2 == 0) ? a : b;
-    float* dst = (t % 2 == 0) ? b : a;
-    const lbm::GlobalState<false> src{src_f, mask, plane, nx, ny - 2};
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int x = (tile % tiles_x) * lbm::kTileX + threadIdx.x;
-      const int y = (tile / tiles_x) * lbm::kTileY + threadIdx.y;
-      float norm = 0.0f;
-      if (x < nx && y < ny) norm = lbm::global_cell_step(src, dst, y, x, ny, c);
-      const float total = lbm::block_sum(norm, red, tid, kThreads);
-      if (tid == 0) partials[static_cast<size_t>(t) * tiles + tile] = total;
-    }
-    grid.sync();
-  }
-}
 
 // ---- the banded form ------------------------------------------------------
 
@@ -974,27 +959,6 @@ int coop_grid(int tiles, int max_blocks) { return tiles < max_blocks ? tiles : m
 
 // ---- host side ------------------------------------------------------------
 
-// The grid of a cooperative launch: as many blocks as can be co-resident,
-// no more than there are tiles.
-cudaError_t grid_blocks(int ny, int nx, int* blocks) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, resident_grid_kernel,
-                                                      kThreads, 0);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int tiles = ((nx + lbm::kTileX - 1) / lbm::kTileX) *
-                    ((ny + lbm::kTileY - 1) / lbm::kTileY);
-  *blocks = per_sm * sms < tiles ? per_sm * sms : tiles;
-  return cudaSuccess;
-}
-
 cudaError_t num_sms(int* sms) {
   int dev = 0;
   const cudaError_t err = cudaGetDevice(&dev);
@@ -1042,14 +1006,12 @@ bool banded_fits(int ny, int nx, int smem_optin, int max_bands) {
 
 }  // namespace
 
-// Loads every form's kernels onto the current device without launching
-// them, checks that the device takes cooperative launches, and sets the
-// banded and cooperative kernels' shared-memory limits.
+// Loads both forms' kernels onto the current device without launching
+// them, checks that the device takes cooperative launches, and sets their
+// shared-memory limits.
 extern "C" int lbm_resident_prepare(void) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, resident_grid_kernel);
-  if (err != cudaSuccess) return lbm::status(err);
-  err = cudaFuncGetAttributes(&attr, resident_banded_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, resident_banded_kernel);
   if (err != cudaSuccess) return lbm::status(err);
   int smem = 0, max_bands = 0;
   err = banded_limits(1, &smem, &max_bands);
@@ -1060,9 +1022,7 @@ extern "C" int lbm_resident_prepare(void) {
       return coop_prepared<decltype(kk)::value>(&blocks);
     });
   }
-  if (err != cudaSuccess) return lbm::status(err);
-  int blocks = 0;
-  return lbm::status(grid_blocks(1, 1, &blocks));
+  return lbm::status(err);
 }
 
 // The banded form's limits for a grid nx wide (see banded_limits); returns
@@ -1181,31 +1141,6 @@ extern "C" int lbm_resident_chunk(float* a, float* b, const uint8_t* mask, float
     return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(resident_kernel<K>), dim3(grid),
                                        dim3(kCoopThreads), kargs, Coop<K>::kSmemBytes, st);
   }));
-}
-
-// The grid-barrier form: n_steps steps on the state in `a`, ping-ponging
-// with `b`: the state ends in `a` for an even n_steps, in `b` for an odd
-// one.  partials is (n_steps, tiles) float32, tiles = ceil(ny/8) *
-// ceil(nx/32).  `blocks` is 0 (the co-resident limit) except in the test
-// of a refused launch, where a grid larger than can be co-resident is
-// refused with cudaErrorCooperativeLaunchTooLarge.  Launches on `stream`;
-// returns the launch's cudaError_t (0 = launched).
-extern "C" int lbm_resident_grid_chunk(float* a, float* b, const uint8_t* mask,
-                                       float* partials, int ny, int nx, int n_steps,
-                                       int blocks, float w0_omega, float w1_omega,
-                                       float w2_omega, float one_minus_omega,
-                                       float accel_w1, float accel_w2, void* stream) {
-  if (blocks <= 0) {
-    const cudaError_t err = grid_blocks(ny, nx, &blocks);
-    if (err != cudaSuccess) return lbm::status(err);
-  }
-  lbm::StepConsts c{w0_omega,        w1_omega, w2_omega,
-                    one_minus_omega, accel_w1, accel_w2};
-  void* args[] = {&a, &b, &mask, &partials, &ny, &nx, &n_steps, &c};
-  return lbm::status(cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(resident_grid_kernel), dim3(blocks),
-      dim3(lbm::kTileX, lbm::kTileY), args, 0,
-      static_cast<cudaStream_t>(stream)));
 }
 
 // The banded form of lbm_resident_chunk, for a grid that

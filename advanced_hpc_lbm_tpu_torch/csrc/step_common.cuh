@@ -141,14 +141,11 @@ __device__ __forceinline__ float cell_step(const Src& src, int r, int c,
 }
 
 // The state in device memory: (9, ny, nx) float32 planes and the uint8
-// mask, indexed by global (row, column).  The mask is never written, so it
-// is always read through the read-only data cache (__ldg).  `kReadOnly`
-// reads the planes that way too, which is right only when no thread of the
-// launch writes them: the step kernel (read-only loads of the mask and the
+// mask, indexed by global (row, column), both read through the read-only
+// data cache (__ldg), which is right only when no thread of the launch
+// writes them: the step kernel's state (read-only loads of the mask and the
 // planes measured 32.3 us per step at 1024^2 against 33.6 us with plain
-// mask loads, H100 80GB HBM3 at 700 W).  The resident kernel reads buffers
-// that it wrote itself before a grid barrier, so it takes plain loads.
-template <bool kReadOnly>
+// mask loads, H100 80GB HBM3 at 700 W).
 struct GlobalState {
   const float* planes;
   const uint8_t* mask;
@@ -156,12 +153,7 @@ struct GlobalState {
   int nx;
   int accel_row;  // ny - 2
   __device__ __forceinline__ float f(int k, int r, int c) const {
-    const float* p = planes + k * plane + static_cast<size_t>(r) * nx + c;
-    if constexpr (kReadOnly) {
-      return __ldg(p);
-    } else {
-      return *p;
-    }
+    return __ldg(planes + k * plane + static_cast<size_t>(r) * nx + c);
   }
   __device__ __forceinline__ bool obst(int r, int c) const {
     return __ldg(mask + static_cast<size_t>(r) * nx + c) != 0;
@@ -171,11 +163,8 @@ struct GlobalState {
 
 // One step of global cell (y, x) of a periodic (ny, nx) grid: reads `src`,
 // writes the 9 new values to `out` and returns ||u|| (0 on obstacles).
-template <bool kReadOnly>
-__device__ __forceinline__ float global_cell_step(const GlobalState<kReadOnly>& src,
-                                                  float* out, int y, int x,
-                                                  int ny,
-                                                  const StepConsts& cc) {
+__device__ __forceinline__ float global_cell_step(const GlobalState& src, float* out, int y,
+                                                  int x, int ny, const StepConsts& cc) {
   const int nx = src.nx;
   // source columns/rows of the pull, with periodic wrap
   const int xe = (x == 0) ? nx - 1 : x - 1;  // east-moving speeds pull from x-1

@@ -51,8 +51,7 @@ __global__ void __launch_bounds__(kThreads)
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   const int tid = threadIdx.y * kBlockX + threadIdx.x;
-  const lbm::GlobalState<true> src{f, mask, static_cast<size_t>(ny) * nx, nx,
-                                   ny - 2};
+  const lbm::GlobalState src{f, mask, static_cast<size_t>(ny) * nx, nx, ny - 2};
 
   float norm = 0.0f;
   if (x < nx && y < ny) norm = lbm::global_cell_step(src, out, y, x, ny, c);

@@ -116,7 +116,6 @@ def load() -> ctypes.CDLL:
         "lbm_step_block_shape": ([ctypes.POINTER(i32)] * 2, None),
         "lbm_resident_chunk": ([ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, *consts,
                                 ptr], i32),
-        "lbm_resident_grid_chunk": ([ptr, ptr, ptr, ptr, i32, i32, i32, i32, *consts, ptr], i32),
         "lbm_resident_prepare": ([], i32),
         "lbm_resident_coop_limits": ([i32, ctypes.POINTER(i32), ctypes.POINTER(i32)], i32),
         "lbm_resident_coop_k": ([i32, i32], i32),

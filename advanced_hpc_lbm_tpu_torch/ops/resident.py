@@ -6,26 +6,25 @@ The port's counterpart of ``advanced_hpc_lbm_tpu.ops.resident``
 is the wrapper: on a CUDA tensor it launches ``csrc/resident_kernel.cu``
 once per chunk of at most ``chunk`` steps; on a CPU tensor it runs
 :func:`plain_run`, a loop of ``step_kernel.plain_step``.  The kernel has
-three forms, chosen by the grid's shape before the launch
-(:func:`form_of`: :func:`banded_fits` with the card's limits, then
-:func:`coop_fits` with its SMs):
+two forms, chosen by the grid's shape before the launch (:func:`form_of`:
+:func:`banded_fits` with the card's limits):
 
 * the banded form, for grids whose band of 8 rows fits in shared memory
   (the small decks): blocks of a band's segment of columns keep their
   cells in shared memory for the whole chunk and meet only their
   neighbours, through edge values that carry their step, instead of a
   grid barrier; each launch adds one to :data:`banded_launches`;
-* the cooperative form, for the other grids with a band of 8 rows for
-  5/8 of the SMs or more (the 1024^2 deck and up): a block owns bands
-  (several where there are more bands than co-resident blocks) and steps
-  them K steps per round (:func:`coop_k`) window by window in shared
-  memory, on K ghost rows that it reads from the neighbouring bands' state
-  in the round's buffer once their step-tagged flags say it is there, again
-  without a grid barrier; each launch adds one to :data:`launches`;
-* the grid-barrier form, its predecessor, for grids with fewer bands, where
-  the cooperative form would leave SMs idle: a persistent grid walks the
-  32x8 tiles, one grid barrier per step; each launch adds one to
-  :data:`grid_launches`.
+* the cooperative form, for every other grid: a block owns tiles, segments
+  of a band's windows of 128 columns (:func:`coop_segments` cuts bands
+  only where there are fewer bands than co-resident blocks, so that a
+  grid of few bands still fills the card), and steps them K steps per
+  round (:func:`coop_k`) window by window in shared memory, on ghost cells
+  that it reads from the neighbouring windows' state in the round's buffer
+  once their step-tagged flags say it is there, again without a grid
+  barrier; each launch adds one to :data:`launches`.  K = 3: 25.08 us per
+  step at 1024^2, 6.96 at 512^2, 13.58 at 640x1024, 3.83 at 8x4096 on an
+  H100 80GB HBM3 at 700 W (chip_smoke.py 3r; PERF.md, Findings), where a
+  retired grid-barrier form took 40.65, 7.90, 23.37 and 3.98.
 
 A CUDA tensor never falls back to another form or to the plain version:
 the launch happens or the wrapper raises (a device without cooperative
@@ -54,10 +53,9 @@ from advanced_hpc_lbm_tpu_torch.params import LBMParams
 CHUNK = 1000
 
 # Kernel launches made by this module since the count was last reset: of
-# the cooperative form, the banded form and the grid-barrier form.
+# the cooperative form and of the banded form.
 launches = 0
 banded_launches = 0
-grid_launches = 0
 
 # The K (steps per round) the cooperative form is built for (with_coop_k in
 # csrc/resident_kernel.cu).
@@ -155,29 +153,13 @@ def coop_k(ny: int, nx: int) -> int:
     return 3
 
 
-def coop_fits(ny: int, sms: int) -> bool:
-    """Whether the cooperative form runs a grid that the banded form does
-    not take, on a card of ``sms`` SMs: where its bands, one block each,
-    keep at least 5/8 of the SMs busy (83 bands on 132); on grids with fewer
-    bands the grid-barrier form, which spreads any grid over every SM, is
-    the faster.  From this port's times on an H100 80GB HBM3 at 700 W (132
-    SMs, chip_smoke.py 3r, grids 1024 wide): 23.53 against 25.54 us per
-    step at 80 bands, 28.28 against 25.52 at 84 (grid-barrier,
-    cooperative); 8.03 against 12.89 at 512^2 (64 bands)."""
-    return 8 * num_bands(ny) >= 5 * sms
-
-
 def form_of(ny: int, nx: int, device: torch.device | str) -> str:
-    """The form a CUDA device runs an (ny, nx) grid in: "banded",
-    "cooperative" or "grid" (the grid-barrier form); "plain" off CUDA."""
+    """The form a CUDA device runs an (ny, nx) grid in: "banded" or
+    "cooperative"; "plain" off CUDA."""
     device = torch.device(device)
     if device.type != "cuda":
         return "plain"
-    if takes_banded(ny, nx, device):
-        return "banded"
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return "cooperative" if coop_fits(ny, sms) else "grid"
+    return "banded" if takes_banded(ny, nx, device) else "cooperative"
 
 
 def coop_smem_bytes(k: int) -> int:
@@ -259,7 +241,8 @@ def coop_blocks(ny: int, nx: int, max_blocks: int) -> int:
     return min(len(coop_tiles(ny, nx, coop_segments(ny, nx, max_blocks))), max_blocks)
 
 
-def coop_assignment(ny: int, nx: int, segs: int, blocks: int) -> list[list[tuple[int, int, int]]]:
+def coop_assignment(ny: int, nx: int, segs: int,
+                    blocks: int) -> list[list[tuple[int, int, int]]]:
     """The tiles (see :func:`coop_tiles`) each block of a cooperative launch
     of ``blocks`` blocks owns: block b takes tiles b, b + blocks, ... (a
     block past the last tile owns none and returns at once)."""
@@ -301,17 +284,17 @@ def _chunk_launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams,
     on tensors shaped like ``f``: the kernel on CUDA (the form the shape
     takes, :func:`form_of`), the plain version on the CPU.  Test
     hooks, which ``resident_run`` never passes: ``blocks`` > 0 sets the
-    grid size (otherwise one block per band, or per band and segment, no
+    grid size (otherwise one block per band and segment, or per tile, no
     more than can be co-resident): fewer cooperative blocks own several
-    bands each, and a grid too large to be co-resident is the only way to
-    make the card refuse a launch; ``form`` ("banded", "cooperative" or
-    "grid") runs that form on any grid the kernel takes; ``k`` sets the
+    tiles each, and a grid too large to be co-resident is the only way to
+    make the card refuse a launch; ``form`` ("banded" or "cooperative")
+    runs that form on any grid the kernel takes; ``k`` sets the
     cooperative form's steps per round."""
     if f.device.type == "cpu":
         return lambda bufs, n, part: plain_run(bufs, mask, params, n, part)
     if f.device.type != "cuda":
         raise ValueError(f"no resident kernel for device {f.device}")
-    if form not in (None, "banded", "cooperative", "grid"):
+    if form not in (None, "banded", "cooperative"):
         raise ValueError(f"unknown form {form!r}")
     lib = step_kernel._library()
     _, ny, nx = f.shape
@@ -336,16 +319,6 @@ def _chunk_launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams,
             step_kernel._raise_on(lib, err, "resident kernel launch")
             banded_launches += 1
         return banded
-
-    if form == "grid":
-        def grid(bufs, n, part):
-            global grid_launches
-            err = lib.lbm_resident_grid_chunk(bufs[0].data_ptr(), bufs[1].data_ptr(), mask_ptr,
-                                              part.data_ptr(), ny, nx, n, blocks, *consts,
-                                              stream)
-            step_kernel._raise_on(lib, err, "resident kernel launch")
-            grid_launches += 1
-        return grid
 
     k = coop_k(ny, nx) if k is None else k
     if k not in COOP_K:

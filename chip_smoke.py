@@ -17,21 +17,21 @@ non-zero and prints no result:
              from seeded states, at 1024x1024, 64x64, 100x130 and 17x23,
              1 and 50 steps, plus a forcing row that fails the guard
   3r. resident  the form each shape takes (the C rule against
-             resident.banded_fits, then coop_fits; the band's shared-memory
-             bytes; ptxas's registers and spills of every form; the
-             cooperative form's C queries against its Python rules, its K by
-             shape and blocks per SM), then the resident kernel against the
-             step kernel (0 differing values) and its plain version, 1024^2
-             to 17x23: 1 and 50 steps in one chunk, 17 steps in chunks of 6
-             with a guard-failing row, in every form (banded, cooperative,
-             grid-barrier) that takes the shape, the cooperative one at
-             every built K on six shapes (one, two and three bands), its
-             partials bitwise, also with 1 and 3 blocks for 8 bands; then
-             its time per step beside the step kernel's run loop: banded
-             and cooperative in turns at 64^2 to 256^2, from 512^2 to 4096^2
-             the cooperative form at K = 1..4, the grid-barrier form and
-             pallask in turns, and the two forms in turns at 80 to 88
-             bands of 1024 columns (coop_fits' threshold)
+             resident.banded_fits; the band's shared-memory bytes; ptxas's
+             registers and spills of both forms; the cooperative form's C
+             queries against its Python rules: its K, segments a band,
+             grid, outbox and shared memory by shape, blocks per SM), then
+             the resident kernel against the step kernel (0 differing
+             values) and its plain version, 1024^2 to 17x23: 1 and 50 steps
+             in one chunk, 17 steps in chunks of 6 with a guard-failing row,
+             in both forms where both take the shape, the cooperative one
+             at every built K on twelve shapes (one, two and three bands,
+             one segment a band and several), its partials bitwise, also
+             with fewer blocks than tiles; then its time per step beside
+             the step kernel's run loop: banded and cooperative in turns at
+             64^2 to 256^2, from 512^2 to 4096^2 the cooperative form at K =
+             1..4 and pallask in turns, and both in turns on grids of fewer
+             bands than SMs (256x512 to 672x1024, 8x4096)
   3k. kstep  the K-step kernel (every built K; at 4096^2 K = 2, 4, 8 and
              best_k, the K pallask runs there) against the step kernel (0
              differing values) and its plain version at 4096^2, 1024^2,
@@ -51,7 +51,7 @@ non-zero and prints no result:
   5. full    the 1024x1024 deck (20 000 steps) through the CLI with auto
              and with resident: finite, positive av history, mass
              conserved, GLUPS of the run and of the kernel alone
-  5m. mid    a 512x512 deck (64 bands: the grid-barrier form) for 2000
+  5m. mid    a 512x512 deck (64 bands in 2 segments each) for 2000
              steps through the CLI with resident and with pallas: exact
              launches, av histories compared
   5b. cli big  a 4096x4096 deck for 2000 steps through the CLI with
@@ -237,7 +237,6 @@ def kernel_counters() -> dict:
     return {"step_kernel": (step_kernel, "launches"),
             "resident_kernel": (resident, "launches"),
             "resident_banded_kernel": (resident, "banded_launches"),
-            "resident_grid_kernel": (resident, "grid_launches"),
             "kstep_kernel": (kstep_kernel, "launches"),
             "stream_kernel": (stream_kernel, "launches"),
             "stream_snapshot": (stream_kernel, "snapshot_launches"),
@@ -528,16 +527,16 @@ BANDED_DECKS = ((64, 64), (128, 128), (128, 256), (256, 128), (256, 256))
 # grids with fewer bands than an H100 has SMs, where the cooperative form
 # cuts bands into segments of windows (and a 1024^2 deck, where it does
 # not): phase 3r holds its tiles' C rule to resident.coop_segments there and
-# times it beside the grid-barrier form and pallask
+# times it beside pallask
 TILED_GRIDS = ((512, 512), (256, 512), (256, 1024), (640, 1024), (656, 1024), (672, 1024),
                (8, 4096), (1024, 1024))
 
 
 def check_banded_rule(card: str) -> None:
     """The C query lbm_resident_banded_fits equals resident.banded_fits on
-    the card's limits; the small decks take the banded form, 512^2 the
-    grid-barrier one and 1024^2 the cooperative one; the cooperative form's
-    C queries equal its Python rules."""
+    the card's limits; the small decks take the banded form, 512^2 and
+    1024^2 the cooperative one; the cooperative form's C queries equal its
+    Python rules."""
     from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel
 
     lib = step_kernel._library()
@@ -554,10 +553,10 @@ def check_banded_rule(card: str) -> None:
     for ny, nx in BANDED_DECKS:
         if not resident.takes_banded(ny, nx, "cuda"):
             fail(f"[3r resident] {ny}x{nx} does not take the banded form")
-    for (ny, nx), form in (((512, 512), "grid"), ((1024, 1024), "cooperative")):
-        if resident.form_of(ny, nx, "cuda") != form:
+    for ny, nx in ((512, 512), (1024, 1024)):
+        if resident.form_of(ny, nx, "cuda") != "cooperative":
             fail(f"[3r resident] {ny}x{nx} takes the {resident.form_of(ny, nx, 'cuda')} form, "
-                 f"expected the {form} one")
+                 f"expected the cooperative one")
     smem = resident._banded_limits(dev, 64)[0]
     say(f"[3r resident] form by shape, C rule = banded_fits at {smem} B of opt-in shared "
         f"memory: {', '.join(rows)}; band bytes (2*9*10*nx*4 + 10*nx): nx=64 "
@@ -613,13 +612,12 @@ def phase_resident(card: str) -> tuple[dict, dict]:
     check_banded_rule(card)
     shapes = ((1024, 1024), (672, 1024), (640, 1024), (512, 512), (256, 512), (8, 4096),
               (256, 256), (128, 256), (128, 128), (64, 64), (100, 130), (17, 23))
-    worst = {"banded": 0.0, "cooperative": 0.0, "grid": 0.0}
+    worst = {"banded": 0.0, "cooperative": 0.0}
     for seed, (ny, nx) in enumerate(shapes):
         taken = resident.form_of(ny, nx, "cuda")
         # the form the shape takes (the wrapper's rule), then the other forms
         # that take it through the test hook
-        forms = [(None, None)] + [(form, None) for form in ("cooperative", "grid")
-                                  if form != taken]
+        forms = [(None, None)] + ([("cooperative", None)] if taken != "cooperative" else [])
         if (ny, nx) in COOP_K_SHAPES:
             forms += [("cooperative", k) for k in resident.COOP_K]
         for n, chunk, guard in ((1, resident.CHUNK, False), (50, resident.CHUNK, False),
@@ -633,11 +631,10 @@ def phase_resident(card: str) -> tuple[dict, dict]:
                        f"step(s), chunk {chunk}"
                        + (f", K={k or resident.coop_k(ny, nx)}" if name == "cooperative" else "")
                        + (", guard-failing row" if guard else ""))
-                resident.launches = resident.banded_launches = resident.grid_launches = 0
+                resident.launches = resident.banded_launches = 0
                 fr, avr = resident_form(f, mask, params, n, chunk, form, k)
                 torch.cuda.synchronize()
-                counts = {"banded": resident.banded_launches, "cooperative": resident.launches,
-                          "grid": resident.grid_launches}
+                counts = {"banded": resident.banded_launches, "cooperative": resident.launches}
                 want = {other: -(-n // chunk) if other == name else 0 for other in counts}
                 if counts != want:
                     fail(f"{tag}: launches {counts}, expected {want}")
@@ -700,10 +697,9 @@ def time_whole_runs(card: str) -> dict:
     (one chunk of RUN_STEPS steps per timed run; the plain step one call at
     a time); at 64^2, 128^2 and 256^2 the banded and the cooperative form
     in turns (cooperative, banded, banded, cooperative); from 512^2 the
-    cooperative form at every built K, the grid-barrier form and pallask
-    (best_k) in turns, each twice (the order reversed the second time).
-    Returns (resident, step, plain, cooperative form, grid-barrier form) ms
-    per step by grid."""
+    cooperative form at every built K and pallask (best_k) in turns, each
+    twice (the order reversed the second time).  Returns (resident, step,
+    plain, cooperative form) ms per step by grid."""
     from advanced_hpc_lbm_tpu_torch.ops import kstep_kernel, resident, step_kernel
 
     times = {}
@@ -718,14 +714,13 @@ def time_whole_runs(card: str) -> dict:
                            reps) / steps
         if resident.takes_banded(n, n, "cuda"):
             c1, b1, b2, c2 = run("cooperative"), run(), run(), run("cooperative")
-            r_ms, coop_ms, grid_ms = (b1 + b2) / 2, (c1 + c2) / 2, float("nan")
+            r_ms, coop_ms = (b1 + b2) / 2, (c1 + c2) / 2
             forms = (f"banded {r_ms * 1e3:.2f} us ({b1 * 1e3:.2f}, {b2 * 1e3:.2f}), "
                      f"cooperative K={k_rule} {coop_ms * 1e3:.2f} us ({c1 * 1e3:.2f}, "
                      f"{c2 * 1e3:.2f}), banded {coop_ms / r_ms - 1:+.1%} faster")
         else:
             best = kstep_kernel.best_k(n, n)
-            timers = {"grid-barrier form": lambda: run("grid"),
-                      f"pallask K={best}": lambda: time_ms(
+            timers = {f"pallask K={best}": lambda: time_ms(
                           lambda: kstep_kernel.run(f, mask, params, n_iters=steps, k=best),
                           reps) / steps,
                       **{f"cooperative K={k}": (lambda k=k: run("cooperative", k))
@@ -734,64 +729,56 @@ def time_whole_runs(card: str) -> dict:
             for name in reversed(list(timers)):
                 got[name].append(timers[name]())
             mean = {name: sum(v) / 2 for name, v in got.items()}
-            coop_ms, grid_ms = mean[f"cooperative K={k_rule}"], mean["grid-barrier form"]
-            taken = resident.form_of(n, n, "cuda")
-            r_ms = coop_ms if taken == "cooperative" else grid_ms
-            forms = (f"{taken} form {r_ms * 1e3:.2f} us; "
+            r_ms = coop_ms = mean[f"cooperative K={k_rule}"]
+            forms = (f"cooperative form {r_ms * 1e3:.2f} us; "
                      + ", ".join(f"{name} {mean[name] * 1e3:.2f} us "
                                  f"({v[0] * 1e3:.2f}, {v[1] * 1e3:.2f})"
                                  for name, v in got.items())
-                     + f"; cooperative (K={k_rule}) {grid_ms / coop_ms - 1:+.1%} faster than the "
-                     f"grid-barrier form, {mean[f'pallask K={best}'] / coop_ms - 1:+.1%} than "
-                     f"pallask")
+                     + f"; cooperative (K={k_rule}) {mean[f'pallask K={best}'] / coop_ms - 1:+.1%} "
+                     f"faster than pallask")
         s_ms = time_ms(lambda: step_kernel.run(f, mask, params, n_iters=steps), reps) / steps
         p_ms = (time_ms(step_timer(step_kernel.plain_step, params, mask, f), 20)
                 if n in (128, 512, 1024) else float("nan"))
-        times[(n, n)] = (r_ms, s_ms, p_ms, coop_ms, grid_ms)
+        times[(n, n)] = (r_ms, s_ms, p_ms, coop_ms)
         say(f"[3r resident] {n}x{n} time per step ({steps} steps, one chunk): resident "
             f"{forms} ({n * n / r_ms / 1e6:.3f} GLUPS), step run loop "
             f"{s_ms * 1e3:.2f} us ({n * n / s_ms / 1e6:.3f} GLUPS), plain "
             + (f"{p_ms * 1e3:.2f} us" if p_ms == p_ms else "not timed")
             + f" | {card}")
-    time_form_rule(card)
+    time_tiled(card)
     return times
 
 
-def time_form_rule(card: str) -> None:
-    """The cooperative form (its K, the rule's tiles), the grid-barrier form
-    and pallask (best_k) in turns (cooperative, grid-barrier, pallask, then
-    back) at the TILED_GRIDS that time_whole_runs does not time; one line
-    each with what the rule picks (a report: the rule is fixed in the
-    code)."""
+def time_tiled(card: str) -> None:
+    """The cooperative form (its K, the rule's tiles) and pallask (best_k)
+    in turns (cooperative, pallask, pallask, cooperative) at the
+    TILED_GRIDS that time_whole_runs does not time."""
     from advanced_hpc_lbm_tpu_torch.ops import kstep_kernel, resident
 
-    max_blocks = resident._coop_limits(0, 3)[1]
     for seed, (ny, nx) in enumerate(TILED_GRIDS):
         if (ny, nx) in TIMED_SQUARES:
             continue
+        max_blocks = resident._coop_limits(torch.cuda.current_device(),
+                                           resident.coop_k(ny, nx))[1]
         params, mask, f = on_card(ny, nx, 600 + seed)
         best = kstep_kernel.best_k(ny, nx)
 
-        def run(form):
-            return time_ms(lambda: resident_form(f, mask, params, RUN_STEPS, RUN_STEPS, form),
-                           2) / RUN_STEPS
+        def coop():
+            return time_ms(lambda: resident_form(f, mask, params, RUN_STEPS, RUN_STEPS,
+                                                 "cooperative"), 2) / RUN_STEPS
 
         def pallask():
             return time_ms(lambda: kstep_kernel.run(f, mask, params, n_iters=RUN_STEPS, k=best),
                            2) / RUN_STEPS
-        c1, g1, p1 = run("cooperative"), run("grid"), pallask()
-        p2, g2, c2 = pallask(), run("grid"), run("cooperative")
-        got = {"cooperative": (c1, c2), "grid": (g1, g2), f"pallask K={best}": (p1, p2)}
-        mean = {name: sum(v) / 2 for name, v in got.items()}
-        picked = resident.form_of(ny, nx, "cuda")
-        faster = "cooperative" if mean["cooperative"] < mean["grid"] else "grid"
+        c1, p1, p2, c2 = coop(), pallask(), pallask(), coop()
+        got = {f"cooperative K={resident.coop_k(ny, nx)}": (c1, c2),
+               f"pallask K={best}": (p1, p2)}
         segs = resident.coop_segments(ny, nx, max_blocks)
         say(f"[3r resident] {ny}x{nx} ({resident.num_bands(ny)} bands, {segs} segments a band, "
             f"{resident.coop_blocks(ny, nx, max_blocks)} blocks): "
-            + ", ".join(f"{name} {mean[name] * 1e3:.2f} us ({v[0] * 1e3:.2f}, {v[1] * 1e3:.2f})"
+            + ", ".join(f"{name} {sum(v) / 2 * 1e3:.2f} us ({v[0] * 1e3:.2f}, {v[1] * 1e3:.2f})"
                         for name, v in got.items())
-            + f"; the rule picks {picked}, "
-            f"{'the faster' if picked == faster else 'the faster was ' + faster} | {card}")
+            + f"; cooperative {(p1 + p2) / (c1 + c2) - 1:+.1%} faster than pallask | {card}")
 
 
 # ---- 3k. K-step kernel ----------------------------------------------------------
@@ -1032,8 +1019,7 @@ def expected_launches(backend: str, ny: int, nx: int, iters: int) -> dict:
     if backend == "auto":
         backend = ("resident" if resident.takes_banded(ny, nx, "cuda")
                    else d2q9_bgk.AUTO_BACKEND)
-    forms = {"banded": "resident_banded_kernel", "cooperative": "resident_kernel",
-             "grid": "resident_grid_kernel"}
+    forms = {"banded": "resident_banded_kernel", "cooperative": "resident_kernel"}
     want = dict.fromkeys(kernel_counters(), 0)
     if backend in ("step", "pallas"):
         want["step_kernel"] = iters
@@ -1169,7 +1155,8 @@ def phase_full(card: str, times: dict, keep: Path) -> dict:
 
 
 def phase_mid(card: str) -> None:
-    """A 512^2 deck (64 bands: the resident kernel's grid-barrier form)
+    """A 512^2 deck (64 bands: the resident kernel's cooperative form, 2
+    segments a band on an H100)
     through the CLI on resident and on pallas (the step kernel): exact
     launches, the ==done== block, a finite positive av history, the two
     runs' av histories compared."""
@@ -2176,7 +2163,6 @@ def phase_checkpoint_sharded(card: str, tmp: Path) -> None:
 # the device function of each launch counter (the trace's kernel names)
 TRACE_NAMES = {"step_kernel": "step_kernel", "resident_kernel": "resident_kernel",
                "resident_banded_kernel": "resident_banded_kernel",
-               "resident_grid_kernel": "resident_grid_kernel",
                "kstep_kernel": "kstep_kernel", "local_ca_kernel": "kstep_kernel",
                "stream_kernel": "stream_kernel", "stream_snapshot": "snapshot_kernel",
                "local_kernel": "local_step_kernel", "local2d_kernel": "local_step_kernel"}
@@ -2964,15 +2950,14 @@ def main() -> int:
     k_ms, p_ms = step_times[(1024, 1024)]
     r_ms, _, rp_ms = res_times[(128, 128)][:3]  # the reference's 128x128 deck
     cp_ms, coop_ms = res_times[(1024, 1024)][2:4]  # the 1024x1024 deck
-    gp_ms, grid_ms = res_times[(512, 512)][2], res_times[(512, 512)][4]
     best = kstep_kernel.best_k(4096, 4096)
     big = k_times[(4096, 4096)]
     st = s_times[(4096, 4096)]
     src = "advanced_hpc_lbm_tpu_torch/csrc/"
     # times per step: step at 1024^2, the resident kernel's banded form at
-    # 128^2, its grid-barrier form at 512^2 and its cooperative form at
-    # 1024^2 (one launch of RUN_STEPS steps), K-step and stream at 4096^2;
-    # no single PyTorch call computes a D2Q9 step, so library_ms is null
+    # 128^2 and its cooperative form at 1024^2 (one launch of RUN_STEPS
+    # steps), K-step and stream at 4096^2; no single PyTorch call computes a
+    # D2Q9 step, so library_ms is null
     entries = [
         ("step_kernel", "step_kernel.cu", "advanced_hpc_lbm_tpu/ops/pallas_step.py:112", {},
          worst_step, k_ms, p_ms, bound(1024 * 1024, 1)),
@@ -2981,9 +2966,6 @@ def main() -> int:
         ("resident_banded_kernel", "resident_kernel.cu",
          "advanced_hpc_lbm_tpu/ops/resident.py:88", {},
          worst_res["banded"], r_ms, rp_ms, bound(128 * 128, RUN_STEPS)),
-        ("resident_grid_kernel", "resident_kernel.cu",
-         "advanced_hpc_lbm_tpu/ops/resident.py:88", {},
-         worst_res["grid"], grid_ms, gp_ms, bound(512 * 512, RUN_STEPS)),
         ("kstep_kernel", "kstep_kernel.cu", "advanced_hpc_lbm_tpu/ops/pallas_k.py:208",
          {"also_replaces": ["advanced_hpc_lbm_tpu/ops/pallas_k.py:143",
                             "advanced_hpc_lbm_tpu/ops/pallas_multi.py:97"],

@@ -83,8 +83,7 @@ def late_gather(s: str) -> str:
 
 
 def relaxed(s: str) -> str:
-    s = replace(s, "#include <cooperative_groups.h>\n",
-                "#include <cooperative_groups.h>\n#include <cuda/atomic>\n")
+    s = replace(s, "#include <cstdint>\n", "#include <cstdint>\n#include <cuda/atomic>\n")
     s = replace(s, "  return *reinterpret_cast<volatile Word*>(p);",
                 "  return cuda::atomic_ref<Word, cuda::thread_scope_device>(*p).load(\n"
                 "      cuda::memory_order_relaxed);")

@@ -104,8 +104,7 @@ def _on_card(ny, nx, seed):
 
 
 def _resident_counts():
-    return {"cooperative": resident.launches, "banded": resident.banded_launches,
-            "grid": resident.grid_launches}
+    return {"cooperative": resident.launches, "banded": resident.banded_launches}
 
 
 def _moved(before):
@@ -115,11 +114,11 @@ def _moved(before):
 @pytest.mark.parametrize("ny,nx", [(64, 64), (100, 130), (17, 23), (256, 512), (1024, 1024)])
 def test_resident_matches_step_and_plain_on_card(ny, nx):
     """Whichever form the shape takes: the banded one up to 256 x 318, the
-    grid-barrier one on 256 x 512 (32 bands), the cooperative one on
-    1024 x 1024."""
+    cooperative one on 256 x 512 (32 bands cut into 4 segments on an H100)
+    and 1024 x 1024 (one segment a band)."""
     params, mask, f = _on_card(ny, nx, seed=3)
     form = resident.form_of(ny, nx, "cuda")
-    assert form == ("banded" if nx <= 318 else "grid" if ny == 256 else "cooperative")
+    assert form == ("banded" if nx <= 318 else "cooperative")
     before = _resident_counts()
     fr, avr = resident.resident_run(f, mask, params, n_iters=17, chunk=6)
     torch.cuda.synchronize()
@@ -157,7 +156,7 @@ def test_banded_resident_matches_step_kernel_bitwise(ny, nx):
     before = _resident_counts()
     fb, pb = _chunked_partials(resident._chunk_launcher(f, mask, params), f, 17, 6, tiles)
     torch.cuda.synchronize()
-    assert _moved(before) == {"cooperative": 0, "banded": 3, "grid": 0}
+    assert _moved(before) == {"cooperative": 0, "banded": 3}
     bufs = [f.clone(), torch.empty_like(f)]
     ps = torch.empty(17, tiles, device="cuda")
     for t in range(17):
@@ -169,21 +168,20 @@ def test_banded_resident_matches_step_kernel_bitwise(ny, nx):
     assert int((fb != fc).sum()) == 0 and int((pb != pc).sum()) == 0
 
 
-@pytest.mark.parametrize("ny,nx", [(256, 512), (512, 512), (1024, 1024), (2048, 512)])
+@pytest.mark.parametrize("ny,nx", [(256, 512), (512, 512), (1024, 1024), (2048, 512),
+                                   (640, 1024), (672, 1024), (8, 4096)])
 def test_wide_grid_runs_the_cooperative_form(ny, nx):
     """Grids the banded form refuses: resident_run launches, once per
-    chunk, the cooperative form where its bands keep 5/8 of the SMs busy
-    and the grid-barrier form below (coop_fits), and the state and av equal
-    the step run's bit for bit."""
+    chunk, the cooperative form, its bands cut into segments where they
+    are fewer than the co-resident blocks, and the state and av equal the
+    step run's bit for bit."""
     params, mask, f = _on_card(ny, nx, seed=9)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    form = "cooperative" if resident.coop_fits(ny, sms) else "grid"
     assert not resident.takes_banded(ny, nx, "cuda")
-    assert resident.form_of(ny, nx, "cuda") == form
+    assert resident.form_of(ny, nx, "cuda") == "cooperative"
     before = _resident_counts()
     fr, avr = resident.resident_run(f, mask, params, n_iters=17, chunk=6)
     torch.cuda.synchronize()
-    assert _moved(before) == {name: 3 if name == form else 0 for name in before}
+    assert _moved(before) == {"cooperative": 3, "banded": 0}
     fs, avs = step_kernel.run(f, mask, params, n_iters=17, chunk=6)
     assert int((fr != fs).sum()) == 0
     assert int((avr != avs).sum()) == 0
@@ -255,15 +253,15 @@ def test_banded_rule_in_c_equals_python(ny, nx):
     assert lib.lbm_resident_banded_fits(ny, nx) == int(resident.banded_fits(ny, nx, smem, blocks))
 
 
-@pytest.mark.parametrize("form", ["cooperative", "grid"])
-def test_oversized_cooperative_grid_raises(form):
+@pytest.mark.parametrize("ny,nx", [(64, 64), (512, 512)])
+def test_oversized_cooperative_grid_raises(ny, nx):
     """10**6 blocks exceed any card's co-resident limit (132 SMs x at most
-    32 blocks): the cooperative launch of either form is refused, and the
-    wrapper raises."""
-    params, mask, f = _on_card(64, 64, seed=4)
+    32 blocks): the cooperative launch is refused, of bands in one segment
+    and cut into segments alike, and the wrapper raises."""
+    params, mask, f = _on_card(ny, nx, seed=4)
     mask = step_kernel.prepare_obstacles(mask)
-    part = torch.empty(2, step_kernel.num_partials(64, 64), device="cuda")
-    run_chunk = resident._chunk_launcher(f, mask, params, blocks=10**6, form=form)
+    part = torch.empty(2, step_kernel.num_partials(ny, nx), device="cuda")
+    run_chunk = resident._chunk_launcher(f, mask, params, blocks=10**6, form="cooperative")
     with pytest.raises(RuntimeError, match="resident kernel launch failed"):
         run_chunk((f.clone(), torch.empty_like(f)), 2, part)
     # the refusal is not reported again by the next launch
@@ -459,7 +457,7 @@ def test_gate_refuses_a_grid_beyond_the_card_before_allocating():
 
 @pytest.mark.parametrize("backend,shape,every", [
     ("resident", (64, 64), 15),   # the banded form; segments of 15, 15, 10
-    ("resident", (256, 512), 15),  # the grid-barrier form
+    ("resident", (256, 512), 15),  # the cooperative form, 4 segments a band
     ("resident", (1024, 1024), 15),  # the cooperative form
     ("pallask", (100, 130), 13),  # K = 5: 2 passes and a 3-step tail per segment
     ("stream", (170, 1100), 16),  # 2 passes per segment, no tail

@@ -112,9 +112,9 @@ def test_cpu_run_counts_no_launch():
     assert not resident.takes_banded(16, 32, "cpu")
     assert resident.form_of(1024, 1024, "cpu") == "plain"
     jp, mask, f0 = make_deck(16, 32)
-    before = (resident.launches, resident.banded_launches, resident.grid_launches)
+    before = (resident.launches, resident.banded_launches)
     port_run(jp, mask, f0, 3)
-    assert (resident.launches, resident.banded_launches, resident.grid_launches) == before
+    assert (resident.launches, resident.banded_launches) == before
 
 
 def test_prepare_builds_nothing_on_cpu(monkeypatch):
@@ -180,18 +180,6 @@ def test_coop_k_rule(ny, nx):
     assert k in resident.COOP_K and k == 3
 
 
-@pytest.mark.parametrize("ny,sms,coop", [
-    (1024, 132, True), (768, 132, True), (672, 132, True), (657, 132, True),
-    (656, 132, False), (640, 132, False), (512, 132, False), (4096, 132, True),
-    (256, 132, False), (512, 102, True), (512, 103, False),
-])
-def test_coop_fits_rule(ny, sms, coop):
-    """The cooperative form runs where its bands keep at least 5/8 of the
-    SMs busy (83 bands on 132 SMs; a ragged band counts), the grid-barrier
-    form below."""
-    assert resident.coop_fits(ny, sms) is coop
-
-
 @pytest.mark.parametrize("k,smem", [(1, 104_736), (2, 128_960), (3, 153_184), (4, 177_408)])
 def test_coop_smem_bytes_fit_an_h100(k, smem):
     """Two windows of 8 + 2K rows by 128 own columns and 4 ghost columns a
@@ -243,8 +231,8 @@ def test_coop_rounds_keep_the_parity(k):
     (512, 512, 2, 128, [[(b // 2, 2 * (b % 2), 2 * (b % 2) + 2)] for b in range(128)]),
     (16, 640, 2, 3, [[(0, 0, 3), (1, 3, 5)], [(0, 3, 5)], [(1, 0, 3)]]),  # a ragged segment
     (8, 4096, 32, 5, [[(0, c, c + 1) for c in range(b, 32, 5)] for b in range(5)]),
-    (672, 1024, 3, 132, [[(t // 3, 3 * (t % 3), min(3 * (t % 3) + 3, 8)) for t in range(b, 252, 132)]
-                         for b in range(132)]),
+    (672, 1024, 3, 132, [[(t // 3, 3 * (t % 3), min(3 * (t % 3) + 3, 8))
+                          for t in range(b, 252, 132)] for b in range(132)]),
 ])
 def test_coop_assignment(ny, nx, segs, blocks, owned):
     """Block b owns tiles b, b + blocks, ... in band-major order (a tile is
