@@ -1124,11 +1124,10 @@ extern "C" int lbm_resident_chunk(float* a, float* b, const uint8_t* mask, float
     int max_blocks = 0;
     cudaError_t err = coop_prepared<K>(&max_blocks);
     if (err != cudaSuccess) return err;
-    // the rule's tiles: windows per segment, and segments of that width
+    // the rule's tiles (no segment of its count is left empty)
     const int windows = coop_windows(nx);
-    const int rule = coop_segments(num_bands(ny), windows, max_blocks);
-    const int seg_windows = (windows + rule - 1) / rule;
-    const int segs = (windows + seg_windows - 1) / seg_windows;
+    const int segs = coop_segments(num_bands(ny), windows, max_blocks);
+    const int seg_windows = (windows + segs - 1) / segs;
     const int grid = blocks > 0 ? blocks : coop_grid(num_bands(ny) * segs, max_blocks);
     err = cudaMemsetAsync(flags, 0, sizeof(Word) * coop_flag_words(ny, nx), st);
     if (err != cudaSuccess) return err;

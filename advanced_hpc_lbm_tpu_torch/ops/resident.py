@@ -238,7 +238,7 @@ def coop_tiles(ny: int, nx: int, segs: int) -> list[tuple[int, int, int]]:
 def coop_blocks(ny: int, nx: int, max_blocks: int) -> int:
     """The blocks of a cooperative launch: one per tile, no more than
     ``max_blocks`` (those that can be co-resident)."""
-    return min(len(coop_tiles(ny, nx, coop_segments(ny, nx, max_blocks))), max_blocks)
+    return min(num_bands(ny) * coop_segments(ny, nx, max_blocks), max_blocks)
 
 
 def coop_assignment(ny: int, nx: int, segs: int,
