@@ -222,18 +222,19 @@ class Simulation:
         self._runners: dict = {}
 
     # the masks on the device, made at first use, so that a run holds only
-    # the one its backend reads
+    # the one its backend reads; the kernels' masks are encoded there from
+    # the bool plane (the host's encoding took seconds on the largest grids)
     @functools.cached_property
     def _obst(self) -> torch.Tensor:
         return torch.from_numpy(self.obstacles).to(self.device)
 
     @functools.cached_property
     def _mask(self) -> torch.Tensor:
-        return step_kernel.prepare_obstacles(torch.from_numpy(self.obstacles)).to(self.device)
+        return step_kernel.prepare_obstacles(torch.from_numpy(self.obstacles).to(self.device))
 
     @functools.cached_property
     def _enc(self) -> torch.Tensor:
-        return stream_kernel.prepare_obstacles(torch.from_numpy(self.obstacles)).to(self.device)
+        return stream_kernel.prepare_obstacles(torch.from_numpy(self.obstacles).to(self.device))
 
     @classmethod
     def from_decks(

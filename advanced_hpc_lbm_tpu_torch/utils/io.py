@@ -1,11 +1,12 @@
 """Host-side I/O codecs — byte-compatible with the reference file formats.
 
 The same readers, writers and :class:`DeckError` as
-``advanced_hpc_lbm_tpu.utils.io``, on numpy arrays.  As there, the obstacle
-reader and both writers go through the C codec of ``native/fastio.c``
-(:mod:`.native`, built by ``cc`` at first use) and take their pure-Python
-path where it cannot be built; both paths write the same bytes.  The
-writers keep the reference's quirks:
+``advanced_hpc_lbm_tpu.utils.io``, on numpy arrays.  The obstacle reader
+and both writers go through the port's C codec, ``csrc/fastio.c``
+(:mod:`.native`, built by ``cc`` at first use; it formats final_state.dat
+on several threads), and take their pure-Python path where it cannot be
+built; both paths write the same bytes.  The writers keep the reference's
+quirks:
 
 * obstacle cells are written with u = 0 and pressure = density * c_s^2;
 * the final column of ``final_state.dat`` prints ``obstacles[ii*nx + jj]``,
@@ -112,6 +113,28 @@ def _quirk_obstacle_column(obstacles: np.ndarray) -> np.ndarray:
     return flat[idx]
 
 
+def final_state_planes(
+    f: np.ndarray,
+    obstacles: np.ndarray,
+    params: LBMParams,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The float32 (ny, nx) planes u_x, u_y, ||u|| and pressure of a
+    (9, ny, nx) state, obstacle cells at u = 0 and the rest pressure."""
+    f = np.asarray(f, dtype=np.float32)
+    obstacles = np.asarray(obstacles, dtype=bool)
+    rho = f.sum(axis=0)
+    u_x = (f[1] + f[5] + f[8] - (f[3] + f[6] + f[7])) / rho
+    u_y = (f[2] + f[5] + f[6] - (f[4] + f[7] + f[8])) / rho
+    u = np.sqrt(u_x * u_x + u_y * u_y)
+    pressure = rho * lattice.C_SQ
+
+    blocked_pressure = np.float32(params.density_f32 * lattice.C_SQ)
+    return (np.where(obstacles, np.float32(0), u_x),
+            np.where(obstacles, np.float32(0), u_y),
+            np.where(obstacles, np.float32(0), u),
+            np.where(obstacles, blocked_pressure, pressure))
+
+
 def final_state_table(
     f: np.ndarray,
     obstacles: np.ndarray,
@@ -123,30 +146,16 @@ def final_state_table(
 
     Returns (coords[int64 (N,2) as ii,jj], fields[float64 (N,4) as
     u_x,u_y,||u||,pressure], obstacle_col[int64 (N,)]) in raster order
-    (jj outer, ii inner).  Field math is float32, widened to float64 only
-    for printing.
+    (jj outer, ii inner).  Field math is float32
+    (:func:`final_state_planes`), widened to float64 only for printing.
     """
-    f = np.asarray(f, dtype=np.float32)
     obstacles = np.asarray(obstacles, dtype=bool)
-    rho = f.sum(axis=0)
-    u_x = (f[1] + f[5] + f[8] - (f[3] + f[6] + f[7])) / rho
-    u_y = (f[2] + f[5] + f[6] - (f[4] + f[7] + f[8])) / rho
-    u = np.sqrt(u_x * u_x + u_y * u_y)
-    pressure = rho * lattice.C_SQ
-
-    blocked_pressure = np.float32(params.density_f32 * lattice.C_SQ)
-    u_x = np.where(obstacles, np.float32(0), u_x)
-    u_y = np.where(obstacles, np.float32(0), u_y)
-    u = np.where(obstacles, np.float32(0), u)
-    pressure = np.where(obstacles, blocked_pressure, pressure)
-
+    planes = final_state_planes(f, obstacles, params)
     ny, nx = obstacles.shape
     ii = np.tile(np.arange(nx, dtype=np.int64), ny)
     jj = np.repeat(np.arange(ny, dtype=np.int64), nx)
     coords = np.stack([ii, jj], axis=1)
-    fields = np.stack(
-        [c.reshape(-1).astype(np.float64) for c in (u_x, u_y, u, pressure)], axis=1
-    )
+    fields = np.stack([c.reshape(-1).astype(np.float64) for c in planes], axis=1)
     if emulate_obstacle_column_quirk:
         obs_col = _quirk_obstacle_column(obstacles)
     else:
@@ -161,17 +170,22 @@ def write_final_state(
     params: LBMParams,
     *,
     emulate_obstacle_column_quirk: bool = True,
+    threads: int | None = None,
 ) -> None:
-    """Write final_state.dat: ``%d %d %.12E %.12E %.12E %.12E %d`` per cell."""
+    """Write final_state.dat: ``%d %d %.12E %.12E %.12E %.12E %d`` per cell.
+    The C codec formats on ``threads`` threads (default: the cores this
+    process may run on); the bytes are the same for every count, and the
+    same on the pure-Python path, which ignores it."""
+    if native.available():
+        native.write_final_state(path, final_state_planes(f, obstacles, params), obstacles,
+                                 quirk=emulate_obstacle_column_quirk, threads=threads)
+        return
     coords, fields, obs_col = final_state_table(
         f,
         obstacles,
         params,
         emulate_obstacle_column_quirk=emulate_obstacle_column_quirk,
     )
-    if native.available():
-        native.write_final_state(path, coords, fields, obs_col)
-        return
     with open(path, "w") as fh:
         for (ii, jj), (ux, uy, u, p), ob in zip(
             coords.tolist(), fields.tolist(), obs_col.tolist()

@@ -50,13 +50,15 @@ non-zero and prints no result:
              ==done== block, and the golden at 1%
   5. full    the 1024x1024 deck (20 000 steps) through the CLI with auto
              and with resident: finite, positive av history, mass
-             conserved, GLUPS of the run and of the kernel alone
+             conserved, GLUPS of the run and of the kernel alone;
+             final_state.dat written by the port's codec, timed
   5m. mid    a 512x512 deck (64 bands in 2 segments each) for 2000
              steps through the CLI with resident and with pallas: exact
              launches, av histories compared
   5b. cli big  a 4096x4096 deck for 2000 steps through the CLI with
              stream: the ==done== block, and final_state.dat written by
-             the native codec, timed
+             the port's codec (csrc/fastio.c), timed at the default
+             thread count and at 1 thread, the two files equal by sha256
   6. big     a 4096x4096 deck for 2000 steps through Simulation with
              pallask and with step: finite, mass conserved, the same state
              bit for bit, GLUPS of both
@@ -1103,8 +1105,9 @@ def phase_full(card: str, times: dict, keep: Path) -> dict:
         histories, digests = {}, {}
         for backend in ("auto", "resident"):
             tag = f"[5 full] --backend {backend}:"
-            rc, lines, n = run_cli([str(params_f), str(obst_f), "--backend", backend,
-                                    "--out-dir", tmp])
+            with final_state_writes() as writes:
+                rc, lines, n = run_cli([str(params_f), str(obst_f), "--backend", backend,
+                                        "--out-dir", tmp])
             if rc != 0:
                 fail(f"{tag} CLI exited {rc}")
             want = expected_launches(backend, ny, nx, iters)
@@ -1115,6 +1118,7 @@ def phase_full(card: str, times: dict, keep: Path) -> dict:
             if av_cli.shape != (iters,) or not np.all(np.isfinite(av_cli)) or not np.all(av_cli > 0):
                 fail(f"{tag} av history is not finite and positive")
             histories[backend] = av_cli
+            port_codec_check(tag, writes)
             digests[backend] = digest(Path(tmp) / "final_state.dat")
             if backend == "auto":
                 shutil.copy(Path(tmp) / "final_state.dat", keep / "final_state.dat")
@@ -1123,6 +1127,7 @@ def phase_full(card: str, times: dict, keep: Path) -> dict:
                 f"{block['compute']:.4f} s = {glups:.3f} GLUPS (host loop included), "
                 f"Init {block['init']:.3f} s, Collate {block['collate']:.3f} s, Reynolds "
                 f"{block['reynolds']:.6E}, final av {av_cli[-1]:.6E} | {card}")
+            say(f"{tag} {codec_line(writes[0], nx * ny)} | {card}")
 
         # the same deck through the library entry points, for the state
         sim = Simulation.from_decks(params_f, obst_f, device="cuda")
@@ -1193,7 +1198,74 @@ def phase_mid(card: str) -> None:
 
 
 def digest(path: Path) -> str:
-    return hashlib.sha256(path.read_bytes()).hexdigest()
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        while block := fh.read(1 << 24):
+            h.update(block)
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def final_state_writes():
+    """Record each ``io.write_final_state`` call inside the block: its
+    arguments, its seconds, and the port codec's calls within it (path,
+    seconds, threads) that wrote the file, none where the pure-Python path
+    did."""
+    from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
+    from advanced_hpc_lbm_tpu_torch.utils import native
+
+    write, native_write = lbm_io.write_final_state, native.write_final_state
+    calls: list[dict] = []
+
+    def timed_write(path, *args, **kwargs):
+        call = {"path": Path(path), "args": args, "kwargs": kwargs, "native": []}
+        calls.append(call)
+        t0 = time.perf_counter()
+        write(path, *args, **kwargs)
+        call["seconds"] = time.perf_counter() - t0
+
+    def timed_native_write(path, *args, **kwargs):
+        t0 = time.perf_counter()
+        native_write(path, *args, **kwargs)
+        threads = kwargs.get("threads") or native.default_threads()
+        calls[-1]["native"].append((Path(path), time.perf_counter() - t0, threads))
+
+    lbm_io.write_final_state, native.write_final_state = timed_write, timed_native_write
+    try:
+        yield calls
+    finally:
+        lbm_io.write_final_state, native.write_final_state = write, native_write
+
+
+def port_codec_check(tag: str, calls: list[dict]) -> None:
+    """Fail unless every recorded final_state.dat was written by the port's
+    codec, a library built from the port's own csrc/fastio.c."""
+    import advanced_hpc_lbm_tpu_torch
+    from advanced_hpc_lbm_tpu_torch.utils import native
+
+    for call in calls:
+        if [Path(c[0]) for c in call["native"]] != [call["path"]]:
+            fail(f"{tag} {call['path'].name} was not written by the native codec "
+                 f"({call['native']})")
+    src = Path(advanced_hpc_lbm_tpu_torch.__file__).resolve().parent / "csrc" / "fastio.c"
+    lib = native._library()
+    if (native.SRC != src or lib is None or Path(lib._name) != native.library_path()
+            or not hasattr(lib, "lbm_write_final_state")):
+        fail(f"{tag} the codec is not the port's own build of {src} "
+             f"({native.SRC}, {lib and lib._name})")
+
+
+def codec_line(call: dict, lines: int) -> str:
+    """The write's time, rate and thread count, for a phase's line."""
+    import os
+
+    _, sec, threads = call["native"][0]
+    size = call["path"].stat().st_size
+    return (f"final_state.dat ({size / 1e9:.3f} GB, {lines} lines) written by the port's "
+            f"codec in {sec:.3f} s = {size / sec / 1e9:.3f} GB/s on {threads} "
+            f"thread{'s' if threads != 1 else ''} "
+            f"(io.write_final_state {call['seconds']:.3f} s with the float32 planes; host: "
+            f"{len(os.sched_getaffinity(0))} usable cores of {os.cpu_count()})")
 
 
 def device_mass(f: torch.Tensor, rows: int = 1024) -> float:
@@ -1251,57 +1323,51 @@ def phase_big(card: str, label: str, n: int, backends: tuple[str, str]) -> None:
 
 def phase_cli_big(card: str) -> None:
     """The 4096^2 deck through the CLI on stream; final_state.dat must be
-    written by the native codec, and its write is timed."""
+    written by the port's codec, and its write is timed at the default
+    thread count and again at 1 thread, the two files equal by sha256."""
     from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
-    from advanced_hpc_lbm_tpu_torch.utils import native
 
     nx = ny = 4096
     iters = 2000
     tag = "[5b cli big] --backend stream:"
-    write, native_write = lbm_io.write_final_state, native.write_final_state
-    seconds, native_calls = [], []
-
-    def timed_write(*args, **kwargs):
-        t0 = time.perf_counter()
-        write(*args, **kwargs)
-        seconds.append(time.perf_counter() - t0)
-
-    def counted_native_write(*args):
-        native_calls.append(args[0])
-        native_write(*args)
-
-    lbm_io.write_final_state, native.write_final_state = timed_write, counted_native_write
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            params_f, obst_f = write_full_deck(Path(tmp), nx, ny, iters)
+    with tempfile.TemporaryDirectory() as tmp:
+        params_f, obst_f = write_full_deck(Path(tmp), nx, ny, iters)
+        with final_state_writes() as writes:
             rc, lines, n = run_cli([str(params_f), str(obst_f), "--backend", "stream",
                                     "--out-dir", tmp])
-            if rc != 0:
-                fail(f"{tag} CLI exited {rc}")
-            fs = Path(tmp) / "final_state.dat"
-            size = fs.stat().st_size
-            with open(fs, "rb") as fh:
-                fh.seek(size - 200)
-                last = fh.read().decode().splitlines()[-1].split()
-            av = lbm_io.read_av_vels(Path(tmp) / "av_vels.dat")
-    finally:
-        lbm_io.write_final_state, native.write_final_state = write, native_write
+        if rc != 0:
+            fail(f"{tag} CLI exited {rc}")
+        port_codec_check(tag, writes)
+        fs = Path(tmp) / "final_state.dat"
+        with open(fs, "rb") as fh:
+            fh.seek(fs.stat().st_size - 200)
+            last = fh.read().decode().splitlines()[-1].split()
+        av = lbm_io.read_av_vels(Path(tmp) / "av_vels.dat")
+        default = writes[0]
+        with final_state_writes() as again:
+            lbm_io.write_final_state(Path(tmp) / "final_state_1t.dat", *default["args"],
+                                     **{**default["kwargs"], "threads": 1})
+        port_codec_check(tag, again)
+        one = again[0]
+        same = digest(fs) == digest(one["path"])
+        default_line, one_line = codec_line(default, nx * ny), codec_line(one, nx * ny)
     want = expected_launches("stream", ny, nx, iters)
     if n != want:
         fail(f"{tag} launches {n}, expected {want}")
     block = check_block(lines, tag)
-    if len(native_calls) != 1 or Path(native_calls[0]).name != "final_state.dat":
-        fail(f"{tag} final_state.dat was not written by the native codec ({native_calls})")
     if last[:2] != [str(nx - 1), str(ny - 1)] or len(last) != 7:
         fail(f"{tag} final_state.dat does not end with cell ({nx - 1}, {ny - 1}): {last}")
     if av.shape != (iters,) or not np.all(np.isfinite(av)) or not np.all(av > 0):
         fail(f"{tag} av history is not finite and positive")
+    if not same:
+        fail(f"{tag} final_state.dat at {default['native'][0][2]} threads and at 1 thread "
+             f"differ (sha256)")
     for line in lines:
         say(f"{tag} | {line}")
     say(f"{tag} {ny}x{nx}, {iters} steps: launches {n}, Compute {block['compute']:.4f} s = "
-        f"{iters * nx * ny / block['compute'] / 1e9:.3f} GLUPS, final_state.dat "
-        f"({size / 1e9:.3f} GB, {nx * ny} lines) written by the native codec in "
-        f"{seconds[0]:.3f} s | {card}")
+        f"{iters * nx * ny / block['compute'] / 1e9:.3f} GLUPS | {card}")
+    say(f"{tag} default threads: {default_line} | {card}")
+    say(f"{tag} 1 thread: {one_line}; equal to the default's by sha256 | {card}")
 
 
 def phase_capacity(card: str) -> None:

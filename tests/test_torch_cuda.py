@@ -440,6 +440,18 @@ def test_simulation_stream_launch_counts():
     np.testing.assert_allclose(res.av_vels, cpu.av_vels, rtol=1e-5)
 
 
+def test_kernel_masks_encoded_on_card_equal_the_host_encoding():
+    """Simulation encodes the stream tier's and the step kernel's masks on
+    the card, byte for byte the host encoding, at a ragged shape."""
+    params, mask_np, _ = make_case(1000, 1030, seed=8)
+    sim = Simulation(params, mask_np, backend="stream", device="cuda:0")
+    host = torch.from_numpy(mask_np)
+    for got, want in ((sim._enc, stream_kernel.prepare_obstacles(host)),
+                      (sim._mask, step_kernel.prepare_obstacles(host))):
+        assert got.device == torch.device("cuda:0") and got.dtype == torch.uint8
+        assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+
+
 def test_gate_refuses_a_grid_beyond_the_card_before_allocating():
     n = 65536  # one state is 155 GB
     params = LBMParams(nx=n, ny=n, max_iters=8, reynolds_dim=10,

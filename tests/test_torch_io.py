@@ -4,12 +4,15 @@ Readers must parse the same decks into the same values and raise the same
 ``DeckError`` messages; writers must produce byte-identical files from the
 same arrays.  The JAX package's pure-Python codec is the reference (its
 optional C codec is switched off here).  The port's readers and writers go
-through its own build of ``native/fastio.c`` where ``cc`` builds it, and
-through the same pure-Python path otherwise; both are held to the
-reference.
+through its own codec, ``advanced_hpc_lbm_tpu_torch/csrc/fastio.c``, where
+``cc`` builds it, and through the same pure-Python path otherwise; both are
+held to the reference, the codec at every thread count.
 """
 
+import hashlib
 import os
+import tomllib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -134,32 +137,140 @@ def port_python_path(monkeypatch):
     monkeypatch.setattr(native, "available", lambda: False)
 
 
-@pytest.mark.parametrize("ny,nx", [(8, 8), (12, 5)])
-def test_native_writers_match_jax_bytes(tmp_path, port_codec, ny, nx):
+BLOCK_LINES = 65536  # the codec's block of lines
+WRITER_SHAPES = [(1, 1), (3, 5), (64, 64), (128, 256), (300, 257)]
+
+
+@pytest.fixture(scope="module")
+def jax_final_states(tmp_path_factory):
+    """The JAX writer's final_state.dat bytes by (shape, quirk), made once."""
+    cache = {}
+
+    def get(ny, nx, quirk):
+        if (ny, nx, quirk) not in cache:
+            f, mask, jp = _state(ny, nx, seed=4)
+            path = tmp_path_factory.mktemp("jax") / "final_state.dat"
+            saved, jnative.available = jnative.available, lambda: False
+            try:
+                jio.write_final_state(path, f, mask, jp, emulate_obstacle_column_quirk=quirk)
+            finally:
+                jnative.available = saved
+            cache[ny, nx, quirk] = path.read_bytes()
+        return cache[ny, nx, quirk]
+    return get
+
+
+@pytest.mark.parametrize("threads", [1, 2, 7, 10**6])
+@pytest.mark.parametrize("quirk", [True, False])
+@pytest.mark.parametrize("ny,nx", WRITER_SHAPES)
+def test_native_writers_match_jax_bytes(tmp_path, port_codec, jax_final_states, ny, nx,
+                                        quirk, threads):
+    """At 10**6 threads there are more threads than lines (and blocks)."""
     f, mask, jp = _state(ny, nx, seed=4)
-    coords, fields, obs = io.final_state_table(f, mask, LBMParams.from_jax(jp))
-    port_codec.write_final_state(tmp_path / "port.dat", coords, fields, obs)
-    jio.write_final_state(tmp_path / "jax.dat", f, mask, jp)
-    assert (tmp_path / "port.dat").read_bytes() == (tmp_path / "jax.dat").read_bytes()
+    planes = io.final_state_planes(f, mask, LBMParams.from_jax(jp))
+    port_codec.write_final_state(tmp_path / "port.dat", planes, mask, quirk=quirk,
+                                 threads=threads)
+    assert (tmp_path / "port.dat").read_bytes() == jax_final_states(ny, nx, quirk)
     av = np.random.RandomState(5).rand(23).astype(np.float32) * 1e-2
     port_codec.write_av_vels(tmp_path / "port_av.dat", av)
     jio.write_av_vels(tmp_path / "jax_av.dat", av)
     assert (tmp_path / "port_av.dat").read_bytes() == (tmp_path / "jax_av.dat").read_bytes()
 
 
-def test_io_uses_the_codec_and_both_paths_agree(tmp_path, port_codec, monkeypatch):
+@pytest.mark.parametrize("ny,nx", [(256, 256), (512, 256), (300, 257)],
+                         ids=["one-block", "two-blocks", "ragged"])  # of BLOCK_LINES
+def test_native_thread_counts_write_the_same_bytes(tmp_path, port_codec, ny, nx):
+    f, mask, jp = _state(ny, nx, seed=7)
+    planes = io.final_state_planes(f, mask, LBMParams.from_jax(jp))
+    digests = set()
+    for threads in (1, 2, 3, 8):
+        path = tmp_path / f"t{threads}.dat"
+        port_codec.write_final_state(path, planes, mask, threads=threads)
+        digests.add(hashlib.sha256(path.read_bytes()).hexdigest())
+    assert len(digests) == 1
+    assert path.read_bytes().count(b"\n") == ny * nx
+
+
+def test_long_av_vels_spans_blocks(tmp_path, port_codec):
+    av = np.random.RandomState(8).rand(BLOCK_LINES + 3).astype(np.float32)
+    port_codec.write_av_vels(tmp_path / "port.dat", av)
+    jio.write_av_vels(tmp_path / "jax.dat", av)
+    assert (tmp_path / "port.dat").read_bytes() == (tmp_path / "jax.dat").read_bytes()
+
+
+@pytest.mark.parametrize("threads", [None, 1, 3])
+@pytest.mark.parametrize("quirk", [True, False])
+def test_io_uses_the_codec_and_both_paths_agree(tmp_path, port_codec, monkeypatch, quirk,
+                                                threads):
     f, mask, jp = _state(9, 7, seed=6)
     p = LBMParams.from_jax(jp)
     calls = []
     real = port_codec.write_final_state
     monkeypatch.setattr(port_codec, "write_final_state",
-                        lambda *a: calls.append(1) or real(*a))
-    io.write_final_state(tmp_path / "c.dat", f, mask, p)
-    assert calls == [1]
+                        lambda *a, **k: calls.append(k["threads"]) or real(*a, **k))
+    io.write_final_state(tmp_path / "c.dat", f, mask, p,
+                         emulate_obstacle_column_quirk=quirk, threads=threads)
+    assert calls == [threads]
     port_python_path(monkeypatch)
-    io.write_final_state(tmp_path / "py.dat", f, mask, p)
-    assert calls == [1]
+    io.write_final_state(tmp_path / "py.dat", f, mask, p,
+                         emulate_obstacle_column_quirk=quirk, threads=threads)
+    assert calls == [threads]
     assert (tmp_path / "c.dat").read_bytes() == (tmp_path / "py.dat").read_bytes()
+
+
+def test_native_writer_rejects_bad_arguments(tmp_path, port_codec):
+    f, mask, jp = _state(4, 6)
+    planes = io.final_state_planes(f, mask, LBMParams.from_jax(jp))
+    with pytest.raises(ValueError, match="threads"):
+        port_codec.write_final_state(tmp_path / "x.dat", planes, mask, threads=0)
+    with pytest.raises(ValueError, match="planes"):
+        port_codec.write_final_state(tmp_path / "x.dat", planes, mask.T)
+    with pytest.raises(OSError, match="rc=1"):
+        port_codec.write_final_state(tmp_path / "absent" / "x.dat", planes, mask)
+
+
+@pytest.mark.parametrize("call", ["write_final_state", "write_av_vels", "parse_obstacles"])
+def test_native_calls_without_a_library_raise(tmp_path, monkeypatch, call):
+    monkeypatch.setattr(native, "_library", lambda: None)
+    assert not native.available()
+    f, mask, jp = _state(4, 6)
+    args = {"write_final_state": (tmp_path / "x.dat",
+                                  io.final_state_planes(f, mask, LBMParams.from_jax(jp)), mask),
+            "write_av_vels": (tmp_path / "x.dat", np.ones(3)),
+            "parse_obstacles": (MINI_OBST, 64, 64)}[call]
+    with pytest.raises(RuntimeError, match="native codec not built"):
+        getattr(native, call)(*args)
+
+
+@pytest.mark.parametrize("line", [
+    "1 1", "1 1 1 1", "a 1 1", "9 1 1", "-1 1 1", "1 9 1", "1 1 2", "1 1-1", "1,1 1",
+    "0x1 1 1", "1 1 1 x",
+])
+def test_native_parse_errors_keep_message_and_line(tmp_path, port_codec, line):
+    """The codec's return codes map to the JAX reader's messages, with the
+    line's number."""
+    path = tmp_path / "bad.dat"
+    path.write_text(f"0 0 1\n\n{line}\n4 4 1\n")
+    jp = JaxParams(nx=8, ny=8, max_iters=1, reynolds_dim=1,
+                   density=0.1, accel=0.005, omega=1.0)
+    with pytest.raises(jio.DeckError) as want:
+        jio.load_obstacles(path, jp)
+    with pytest.raises(ValueError) as got:
+        port_codec.parse_obstacles(path, 8, 8)
+    assert str(got.value) == str(want.value) and str(got.value).endswith(":3)")
+    with pytest.raises(OSError, match="could not open"):
+        port_codec.parse_obstacles(tmp_path / "absent.dat", 8, 8)
+
+
+def test_native_parse_takes_what_the_python_path_takes(tmp_path, port_codec):
+    """White space of every kind around and between the fields, signs, a
+    last line without a newline and a line longer than any fixed buffer."""
+    path = tmp_path / "odd.dat"
+    path.write_text("\t1\t2\t1\r\n  +3   4 1   \n\n   \n5 6 1" + " " * 600 + "\n7 0 1")
+    jp = JaxParams(nx=8, ny=8, max_iters=1, reynolds_dim=1,
+                   density=0.1, accel=0.005, omega=1.0)
+    np.testing.assert_array_equal(port_codec.parse_obstacles(path, 8, 8),
+                                  jio.load_obstacles(path, jp))
 
 
 def test_native_obstacles_match_python_path(port_codec, monkeypatch):
@@ -170,9 +281,34 @@ def test_native_obstacles_match_python_path(port_codec, monkeypatch):
 
 
 def test_native_build_is_keyed_by_source(port_codec):
+    """The codec is the port's own source, inside its package, built into a
+    library named by that source's hash."""
+    package = Path(io.__file__).resolve().parents[1]
+    assert native.SRC == package / "csrc" / "fastio.c" and native.SRC.is_file()
     path = port_codec.library_path()
     assert path.exists() and path.parent == native.BUILD_DIR
-    assert path.name.startswith("libfastio_") and path != native.SRC.with_suffix(".so")
+    h = hashlib.sha256(" ".join(native.CFLAGS).encode())
+    h.update(native.SRC.read_bytes())
+    assert path.name == f"libfastio_{h.hexdigest()[:16]}.so"
+    assert "-pthread" in native.CFLAGS
+
+
+def test_port_names_no_codec_of_the_jax_package():
+    """No file of the port, and not chip_smoke.py, names, reads or builds
+    the JAX package's codec source or library."""
+    root = Path(io.__file__).resolve().parents[2]
+    files = [p for p in (root / "advanced_hpc_lbm_tpu_torch").rglob("*")
+             if p.suffix in (".py", ".c", ".cu", ".cuh")] + [root / "chip_smoke.py"]
+    assert len(files) > 20
+    for p in files:
+        text = p.read_text()
+        assert "native/fastio" not in text and "libfastio.so" not in text, p
+
+
+def test_pyproject_ships_the_codec_source():
+    root = Path(io.__file__).resolve().parents[2]
+    data = tomllib.loads((root / "pyproject.toml").read_text())
+    assert "csrc/*.c" in data["tool"]["setuptools"]["package-data"]["advanced_hpc_lbm_tpu_torch"]
 
 
 # ---- checker -----------------------------------------------------------------

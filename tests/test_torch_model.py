@@ -461,3 +461,43 @@ def test_capacity_tier_runs_in_one_buffer_and_refuses_a_tail(monkeypatch):
 
 def test_device_memory_is_none_off_cuda():
     assert d2q9_bgk._device_memory_bytes("cpu") is None
+
+
+def _ragged_mask(ny, nx, seed=9):
+    rng = np.random.RandomState(seed)
+    mask = rng.rand(ny, nx) < 0.2
+    mask[0] = mask[-1] = True
+    return mask
+
+
+@pytest.mark.parametrize("prop,module", [("_enc", stream_kernel), ("_mask", step_kernel)])
+def test_kernel_masks_are_encoded_on_the_device(monkeypatch, prop, module):
+    """The bool plane goes to the Simulation's device first and is encoded
+    there (the meta device shows where), as the JAX package encodes on
+    device arrays."""
+    seen = []
+    real = module.prepare_obstacles
+    monkeypatch.setattr(module, "prepare_obstacles",
+                        lambda obst: seen.append(obst.device) or real(obst))
+    sim = Simulation(LBMParams(nx=37, ny=21, max_iters=2, reynolds_dim=10, density=0.1,
+                               accel=0.005, omega=1.85),
+                     _ragged_mask(21, 37), backend="stream", device="meta")
+    out = getattr(sim, prop)
+    assert seen == [torch.device("meta")] and out.device == torch.device("meta")
+    assert out.dtype == torch.uint8 and out.shape == (21, 37)
+
+
+@pytest.mark.parametrize("ny,nx", [(21, 37), (100, 103)])
+def test_kernel_masks_equal_the_host_and_jax_encodings(ny, nx):
+    import jax.numpy as jnp
+
+    from advanced_hpc_lbm_tpu.ops import pallas_stream
+
+    mask = _ragged_mask(ny, nx)
+    sim = Simulation(LBMParams(nx=nx, ny=ny, max_iters=2, reynolds_dim=10, density=0.1,
+                               accel=0.005, omega=1.85), mask, backend="stream", device="cpu")
+    host = stream_kernel.prepare_obstacles(torch.from_numpy(mask))
+    assert sim._enc.numpy().tobytes() == host.numpy().tobytes()
+    jenc = np.asarray(pallas_stream.prepare_obstacles(jnp.asarray(mask)))[stream_kernel.K:-stream_kernel.K]
+    np.testing.assert_array_equal(sim._enc.numpy(), jenc.astype(np.uint8))
+    assert sim._mask.numpy().tobytes() == mask.astype(np.uint8).tobytes()
