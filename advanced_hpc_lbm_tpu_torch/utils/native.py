@@ -3,7 +3,9 @@
 Formatting a 4096x4096 ``final_state.dat`` is ~16.8M printf lines, which
 C does many times faster than Python, and on several threads faster again.
 The codec is optional: when ``cc`` is missing or the build fails, every
-caller (``utils/io.py``) takes its pure-Python path.
+caller (``utils/io.py``) takes its pure-Python path, which writes the same
+bytes many times slower, and the process says so once on stderr, with the
+reason.
 
 At first use ``cc`` compiles ``csrc/fastio.c``, which ships inside the
 package, into ``build/torch_native/`` beside the package, under a name
@@ -20,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 
@@ -41,29 +44,31 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfastio_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path | None:
-    """Compile the codec unless it is already built; None when there is no
-    source or no ``cc``, the build directory cannot be written, or the
-    compiler fails."""
+def build() -> Path:
+    """Compile the codec unless it is already built; raises OSError, with
+    the reason, when there is no source or no ``cc``, the build directory
+    cannot be written, or the compiler fails (its last error line)."""
     if not SRC.exists():
-        return None
+        raise OSError(f"no source {SRC}")
     out = library_path()
     if out.exists():
         return out
     cc = _cc()
     if cc is None:
-        return None
+        raise OSError(f"no C compiler: {os.environ.get('CC', 'cc')} is not on PATH")
     try:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmpdir = Path(tempfile.mkdtemp(dir=BUILD_DIR))
-    except OSError:
-        return None
+    except OSError as e:
+        raise OSError(f"cannot write the build directory {BUILD_DIR}: {e}") from None
     try:
         tmp = tmpdir / "lib.so"
         res = subprocess.run([cc, *CFLAGS, "-o", str(tmp), str(SRC)],
                              capture_output=True, text=True)
         if res.returncode != 0:
-            return None
+            lines = [ln.strip() for ln in res.stderr.splitlines() if ln.strip()]
+            errors = [ln for ln in lines if "error" in ln] or lines or ["no message"]
+            raise OSError(f"{cc} failed on {SRC} (exit {res.returncode}): {errors[-1]}")
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
@@ -72,12 +77,15 @@ def build() -> Path | None:
 
 @functools.cache
 def _library() -> ctypes.CDLL | None:
-    path = build()
-    if path is None:
-        return None
+    """The loaded codec, or None after one line on stderr that says why it
+    cannot be had and that the deck files go through Python instead."""
     try:
+        path = build()
         lib = ctypes.CDLL(str(path))
-    except OSError:
+    except OSError as e:  # no build, or a library the loader refuses
+        print(f"advanced_hpc_lbm_tpu_torch: the output codec is not available ({e}); "
+              "reading and writing the deck files in Python, the same bytes, "
+              "slower", file=sys.stderr, flush=True)
         return None
     f32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     f64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")

@@ -4,8 +4,8 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 It needs one CUDA card, nvcc (``/usr/local/cuda`` or on PATH) and nothing
-else of the repository but ``advanced_hpc_lbm_tpu_torch/`` and ``decks/``;
-it imports no JAX.  Each case prints one line; the first failure exits
+else of the repository but ``advanced_hpc_lbm_tpu_torch/``, ``decks/`` and
+``goldens/``; it imports no JAX.  Each case prints one line; the first failure exits
 non-zero and prints no result:
 
   1. card    the card's name and power limit (nvidia-smi), torch and CUDA
@@ -48,10 +48,24 @@ non-zero and prints no result:
   4. mini    decks/mini_64x64 through the CLI with auto, pallas, resident,
              pallask, pallas2 and stream: exact launches per kernel, the
              ==done== block, and the golden at 1%
-  5. full    the 1024x1024 deck (20 000 steps) through the CLI with auto
-             and with resident: finite, positive av history, mass
-             conserved, GLUPS of the run and of the kernel alone;
-             final_state.dat written by the port's codec, timed
+  5. full    bench.py's 1024x1024 deck (20 000 steps; a half-height wall
+             at x = 341, so not the reference's 1024x1024 deck, which is
+             5r's) through the CLI with auto and with resident: finite,
+             positive av history, mass conserved, GLUPS of the run and of
+             the kernel alone; final_state.dat written by the port's
+             codec, timed
+  5r. reference  the reference's own decks that the repo holds goldens
+             of, decks/reference_256x256 (80 000 steps, auto: the banded
+             resident kernel, 80 chunks) and decks/reference_1024x1024
+             (20 000 steps, auto: pallask K = 3 with a 2-step tail, and
+             resident: the cooperative form), through the CLI: exact
+             launches, the ==done== block, the port's codec, auto's
+             final_state.dat against goldens/<deck>.final_state.dat.xz at
+             1% (the reference checker's final-state half; resident's file
+             equal to auto's by sha256), the Reynolds number within 1% of
+             the reference README's, mass drift <= 5e-9 a step (phase 5's
+             1e-4 over 20 000 steps), auto's and resident's av within
+             rtol 1e-5; a row in PARITY.md's layout
   5m. mid    a 512x512 deck (64 bands in 2 segments each) for 2000
              steps through the CLI with resident and with pallas: exact
              launches, av histories compared
@@ -164,7 +178,9 @@ non-zero and prints no result:
              launches also by K, and its time at K = 2, the port of
              pallas_multi's _kernel2), then the device JSON line last
 
-Each phase's wall time follows it on a ``[time]`` line.
+Each phase's wall time follows it on a ``[time]`` line.  Outside 5r, "the
+NxN deck" is bench.py's geometry (``write_full_deck``: a closed box and a
+half-height wall at x = nx // 3), not a reference deck.
 
 Launch counts: every kernel module counts its launches; each run of
 phases 4-14 (the main path; in phases 12 and 14 each process of a launch) sets the
@@ -1091,10 +1107,12 @@ def write_full_deck(d: Path, nx: int, ny: int, iters: int) -> tuple[Path, Path]:
 
 
 def phase_full(card: str, times: dict, keep: Path) -> dict:
-    """The 1024^2 deck; returns the library run's state and av and the
-    digest of auto's final_state.dat, the straight run phase 9 holds its
-    checkpointed runs to; auto's final_state.dat is kept in ``keep`` for
-    phase 13."""
+    """bench.py's 1024^2 deck (``write_full_deck``: a half-height wall at
+    x = 341, where the reference's 1024^2 deck, phase 5r's, has a
+    full-height one; the same params); returns the library run's state and
+    av and the digest of auto's final_state.dat, the straight run phase 9
+    holds its checkpointed runs to; auto's final_state.dat is kept in
+    ``keep`` for phase 13."""
     from advanced_hpc_lbm_tpu_torch import Simulation
     from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
 
@@ -1123,7 +1141,8 @@ def phase_full(card: str, times: dict, keep: Path) -> dict:
             if backend == "auto":
                 shutil.copy(Path(tmp) / "final_state.dat", keep / "final_state.dat")
             glups = iters * nx * ny / block["compute"] / 1e9
-            say(f"{tag} {ny}x{nx}, {iters} steps: launches {n}, Compute "
+            say(f"{tag} bench.py's {ny}x{nx} deck (half-height wall; not the reference "
+                f"deck), {iters} steps: launches {n}, Compute "
                 f"{block['compute']:.4f} s = {glups:.3f} GLUPS (host loop included), "
                 f"Init {block['init']:.3f} s, Collate {block['collate']:.3f} s, Reynolds "
                 f"{block['reynolds']:.6E}, final av {av_cli[-1]:.6E} | {card}")
@@ -1157,6 +1176,117 @@ def phase_full(card: str, times: dict, keep: Path) -> dict:
         f"({s_ms * 1e3:.2f} us/step), plain step {nx * ny / p_ms / 1e6:.3f} GLUPS "
         f"({p_ms * 1e3:.2f} us/step) | {card}")
     return {"f": res.f_final, "av": res.av_vels, "final_state": digests["auto"]}
+
+
+# the reference's decks whose final-state goldens the repo holds: (deck, the
+# reference README's Reynolds number, as scripts/validate_all.py has it,
+# backends run through the CLI)
+REFERENCE_DECKS = (("256x256", 10.051412, ("auto",)),
+                   ("1024x1024", 3.375851, ("auto", "resident")))
+# mass drift allowed per step: phase 5's 1e-4 over its 20 000 steps.  Near a
+# steady state each step rounds the same values the same way, so float32
+# drift grows with the steps: 1.231e-4 after the 256^2 deck's 80 000 on an
+# H100, where the JAX package's fused backend drifts 1.339e-3 on the CPU
+# (scripts/jax_mass_drift.py)
+DRIFT_PER_STEP = 1e-4 / 20_000
+
+
+def read_golden(deck: str) -> np.ndarray:
+    """goldens/<deck>.final_state.dat.xz, decompressed with lzma and held
+    to goldens/SHA256SUMS, as a float64 (N, 7) table."""
+    import lzma
+
+    from advanced_hpc_lbm_tpu_torch.utils import check
+
+    path = ROOT / "goldens" / f"{deck}.final_state.dat.xz"
+    with lzma.open(path, "rb") as fh:
+        sha = hashlib.sha256(fh.read()).hexdigest()
+    sums = dict(line.split()[::-1]
+                for line in (ROOT / "goldens" / "SHA256SUMS").read_text().splitlines())
+    if sha != sums.get(f"{deck}.final_state.dat"):
+        fail(f"[5r reference] {path.name} decompresses to sha256 {sha}, not "
+             f"goldens/SHA256SUMS's")
+    return check.read_final_state(path)
+
+
+def phase_reference(card: str) -> None:
+    """The reference's 256^2 and 1024^2 decks through the CLI, held to
+    their goldens (final state at 1%, Reynolds number within 1%)."""
+    from advanced_hpc_lbm_tpu_torch.utils import check
+    from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
+
+    rows = []
+    for deck, want_re, backends in REFERENCE_DECKS:
+        params_f = ROOT / "decks" / f"reference_{deck}.params"
+        obst_f = ROOT / "decks" / f"reference_{deck}.obstacles.dat"
+        params = lbm_io.load_params(params_f)
+        ny, nx, iters = params.ny, params.nx, params.max_iters
+        mass0 = rest_mass(params)
+        histories, digests = {}, {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for backend in backends:
+                tag = f"[5r reference] {deck} --backend {backend}:"
+                with final_state_writes() as writes:
+                    rc, lines, n = run_cli([str(params_f), str(obst_f), "--backend", backend,
+                                            "--out-dir", tmp])
+                if rc != 0:
+                    fail(f"{tag} CLI exited {rc}")
+                want = expected_launches(backend, ny, nx, iters)
+                if n != want:
+                    fail(f"{tag} launches {n}, expected {want}")
+                block = check_block(lines, tag)
+                port_codec_check(tag, writes)
+                av = lbm_io.read_av_vels(Path(tmp) / "av_vels.dat")
+                if av.shape != (iters,) or not np.all(np.isfinite(av)) or not np.all(av > 0):
+                    fail(f"{tag} av history is not finite and positive")
+                histories[backend] = av
+                f_host = writes[0]["args"][0]  # the collated state the writer got
+                drift = abs(float(f_host.astype(np.float64).sum()) - mass0) / mass0
+                if drift > DRIFT_PER_STEP * iters:
+                    fail(f"{tag} total density drifted by {drift:.3e} (limit "
+                         f"{DRIFT_PER_STEP * iters:.1e})")
+                re_off = abs(block["reynolds"] - want_re) / want_re
+                if re_off > 0.01:
+                    fail(f"{tag} Reynolds number {block['reynolds']:.6E} is "
+                         f"{100 * re_off:.4f}% off the reference's {want_re} (limit 1%)")
+                digests[backend] = digest(Path(tmp) / "final_state.dat")
+                if backend == "auto":
+                    golden = read_golden(deck)
+                    table = check.read_final_state(Path(tmp) / "final_state.dat")
+                    stats = check.check_final_state_only(golden, table)
+                    if not stats.passed(1.0):
+                        fail(f"{tag} final_state.dat fails the golden: max diff "
+                             f"{stats.max_diff_pcnt:.4g}% at {stats.coord} (limit 1%)")
+                    fs_pcnt = abs(stats.max_diff_pcnt)
+                    # a difference that is the same in every fluid cell is one of mass
+                    fluid = golden[:, 4] != 0
+                    offset = 100 * np.mean(table[fluid, 5] / golden[fluid, 5] - 1)
+                    say(f"{tag} pressure against the golden over the fluid cells: mean "
+                        f"{offset:+.4f}%, max |diff| {fs_pcnt:.4f}% at {stats.coord}")
+                    rows.append(f"| {deck} | {block['reynolds']:.7g} | av: no golden | "
+                                f"{fs_pcnt:.4f} | regen | PASS |")
+                elif digests[backend] != digests["auto"]:
+                    fail(f"{tag} final_state.dat differs from auto's (sha256)")
+                say(f"{tag} {iters} steps: launches { {a: b for a, b in n.items() if b} }, "
+                    f"Compute {block['compute']:.4f} s = "
+                    f"{iters * nx * ny / block['compute'] / 1e9:.3f} GLUPS, final state max "
+                    f"diff {fs_pcnt:.4f}% against goldens/{deck} "
+                    f"({'this file' if backend == 'auto' else 'equal to auto by sha256'}; "
+                    f"limit 1%), Reynolds {block['reynolds']:.6E}, {100 * re_off:.4f}% off the "
+                    f"reference's {want_re} (limit 1%), mass drift {drift:.3e} (limit "
+                    f"{DRIFT_PER_STEP * iters:.1e}) "
+                    f"| {card}")
+        if len(histories) > 1:
+            if not np.allclose(histories["auto"], histories["resident"], rtol=1e-5, atol=0.0):
+                fail(f"[5r reference] {deck} auto's and resident's av histories differ "
+                     "beyond rtol 1e-5")
+            same = np.array_equal(histories["auto"], histories["resident"])
+            say(f"[5r reference] {deck} auto and resident av "
+                f"{'bitwise equal' if same else 'within rtol 1e-5'} | {card}")
+    say("[5r reference] in PARITY.md's layout: | deck | Re | av max% | final-state max% "
+        "| golden | verdict |")
+    for row in rows:
+        say(f"[5r reference] {row} ({card})")
 
 
 def phase_mid(card: str) -> None:
@@ -2990,6 +3120,7 @@ def main() -> int:
     timed(retime, card, step_times, k_times, s_times, l_times)
     timed(phase_mini)
     full = timed(phase_full, card, res_times, keep)
+    timed(phase_reference, card)
     timed(phase_mid, card)
     timed(phase_cli_big, card)
     timed(phase_big, card, "6 big", 4096, ("pallask", "step"))
