@@ -10,6 +10,10 @@
  * grid.  av_vels.dat holds "%ld:\t%.12E\n" per step.  Obstacle decks are
  * "x y 1" lines, read into a (ny, nx) byte mask.
  *
+ * Both writers fill a stats struct where the caller passes one (NULL: none):
+ * blocks, threads, nanoseconds formatting, writing and waiting for a turn
+ * (CLOCK_MONOTONIC, a few reads a block), and bytes written.
+ *
  * Bound through ctypes by advanced_hpc_lbm_tpu_torch/utils/native.py, which
  * builds it with: cc -O2 -shared -fPIC -pthread -o libfastio_<hash>.so fastio.c
  */
@@ -23,6 +27,7 @@
 #include <stdint.h>
 #include <stdio.h>
 #include <stdlib.h>
+#include <time.h>
 #include <unistd.h>
 
 #define BLOCK_LINES 65536L
@@ -45,6 +50,24 @@ static int write_all(int fd, const char *p, size_t n) {
   return 0;
 }
 
+/* What lbm_write_final_state did: blocks formatted, threads that formatted
+ * at least one, nanoseconds formatting and writing (summed over threads)
+ * and waiting for a turn to write, and bytes written. */
+typedef struct {
+  int64_t blocks, threads, format_ns, write_ns, wait_ns, bytes;
+} lbm_final_state_stats;
+
+/* What lbm_write_av_vels did: nanoseconds formatting and writing, bytes. */
+typedef struct {
+  int64_t format_ns, write_ns, bytes;
+} lbm_av_vels_stats;
+
+static int64_t now_ns(void) {
+  struct timespec t;
+  clock_gettime(CLOCK_MONOTONIC, &t);
+  return (int64_t)t.tv_sec * 1000000000 + t.tv_nsec;
+}
+
 typedef struct {
   const float *ux, *uy, *u, *p;
   const uint8_t *obst;
@@ -56,6 +79,7 @@ typedef struct {
   pthread_cond_t turn;
   long next_claim, next_write;
   int err;
+  lbm_final_state_stats stats;
 } final_state_job;
 
 /* Format block b of the job into buf; its length, or -1 where a line does
@@ -79,19 +103,28 @@ static long format_block(const final_state_job *job, long b, char *buf) {
 
 static void *final_state_worker(void *arg) {
   final_state_job *job = arg;
+  lbm_final_state_stats mine = {0};
   char *buf = malloc((size_t)BLOCK_LINES * LINE_BYTES);
   pthread_mutex_lock(&job->lock);
   if (!buf) job->err = 2;
   while (!job->err && job->next_claim < job->nblocks) {
     long b = job->next_claim++;
     pthread_mutex_unlock(&job->lock);
+    int64_t t0 = now_ns();
     long len = format_block(job, b, buf);
+    int64_t t1 = now_ns();
+    mine.format_ns += t1 - t0;
+    mine.blocks++;
     pthread_mutex_lock(&job->lock);
     while (!job->err && job->next_write != b) pthread_cond_wait(&job->turn, &job->lock);
+    int64_t t2 = now_ns();
+    mine.wait_ns += t2 - t1;
     if (job->err) break;
     /* only the block whose turn it is writes; the others wait above */
     pthread_mutex_unlock(&job->lock);
     int bad = len < 0 || write_all(job->fd, buf, (size_t)len) != 0;
+    mine.write_ns += now_ns() - t2;
+    if (!bad) mine.bytes += len;
     pthread_mutex_lock(&job->lock);
     if (bad)
       job->err = 2;
@@ -100,6 +133,12 @@ static void *final_state_worker(void *arg) {
     pthread_cond_broadcast(&job->turn);
   }
   pthread_cond_broadcast(&job->turn); /* wake the waiters after an error */
+  job->stats.blocks += mine.blocks;
+  job->stats.threads += mine.blocks > 0;
+  job->stats.format_ns += mine.format_ns;
+  job->stats.write_ns += mine.write_ns;
+  job->stats.wait_ns += mine.wait_ns;
+  job->stats.bytes += mine.bytes;
   pthread_mutex_unlock(&job->lock);
   free(buf);
   return NULL;
@@ -108,12 +147,12 @@ static void *final_state_worker(void *arg) {
 /* Write final_state.dat from the float32 (ny, nx) planes u_x, u_y, |u| and
  * pressure and the (ny, nx) 0/1 obstacle mask on up to `threads` threads
  * (the caller's among them; fewer where the blocks or pthread_create run
- * out).  Returns 0, or 1 when the file cannot be opened, 2 when a line
- * cannot be formatted, a buffer allocated or a block written, 3 when the
- * file cannot be closed. */
+ * out), filling *stats unless it is NULL.  Returns 0, or 1 when the file
+ * cannot be opened, 2 when a line cannot be formatted, a buffer allocated
+ * or a block written, 3 when the file cannot be closed. */
 int lbm_write_final_state(const char *path, const float *ux, const float *uy, const float *u,
                           const float *p, const uint8_t *obst, long nx, long ny, int quirk,
-                          int threads) {
+                          int threads, lbm_final_state_stats *stats) {
   int fd = open(path, O_WRONLY | O_CREAT | O_TRUNC, 0666);
   if (fd < 0) return 1;
   final_state_job job = {.ux = ux, .uy = uy, .u = u, .p = p, .obst = obst, .nx = nx,
@@ -134,26 +173,37 @@ int lbm_write_final_state(const char *path, const float *ux, const float *uy, co
   free(tids);
   pthread_cond_destroy(&job.turn);
   pthread_mutex_destroy(&job.lock);
+  if (stats) *stats = job.stats;
   int rc = job.err;
   if (close(fd) != 0 && rc == 0) rc = 3;
   return rc;
 }
 
-/* Write av_vels.dat from n float64 values.  Returns 0, or 1 when the file
- * cannot be opened, 2 when a buffer cannot be allocated or a block
- * written, 3 when the file cannot be closed. */
-int lbm_write_av_vels(const char *path, const double *av, long n) {
+/* Write av_vels.dat from n float64 values, filling *stats unless it is
+ * NULL.  Returns 0, or 1 when the file cannot be opened, 2 when a buffer
+ * cannot be allocated or a block written, 3 when the file cannot be
+ * closed. */
+int lbm_write_av_vels(const char *path, const double *av, long n, lbm_av_vels_stats *stats) {
   int fd = open(path, O_WRONLY | O_CREAT | O_TRUNC, 0666);
   if (fd < 0) return 1;
+  lbm_av_vels_stats mine = {0};
   char *buf = malloc((size_t)BLOCK_LINES * LINE_BYTES);
   int rc = buf ? 0 : 2;
   for (long first = 0; rc == 0 && first < n; first += BLOCK_LINES) {
     long last = first + BLOCK_LINES < n ? first + BLOCK_LINES : n;
     char *out = buf;
+    int64_t t0 = now_ns();
     for (long i = first; i < last; i++) out += snprintf(out, LINE_BYTES, "%ld:\t%.12E\n", i, av[i]);
-    if (write_all(fd, buf, (size_t)(out - buf)) != 0) rc = 2;
+    int64_t t1 = now_ns();
+    if (write_all(fd, buf, (size_t)(out - buf)) != 0)
+      rc = 2;
+    else
+      mine.bytes += out - buf;
+    mine.format_ns += t1 - t0;
+    mine.write_ns += now_ns() - t1;
   }
   free(buf);
+  if (stats) *stats = mine;
   if (close(fd) != 0 && rc == 0) rc = 3;
   return rc;
 }

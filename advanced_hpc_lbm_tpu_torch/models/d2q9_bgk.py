@@ -72,6 +72,7 @@ from advanced_hpc_lbm_tpu_torch.ops import (
 from advanced_hpc_lbm_tpu_torch.parallel import halo, multihost
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
 from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
+from advanced_hpc_lbm_tpu_torch.utils import profiling
 from advanced_hpc_lbm_tpu_torch.utils.checkpoint import CheckpointManager
 
 BACKENDS = ("auto", "step", "pallas", "resident", "pallask", "pallas2", "stream",
@@ -106,14 +107,16 @@ FIT_MARGIN = 0.9
 
 def _device_memory_bytes(device: torch.device | str) -> int | None:
     """The card's device memory, or None off CUDA (a CPU run pages, as the
-    JAX package's gate skips every device but the TPU)."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return None
-    try:
-        return int(torch.cuda.mem_get_info(device)[1])
-    except RuntimeError:
-        return int(torch.cuda.get_device_properties(device).total_memory)
+    JAX package's gate skips every device but the TPU); each call is one
+    ``lbm.model.fit_check`` span."""
+    with profiling.span("lbm.model.fit_check"):
+        device = torch.device(device)
+        if device.type != "cuda":
+            return None
+        try:
+            return int(torch.cuda.mem_get_info(device)[1])
+        except RuntimeError:
+            return int(torch.cuda.get_device_properties(device).total_memory)
 
 
 def _to_host(x):
@@ -133,6 +136,17 @@ def _to_host(x):
     return x.cpu().numpy()
 
 
+def _fetch(x):
+    """:func:`_to_host` as the ``lbm.model.to_host`` span, with the bytes
+    it brought; None stays None."""
+    if x is None:
+        return None
+    with profiling.span("lbm.model.to_host") as sp:
+        out = _to_host(x)
+        sp.set(bytes=int(out.nbytes))
+    return out
+
+
 @dataclasses.dataclass
 class SimulationResult:
     """Results of one run: on the run's device until :meth:`collate`."""
@@ -146,18 +160,19 @@ class SimulationResult:
     def reynolds(self) -> float:
         """av_velocity(final state) * reynolds_dim / viscosity, computed on
         the host in numpy float32 from the final state."""
-        f = np.asarray(_to_host(self.f_final), dtype=np.float32)
-        rho = f.sum(axis=0)
-        u_x = (f[1] + f[5] + f[8] - (f[3] + f[6] + f[7])) / rho
-        u_y = (f[2] + f[5] + f[6] - (f[4] + f[7] + f[8])) / rho
-        fluid = ~self._obstacles_cache
-        norm = np.sqrt(u_x * u_x + u_y * u_y, dtype=np.float32)
-        av = np.float32(norm[fluid].sum(dtype=np.float32)) / np.float32(
-            fluid.sum()
-        )
-        return float(av * np.float32(self.params.reynolds_dim) / np.float32(
-            self.params.viscosity
-        ))
+        with profiling.span("lbm.model.reynolds"):
+            f = np.asarray(_to_host(self.f_final), dtype=np.float32)
+            rho = f.sum(axis=0)
+            u_x = (f[1] + f[5] + f[8] - (f[3] + f[6] + f[7])) / rho
+            u_y = (f[2] + f[5] + f[6] - (f[4] + f[7] + f[8])) / rho
+            fluid = ~self._obstacles_cache
+            norm = np.sqrt(u_x * u_x + u_y * u_y, dtype=np.float32)
+            av = np.float32(norm[fluid].sum(dtype=np.float32)) / np.float32(
+                fluid.sum()
+            )
+            return float(av * np.float32(self.params.reynolds_dim) / np.float32(
+                self.params.viscosity
+            ))
 
     # filled in by Simulation.run; kept out of the dataclass signature
     _obstacles_cache: np.ndarray = dataclasses.field(
@@ -181,21 +196,23 @@ class SimulationResult:
         gathered first), and the files are written once."""
         fs = os.path.join(out_dir, final_state_name)
         av = os.path.join(out_dir, av_vels_name)
-        f, av_vels = _to_host(self.f_final), _to_host(self.av_vels)
-        if multihost.is_primary():
-            lbm_io.write_final_state(fs, f, self._obstacles_cache, self.params)
-            lbm_io.write_av_vels(av, av_vels)
+        with profiling.span("lbm.io.write"):
+            f, av_vels = _to_host(self.f_final), _to_host(self.av_vels)
+            if multihost.is_primary():
+                lbm_io.write_final_state(fs, f, self._obstacles_cache, self.params)
+                lbm_io.write_av_vels(av, av_vels)
         return fs, av
 
     def collate(self) -> "SimulationResult":
         """Bring the results to the host as numpy arrays (the CLI's Collate
         phase).  Idempotent; applies a deferred ``check_finite``."""
-        self.f_final = _to_host(self.f_final)
-        self.av_vels = _to_host(self.av_vels)
-        self.densities = _to_host(self.densities)
-        if self._check_finite_pending:
-            self._check_finite_pending = False
-            Simulation._assert_finite(self)
+        with profiling.span("lbm.model.collate"):
+            self.f_final = _fetch(self.f_final)
+            self.av_vels = _fetch(self.av_vels)
+            self.densities = _fetch(self.densities)
+            if self._check_finite_pending:
+                self._check_finite_pending = False
+                Simulation._assert_finite(self)
         return self
 
 
@@ -243,9 +260,10 @@ class Simulation:
         obstaclefile: str | os.PathLike,
         **kwargs,
     ) -> "Simulation":
-        params = lbm_io.load_params(paramfile)
-        obstacles = lbm_io.load_obstacles(obstaclefile, params)
-        return cls(params, obstacles, **kwargs)
+        with profiling.span("lbm.model.from_decks"):
+            params = lbm_io.load_params(paramfile)
+            obstacles = lbm_io.load_obstacles(obstaclefile, params)
+            return cls(params, obstacles, **kwargs)
 
     def _resolve_backend(self, backend: str) -> str:
         if backend == "auto":
@@ -394,7 +412,8 @@ class Simulation:
         buffer (donate), so that a run holds two states at most, and stream
         without a tail one."""
         if f0 is None:
-            f0 = self.initial_state()
+            with profiling.span("lbm.model.initial_state"):
+                f0 = self.initial_state()
         if self.backend == "resident" and not debug:
             return resident.resident_run(f0, self._mask, self.params, n_iters=iters,
                                          donate=True)
@@ -416,9 +435,10 @@ class Simulation:
         )
 
     def _sync(self, devices=None) -> None:
-        for d in dict.fromkeys(devices or (self.device,)):
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
+        with profiling.span("lbm.model.sync"):
+            for d in dict.fromkeys(devices or (self.device,)):
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
 
     @staticmethod
     def _segments(start: int, iters: int, every: int) -> list[int]:
@@ -458,38 +478,41 @@ class Simulation:
         snapshot), does nothing when that is at or past the target, and
         validates every segment length the run will take (the sharded
         runner of each; a stream tail the card cannot hold raises)."""
-        iters = self._iters(n_iters)
-        sharded = self._is_sharded(devices, mesh)
-        self._validate_flags(sharded, ca_steps=ca_steps, checkpoint_every=checkpoint_every,
-                             resume=resume)
-        lengths: tuple[int, ...] = ()
-        if checkpoint_every or resume:
-            start = CheckpointManager(checkpoint_dir).latest_step() if resume else 0
-            if start >= iters:
-                return  # the resume point is at or past the target: nothing runs
-            lengths = tuple(dict.fromkeys(self._segments(start, iters, checkpoint_every or iters)))
-        if sharded:
-            # the runners first: a mesh that spans processes is gathered
-            runners = [self._sharded_runner(seg, devices, shard_kernel, mesh, ca_steps, debug,
-                                            shard_devices) for seg in lengths or (iters,)]
-            with multihost.primary_first():
-                for runner in runners:
-                    runner.prepare(self.obstacles)
-            self._sync(runners[-1].devices)
-            return
-        self._check_single_chip_fit(debug, lengths)
-        with multihost.primary_first():  # one process builds the kernels
-            if self.backend == "step" or self.backend in WHOLE_RUN:
-                step_kernel.prepare(self.device)
-                if self.backend == "resident":
-                    resident.prepare(self.device)
-                elif self.backend == "stream":
-                    stream_kernel.prepare(self.device)
-                elif self.backend in WHOLE_RUN:
-                    kstep_kernel.prepare(self.device, self._k())
-            else:
-                self._run_on_device(1, False)
-        self._sync()
+        with profiling.span("lbm.model.warmup"):
+            iters = self._iters(n_iters)
+            sharded = self._is_sharded(devices, mesh)
+            self._validate_flags(sharded, ca_steps=ca_steps, checkpoint_every=checkpoint_every,
+                                 resume=resume)
+            lengths: tuple[int, ...] = ()
+            if checkpoint_every or resume:
+                start = CheckpointManager(checkpoint_dir).latest_step() if resume else 0
+                if start >= iters:
+                    return  # the resume point is at or past the target: nothing runs
+                lengths = tuple(dict.fromkeys(
+                    self._segments(start, iters, checkpoint_every or iters)))
+            if sharded:
+                # the runners first: a mesh that spans processes is gathered
+                runners = [self._sharded_runner(seg, devices, shard_kernel, mesh, ca_steps, debug,
+                                                shard_devices) for seg in lengths or (iters,)]
+                with multihost.primary_first():
+                    for runner in runners:
+                        runner.prepare(self.obstacles)
+                self._sync(runners[-1].devices)
+                return
+            self._check_single_chip_fit(debug, lengths)
+            # one process builds the kernels
+            with profiling.span("lbm.ops.prepare"), multihost.primary_first():
+                if self.backend == "step" or self.backend in WHOLE_RUN:
+                    step_kernel.prepare(self.device)
+                    if self.backend == "resident":
+                        resident.prepare(self.device)
+                    elif self.backend == "stream":
+                        stream_kernel.prepare(self.device)
+                    elif self.backend in WHOLE_RUN:
+                        kstep_kernel.prepare(self.device, self._k())
+                else:
+                    self._run_on_device(1, False)
+            self._sync()
 
     def run(
         self,
@@ -527,36 +550,37 @@ class Simulation:
         host arrays whatever ``fetch`` says: ``collate()`` is then a no-op,
         and ``check_finite`` applies before it returns.
         """
-        iters = self._iters(n_iters)
-        sharded = self._is_sharded(devices, mesh)
-        self._validate_flags(sharded, ca_steps=ca_steps, checkpoint_every=checkpoint_every,
-                             resume=resume)
-        if checkpoint_every or resume:
-            result = self._run_checkpointed(
-                iters, checkpoint_every or iters, checkpoint_dir, resume, debug=debug,
-                sharded=sharded, devices=devices, shard_kernel=shard_kernel, mesh=mesh,
-                ca_steps=ca_steps, shard_devices=shard_devices)
-            if check_finite:
-                self._assert_finite(result)
-            return result
-        if sharded:
-            runner = self._sharded_runner(iters, devices, shard_kernel, mesh, ca_steps, debug,
-                                          shard_devices)
-            out = runner(None, self.obstacles)
-            self._sync(runner.devices)
-        else:
-            self._check_single_chip_fit(debug, (iters,))
-            out = self._run_on_device(iters, debug)
-            self._sync()
-        result = self._result(out[0], out[1], out[2] if debug else None)
-        if fetch:
-            result.collate()
-        if check_finite:
-            if fetch:
-                self._assert_finite(result)
+        with profiling.span("lbm.model.run", backend=self.backend):
+            iters = self._iters(n_iters)
+            sharded = self._is_sharded(devices, mesh)
+            self._validate_flags(sharded, ca_steps=ca_steps, checkpoint_every=checkpoint_every,
+                                 resume=resume)
+            if checkpoint_every or resume:
+                result = self._run_checkpointed(
+                    iters, checkpoint_every or iters, checkpoint_dir, resume, debug=debug,
+                    sharded=sharded, devices=devices, shard_kernel=shard_kernel, mesh=mesh,
+                    ca_steps=ca_steps, shard_devices=shard_devices)
+                if check_finite:
+                    self._assert_finite(result)
+                return result
+            if sharded:
+                runner = self._sharded_runner(iters, devices, shard_kernel, mesh, ca_steps, debug,
+                                              shard_devices)
+                out = runner(None, self.obstacles)
+                self._sync(runner.devices)
             else:
-                result._check_finite_pending = True
-        return result
+                self._check_single_chip_fit(debug, (iters,))
+                out = self._run_on_device(iters, debug)
+                self._sync()
+            result = self._result(out[0], out[1], out[2] if debug else None)
+            if fetch:
+                result.collate()
+            if check_finite:
+                if fetch:
+                    self._assert_finite(result)
+                else:
+                    result._check_finite_pending = True
+            return result
 
     def _result(self, f_final, av_vels, densities) -> SimulationResult:
         result = SimulationResult(params=self.params, f_final=f_final, av_vels=av_vels,

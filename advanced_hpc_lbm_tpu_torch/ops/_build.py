@@ -21,6 +21,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from advanced_hpc_lbm_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
@@ -105,8 +107,10 @@ def build() -> tuple[Path, bool]:
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every entry
     point's argument types declared."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
+    with profiling.span("lbm.ops.library") as sp:
+        path, cached = build()
+        sp.set(built=int(not cached))
+        lib = ctypes.CDLL(str(path))
     ptr, f32, i32, i64 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
     consts = [f32] * 6  # StepConsts, field by field
     signatures = {

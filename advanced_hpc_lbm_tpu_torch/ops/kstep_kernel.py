@@ -31,6 +31,7 @@ import torch
 
 from advanced_hpc_lbm_tpu_torch.ops import kernel_common, lattice, step_kernel
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
+from advanced_hpc_lbm_tpu_torch.utils import profiling
 
 # Own cells of one tile (kTx, kTy in csrc/kstep_kernel.cu; _library()
 # checks that the two agree).
@@ -263,7 +264,9 @@ def run(
     av = torch.empty(iters, dtype=torch.float32, device=f0.device)
     step_kernel._validate(bufs[0], mask, bufs[1], partials)
 
-    with torch.cuda.device(f0.device) if f0.is_cuda else contextlib.nullcontext():
+    with (profiling.span("lbm.ops.loop") as sp,
+          torch.cuda.device(f0.device) if f0.is_cuda else contextlib.nullcontext()):
+        before = launches
         one = _launcher(bufs[0], mask, params, k)
         for p in range(passes):
             one(bufs[p % 2], bufs[(p + 1) % 2], partials[p % rows])
@@ -271,6 +274,7 @@ def run(
                 p0 = p - p % rows
                 torch.sum(partials[: p + 1 - p0], dim=2,
                           out=av[p0 * k:(p + 1) * k].view(-1, k))
+        sp.set(launches=launches - before)
     av[: passes * k] /= n_fluid
     f = bufs[passes % 2]
     if tail:

@@ -48,6 +48,7 @@ import torch
 
 from advanced_hpc_lbm_tpu_torch.ops import step_kernel
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
+from advanced_hpc_lbm_tpu_torch.utils import profiling
 
 # Steps per launch: bounds the partials buffer (16 MB at 1024x1024).
 CHUNK = 1000
@@ -364,12 +365,15 @@ def resident_run(
     av = torch.empty(iters, dtype=torch.float32, device=f0.device)
     step_kernel._validate(bufs[0], mask, bufs[1], partials)
 
-    with torch.cuda.device(f0.device) if f0.is_cuda else contextlib.nullcontext():
+    with (profiling.span("lbm.ops.loop") as sp,
+          torch.cuda.device(f0.device) if f0.is_cuda else contextlib.nullcontext()):
+        before = launches + banded_launches
         run_chunk = _chunk_launcher(bufs[0], mask, params)
         for t0 in range(0, iters, rows):
             n = min(rows, iters - t0)
             # the chunk starts on the buffer that holds step t0's state
             run_chunk((bufs[t0 % 2], bufs[(t0 + 1) % 2]), n, partials)
             torch.sum(partials[:n], dim=1, out=av[t0:t0 + n])
+        sp.set(launches=launches + banded_launches - before)
     av /= n_fluid
     return bufs[iters % 2], av

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from advanced_hpc_lbm_tpu_torch.ops import _build, kernel_common, lattice
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
+from advanced_hpc_lbm_tpu_torch.utils import profiling
 
 # Thread-block shape of the kernel (kBlockX, kBlockY in csrc/step_kernel.cu;
 # _library() checks that the two agree).  One ||u|| partial per block.
@@ -251,7 +252,9 @@ def run(
     dens = torch.empty(iters, dtype=torch.float32, device=f0.device) if collect_density else None
     _validate(bufs[0], mask, bufs[1], partials)
 
-    with torch.cuda.device(f0.device) if f0.is_cuda else contextlib.nullcontext():
+    with (profiling.span("lbm.ops.loop") as sp,
+          torch.cuda.device(f0.device) if f0.is_cuda else contextlib.nullcontext()):
+        before = launches
         one = _launcher(bufs[0], mask, params)
         for t in range(iters):
             dst = bufs[(t + 1) % 2]
@@ -261,6 +264,7 @@ def run(
             if (t + 1) % rows == 0 or t + 1 == iters:
                 t0 = t - t % rows
                 torch.sum(partials[: t + 1 - t0], dim=1, out=av[t0 : t + 1])
+        sp.set(launches=launches - before)
     av /= n_fluid
     f_final = bufs[iters % 2]
     return (f_final, av, dens) if collect_density else (f_final, av)

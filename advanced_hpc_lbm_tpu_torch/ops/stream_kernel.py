@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from advanced_hpc_lbm_tpu_torch.ops import kernel_common, lattice, reference, step_kernel
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
+from advanced_hpc_lbm_tpu_torch.utils import profiling
 
 K = 8  # steps per pass = ghost depth
 # Own rows and columns of a kernel block (kSlab, kSeg in
@@ -346,7 +347,9 @@ def _run_passes(bufs: tuple[torch.Tensor, torch.Tensor], mask: torch.Tensor,
     partials = torch.empty((rows, K, num_tiles(ny, nx)), dtype=torch.float32,
                            device=bufs[0].device)
     _validate(bufs[0], mask, bufs[1], partials[0])
-    with torch.cuda.device(bufs[0].device) if bufs[0].is_cuda else contextlib.nullcontext():
+    with (profiling.span("lbm.ops.loop") as sp,
+          torch.cuda.device(bufs[0].device) if bufs[0].is_cuda else contextlib.nullcontext()):
+        before = launches + snapshot_launches
         one = _launcher(bufs[0], mask, params)
         for p in range(passes):
             one(bufs[p % 2], bufs[(p + 1) % 2], partials[p % rows])
@@ -354,6 +357,7 @@ def _run_passes(bufs: tuple[torch.Tensor, torch.Tensor], mask: torch.Tensor,
                 p0 = p - p % rows
                 torch.sum(partials[: p + 1 - p0], dim=2,
                           out=av[p0 * K:(p + 1) * K].view(-1, K))
+        sp.set(launches=launches + snapshot_launches - before)
     return bufs[passes % 2]
 
 

@@ -24,7 +24,7 @@ import numpy as np
 
 from advanced_hpc_lbm_tpu_torch.ops import lattice
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
-from advanced_hpc_lbm_tpu_torch.utils import native
+from advanced_hpc_lbm_tpu_torch.utils import native, profiling
 
 FINAL_STATE_FILE = "final_state.dat"
 AV_VELS_FILE = "av_vels.dat"
@@ -120,19 +120,20 @@ def final_state_planes(
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """The float32 (ny, nx) planes u_x, u_y, ||u|| and pressure of a
     (9, ny, nx) state, obstacle cells at u = 0 and the rest pressure."""
-    f = np.asarray(f, dtype=np.float32)
-    obstacles = np.asarray(obstacles, dtype=bool)
-    rho = f.sum(axis=0)
-    u_x = (f[1] + f[5] + f[8] - (f[3] + f[6] + f[7])) / rho
-    u_y = (f[2] + f[5] + f[6] - (f[4] + f[7] + f[8])) / rho
-    u = np.sqrt(u_x * u_x + u_y * u_y)
-    pressure = rho * lattice.C_SQ
+    with profiling.span("lbm.io.planes"):
+        f = np.asarray(f, dtype=np.float32)
+        obstacles = np.asarray(obstacles, dtype=bool)
+        rho = f.sum(axis=0)
+        u_x = (f[1] + f[5] + f[8] - (f[3] + f[6] + f[7])) / rho
+        u_y = (f[2] + f[5] + f[6] - (f[4] + f[7] + f[8])) / rho
+        u = np.sqrt(u_x * u_x + u_y * u_y)
+        pressure = rho * lattice.C_SQ
 
-    blocked_pressure = np.float32(params.density_f32 * lattice.C_SQ)
-    return (np.where(obstacles, np.float32(0), u_x),
-            np.where(obstacles, np.float32(0), u_y),
-            np.where(obstacles, np.float32(0), u),
-            np.where(obstacles, blocked_pressure, pressure))
+        blocked_pressure = np.float32(params.density_f32 * lattice.C_SQ)
+        return (np.where(obstacles, np.float32(0), u_x),
+                np.where(obstacles, np.float32(0), u_y),
+                np.where(obstacles, np.float32(0), u),
+                np.where(obstacles, blocked_pressure, pressure))
 
 
 def final_state_table(
@@ -175,10 +176,14 @@ def write_final_state(
     """Write final_state.dat: ``%d %d %.12E %.12E %.12E %.12E %d`` per cell.
     The C codec formats on ``threads`` threads (default: the cores this
     process may run on); the bytes are the same for every count, and the
-    same on the pure-Python path, which ignores it."""
+    same on the pure-Python path, which ignores it.  The file's write is
+    the ``lbm.io.final_state`` span, with the codec's counts."""
     if native.available():
-        native.write_final_state(path, final_state_planes(f, obstacles, params), obstacles,
-                                 quirk=emulate_obstacle_column_quirk, threads=threads)
+        planes = final_state_planes(f, obstacles, params)
+        with profiling.span("lbm.io.final_state") as sp:
+            sp.set(**native.write_final_state(path, planes, obstacles,
+                                              quirk=emulate_obstacle_column_quirk,
+                                              threads=threads))
         return
     coords, fields, obs_col = final_state_table(
         f,
@@ -186,7 +191,7 @@ def write_final_state(
         params,
         emulate_obstacle_column_quirk=emulate_obstacle_column_quirk,
     )
-    with open(path, "w") as fh:
+    with profiling.span("lbm.io.final_state"), open(path, "w") as fh:
         for (ii, jj), (ux, uy, u, p), ob in zip(
             coords.tolist(), fields.tolist(), obs_col.tolist()
         ):
@@ -194,12 +199,14 @@ def write_final_state(
 
 
 def write_av_vels(path: str | os.PathLike, av_vels: np.ndarray) -> None:
-    """Write av_vels.dat: ``%d:\\t%.12E`` per step."""
+    """Write av_vels.dat: ``%d:\\t%.12E`` per step; the file's write is the
+    ``lbm.io.av_vels`` span, with the codec's counts."""
     av = np.asarray(av_vels, dtype=np.float64)
     if native.available():
-        native.write_av_vels(path, av)
+        with profiling.span("lbm.io.av_vels") as sp:
+            sp.set(**native.write_av_vels(path, av))
         return
-    with open(path, "w") as fh:
+    with profiling.span("lbm.io.av_vels"), open(path, "w") as fh:
         for step, v in enumerate(av.tolist()):
             fh.write(f"{step}:\t{v:.12E}\n")
 

@@ -28,6 +28,8 @@ from pathlib import Path
 
 import numpy as np
 
+from advanced_hpc_lbm_tpu_torch.utils import profiling
+
 SRC = Path(__file__).resolve().parents[1] / "csrc" / "fastio.c"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
 CFLAGS = ("-O2", "-shared", "-fPIC", "-pthread")
@@ -75,13 +77,32 @@ def build() -> Path:
     return out
 
 
+class FinalStateStats(ctypes.Structure):
+    """``lbm_final_state_stats``: what a final_state.dat write did."""
+
+    _fields_ = [(name, ctypes.c_int64) for name in
+                ("blocks", "threads", "format_ns", "write_ns", "wait_ns", "bytes")]
+
+
+class AvVelsStats(ctypes.Structure):
+    """``lbm_av_vels_stats``: what an av_vels.dat write did."""
+
+    _fields_ = [(name, ctypes.c_int64) for name in ("format_ns", "write_ns", "bytes")]
+
+
+def _as_dict(stats: ctypes.Structure) -> dict[str, int]:
+    return {name: getattr(stats, name) for name, _ in stats._fields_}
+
+
 @functools.cache
 def _library() -> ctypes.CDLL | None:
     """The loaded codec, or None after one line on stderr that says why it
     cannot be had and that the deck files go through Python instead."""
     try:
-        path = build()
-        lib = ctypes.CDLL(str(path))
+        with profiling.span("lbm.io.codec_library") as sp:
+            sp.set(built=int(SRC.exists() and not library_path().exists()))
+            path = build()
+            lib = ctypes.CDLL(str(path))
     except OSError as e:  # no build, or a library the loader refuses
         print(f"advanced_hpc_lbm_tpu_torch: the output codec is not available ({e}); "
               "reading and writing the deck files in Python, the same bytes, "
@@ -93,10 +114,11 @@ def _library() -> ctypes.CDLL | None:
     lib.lbm_write_final_state.restype = ctypes.c_int
     lib.lbm_write_final_state.argtypes = [
         ctypes.c_char_p, f32, f32, f32, f32, u8,
-        ctypes.c_long, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+        ctypes.c_long, ctypes.c_long, ctypes.c_int, ctypes.c_int, ctypes.POINTER(FinalStateStats),
     ]
     lib.lbm_write_av_vels.restype = ctypes.c_int
-    lib.lbm_write_av_vels.argtypes = [ctypes.c_char_p, f64, ctypes.c_long]
+    lib.lbm_write_av_vels.argtypes = [ctypes.c_char_p, f64, ctypes.c_long,
+                                      ctypes.POINTER(AvVelsStats)]
     lib.lbm_parse_obstacles.restype = ctypes.c_long
     lib.lbm_parse_obstacles.argtypes = [
         ctypes.c_char_p, ctypes.c_long, ctypes.c_long, u8, ctypes.POINTER(ctypes.c_long),
@@ -123,12 +145,15 @@ def default_threads() -> int:
 
 
 def write_final_state(path: str | os.PathLike, planes, obstacles: np.ndarray, *,
-                      quirk: bool = True, threads: int | None = None) -> None:
+                      quirk: bool = True, threads: int | None = None) -> dict[str, int]:
     """Write final_state.dat from the float32 (ny, nx) planes (u_x, u_y,
     ||u||, pressure) of ``io.final_state_planes`` and the (ny, nx) obstacle
     mask, whose transposed read (``quirk``) or own cell fills the last
     column, formatting on ``threads`` threads (default
-    :func:`default_threads`).  The bytes do not depend on ``threads``."""
+    :func:`default_threads`).  The bytes do not depend on ``threads``.
+    Returns the codec's counts (:class:`FinalStateStats`): blocks of 64 Ki
+    lines, threads that formatted one or more, nanoseconds formatting and
+    writing (summed over the threads) and waiting for a turn, bytes."""
     lib = _require()
     obst = np.ascontiguousarray(obstacles, dtype=bool)
     ny, nx = obst.shape
@@ -138,18 +163,24 @@ def write_final_state(path: str | os.PathLike, planes, obstacles: np.ndarray, *,
     threads = default_threads() if threads is None else threads
     if threads < 1:
         raise ValueError(f"threads must be at least 1, got {threads}")
+    stats = FinalStateStats()
     rc = lib.lbm_write_final_state(str(path).encode(), ux, uy, u, p, obst.view(np.uint8),
-                                   nx, ny, int(quirk), threads)
+                                   nx, ny, int(quirk), threads, ctypes.byref(stats))
     if rc != 0:
         raise OSError(f"lbm_write_final_state failed with rc={rc} ({path})")
+    return _as_dict(stats)
 
 
-def write_av_vels(path: str | os.PathLike, av: np.ndarray) -> None:
+def write_av_vels(path: str | os.PathLike, av: np.ndarray) -> dict[str, int]:
+    """Write av_vels.dat; returns the codec's counts (:class:`AvVelsStats`):
+    nanoseconds formatting and writing, bytes."""
     lib = _require()
     av = np.ascontiguousarray(av, dtype=np.float64).reshape(-1)
-    rc = lib.lbm_write_av_vels(str(path).encode(), av, av.size)
+    stats = AvVelsStats()
+    rc = lib.lbm_write_av_vels(str(path).encode(), av, av.size, ctypes.byref(stats))
     if rc != 0:
         raise OSError(f"lbm_write_av_vels failed with rc={rc} ({path})")
+    return _as_dict(stats)
 
 
 _PARSE_ERRORS = {

@@ -1356,9 +1356,10 @@ def final_state_writes():
 
     def timed_native_write(path, *args, **kwargs):
         t0 = time.perf_counter()
-        native_write(path, *args, **kwargs)
+        stats = native_write(path, *args, **kwargs)
         threads = kwargs.get("threads") or native.default_threads()
         calls[-1]["native"].append((Path(path), time.perf_counter() - t0, threads))
+        return stats
 
     lbm_io.write_final_state, native.write_final_state = timed_write, timed_native_write
     try:
@@ -2411,8 +2412,9 @@ def top_kernels(summary: dict, n: int = 4) -> str:
 def phase_profile(card: str) -> None:
     """--profile through the CLI: the trace exists, the ==done== block and
     the outputs are those of the run without it, the trace shows every
-    launched port kernel by name as often as its counter; the device's
-    busy share of the Compute window and the top kernels by device time."""
+    launched port kernel by name as often as its counter, and the
+    program's spans over the device's idle time; the device's busy share
+    of the Compute window and the top kernels by device time."""
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         for n, iters, backend in ((512, 2000, "pallask"), (128, 40_000, "auto")):
@@ -2436,6 +2438,9 @@ def phase_profile(card: str) -> None:
             if len(traces) != 1:
                 fail(f"{tag} {len(traces)} trace files in the trace directory, expected 1")
             summary = trace_check(tag, traces[0], counts)
+            idle = summary["idle_by_span"]
+            if not any(name.startswith("lbm.") for name in idle):
+                fail(f"{tag} no program span over the device's idle time ({idle})")
             compute = blocks["profiled"]["compute"]
             say(f"{tag} trace {traces[0].name} ({traces[0].stat().st_size / 1e6:.2f} MB); "
                 f"Compute {compute:.4f} s (without --profile {blocks['plain']['compute']:.4f} s), "
@@ -2444,7 +2449,8 @@ def phase_profile(card: str) -> None:
                 f"(idle {1 - summary['busy_share']:.4f}); first device activity after "
                 f"{summary['first_device_us'] / 1e3:.3f} ms; launches "
                 f"{ {a: b for a, b in counts.items() if b} } = the trace's; by device time: "
-                f"{top_kernels(summary)} | {card}")
+                f"{top_kernels(summary)}; idle by program span: "
+                f"{ {k: round(v / 1e3, 3) for k, v in idle.items()} } ms | {card}")
 
 
 # ---- 11. batch ---------------------------------------------------------------------------

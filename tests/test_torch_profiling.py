@@ -1,6 +1,6 @@
-"""The port's profiling module against the JAX package's, its trace reader,
-and the CLI's --profile on the CPU (host activity only: there is no card
-here, so no device time)."""
+"""The port's profiling module: its trace reader, and the CLI's --profile on
+the CPU (host activity and the program's spans only: there is no card here,
+so no device time)."""
 
 import json
 import os
@@ -8,51 +8,12 @@ import os
 import pytest
 import torch
 
-from advanced_hpc_lbm_tpu.utils import profiling as jprofiling
 from advanced_hpc_lbm_tpu_torch import cli
 from advanced_hpc_lbm_tpu_torch.utils import profiling
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 MINI = (os.path.join(ROOT, "decks", "mini_64x64.params"),
         os.path.join(ROOT, "decks", "mini_64x64.obstacles.dat"))
-
-
-@pytest.mark.parametrize("nx,ny,iters,elapsed", [
-    (1024, 1024, 1000, 0.1), (128, 128, 40000, 0.12), (64, 64, 500, 3.5e-3), (36864, 36864, 64, 5.79),
-])
-def test_bench_result_matches_jax(nx, ny, iters, elapsed):
-    got = profiling.BenchResult(nx=nx, ny=ny, iters=iters, elapsed_s=elapsed)
-    want = jprofiling.BenchResult(nx=nx, ny=ny, iters=iters, elapsed_s=elapsed)
-    assert profiling.BYTES_PER_CELL_STEP == jprofiling.BYTES_PER_CELL_STEP == 73
-    for name in ("mlups", "glups", "effective_gbps"):
-        assert getattr(got, name) == getattr(want, name)
-
-
-def test_roofline_report_off_cuda():
-    r = profiling.BenchResult(nx=128, ny=128, iters=100, elapsed_s=0.01)
-    assert profiling.device_hbm_gbps() is None
-    text = profiling.roofline_report(r)
-    # the JAX report's own lines, without a roofline where no card is known
-    assert text.splitlines() == jprofiling.roofline_report(r).splitlines()[:3]
-    assert len(text.splitlines()) == 3 and "GLUPS" in text
-
-
-def test_roofline_report_on_an_h100(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: "NVIDIA H100 80GB HBM3")
-    assert profiling.device_hbm_gbps() == 3350.0
-    r = profiling.BenchResult(nx=1024, ny=1024, iters=20000, elapsed_s=0.3869)
-    last = profiling.roofline_report(r).splitlines()[-1]
-    assert "NVIDIA H100 80GB HBM3" in last and "3350 GB/s" in last
-    assert "45.9 GLUPS ceiling" in last
-    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: "Some Other Card")
-    assert profiling.device_hbm_gbps() is None
-
-
-def test_measure_times_the_call():
-    calls = []
-    r = profiling.measure(lambda: calls.append(1), 8, 4, 10)
-    assert calls == [1] and (r.nx, r.ny, r.iters) == (8, 4, 10) and r.elapsed_s >= 0.0
 
 
 @pytest.mark.parametrize("name,base", [
@@ -114,6 +75,7 @@ def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     s = profiling.trace_summary(tr.path)
     assert s["window_us"] > 0 and s["busy_us"] == 0.0 and s["kernels"] == {}
     assert s["first_device_us"] is None
+    assert s["idle_by_span"] == {"none": s["window_us"]}
 
 
 def test_cli_profile_leaves_the_block_and_outputs_unchanged(tmp_path, capsys):
@@ -137,3 +99,7 @@ def test_cli_profile_leaves_the_block_and_outputs_unchanged(tmp_path, capsys):
     # the kernels' loading) or Collate
     assert 0 < s["window_us"] / 1e6 < total_s
     assert s["busy_us"] == 0.0 and s["kernels"] == {}
+    # the device idles through the window, under the program's spans: the
+    # Compute phase, the run and its loops
+    assert {"lbm.cli.compute", "lbm.ops.loop"} <= set(s["idle_by_span"])
+    assert sum(s["idle_by_span"].values()) == pytest.approx(s["window_us"])
