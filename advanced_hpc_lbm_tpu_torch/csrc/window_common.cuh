@@ -1,15 +1,17 @@
 // Shared machinery of the two ghost-zone kernels (csrc/kstep_kernel.cu and
 // csrc/stream_kernel.cu): a window of the state in shared memory that K
-// steps advance (in place, or ping-pong with a second window), the
-// asynchronous copies that fill the next window, and the accessor, cell map
-// and reductions of a step.
+// steps advance (in place, or ping-pong with a second window, or into a
+// dense tile), the asynchronous copies that fill the next window, and the
+// accessor, cell map and reductions of a step.
 //
 // * Steps.  A step computes a rectangle of the window, each cell by
 //   step_common.cuh:cell_step.  In place with register staging: each thread
 //   pulls the 9 values of each of its cells into registers, a barrier ends
 //   the reads, the values are written back into the same window, and a
 //   second barrier publishes them (one window per tile).  Or from one
-//   window into another (two buffers ping-pong, one barrier per step).
+//   window into another (two buffers ping-pong, one barrier per step), or
+//   into a dense tile of own cells.  The barrier is the block's, or that
+//   of a team of the block's warps (a named barrier), as the caller passes.
 // * Compile-time cell map.  Thread tid takes cells i = tid + j * kThreads
 //   of the rectangle, j = 0, 1, ...; a rectangle 32 or more columns wide is
 //   read as a 32-column strip (cell i: row i / 32, column i % 32, one window
@@ -186,26 +188,55 @@ __device__ __forceinline__ void cell_of(int i, int& r, int& c) {
   }
 }
 
+// Where a step writes the new values of window cell (r, c) (offset `off`
+// = r * pitch + c in a plane): planes of kPlane floats, cell `index` of
+// each.  WindowDst: a window's own planes (the same offsets).  TileDst: a
+// dense kRows x kCols tile whose corner is window cell (kR0, kC0).
+// kUnrolled: stage every round of the thread's cells in registers before
+// writing (as in place) rather than write each cell as it is computed.
+template <class Geo>
+struct WindowDst {
+  static constexpr int kPlane = Geo::kPlane;
+  static constexpr bool kUnrolled = false;
+  float* planes;
+  static __device__ __forceinline__ int index(int, int, int off) { return off; }
+};
+
+template <int kRows, int kCols, int kR0, int kC0>
+struct TileDst {
+  static constexpr int kPlane = kRows * kCols;
+  static constexpr bool kUnrolled = true;
+  float* planes;
+  static __device__ __forceinline__ int index(int r, int c, int) {
+    return (r - kR0) * kCols + (c - kC0);
+  }
+};
+
+// The threads that run a step and their barrier: the whole block.
+struct BlockBarrier {
+  __device__ __forceinline__ int tid() const { return threadIdx.x; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
 // One step of the window rectangle rows [kR0, kR0 + kRows) x columns
-// [kC0, kC0 + kCols) by a block of kThreads threads, from the window `win`
-// reads into the planes `dst` (the same shape).  kInPlace (dst is win's
-// own planes): each thread stages its cells' new values in registers (the
-// rounds unrolled), a barrier ends the reads, the values are written back
-// and a second barrier publishes them.  Otherwise (dst is another window)
-// each cell is written as it is computed, in a loop over the thread's
-// cells, and one barrier publishes the step.  `counted(r, c, bits, obst)`
-// says whether cell (r, c)'s ||u|| counts; `warp_total(v)` is called by
-// lane 0 of every warp with the warp's sum, before the barriers that end
-// the step.
+// [kC0, kC0 + kCols) by the kThreads threads of `bar` (thread bar.tid(),
+// barrier bar.sync()), from the window `win` reads into `dst`.  kInPlace
+// (dst is win's own planes): each thread stages its cells' new values in
+// registers (the rounds unrolled), a barrier ends the reads, the values are
+// written back and a second barrier publishes them.  Otherwise (dst is
+// other memory) each cell is written as it is computed, in a loop over the
+// thread's cells (or, for a kUnrolled dst, after all of them), and one
+// barrier publishes the step.  `counted(r, c, bits, obst)` says whether
+// cell (r, c)'s ||u|| counts; `warp_total(v)` is called by lane 0 of every
+// warp with the warp's sum, before the barriers that end the step.
 template <int kThreads, int kR0, int kRows, int kC0, int kCols, bool kInPlace, class Win,
-          class Counted, class WarpTotal>
-__device__ __forceinline__ void step(const Win& win, float* dst, const StepConsts& cc,
-                                     Counted counted, WarpTotal warp_total) {
-  using Geo = typename Win::Geo;
+          class Dst, class Counted, class WarpTotal, class Bar>
+__device__ __forceinline__ void step(const Win& win, const Dst& dst, const StepConsts& cc,
+                                     Counted counted, WarpTotal warp_total, const Bar& bar) {
   constexpr int kCells = kRows * kCols;
-  const int tid = threadIdx.x;
+  const int tid = bar.tid();
   float norm = 0.0f;
-  // the new values of cell i into v; returns the cell's offset in a plane
+  // the new values of cell i into v; returns the cell's index in a plane of dst
   auto cell = [&](int i, float* v) {
     int r, c;
     cell_of<kRows, kCols>(i, r, c);
@@ -216,9 +247,9 @@ __device__ __forceinline__ void step(const Win& win, float* dst, const StepConst
     const bool obst = Win::obst_of(bits);
     const float u_sq = cell_step(win, r, c, r - 1, r + 1, c - 1, c + 1, v, obst, cc);
     if (counted(r, c, bits, obst)) norm = norm + sqrtf(u_sq);
-    return off;
+    return Dst::index(r, c, off);
   };
-  if constexpr (kInPlace) {
+  if constexpr (kInPlace || Dst::kUnrolled) {
     constexpr int kRounds = (kCells + kThreads - 1) / kThreads;
     float v[kRounds][9];
     int off[kRounds];
@@ -230,12 +261,12 @@ __device__ __forceinline__ void step(const Win& win, float* dst, const StepConst
     }
     norm = warp_sum(norm);
     if ((tid & 31) == 0) warp_total(norm);
-    __syncthreads();  // every read of the step is done
+    if constexpr (kInPlace) bar.sync();  // every read of the step is done
 #pragma unroll
     for (int j = 0; j < kRounds; ++j) {
       if ((j + 1) * kThreads <= kCells || tid + j * kThreads < kCells) {
 #pragma unroll
-        for (int k = 0; k < 9; ++k) dst[k * Geo::kPlane + off[j]] = v[j][k];
+        for (int k = 0; k < 9; ++k) dst.planes[k * Dst::kPlane + off[j]] = v[j][k];
       }
     }
   } else {
@@ -244,12 +275,22 @@ __device__ __forceinline__ void step(const Win& win, float* dst, const StepConst
       float v[9];
       const int off = cell(i, v);
 #pragma unroll
-      for (int k = 0; k < 9; ++k) dst[k * Geo::kPlane + off] = v[k];
+      for (int k = 0; k < 9; ++k) dst.planes[k * Dst::kPlane + off] = v[k];
     }
     norm = warp_sum(norm);
     if ((tid & 31) == 0) warp_total(norm);
   }
-  __syncthreads();  // the step's values are published
+  bar.sync();  // the step's values are published
+}
+
+// The same, by the whole block into another window's (or the same
+// window's) planes `dst`.
+template <int kThreads, int kR0, int kRows, int kC0, int kCols, bool kInPlace, class Win,
+          class Counted, class WarpTotal>
+__device__ __forceinline__ void step(const Win& win, float* dst, const StepConsts& cc,
+                                     Counted counted, WarpTotal warp_total) {
+  step<kThreads, kR0, kRows, kC0, kCols, kInPlace>(
+      win, WindowDst<typename Win::Geo>{dst}, cc, counted, warp_total, BlockBarrier{});
 }
 
 }  // namespace lbm

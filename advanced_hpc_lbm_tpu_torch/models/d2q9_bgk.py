@@ -85,18 +85,16 @@ WHOLE_RUN = ("resident", "pallask", "pallas2", "stream")
 # times on an H100 80GB HBM3 at 700 W (chip_smoke.py 3r/3k/3s, PERF.md,
 # Findings).  Where the resident kernel's banded form takes the grid (the
 # small decks, ``resident.takes_banded``), ``auto`` runs ``resident``
-# instead: 2.98 / 2.97 / 3.22 us per step at 64^2 / 128^2 / 256^2 against
-# pallask's 3.49 / 3.98 / 3.81 (K = 5, host-paced), as the JAX ``auto``
+# instead: 2.81 / 2.78 / 3.06 us per step at 64^2 / 128^2 / 256^2 against
+# pallask's 3.53 / 3.95 / 4.15 (K = 4, host-paced), as the JAX ``auto``
 # runs its resident kernel on small grids.  Elsewhere the K-step kernel is
-# the fastest path (18.75 us per step at 1024^2, K = 3, against 32.51 for
-# step and 25.08 for the resident kernel's cooperative form, which the JAX
-# ``auto`` would run there; 60.01 against 86.99 at 2048^2, 243.04 against
-# 330.85 at 4096^2, 6.55 against 6.96 at 512^2; of the grids timed only
-# 256x512, 4.34 against 3.80, went the other way, too few for a rule on
-# the shape) and faster than the stream kernel on every grid timed
-# from 2048^2 to 16384^2 (964 against 1202 us per step at 8192^2, 3862
-# against 4154 at 16384^2).  Where it does not fit, ``auto`` runs
-# ``stream`` (``Simulation._resolve_backend``).
+# the fastest path (15.96 us per step at 1024^2, K = 3, against 32.29 for
+# step and 25.14 for the resident kernel's cooperative form, which the JAX
+# ``auto`` would run there; 50.44 against 87.12 at 2048^2, 200.02 against
+# 332.82 at 4096^2, 6.28 against 7.05 at 512^2) and faster than the stream
+# kernel on every grid timed from 2048^2 to 16384^2 (827 against 1204 us
+# per step at 8192^2, 3844 against 4144 at 16384^2).  Where it does not
+# fit, ``auto`` runs ``stream`` (``Simulation._resolve_backend``).
 AUTO_BACKEND = "pallask"
 
 

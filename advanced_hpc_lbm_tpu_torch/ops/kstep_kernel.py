@@ -11,10 +11,13 @@ tensor never falls back to the plain version: the launch happens or the
 wrapper raises.
 
 The kernel cuts the grid into TILE_X x TILE_Y tiles; a persistent grid of
-blocks walks them, each tile loaded with a ghost ring K deep on every side
-(periodic wrap) into a window in shared memory, stepped K times in place
-while the next tile's window loads; the plain version builds the same
-windows with periodic index gathers and runs K calls of
+one block per SM walks them (:func:`schedule`), each tile loaded with a
+ghost ring K deep on every side (periodic wrap) into a ring of windows in
+shared memory by a producer warpgroup, by one bulk tensor copy where the
+window lies inside the grid (:func:`bulk_tiles`) and by wrapped copies
+where it does not, and stepped K times by a team of consumer warps
+(:func:`teams` a block); the plain version
+builds the same windows with periodic index gathers and runs K calls of
 :func:`kernel_common.lean_window_step` on them.  A pass writes the next
 state out of place and one ||u|| partial per step and tile,
 ``partials[s, tile]``, tiles in row-major order.
@@ -53,23 +56,60 @@ prepare_obstacles = step_kernel.prepare_obstacles
 
 def best_k(ny: int, nx: int) -> int:
     """The K of the ``pallask`` backend, from this port's times on an H100
-    80GB HBM3 at 700 W (chip_smoke.py, PERF.md, Findings): 5 up to
-    512^2, where a pass is paced by the host's launch and more steps per
-    launch pay (3.37 us per step at 64^2 against 3.88 at K = 6 and 3.45 at
-    K = 4); 3 up to 4096^2, where the kernel is bound by instruction issue
-    and K = 3 steps the narrowest ghost ring (1.20 cell steps per own one
-    against 1.31 at K = 4) with the staged cells of 3 blocks per SM in
-    registers (236.85 us per step at 4096^2 against 246.31 at K = 4; 19.26
-    against 20.06 at 1024^2); 4 above, where device memory tells (964 us
-    per step at 8192^2 against 1148 at K = 3, 3862 against 4850 at
-    16384^2)."""
+    80GB HBM3 at 700 W (chip_smoke.py 3k, PERF.md, Findings): 4 up to
+    256^2, where a pass is paced by its launch and more steps per launch
+    pay (3.53 us per step at 64^2 against 3.57 at K = 3 and 3.95 at K = 5;
+    3.95 at 128^2 against 5.05 and 3.98); 3 up to 8192^2, where the kernel
+    is bound by instruction issue and device memory together and K = 3
+    steps the narrowest ghost ring (1.20 cell steps per own one against
+    1.31 at K = 4) with 3 teams' staged cells in registers (6.28 us per
+    step at 512^2 against 6.79 at K = 4 and 7.54 at K = 5; 15.96 against
+    18.81 at 1024^2; 200.02 against 225.91 at 4096^2; 827.3 against 888.8
+    at 8192^2); 4 above, where device memory tells (3843.9 against 4732.7
+    at 16384^2)."""
     cells = ny * nx
-    return 5 if cells <= 512 * 512 else 3 if cells <= 4096 * 4096 else 4
+    return 4 if cells <= 256 * 256 else 3 if cells <= 8192 * 8192 else 4
 
 
 def num_tiles(ny: int, nx: int) -> int:
     """Tiles of one pass: one ||u|| partial each per step."""
     return -(-ny // TILE_Y) * -(-nx // TILE_X)
+
+
+def teams(k: int) -> int:
+    """Consumer teams of 8 warps per block at K (``Shape<K>::kTeams``): 3 up
+    to K = 3, where their staged cells fit 80 registers a thread, else 2."""
+    return 3 if k <= 3 else 2
+
+
+def bulk_tiles(ny: int, nx: int, k: int) -> int:
+    """Tiles of one pass of the periodic (ny, nx) grid at K that the bulk
+    tensor copy feeds: the kernel's rule (``lbm_kstep_bulk_tiles``).  Rows
+    must be 16-byte multiples (nx % 4 == 0, buffers aligned as PyTorch
+    allocates them), and the tile's window, K rows above and below and K
+    rounded up to 4 columns left and right, must lie inside the grid; every
+    other tile's window takes wrapped copies."""
+    if nx % 4:
+        return 0
+    a = -(-k // 4) * 4
+    h, w = TILE_Y + 2 * k, TILE_X + 2 * a
+    rows = sum(1 for y0 in range(0, ny, TILE_Y) if 0 <= y0 - k and y0 - k + h <= ny)
+    cols = sum(1 for x0 in range(0, nx, TILE_X) if 0 <= x0 - a and x0 - a + w <= nx)
+    return rows * cols
+
+
+def schedule(ny: int, nx: int, k: int, sms: int) -> list[list[int]]:
+    """The tiles each consumer team takes in a pass on a card of ``sms``
+    SMs, in order, team j of block b at [b * teams(k) + j]: one block per
+    SM (fewer where there are fewer tiles), block b takes tiles b, b + grid,
+    ..., and team j the block's n-th tiles for n = j, j + teams(k), ..."""
+    tiles = num_tiles(ny, nx)
+    grid = min(tiles, sms)
+    out = []
+    for b in range(grid):
+        mine = list(range(b, tiles, grid))
+        out += [mine[j::teams(k)] for j in range(teams(k))]
+    return out
 
 
 def _windows(ny: int, nx: int, k: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -258,6 +298,8 @@ def run(
     n_fluid = (mask == 0).sum().to(torch.float32)
     bufs = step_kernel.buffers(f0, donate)
     passes, tail = divmod(iters, k)
+    aligned = all(b.data_ptr() % 16 == 0 for b in bufs) and mask.data_ptr() % 4 == 0
+    bulk = bulk_tiles(ny, nx, k) if aligned else 0
     rows = max(1, min(chunk // k, passes))  # passes of partials per chunk
     partials = torch.empty((rows, k, num_tiles(ny, nx)), dtype=torch.float32,
                            device=f0.device)
@@ -274,7 +316,8 @@ def run(
                 p0 = p - p % rows
                 torch.sum(partials[: p + 1 - p0], dim=2,
                           out=av[p0 * k:(p + 1) * k].view(-1, k))
-        sp.set(launches=launches - before)
+        sp.set(launches=launches - before, tiles_bulk=passes * bulk,
+               tiles_wrap=passes * (num_tiles(ny, nx) - bulk))
     av[: passes * k] /= n_fluid
     f = bufs[passes % 2]
     if tail:

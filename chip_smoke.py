@@ -36,8 +36,13 @@ non-zero and prints no result:
              best_k, the K pallask runs there) against the step kernel (0
              differing values) and its plain version at 4096^2, 1024^2,
              256^2, 128x256, 64^2, 100x130 and 17x23, 1 pass and 3 passes
-             with a guard-failing row; then its time per step for K = 2..6,
-             8 at 4096^2 down to 64^2, beside the step and resident kernels
+             with a guard-failing row, its C rules against their Python
+             restatements on each (lbm_kstep_bulk_tiles against
+             kstep_kernel.bulk_tiles, the teams a block), and a recorded
+             run's lbm.ops.loop span (tiles_bulk, tiles_wrap) at 1024^2;
+             then its time per step for K = 2..6, 8 at 4096^2 down to 64^2,
+             beside the step and resident kernels, and at best_k a step and
+             a launch beside the design before (KSTEP_BEFORE_US)
   3s. stream the stream kernel, in place and out of place, against the step
              kernel (0 differing values) and its plain version at 8192^2,
              4096^2, 1024^2, 256^2, 64^2 (the mini deck), 100x130 and
@@ -217,6 +222,10 @@ RUN_STEPS = 1000  # steps per timed run of the kernel
 KSTEP_TIMED_STEPS = 480  # a multiple of every timed K
 TIMED_K = (2, 3, 4, 5, 6, 8)
 STREAM_TIMED_STEPS = 96  # a multiple of 8 and of every best_k
+# The K-step kernel's us a step and a launch at best_k (K = 3) before the
+# warp-specialised design: chip_smoke 3k at 4096^2 and 1024^2 (the
+# benchmark's 1024^2 deck read 53.97 us a launch in its trace)
+KSTEP_BEFORE_US = {4096: (236.85, 710.55), 1024: (19.26, 57.78)}
 
 # The card's published peaks (H100 SXM data sheet) for the bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -813,6 +822,49 @@ def plain_kstep(f, mask, params, k, passes):
     return f, part.sum(dim=2).reshape(-1) / (mask == 0).sum().to(torch.float32)
 
 
+def check_feed(ny: int, nx: int, k: int, tag: str) -> str:
+    """The kernel's C rules for the (ny, nx) grid at K against their Python
+    restatements: the tiles the bulk tensor copy feeds, the teams a block."""
+    from advanced_hpc_lbm_tpu_torch.ops import _build, kstep_kernel
+
+    lib = _build.load()
+    bulk = lib.lbm_kstep_bulk_tiles(ny, nx, k)
+    if bulk != kstep_kernel.bulk_tiles(ny, nx, k):
+        fail(f"{tag}: lbm_kstep_bulk_tiles {bulk} != the rule's "
+             f"{kstep_kernel.bulk_tiles(ny, nx, k)}")
+    teams, stages = ctypes.c_int(), ctypes.c_int()
+    if (lib.lbm_kstep_schedule(k, ctypes.byref(teams), ctypes.byref(stages)) != 0
+            or teams.value != kstep_kernel.teams(k) or stages.value < 3):
+        fail(f"{tag}: lbm_kstep_schedule {teams.value} teams, {stages.value} stages; "
+             f"the rule's {kstep_kernel.teams(k)} teams")
+    return (f"bulk {bulk} / wrap {kstep_kernel.num_tiles(ny, nx) - bulk} tiles, "
+            f"{teams.value} teams, {stages.value} stages")
+
+
+def check_loop_span(ny: int, nx: int) -> None:
+    """A recorded run's lbm.ops.loop span carries the tiles of its passes
+    by feed: the C rule's count times the passes."""
+    from advanced_hpc_lbm_tpu_torch.ops import _build, kstep_kernel
+    from advanced_hpc_lbm_tpu_torch.utils import profiling
+
+    k = kstep_kernel.best_k(ny, nx)
+    params, mask, f = on_card(ny, nx, 399)
+    passes = 4
+    with profiling.recording() as rec:
+        kstep_kernel.run(f, mask, params, n_iters=passes * k, k=k)
+    torch.cuda.synchronize()
+    loop = [sp for sp in rec.spans if sp.name == "lbm.ops.loop"]
+    bulk = _build.load().lbm_kstep_bulk_tiles(ny, nx, k)
+    want = {"launches": passes, "tiles_bulk": passes * bulk,
+            "tiles_wrap": passes * (kstep_kernel.num_tiles(ny, nx) - bulk)}
+    got = {key: loop[0].attrs.get(key) for key in want} if len(loop) == 1 else None
+    if got != want:
+        fail(f"[3k kstep] {ny}x{nx} K={k}: lbm.ops.loop spans {[sp.attrs for sp in loop]}, "
+             f"expected one with {want}")
+    say(f"[3k kstep] {ny}x{nx} K={k}: lbm.ops.loop carries {got} (lbm_kstep_bulk_tiles "
+        f"{bulk} a pass)")
+
+
 def phase_kstep(card: str, res_times: dict) -> tuple[float, dict]:
     from advanced_hpc_lbm_tpu_torch.ops import kstep_kernel, step_kernel
 
@@ -824,6 +876,7 @@ def phase_kstep(card: str, res_times: dict) -> tuple[float, dict]:
         ks = ({2, 4, 8, kstep_kernel.best_k(ny, nx)} if ny == 4096
               else set(kstep_kernel.K_RANGE))
         for k in sorted(ks):
+            feed = check_feed(ny, nx, k, f"[3k kstep] {ny}x{nx} K={k}")
             for passes, guard in ((1, False), (3, True)):
                 params, mask, f = on_card(ny, nx, 300 + seed, guard)
                 n = k * passes
@@ -839,8 +892,10 @@ def phase_kstep(card: str, res_times: dict) -> tuple[float, dict]:
                 torch.cuda.synchronize()
                 worst = max(worst, diff_line(fk, fp)[0])
                 say(f"{tag}: {check_against(tag, fk, avk, fs, avs, 'step kernel', True)}; "
-                    f"{check_against(tag, fk, avk, fp, avp, 'plain version', False)}")
+                    f"{check_against(tag, fk, avk, fp, avp, 'plain version', False)}; "
+                    f"{feed}")
                 del fp, avp
+    check_loop_span(1024, 1024)
     k_times = time_kstep(card)
     check_auto(card, res_times, k_times)
     return worst, k_times
@@ -873,6 +928,13 @@ def time_kstep(card: str) -> dict:
                  f"plain K=2 {row['plain K=2'] * 1e3:.2f} us" if "plain" in row else "")
         say(f"[3k kstep] {size}x{size} time per step ({n} steps): {ks}; step run loop "
             f"{s_ms * 1e3:.2f} us ({size * size / s_ms / 1e6:.3f} GLUPS){plain} | {card}")
+        if size in KSTEP_BEFORE_US:
+            k = kstep_kernel.best_k(size, size)
+            step_us, launch_us = KSTEP_BEFORE_US[size]
+            say(f"[3k kstep] {size}x{size} K={k}: {row[k] * 1e3:.2f} us a step, "
+                f"{row[k] * k * 1e3:.2f} us a launch; before this design {step_us:.2f} us "
+                f"a step, {launch_us:.2f} us a launch ({row[k] * 1e3 / step_us - 1:+.1%}) "
+                f"| {card}")
     return times
 
 

@@ -39,6 +39,7 @@ sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
+from advanced_hpc_lbm_tpu_torch.ops import kstep_kernel  # noqa: E402
 from advanced_hpc_lbm_tpu_torch.utils import native, profiling  # noqa: E402
 from portbench import harness, inputs, trace  # noqa: E402
 from portbench.run import card_report  # noqa: E402
@@ -86,6 +87,14 @@ def idle_by_span(events: list[dict]) -> dict[str, float]:
     for t0, t1, _ in (s for s in notes if s[2] == trace.PHASE):
         out.update(profiling.idle_by_span(trace.gaps(device, t0, t1), program))
     return {k: v * 1e-6 for k, v in out.items()}
+
+
+def bulk_share(loops) -> float | None:
+    """Of the K-step kernel's tiles in the loops, the share its bulk
+    tensor copy fed (None where no loop ran the kernel)."""
+    bulk = sum(s.attrs.get("tiles_bulk", 0) for s in loops)
+    total = bulk + sum(s.attrs.get("tiles_wrap", 0) for s in loops)
+    return bulk / total if total else None
 
 
 def readings(rec: profiling.Recorder, traces: list[str], deck) -> dict:
@@ -143,10 +152,14 @@ def readings(rec: profiling.Recorder, traces: list[str], deck) -> dict:
         "io.av_vels_write_s": total("lbm.io.av_vels", "write_ns", 1e-9),
         "io.av_vels_bytes": total("lbm.io.av_vels", "bytes"),
         "ops.launches": per_solve("lbm.ops.loop", lambda s: s.attrs["launches"]),
+        "ops.tiles_bulk_share": bulk_share(spans("lbm.ops.loop")),
         "setup.libraries_s": sum(s.seconds for s in setup),
         "setup.libraries": {s.name: [s.seconds, s.attrs] for s in setup},
         "cells": deck.nx * deck.ny,
     }
+    k = kstep_kernel.best_k(deck.ny, deck.nx)
+    out["ops.tiles_bulk_rule"] = (kstep_kernel.bulk_tiles(deck.ny, deck.nx, k)
+                                  / kstep_kernel.num_tiles(deck.ny, deck.nx))
     window_s = busy_s = 0.0
     idle: dict[str, float] = collections.Counter()
     for path in traces:
@@ -185,6 +198,8 @@ def checks(r: dict, counted: float) -> dict:
         "to_host_and_reynolds_within_collate": r["model.to_host_s"] + r["model.reynolds_s"]
         <= r["model.collate_s"],
     }
+    if r["ops.tiles_bulk_share"] is not None:
+        out["tiles_bulk_share_is_the_rule"] = r["ops.tiles_bulk_share"] == r["ops.tiles_bulk_rule"]
     if r["io.codec_parallelism"] is not None:
         out["codec_parallelism_within_threads"] = (r["io.codec_parallelism"]
                                                    <= native.default_threads())

@@ -155,7 +155,7 @@ def test_jax_snapshot_resumes_like_jax(tmp_path):
 @pytest.mark.parametrize("backend,every,kw", [
     ("step", 7, {}),
     ("resident", 7, {}),
-    ("pallask", 7, {}),  # K = best_k(16, 32) = 5: every segment has a tail
+    ("pallask", 7, {}),  # K = best_k(16, 32) = 4: every segment has a tail
     ("pallas2", 7, {}),
     ("stream", 10, {}),  # 1 pass and a 2-step tail per segment
     ("fused", 7, {}),

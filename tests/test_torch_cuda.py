@@ -367,14 +367,14 @@ def test_stream_pipeline_in_place_matches_step_on_card(ny, nx):
 
 @pytest.mark.parametrize("backend,counts", [
     ("resident", (0, 1, 0)), ("pallas2", (1, 0, 12)), ("pallas", (25, 0, 0)),
-    ("pallask", (0, 0, 5)),
+    ("pallask", (1, 0, 6)),
 ])
 def test_simulation_launch_counts(backend, counts):
     """Exact launches per kernel module for a 25-step run: (step,
     resident in either form, K-step); warmup launches nothing.  pallask
-    runs at best_k(48, 80) = 5: 5 passes and no tail."""
+    runs at best_k(48, 80) = 4: 6 passes and a 1-step tail."""
     params, mask_np, _ = make_case(48, 80, seed=5)
-    assert kstep_kernel.best_k(48, 80) == 5
+    assert kstep_kernel.best_k(48, 80) == 4
     sim = Simulation(params, mask_np, backend=backend, device="cuda")
     sim.warmup()
     def counts_now():
@@ -471,7 +471,7 @@ def test_gate_refuses_a_grid_beyond_the_card_before_allocating():
     ("resident", (64, 64), 15),   # the banded form; segments of 15, 15, 10
     ("resident", (256, 512), 15),  # the cooperative form, 4 segments a band
     ("resident", (1024, 1024), 15),  # the cooperative form
-    ("pallask", (100, 130), 13),  # K = 5: 2 passes and a 3-step tail per segment
+    ("pallask", (100, 130), 13),  # K = 4: 3 passes and a 1-step tail per segment
     ("stream", (170, 1100), 16),  # 2 passes per segment, no tail
 ])
 def test_checkpointed_equals_straight_on_card(tmp_path, backend, shape, every):

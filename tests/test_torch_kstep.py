@@ -253,3 +253,50 @@ def test_kstep_rejects_bad_arguments(bad):
                                    (16384, 16384)])
 def test_best_k_is_a_built_k(ny, nx):
     assert kstep_kernel.best_k(ny, nx) in kstep_kernel.K_RANGE
+
+
+# ---- the kernel's feed and schedule (the Python restatement of its rules) ----------
+
+@pytest.mark.parametrize("k", list(kstep_kernel.K_RANGE))
+@pytest.mark.parametrize("ny,nx", [(17, 23), (100, 130), (5, 3), (1024, 1024), (4096, 4096)])
+def test_schedule_feeds_every_tile_once_and_evenly(ny, nx, k):
+    """Every tile of a pass is taken by exactly one team and fed by exactly
+    one of the bulk and wrap paths; no team takes more than one tile above
+    the mean; 1860 bulk tiles a pass at 1024^2, none at 17x23."""
+    tiles = kstep_kernel.num_tiles(ny, nx)
+    teams = kstep_kernel.schedule(ny, nx, k, sms=132)
+    taken = sorted(t for team in teams for t in team)
+    assert taken == list(range(tiles))
+    assert len(teams) == min(tiles, 132) * kstep_kernel.teams(k)
+    mean = tiles / len(teams)
+    assert max(len(team) for team in teams) < mean + 1
+    bulk = kstep_kernel.bulk_tiles(ny, nx, k)
+    a = -(-k // 4) * 4
+    tx = -(-nx // kstep_kernel.TILE_X)
+    fed_bulk = [t for t in range(tiles)
+                if nx % 4 == 0
+                and 0 <= t // tx * kstep_kernel.TILE_Y - k
+                and t // tx * kstep_kernel.TILE_Y + kstep_kernel.TILE_Y + k <= ny
+                and 0 <= t % tx * kstep_kernel.TILE_X - a
+                and t % tx * kstep_kernel.TILE_X + kstep_kernel.TILE_X + a <= nx]
+    assert bulk == len(fed_bulk) and 0 <= bulk <= tiles
+    want = {(1024, 1024): 1860, (4096, 4096): 32004}.get((ny, nx), 0)
+    assert bulk == want
+
+
+def test_run_sets_the_feed_on_its_loop_span():
+    """run() on the CPU puts the tiles of its passes by feed on the
+    lbm.ops.loop span: the rule's bulk and wrap counts times the passes."""
+    from advanced_hpc_lbm_tpu_torch.utils import profiling
+
+    k, passes = 3, 2
+    for ny, nx in ((17, 23), (48, 96)):
+        jp, mask, f0 = make_case(ny, nx, seed=8)
+        with profiling.recording() as rec:
+            port_run(jp, mask, f0, passes * k + 1, k)
+        loop = [s for s in rec.named("lbm.ops.loop") if "tiles_bulk" in s.attrs]
+        assert len(loop) == 1
+        bulk = kstep_kernel.bulk_tiles(ny, nx, k)
+        assert loop[0].attrs == {"launches": 0, "tiles_bulk": passes * bulk,
+                                 "tiles_wrap": passes * (kstep_kernel.num_tiles(ny, nx) - bulk)}
+    assert kstep_kernel.bulk_tiles(48, 96, 3) == 1  # the middle tile of 3 x 3

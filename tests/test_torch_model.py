@@ -152,7 +152,7 @@ def test_auto_rule(ny, nx):
                        density=0.1, accel=0.005, omega=1.85)
     sim = Simulation(params, np.zeros((ny, nx), dtype=bool), device="cpu")
     assert sim.backend == "pallask"
-    assert sim._k() == (5 if ny * nx <= 512 * 512 else 3 if ny * nx <= 4096 * 4096 else 4)
+    assert sim._k() == (4 if ny * nx <= 256 * 256 else 3 if ny * nx <= 8192 * 8192 else 4)
 
 
 def test_auto_takes_the_banded_resident_form(monkeypatch):

@@ -234,7 +234,7 @@ def test_a_deck_run_records_every_layer(backend, loops, monkeypatch, tmp_path):
     assert EVERY <= {s.name for s in rec.spans}
     assert math.isfinite(re)
     names = [s.name for s in rec.spans]
-    # 13 steps: K = 5 (pallask) and 8 (stream) leave a tail on the step kernel
+    # 13 steps: K = 4 (pallask) and 8 (stream) leave a tail on the step kernel
     assert names.count("lbm.ops.loop") == loops
     launched = _counters() - before
     assert launched > 0
