@@ -352,7 +352,8 @@ def resident_run(
     :func:`step_kernel.buffers`).
 
     Returns (f_final, av_vels[(n_iters,)]) on ``f0``'s device, like the
-    JAX ``resident_run``.
+    JAX ``resident_run``.  The ``lbm.ops.loop`` span carries the form the
+    grid runs in (:func:`form_of`), its bands and its ``nx`` and ``ny``.
     """
     iters = params.max_iters if n_iters is None else n_iters
     mask = obstacles if obstacles.dtype == torch.uint8 else prepare_obstacles(obstacles)
@@ -365,7 +366,8 @@ def resident_run(
     av = torch.empty(iters, dtype=torch.float32, device=f0.device)
     step_kernel._validate(bufs[0], mask, bufs[1], partials)
 
-    with (profiling.span("lbm.ops.loop") as sp,
+    form = form_of(ny, nx, f0.device)
+    with (profiling.span("lbm.ops.loop", form=form, bands=num_bands(ny), nx=nx, ny=ny) as sp,
           torch.cuda.device(f0.device) if f0.is_cuda else contextlib.nullcontext()):
         before = launches + banded_launches
         run_chunk = _chunk_launcher(bufs[0], mask, params)

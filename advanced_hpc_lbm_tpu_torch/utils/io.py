@@ -11,7 +11,8 @@ quirks:
 * obstacle cells are written with u = 0 and pressure = density * c_s^2;
 * the final column of ``final_state.dat`` prints ``obstacles[ii*nx + jj]``,
   a *transposed* flat index: for square grids the transpose of the mask, for
-  nx != ny a different in-bounds cell.  It is reproduced bit for bit behind
+  nx != ny another cell, the last one where the index runs past the grid
+  (:func:`quirk_clipped_lines`).  It is reproduced bit for bit behind
   ``emulate_obstacle_column_quirk=True`` (the default); the checker never
   reads that column.
 """
@@ -113,6 +114,17 @@ def _quirk_obstacle_column(obstacles: np.ndarray) -> np.ndarray:
     return flat[idx]
 
 
+def quirk_clipped_lines(ny: int, nx: int) -> int:
+    """Lines of an (ny, nx) ``final_state.dat`` whose transposed index
+    ``ii*nx + jj`` runs past the grid's last cell and is clipped to it.  In
+    closed form: every line of a column ii >= ny does (``ii*nx >= ny*nx``);
+    no line of a column ii < ny does, its largest index ``ii*nx + ny-1``
+    being under ``ny*nx`` where ny <= nx (ii <= ny-1 < nx) and where ny > nx
+    (ii <= nx-1 and ``nx*nx - nx + ny-1 < nx*ny``).  So ny lines in each of
+    the nx - ny columns past ny, none where nx <= ny."""
+    return max(0, nx - ny) * ny
+
+
 def final_state_planes(
     f: np.ndarray,
     obstacles: np.ndarray,
@@ -177,10 +189,13 @@ def write_final_state(
     The C codec formats on ``threads`` threads (default: the cores this
     process may run on); the bytes are the same for every count, and the
     same on the pure-Python path, which ignores it.  The file's write is
-    the ``lbm.io.final_state`` span, with the codec's counts."""
+    the ``lbm.io.final_state`` span, with the codec's counts and
+    ``quirk_clipped`` (:func:`quirk_clipped_lines`; 0 without the quirk)."""
+    ny, nx = np.shape(obstacles)
+    clipped = quirk_clipped_lines(ny, nx) if emulate_obstacle_column_quirk else 0
     if native.available():
         planes = final_state_planes(f, obstacles, params)
-        with profiling.span("lbm.io.final_state") as sp:
+        with profiling.span("lbm.io.final_state", quirk_clipped=clipped) as sp:
             sp.set(**native.write_final_state(path, planes, obstacles,
                                               quirk=emulate_obstacle_column_quirk,
                                               threads=threads))
@@ -191,7 +206,8 @@ def write_final_state(
         params,
         emulate_obstacle_column_quirk=emulate_obstacle_column_quirk,
     )
-    with profiling.span("lbm.io.final_state"), open(path, "w") as fh:
+    with (profiling.span("lbm.io.final_state", quirk_clipped=clipped),
+          open(path, "w") as fh):
         for (ii, jj), (ux, uy, u, p), ob in zip(
             coords.tolist(), fields.tolist(), obs_col.tolist()
         ):

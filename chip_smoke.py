@@ -59,17 +59,22 @@ non-zero and prints no result:
              positive av history, mass conserved, GLUPS of the run and of
              the kernel alone; final_state.dat written by the port's
              codec, timed
-  5r. reference  the reference's own decks that the repo holds goldens
-             of, decks/reference_256x256 (80 000 steps, auto: the banded
-             resident kernel, 80 chunks) and decks/reference_1024x1024
+  5r. reference  the reference's own decks that the repo holds,
+             decks/reference_256x256 (80 000 steps, auto: the banded
+             resident kernel, 80 chunks), decks/reference_1024x1024
              (20 000 steps, auto: pallask K = 3 with a 2-step tail, and
-             resident: the cooperative form), through the CLI: exact
-             launches, the ==done== block, the port's codec, auto's
-             final_state.dat against goldens/<deck>.final_state.dat.xz at
-             1% (the reference checker's final-state half; resident's file
-             equal to auto's by sha256), the Reynolds number within 1% of
-             the reference README's, mass drift <= 5e-9 a step (phase 5's
-             1e-4 over 20 000 steps), auto's and resident's av within
+             resident: the cooperative form) and decks/reference_128x256
+             (40 000 steps, auto and resident: the banded form, 32 bands,
+             fluid across the periodic y-wrap), through the CLI: exact
+             launches, the spans' backend, resident form, bands, nx, ny
+             and quirk_clipped, the ==done== block, the port's codec,
+             auto's final_state.dat against goldens/<deck>.final_state.dat.xz
+             at 1% where the repo has it (the reference checker's
+             final-state half; resident's file equal to auto's by sha256),
+             the Reynolds number within 1% of the reference README's (and
+             at 128x256, which has no golden, within 0.3% of the float64
+             reference's run from rest), mass drift <= 5e-9 a step (phase
+             5's 1e-4 over 20 000 steps), auto's and resident's av within
              rtol 1e-5; a row in PARITY.md's layout
   5m. mid    a 512x512 deck (64 bands in 2 segments each) for 2000
              steps through the CLI with resident and with pallas: exact
@@ -1240,11 +1245,17 @@ def phase_full(card: str, times: dict, keep: Path) -> dict:
     return {"f": res.f_final, "av": res.av_vels, "final_state": digests["auto"]}
 
 
-# the reference's decks whose final-state goldens the repo holds: (deck, the
-# reference README's Reynolds number, as scripts/validate_all.py has it,
-# backends run through the CLI)
-REFERENCE_DECKS = (("256x256", 10.051412, ("auto",)),
-                   ("1024x1024", 3.375851, ("auto", "resident")))
+# the reference's decks the repo holds: (deck, the reference README's
+# Reynolds number, as scripts/validate_all.py has it, the float64 plain
+# reference's from rest or None, backends run through the CLI, whether
+# goldens/ holds its final state).  128x256 has no golden: Re is its check,
+# within 1% of the README's and 0.3% of portbench/reference/lbm.py's run
+# from rest (decks/README.md)
+REFERENCE_DECKS = (("256x256", 10.051412, None, ("auto",), True),
+                   ("1024x1024", 3.375851, None, ("auto", "resident"), True),
+                   ("128x256", 37.150040, 37.18484, ("auto", "resident"), False))
+# Re's allowed gap from the float64 reference's run from rest
+RE_FLOAT64_OFF = 0.003
 # mass drift allowed per step: phase 5's 1e-4 over its 20 000 steps.  Near a
 # steady state each step rounds the same values the same way, so float32
 # drift grows with the steps: 1.231e-4 after the 256^2 deck's 80 000 on an
@@ -1271,14 +1282,47 @@ def read_golden(deck: str) -> np.ndarray:
     return check.read_final_state(path)
 
 
+def reference_spans(tag: str, rec, backend: str, ny: int, nx: int) -> dict:
+    """A recorded CLI run of ``--backend backend``: the backend it ran, its
+    resident loops' attributes and the final state's clipped lines, held to
+    the rules they come from (the backend auto resolves to,
+    ``resident.form_of`` and ``num_bands``, ``io.quirk_clipped_lines``)."""
+    from advanced_hpc_lbm_tpu_torch.models import d2q9_bgk
+    from advanced_hpc_lbm_tpu_torch.ops import resident
+    from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
+
+    (run,) = rec.named("lbm.model.run")
+    ran = run.attrs["backend"]
+    out = {"backend": ran}
+    if backend == "auto":
+        want = "resident" if resident.takes_banded(ny, nx, "cuda") else d2q9_bgk.AUTO_BACKEND
+        if ran != want:
+            fail(f"{tag} lbm.model.run ran {ran}, auto's rule says {want}")
+    loops = [sp.attrs for sp in rec.named("lbm.ops.loop")]
+    if ran == "resident":
+        want = {"form": resident.form_of(ny, nx, "cuda"), "bands": resident.num_bands(ny),
+                "nx": nx, "ny": ny}
+        got = [{k: a.get(k) for k in want} for a in loops]
+        if got != [want]:
+            fail(f"{tag} lbm.ops.loop carries {got}, expected [{want}]")
+        out["loop"] = want
+    (fs,) = rec.named("lbm.io.final_state")
+    out["quirk_clipped"] = fs.attrs.get("quirk_clipped")
+    if out["quirk_clipped"] != lbm_io.quirk_clipped_lines(ny, nx):
+        fail(f"{tag} lbm.io.final_state quirk_clipped {out['quirk_clipped']}, the rule says "
+             f"{lbm_io.quirk_clipped_lines(ny, nx)}")
+    return out
+
+
 def phase_reference(card: str) -> None:
-    """The reference's 256^2 and 1024^2 decks through the CLI, held to
-    their goldens (final state at 1%, Reynolds number within 1%)."""
-    from advanced_hpc_lbm_tpu_torch.utils import check
+    """The reference's 256^2, 1024^2 and 128x256 decks through the CLI,
+    held to their goldens where the repo has them (final state at 1%) and
+    to the reference's Reynolds numbers (within 1%)."""
+    from advanced_hpc_lbm_tpu_torch.utils import check, profiling
     from advanced_hpc_lbm_tpu_torch.utils import io as lbm_io
 
     rows = []
-    for deck, want_re, backends in REFERENCE_DECKS:
+    for deck, want_re, float64_re, backends, has_golden in REFERENCE_DECKS:
         params_f = ROOT / "decks" / f"reference_{deck}.params"
         obst_f = ROOT / "decks" / f"reference_{deck}.obstacles.dat"
         params = lbm_io.load_params(params_f)
@@ -1288,7 +1332,7 @@ def phase_reference(card: str) -> None:
         with tempfile.TemporaryDirectory() as tmp:
             for backend in backends:
                 tag = f"[5r reference] {deck} --backend {backend}:"
-                with final_state_writes() as writes:
+                with final_state_writes() as writes, profiling.recording() as rec:
                     rc, lines, n = run_cli([str(params_f), str(obst_f), "--backend", backend,
                                             "--out-dir", tmp])
                 if rc != 0:
@@ -1298,6 +1342,7 @@ def phase_reference(card: str) -> None:
                     fail(f"{tag} launches {n}, expected {want}")
                 block = check_block(lines, tag)
                 port_codec_check(tag, writes)
+                say(f"{tag} spans: {reference_spans(tag, rec, backend, ny, nx)} | {card}")
                 av = lbm_io.read_av_vels(Path(tmp) / "av_vels.dat")
                 if av.shape != (iters,) or not np.all(np.isfinite(av)) or not np.all(av > 0):
                     fail(f"{tag} av history is not finite and positive")
@@ -1311,8 +1356,19 @@ def phase_reference(card: str) -> None:
                 if re_off > 0.01:
                     fail(f"{tag} Reynolds number {block['reynolds']:.6E} is "
                          f"{100 * re_off:.4f}% off the reference's {want_re} (limit 1%)")
+                f64 = ""
+                if float64_re is not None:
+                    f64_off = abs(block["reynolds"] - float64_re) / float64_re
+                    f64 = (f", {100 * f64_off:.4f}% off the float64 reference's {float64_re} "
+                           f"(limit {100 * RE_FLOAT64_OFF}%)")
+                    if f64_off > RE_FLOAT64_OFF:
+                        fail(f"{tag} Reynolds number {block['reynolds']:.6E}{f64}")
                 digests[backend] = digest(Path(tmp) / "final_state.dat")
-                if backend == "auto":
+                if backend == "auto" and not has_golden:
+                    fs_pcnt = None
+                    rows.append(f"| {deck} | {block['reynolds']:.7g} | av: no golden | "
+                                f"final state: no golden | none (Re only) | PASS |")
+                elif backend == "auto":
                     golden = read_golden(deck)
                     table = check.read_final_state(Path(tmp) / "final_state.dat")
                     stats = check.check_final_state_only(golden, table)
@@ -1329,13 +1385,15 @@ def phase_reference(card: str) -> None:
                                 f"{fs_pcnt:.4f} | regen | PASS |")
                 elif digests[backend] != digests["auto"]:
                     fail(f"{tag} final_state.dat differs from auto's (sha256)")
+                fs_said = ("no golden" if fs_pcnt is None else
+                           f"max diff {fs_pcnt:.4f}% against goldens/{deck}")
                 say(f"{tag} {iters} steps: launches { {a: b for a, b in n.items() if b} }, "
                     f"Compute {block['compute']:.4f} s = "
-                    f"{iters * nx * ny / block['compute'] / 1e9:.3f} GLUPS, final state max "
-                    f"diff {fs_pcnt:.4f}% against goldens/{deck} "
+                    f"{iters * nx * ny / block['compute'] / 1e9:.3f} GLUPS, final state "
+                    f"{fs_said} "
                     f"({'this file' if backend == 'auto' else 'equal to auto by sha256'}; "
                     f"limit 1%), Reynolds {block['reynolds']:.6E}, {100 * re_off:.4f}% off the "
-                    f"reference's {want_re} (limit 1%), mass drift {drift:.3e} (limit "
+                    f"reference's {want_re} (limit 1%){f64}, mass drift {drift:.3e} (limit "
                     f"{DRIFT_PER_STEP * iters:.1e}) "
                     f"| {card}")
         if len(histories) > 1:

@@ -40,7 +40,7 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 from advanced_hpc_lbm_tpu_torch.ops import kstep_kernel  # noqa: E402
-from advanced_hpc_lbm_tpu_torch.utils import native, profiling  # noqa: E402
+from advanced_hpc_lbm_tpu_torch.utils import io, native, profiling  # noqa: E402
 from portbench import harness, inputs, trace  # noqa: E402
 from portbench.run import card_report  # noqa: E402
 
@@ -153,9 +153,15 @@ def readings(rec: profiling.Recorder, traces: list[str], deck) -> dict:
         "io.av_vels_bytes": total("lbm.io.av_vels", "bytes"),
         "ops.launches": per_solve("lbm.ops.loop", lambda s: s.attrs["launches"]),
         "ops.tiles_bulk_share": bulk_share(spans("lbm.ops.loop")),
+        # the resident path's loops: (form, bands, nx, ny) of each grid it ran
+        "ops.resident_grids": sorted({(s.attrs["form"], s.attrs["bands"], s.attrs["nx"],
+                                       s.attrs["ny"]) for s in spans("lbm.ops.loop")
+                                      if "form" in s.attrs}),
+        "io.quirk_clipped": total("lbm.io.final_state", "quirk_clipped"),
         "setup.libraries_s": sum(s.seconds for s in setup),
         "setup.libraries": {s.name: [s.seconds, s.attrs] for s in setup},
         "cells": deck.nx * deck.ny,
+        "grid": [deck.ny, deck.nx],
     }
     k = kstep_kernel.best_k(deck.ny, deck.nx)
     out["ops.tiles_bulk_rule"] = (kstep_kernel.bulk_tiles(deck.ny, deck.nx, k)
@@ -198,6 +204,9 @@ def checks(r: dict, counted: float) -> dict:
         "to_host_and_reynolds_within_collate": r["model.to_host_s"] + r["model.reynolds_s"]
         <= r["model.collate_s"],
     }
+    if r["io.final_state_bytes"]:
+        out["quirk_clipped_is_the_rule"] = r["io.quirk_clipped"] == io.quirk_clipped_lines(
+            *r["grid"])
     if r["ops.tiles_bulk_share"] is not None:
         out["tiles_bulk_share_is_the_rule"] = r["ops.tiles_bulk_share"] == r["ops.tiles_bulk_rule"]
     if r["io.codec_parallelism"] is not None:

@@ -5,10 +5,11 @@ the port's counterpart of ``scripts/validate_all.py``, with the same table
 and the same exit code (1 on any failure).  It imports nothing of the JAX
 package.
 
-Without ``--ref``: the two decks the repository holds,
-``decks/reference_256x256`` and ``decks/reference_1024x1024``, against
+Without ``--ref``: the three decks the repository holds,
+``decks/reference_256x256`` and ``decks/reference_1024x1024`` against
 ``goldens/<deck>.final_state.dat.xz`` (final state and Re; the av column
-says "no golden").  With ``--ref DIR``, a checkout of the reference solver
+says "no golden"), and ``decks/reference_128x256``, which has no golden,
+against Re alone.  With ``--ref DIR``, a checkout of the reference solver
 (``input_<deck>.params``, ``obstacles_<deck>.dat``,
 ``check/<deck>.av_vels.dat``, ``check/<deck>.final_state.dat``): its four
 decks, av history and final state, as the JAX script runs them; a
@@ -37,7 +38,7 @@ from advanced_hpc_lbm_tpu_torch import Simulation  # noqa: E402
 from advanced_hpc_lbm_tpu_torch.utils import check  # noqa: E402
 
 REF_DECKS = ["128x128", "128x256", "256x256", "1024x1024"]
-REPO_DECKS = ["256x256", "1024x1024"]
+REPO_DECKS = ["256x256", "1024x1024", "128x256"]
 # the reference README's Reynolds numbers (serial base build), as
 # scripts/validate_all.py has them
 EXPECTED_RE = {
@@ -49,12 +50,14 @@ EXPECTED_RE = {
 TOLERANCE = 1.0  # percent: the reference checker's
 
 
-def deck_files(deck: str, ref: str | None) -> tuple[Path, Path, Path | None, Path]:
-    """(params, obstacles, av golden or None, final-state golden) of a deck."""
+def deck_files(deck: str, ref: str | None) -> tuple[Path, Path, Path | None, Path | None]:
+    """(params, obstacles, av golden or None, final-state golden or None)
+    of a deck."""
     packed = ROOT / "goldens" / f"{deck}.final_state.dat.xz"
     if ref is None:
         base = ROOT / "decks" / f"reference_{deck}"
-        return Path(f"{base}.params"), Path(f"{base}.obstacles.dat"), None, packed
+        return (Path(f"{base}.params"), Path(f"{base}.obstacles.dat"), None,
+                packed if packed.exists() else None)
     ref_dir = Path(ref)
     mounted = ref_dir / "check" / f"{deck}.final_state.dat"
     return (ref_dir / f"input_{deck}.params", ref_dir / f"obstacles_{deck}.dat",
@@ -63,8 +66,9 @@ def deck_files(deck: str, ref: str | None) -> tuple[Path, Path, Path | None, Pat
 
 def validate(params_f, obst_f, fs_golden, av_golden, expected_re: float, *,
              backend: str = "auto", device: str = "cuda") -> dict:
-    """Run one deck and check it: the final state (and the av history where
-    ``av_golden`` is given) at 1%, Re within 1% of ``expected_re``."""
+    """Run one deck and check it: the final state where ``fs_golden`` is
+    given and the av history where ``av_golden`` is at 1%, Re within 1% of
+    ``expected_re``."""
     sim = Simulation.from_decks(params_f, obst_f, backend=backend, device=device)
     sim.warmup()
     tic = time.perf_counter()
@@ -72,15 +76,15 @@ def validate(params_f, obst_f, fs_golden, av_golden, expected_re: float, *,
     elapsed = time.perf_counter() - tic
     with tempfile.TemporaryDirectory() as td:
         fs, av = res.write(td)
-        fs_stats = check.check_final_state_only(fs_golden, fs)
+        fs_stats = check.check_final_state_only(fs_golden, fs) if fs_golden else None
         av_stats = check.check_av_vels_only(str(av_golden), av) if av_golden else None
     re_off = abs(res.reynolds - expected_re) / expected_re
-    ok = (fs_stats.passed(TOLERANCE) and (av_stats is None or av_stats.passed(TOLERANCE))
-          and re_off < TOLERANCE / 100)
+    ok = ((fs_stats is None or fs_stats.passed(TOLERANCE))
+          and (av_stats is None or av_stats.passed(TOLERANCE)) and re_off < TOLERANCE / 100)
     return {"backend": sim.backend, "compute_s": elapsed, "reynolds": res.reynolds,
             "re_off_pcnt": 100 * re_off,
             "av_pcnt": None if av_stats is None else abs(av_stats.max_diff_pcnt),
-            "fs_pcnt": abs(fs_stats.max_diff_pcnt), "ok": ok}
+            "fs_pcnt": None if fs_stats is None else abs(fs_stats.max_diff_pcnt), "ok": ok}
 
 
 def main(argv=None) -> int:
@@ -105,9 +109,11 @@ def main(argv=None) -> int:
                        backend=args.backend, device=args.device)
         failures += not row["ok"]
         av = "av: no golden" if row["av_pcnt"] is None else f"{row['av_pcnt']:.4f}"
-        source = "regen" if fs_golden.suffix == ".xz" else "upstream"
+        fs = "none" if row["fs_pcnt"] is None else f"{row['fs_pcnt']:.4f}"
+        source = ("none" if fs_golden is None else
+                  "regen" if fs_golden.suffix == ".xz" else "upstream")
         print(f"{deck:>10} {row['backend']:>9} {row['compute_s']:9.2f} "
-              f"{row['reynolds']:14.6E} {av:>13} {row['fs_pcnt']:9.4f} {source:>8} "
+              f"{row['reynolds']:14.6E} {av:>13} {fs:>9} {source:>8} "
               f"{'PASS' if row['ok'] else 'FAIL':>8}", flush=True)
     return 1 if failures else 0
 

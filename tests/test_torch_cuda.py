@@ -168,6 +168,33 @@ def test_banded_resident_matches_step_kernel_bitwise(ny, nx):
     assert int((fb != fc).sum()) == 0 and int((pb != pc).sum()) == 0
 
 
+def test_reference_128x256_deck_runs_banded_on_card():
+    """The reference's 128x256 deck (fluid across the periodic top/bottom
+    wrap) on ``auto``: the resident backend, one ``lbm.ops.loop`` span of
+    the banded form, 32 bands, nx 128 and ny 256; 1200 steps in two chunks
+    with 0 differing values against the step kernel, av within the file's
+    rtol 1e-5."""
+    import os
+
+    from advanced_hpc_lbm_tpu_torch.utils import profiling
+
+    base = os.path.join(os.path.dirname(__file__), "..", "decks", "reference_128x256")
+    sim = Simulation.from_decks(base + ".params", base + ".obstacles.dat", device="cuda")
+    assert sim.backend == "resident"
+    before = _resident_counts()
+    with profiling.recording() as rec:
+        res = sim.run(n_iters=1200)
+    assert _moved(before) == {"cooperative": 0, "banded": 2}
+    (run,) = rec.named("lbm.model.run")
+    assert run.attrs == {"backend": "resident"}
+    (loop,) = rec.named("lbm.ops.loop")
+    assert loop.attrs == {"form": "banded", "bands": 32, "nx": 128, "ny": 256, "launches": 2}
+    step = Simulation.from_decks(base + ".params", base + ".obstacles.dat", backend="step",
+                                 device="cuda").run(n_iters=1200)
+    assert int((res.f_final != step.f_final).sum()) == 0
+    np.testing.assert_allclose(res.av_vels, step.av_vels, rtol=1e-5)
+
+
 @pytest.mark.parametrize("ny,nx", [(256, 512), (512, 512), (1024, 1024), (2048, 512),
                                    (640, 1024), (672, 1024), (8, 4096)])
 def test_wide_grid_runs_the_cooperative_form(ny, nx):

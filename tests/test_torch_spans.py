@@ -323,6 +323,54 @@ def test_codec_writes_the_same_bytes_without_stats(tmp_path):
     assert ctypes.sizeof(native.FinalStateStats) == 6 * 8
 
 
+@pytest.mark.parametrize("ny,nx", [(256, 128), (128, 256), (13, 11), (11, 13), (7, 7),
+                                   (1, 9), (9, 1)])
+def test_quirk_clipped_lines_is_the_count(ny, nx):
+    """The closed form against the lines counted one by one."""
+    ii = np.tile(np.arange(nx), ny)
+    jj = np.repeat(np.arange(ny), nx)
+    assert io.quirk_clipped_lines(ny, nx) == int(np.count_nonzero(ii * nx + jj >= nx * ny))
+
+
+@pytest.mark.parametrize("codec", [True, False], ids=["codec", "python"])
+@pytest.mark.parametrize("ny,nx,clipped", [(256, 128, 0), (128, 256, 128 * 128)],
+                         ids=["128x256", "256x128"])
+def test_final_state_span_counts_the_clipped_lines(ny, nx, clipped, codec, monkeypatch,
+                                                   tmp_path):
+    """``lbm.io.final_state``'s ``quirk_clipped``: 0 on the reference's
+    128x256 deck, whose transposed read stays in the grid, the closed form's
+    (nx - ny) * ny at 256x128; 0 without the quirk; on the codec's path and
+    on the pure-Python one."""
+    if not codec:
+        monkeypatch.setattr(native, "available", lambda: False)
+    rng = np.random.default_rng(7)
+    params = LBMParams(nx=nx, ny=ny, max_iters=1, reynolds_dim=10, density=0.1,
+                       accel=0.005, omega=1.85)
+    f = (rng.random((9, ny, nx)) * 0.02 + 0.005).astype(np.float32)
+    mask = rng.random((ny, nx)) < 0.1
+    with profiling.recording() as rec:
+        io.write_final_state(tmp_path / "quirk.dat", f, mask, params)
+        io.write_final_state(tmp_path / "plain.dat", f, mask, params,
+                             emulate_obstacle_column_quirk=False)
+    quirk, plain = rec.named("lbm.io.final_state")
+    assert quirk.attrs["quirk_clipped"] == clipped == io.quirk_clipped_lines(ny, nx)
+    assert plain.attrs["quirk_clipped"] == 0
+    assert ("bytes" in quirk.attrs) == codec
+
+
+def test_the_resident_loop_names_its_form_and_grid():
+    """The resident path's ``lbm.ops.loop`` on the reference's 128x256 deck:
+    the plain form off CUDA, 32 bands of 8 rows, nx and ny."""
+    decks = os.path.join(ROOT, "decks", "reference_128x256")
+    sim = Simulation.from_decks(decks + ".params", decks + ".obstacles.dat",
+                                backend="resident", device="cpu")
+    with profiling.recording() as rec:
+        sim.run(n_iters=3)
+    (loop,) = rec.named("lbm.ops.loop")
+    assert loop.attrs == {"form": "plain", "bands": 32, "nx": 128, "ny": 256, "launches": 0}
+    assert resident.num_bands(256) == 32
+
+
 # ---- the CLI's phases -------------------------------------------------------------
 
 def test_phase_timers_use_the_monotonic_clock(monkeypatch):
