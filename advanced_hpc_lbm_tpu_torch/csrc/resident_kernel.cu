@@ -1,7 +1,7 @@
 // A whole chunk of D2Q9-BGK timesteps in one launch, for NVIDIA Hopper
-// (sm_90a), in two forms: a banded kernel for grids whose bands fit in
-// shared memory, and a cooperative kernel of K steps per round for every
-// other grid.
+// (sm_90a), in two forms: a banded kernel of D steps per round for grids
+// whose bands are all co-resident in shared memory (the small decks), and
+// a cooperative kernel of K steps per round for every other grid.
 //
 // Replaces: advanced_hpc_lbm_tpu/ops/resident.py `_chunk_kernel` (the
 // whole-run Pallas kernel behind the `resident` backend).  On the TPU one
@@ -17,77 +17,115 @@
 // shape, decided by the wrapper before the launch (ops/resident.py:
 // form_of, with lbm_resident_banded_fits' rule).
 //
-// The banded form (resident_banded_kernel), for the small decks:
+// The banded form (resident_banded_kernel<D, SW>), for the small decks:
 // * Band b is the step kernel's tile row b: grid rows 8b .. 8b+7, the last
 //   band ragged when ny % 8 != 0.  A band is cut into segments of whole
-//   tiles (at most 2, 64 columns; the last segment ragged), as many as
+//   tiles (SW = 32 or 64 columns; the last segment ragged), as many as
 //   give each SM one block where the grid leaves SMs to spare.  One block
-//   per (band, segment), one thread per cell.  The grid is a cooperative
-//   launch of exactly bands x segments blocks, which guarantees that every
-//   block is resident, as the spin-waits below need.  There is no
-//   grid-wide barrier.
-// * A block keeps its cells in shared memory for the whole chunk: two
-//   ping-pong copies of their 9 planes, each with a ring of ghost cells
-//   (the rows above and below, the columns left and right, the corners),
-//   and the mask of the same cells.  The cells are read from `a` once at
-//   chunk start and written back once at chunk end, to `a` for an even
-//   n_steps, else to `b`, as the other forms leave them.
-// * A step of a block needs only its ghost ring, the edge cells of its up
-//   to 8 neighbouring blocks (periodic wrap; with one band or one segment
-//   a block is its own neighbour).  Each edge cell's new values go out to
-//   an outbox in device memory as 64-bit words: the float's bits and,
-//   above them, the step they belong to plus one, stored as one volatile
-//   access so that a value and its step arrive together.  The outbox has
-//   two slots, by step parity: the rows [bands][top, bottom][9][nx] and
-//   the columns [bands][segments][left, right][9][8].  Nothing else is a
-//   flag: the step beside a value is its own flag.  Step t of a block:
-//     1. load its ghost values of state t from slot t % 2 (every thread up
-//        to 3 of them, all in flight at once);
-//     2. meanwhile step its inner cells, which need nothing of the
-//        neighbours, into the other copy, and take step t-1's tile sums;
-//     3. poll each loaded value until it is marked t+1, and put it into
-//        the ghost ring; a block barrier;
-//     4. step its edge cells, and send their values of state t+1 to slot
-//        (t+1) % 2, marked t+2; a block barrier, which also ends the
-//        step's reads of the copy that the next step overwrites.
-//   At chunk start each block reads only its own cells of `a` and sends
-//   state 0 into slot 0, marked 1; the wrapper resets the outbox to 0 (no
-//   step) before every launch, on the launch's stream.
-// * Write after read: a block overwrites an edge value in slot (t+1) % 2
-//   at step t, after its barrier of step 3.  The readers of the state t-1
-//   value it replaces are the neighbouring blocks' gathers of step t-1.
-//   The stencil is symmetric: every block that reads this block's edges
-//   owns cells of its ghost ring, and this block has read, before that
-//   barrier, values of each of them marked t+1, which that block sent
-//   after its own step-3 barrier of step t-1, after all its gathers of
-//   step t-1.  So no block runs more than one step ahead of a neighbour.
-//   Read after write: a value is used only once it is marked with its
-//   step.  A poll that exceeds kMaxPolls traps, so that a fault ends the
-//   run with an error instead of a hang.  Outbox accesses are volatile
-//   64-bit loads and stores, served by L2, never by L1 (the same slot is
-//   re-read every second step and L1 is not coherent across SMs).
+//   of 512 threads per (band, segment).  The grid is a cooperative launch
+//   of exactly bands x segments blocks, which guarantees that every block
+//   is resident, as the spin-waits below need.  There is no grid-wide
+//   barrier.
+// * Rounds of D steps (temporal blocking).  A block keeps its cells in
+//   shared memory for the whole chunk, with a ring of ghost cells D deep
+//   (D rows above and below, D columns either side, the corners): two
+//   ping-pong copies of their 9 planes, and the mask of the same cells.
+//   The cells are read from `a` once at chunk start and written back once
+//   at chunk end, to `a` for an even n_steps, else to `b`, as the other
+//   forms leave them.  D is a rule on the shape: band_depth of the
+//   segment width that banded_geometry picks, 4 for blocks of 32 columns,
+//   2 for blocks of 64; those two kernels are built.  Round r, from state
+//   t = rD:
+//     1. take round r-2's tile sums (below); gather the ring of state t
+//        from the outbox slot r % 2: every thread's values (up to
+//        band_gather, 12 at D = 4 and 64 columns) loaded at once, each
+//        value marked t+1 put into the copy, the others loaded again, all
+//        at once, until every one is; a block barrier;
+//     2. D steps that need nothing from outside the block: step s computes
+//        the rectangle D-1-s cells beyond the own cells (the trapezoid;
+//        the ring's cells are stepped and discarded, their ||u|| never
+//        summed), from one copy into the other, each thread's cells (up to
+//        two) computed into registers first; a block barrier between two
+//        steps;
+//     3. the last step sends the own cells within D of the block's edge,
+//        state t+D, to slot (r+1) % 2, marked t+D+1, straight from the
+//        registers; the next round's gather follows with no barrier (it
+//        writes the ring of the copy the last step wrote only the own
+//        cells of, and the last step read the other copy).
+//   The last round of a launch runs n mod D steps (the trapezoid's last
+//   ones) and sends nothing.  At chunk start each block reads only its own
+//   cells of `a` and sends state 0 into slot 0, marked 1; the wrapper
+//   resets the outbox to 0 (no step) before every launch, on the launch's
+//   stream.  Within a round there is no L2 round trip, no second pass
+//   over the edge cells and no second barrier a step.
+// * The outbox: 64-bit words, the float's bits and above them the step
+//   they belong to plus one, stored and loaded as one volatile access so
+//   that a value and its step arrive together; nothing else is a flag.
+//   Two slots, by round parity: the edge rows [bands][2D][9][nx] (each
+//   band's first D rows, then its last D) and the edge columns
+//   [bands][segments][2D][9][8] (each block's first D columns, then its
+//   last D).  A row l of a band h rows long is stored as edge row l if l <
+//   D and as edge row 2D - h + l if l >= h - D (both where h < 2D); a
+//   reader takes row l from the first D if l < D, else from the last D
+//   (edge_index): a ring row D or fewer rows beyond a band lies within D of
+//   its owner band's edge on the reader's side, so the writer stored it
+//   there.  The same holds for columns.  So the ring comes from the right
+//   cells wherever it reaches: each ring cell is read from the band and
+//   segment that own it, by its wrapped grid row and column, even where a
+//   ragged band or segment is narrower than D (the ring then spans two
+//   bands or segments), where a grid has one band or one segment (a block
+//   is its own neighbour, and reads back what it sent), and across the
+//   periodic wrap.  D is not bounded by the shortest band.
+// * Write after read: a block overwrites the words of slot (r+1) % 2 in
+//   round r's last step.  They held state t-D, which its neighbours read
+//   in their gathers of round r-1.  Being within D cells is symmetric
+//   (Chebyshev distance on the torus): every block that reads this block's
+//   cells owns cells of this block's ring, and this block has read, in its
+//   gather of round r, values of each of them marked t+1, which that block
+//   sent in the last step of its round r-1, after its gather of round r-1.
+//   So no block runs more than one round ahead of a neighbour.  Read after
+//   write: a value is used only once it is marked with its step.  A poll
+//   that exceeds kMaxPolls traps, so that a fault ends the run with an
+//   error instead of a hang.  Outbox accesses are volatile 64-bit loads
+//   and stores, served by L2, never by L1 (the same slot is re-read every
+//   second round and L1 is not coherent across SMs).
 // * ||u|| partials: block_sum's tree over a 32x8 tile (strides 128, 64,
 //   32, then 16 .. 1) is, per column, ((r0+r4)+(r2+r6)) + ((r1+r5)+(r3+r7))
 //   over its 8 rows, then __shfl_down_sync by 16, 8, 4, 2, 1 across the
-//   warp.  Each thread puts its cell's ||u|| (0 off the grid) into shared
-//   memory before the step's last barrier; row 0 adds the column in that
-//   order and warp w's lane 0 holds tile (b, w)'s partial bit for bit.
-// * Which grids: the rule is the band with its two ghost rows, two
-//   ping-pong copies of its 9 planes and its mask rows, 2*9*10*nx*4 +
-//   10*nx bytes, fitting the card's opt-in shared memory (nx <= 318 at
-//   232 448 B), and ceil(ny/8) bands co-resident (the kernel's occupancy x
-//   SMs, over the segments a band needs at least): the reference's 128^2,
+//   warp.  Each step puts each own cell's ||u|| (0 off the grid) into one
+//   of two rounds' buffers in shared memory; in the next round but one a
+//   warp per (step, tile) adds the column in that order, and its lane 0
+//   holds the tile's partial bit for bit.
+// * Which grids: nx <= 320, a block of the widest segment fitting the
+//   card's opt-in shared memory at its D (92 336 B at 64 columns and D =
+//   2; 83 584 B at 32 and D = 4), and ceil(ny/8) bands co-resident (the
+//   kernel's occupancy x SMs, over the segments a band needs at least):
+//   the reference's 128^2,
 //   128x256 and 256^2 decks and the 64^2 mini deck, not 512^2 or 1024^2.
-//   A block itself needs less (at most 64 columns of the band).
-// * What bounds it: not the cells (at most 512 a block) and not the wait
-//   for the neighbours.  It runs 2.72 / 2.69 / 2.97 us per step at 64^2 /
-//   128^2 / 256^2 against the cooperative form's 4.53 / 4.94 / 3.69
-//   (chip_smoke.py 3r, H100 80GB HBM3, 700 W).  Without the wait for the
-//   neighbours' values it ran 2.60 / 2.53 / 2.96, with the cell step
-//   replaced by a copy 1.80 / 2.25 / 2.15 (scripts/
-//   torch_resident_variants.py): about 2 us of a step is its skeleton
-//   (the gather's round trip through L2, two block barriers, the tile
-//   sums) and about 0.7 us the cell step's latency.
+//   The shared memory no longer bounds nx (the one-step form's rule, the
+//   whole band's copies, stopped at 318 columns): 64 rows of 320 columns
+//   are taken now, and the widest grid of 256 rows is still 256 columns
+//   wide (5 segments a band above that, too many blocks).
+// * The depth, and what bounds a step (scripts/torch_resident_variants.py,
+//   H100 80GB HBM3, 700 W; us per step at 64^2 / 128^2 / 256x128 / 256^2,
+//   ny x nx).  D = 1: 1.77 / 1.78 / 1.76 / 2.05; D = 2: 1.40 / 1.39 / 1.38
+//   / 1.74; D = 3: 1.33 / 1.34 / 1.34 / 1.76; D = 4: 1.33 / 1.33 / 1.35 /
+//   1.91; D = 5 and 6 were slower everywhere (1.44-1.48 and 1.57-1.58 on
+//   the three grids of 32-column blocks, 2.87 and 3.49 at 256^2; 128
+//   registers with spills).  The one-step form ran 2.81 / 2.76 / 2.94 /
+//   3.06 in the same call.  So D = 4 for blocks of 32 columns, and D = 2
+//   for blocks of 64, whose 512 threads pass twice over the ring's
+//   rectangle at every step but the last (band_depth; the script's
+//   depth_<d> variants build every block at another D).  At the rule's D the
+//   wait for the neighbours costs nothing measurable (without it, 1.45 /
+//   1.42 / 1.40 / 1.90); with the cell step replaced by a copy a step
+//   takes 0.70 / 0.70 / 0.79 / 1.15: about 0.6 us of a step is the cell
+//   steps, the rest the round's skeleton (a barrier a step, the gather,
+//   the sends and the tile sums, a quarter or a half of each a step).
+//   Polling the missing values one at a time, as the one-step form did,
+//   cost 0.6-2 us a step more; segments of 64 columns at 128 columns wide
+//   (64 blocks) 0.4 us more; the ring's loads before the tile sums, or
+//   relaxed atomics in place of volatile accesses, as fast.
 // * History: with one thread per column stepping all 8 rows of a band,
 //   the state in device memory and one int flag per band (stored after a
 //   fence, polled by one thread while the block waited), it ran 14.94 /
@@ -97,10 +135,15 @@
 //   only the edge rows waiting, 2.59 / 3.12 / 5.51 (one block per band
 //   left 100 SMs idle at 256^2); cut into segments with a flag per block,
 //   6.75 / 6.77 / 5.50: a corner cell waited on four flags one after
-//   another (H100 80GB HBM3, 700 W).
+//   another.  The one-step form (a ring one cell deep, exchanged every
+//   step: the inner cells stepped while the ghost loads flew, then the
+//   edge cells in a second pass, two block barriers a step) ran 2.72 /
+//   2.69 / 2.97 us per step at 64^2 / 128^2 / 256^2; without the wait for
+//   the neighbours' values 2.60 / 2.53 / 2.96, with the cell step replaced
+//   by a copy 1.80 / 2.25 / 2.15 (H100 80GB HBM3, 700 W).
 
 // The cooperative form (resident_kernel<K>), for every grid the banded
-// form does not take (512^2 and up, and any grid wider than 318 columns):
+// form does not take (512^2 and up, and any grid wider than 320 columns):
 // * Tiles and blocks.  A band is the step kernel's tile row (8 rows, the
 //   last one ragged), cut into windows of 128 columns (the last one
 //   ragged).  A tile is a segment of a band: seg_windows consecutive
@@ -204,17 +247,13 @@ namespace {
 // ---- the banded form ------------------------------------------------------
 
 constexpr int kBandRows = lbm::kTileY;  // a band is one tile row
-constexpr int kRows = kBandRows + 2;    // a block's rows with its two ghost rows
 constexpr int kSpeeds = 9;
-// Shared memory is the rule's bound on nx (318 at the card's 232 448 B).
+// The widest grid the banded form takes.
 constexpr int kMaxBandCols = 320;
-// A block steps one cell per thread: at most 2 tiles (64 columns) of a
-// band, 512 threads of up to 128 registers.
+// A block owns a segment of at most 2 tiles (64 columns) of a band and
+// steps it, and its ring, with 512 threads of up to 128 registers.
 constexpr int kMaxSegTiles = 2;
-constexpr int kMaxBandThreads = kMaxSegTiles * lbm::kTileX * kBandRows;
-// Ghost values a thread gathers per step, at most: 9 x (2 (seg_w + 2) + 2 x
-// 8) values over 8 seg_w threads is at most 3 for seg_w >= 30.
-constexpr int kGather = 3;
+constexpr int kBandThreads = kMaxSegTiles * lbm::kTileX * kBandRows;
 constexpr int kMaxPolls = 1 << 24;  // ~seconds of polling: a fault, not a wait
 
 // An outbox word: a float's bits, and above them the step it belongs to
@@ -235,32 +274,71 @@ constexpr int min_segments(int nx) {
   return (num_tiles_x(nx) + kMaxSegTiles - 1) / kMaxSegTiles;
 }
 
-// The rule's bytes of one band in shared memory: two ping-pong copies of
-// its 9 planes over its rows and two ghost rows, and its mask rows.
-constexpr size_t band_smem_bytes(int nx) {
-  return 2 * 9 * kRows * static_cast<size_t>(nx) * sizeof(float) +
-         kRows * static_cast<size_t>(nx);
+// The widest segment of a band nx wide: a block's columns at most.
+constexpr int widest_segment(int nx) {
+  return (num_tiles_x(nx) < kMaxSegTiles ? num_tiles_x(nx) : kMaxSegTiles) * lbm::kTileX;
 }
 
-// Dynamic shared memory of a block seg_w columns wide: its threads' ||u||
-// values, two copies of its cells' 9 planes with their ghost rows and
-// columns, and the mask of the same cells.
-constexpr size_t banded_launch_smem(int seg_w) {
-  return (kBandRows * static_cast<size_t>(seg_w) +
-          2 * static_cast<size_t>(kSpeeds) * kRows * (seg_w + 2)) * sizeof(float) +
-         kRows * static_cast<size_t>(seg_w + 2);
+// Ring cells of a block seg_w columns wide at depth d, at most: d rows
+// above and below (the corners included), d columns either side.
+__host__ __device__ constexpr int band_ring(int d, int seg_w) {
+  return 2 * d * (seg_w + 2 * d) + 2 * kBandRows * d;
 }
 
-// Words of one outbox slot: the edge rows of every band, then the edge
-// columns of every block.
-__host__ __device__ constexpr long long slot_words(int bands, int segs, int nx) {
-  return 2LL * kSpeeds * bands * (nx + static_cast<long long>(segs) * kBandRows);
+// Ring values a thread gathers per round, at most.
+__host__ __device__ constexpr int band_gather(int d, int seg_w) {
+  return (kSpeeds * band_ring(d, seg_w) + kBandThreads - 1) / kBandThreads;
 }
+
+// Dynamic shared memory of a block seg_w columns wide at depth d: the
+// ||u|| of two rounds' steps of its own cells, the table of its threads'
+// ring values (source and destination), two copies of its cells' 9
+// planes with the ring, and the mask of the same cells.
+__host__ __device__ constexpr size_t band_smem(int d, int seg_w) {
+  const size_t cells = static_cast<size_t>(kBandRows + 2 * d) * (seg_w + 2 * d);
+  return sizeof(float) * (2 * static_cast<size_t>(d) * kBandRows * seg_w + 2 * kSpeeds * cells) +
+         sizeof(int) * 2 * static_cast<size_t>(band_gather(d, seg_w)) * kBandThreads + cells;
+}
+
+// Words of one outbox slot at depth d: the edge rows of every band,
+// [bands][2d][9][nx] (its first d rows, then its last d), then the edge
+// columns of every block, [bands][segs][2d][9][kBandRows] (its first d
+// columns, then its last d).
+__host__ __device__ constexpr long long slot_words(int bands, int segs, int nx, int d) {
+  return 2LL * d * kSpeeds * bands * (nx + static_cast<long long>(segs) * kBandRows);
+}
+
+// Where a reader finds row (or column) l of a band (or segment) n long in
+// its 2d edge rows (columns): among the first d if l < d, else among the
+// last d.  A ring cell d or fewer cells beyond a band lies within d of
+// that band's edge on the reader's side, so the writer stored it there
+// (it stores row l as edge row l if l < d, and as edge row d + l - (n -
+// d) if l >= n - d; both where n < 2d).
+__host__ __device__ constexpr int edge_index(int l, int n, int d) {
+  return l < d ? l : 2 * d - n + l;
+}
+
+// The exchange depth D of a block seg_w columns wide (ops/resident.py:
+// band_depth is the same rule): 4 for blocks of 32 columns, 2 for blocks
+// of 64, of D = 1 .. 6 timed at 64^2, 128^2, 256x128 and 256^2 the
+// fastest, or within 1% of it (see the note above).  The banded kernels
+// built are resident_banded_kernel<band_depth(SW), SW> for SW = 32 and 64.
+__host__ __device__ constexpr int band_depth(int seg_w) {
+  return seg_w == lbm::kTileX ? 4 : 2;
+}
+
+// A block of the narrower segment is the smaller: where the widest
+// segment's block fits the card, so does the other (banded_fits).
+static_assert(band_smem(band_depth(lbm::kTileX), lbm::kTileX) <=
+                  band_smem(band_depth(kMaxSegTiles * lbm::kTileX), kMaxSegTiles * lbm::kTileX),
+              "the widest block is the largest");
 
 // The blocks of a launch on a card with `sms` SMs: the band's width cut
 // into `segs` segments of seg_w columns (whole tiles, the last one
-// ragged), as many as give each SM one block, and at least min_segments.
-void banded_geometry(int ny, int nx, int sms, int* seg_w, int* segs) {
+// ragged), as many as give each SM one block, and at least min_segments;
+// and their exchange depth D, band_depth(seg_w) (ops/resident.py:
+// banded_geometry is the same rule).
+void banded_geometry(int ny, int nx, int sms, int* seg_w, int* segs, int* depth) {
   const int tiles = num_tiles_x(nx);
   int target = sms / num_bands(ny);
   target = target < tiles ? target : tiles;
@@ -268,6 +346,7 @@ void banded_geometry(int ny, int nx, int sms, int* seg_w, int* segs) {
   const int seg_tiles = (tiles + target - 1) / target;
   *seg_w = seg_tiles * lbm::kTileX;
   *segs = (tiles + seg_tiles - 1) / seg_tiles;
+  *depth = band_depth(*seg_w);
 }
 
 // A volatile 64-bit access is one access (relaxed, at system scope): a
@@ -280,197 +359,311 @@ __device__ __forceinline__ void ll_store(Word* p, float v, unsigned tag) {
   *reinterpret_cast<volatile Word*>(p) = (static_cast<Word>(tag) << 32) | __float_as_uint(v);
 }
 
-// The accessor of one block's step: every value in shared memory, by
-// local row (0 and h+1 the ghost rows) and local column (-1 and w the
-// ghost columns).
-struct SmemState {
-  const float* cur;     // [9][kRows][pitch]: state t
-  const uint8_t* mask;  // [kRows][pitch]
-  int pitch;            // seg_w + 2
-  unsigned accel_rows;  // bit lr: local row lr is an image of row ny-2
-  __device__ __forceinline__ float f(int k, int lr, int lc) const {
-    return cur[(k * kRows + lr) * pitch + lc + 1];
-  }
-  __device__ __forceinline__ bool obst(int lr, int lc) const {
-    return mask[lr * pitch + lc + 1] != 0;
-  }
-  __device__ __forceinline__ bool accel(int lr, int) const { return (accel_rows >> lr) & 1u; }
+// The shape of a block's copies at depth D, SW columns wide: local row lr
+// (-D .. 8+D-1) and column lc (-D .. SW+D-1) at copy row lr + D, column
+// lc + D.
+template <int D, int SW>
+struct Band {
+  static constexpr int kRows = kBandRows + 2 * D;
+  static constexpr int kPitch = SW + 2 * D;
+  static constexpr int kPlane = kRows * kPitch;
+  static constexpr int kGather = band_gather(D, SW);
+  static constexpr int kRed = D * kBandRows * SW;  // ||u|| of one round's steps
+  static constexpr size_t kSmem = band_smem(D, SW);
 };
 
-// One block per (band, segment); blockDim = (seg_w, kBandRows), one cell
-// per thread.  outbox: two slots of slot_words each; in a slot, the rows
-// [bands][top, bottom][9][nx], then the columns [bands][segs][left,
-// right][9][kBandRows].
-__global__ void __launch_bounds__(kMaxBandThreads, 1)
-    resident_banded_kernel(float* a, float* b, const uint8_t* mask, float* partials,
-                           Word* outbox, int ny, int nx, int n_steps, lbm::StepConsts c) {
-  const int seg_w = blockDim.x, pitch = seg_w + 2;
-  const int segs = (nx + seg_w - 1) / seg_w;
-  const int bands = num_bands(ny);
-  const int band = blockIdx.x / segs, s = blockIdx.x % segs;
-  if (band >= bands) return;  // only a test's refused grid has more blocks
-  const int y0 = band * kBandRows, x0 = s * seg_w;
-  const int h = min(kBandRows, ny - y0), w = min(seg_w, nx - x0);
-  const int prev = band == 0 ? bands - 1 : band - 1;
-  const int next = band == bands - 1 ? 0 : band + 1;
-  const int left = s == 0 ? segs - 1 : s - 1;
-  const int right = s == segs - 1 ? 0 : s + 1;
-  const int row_prev = y0 == 0 ? ny - 1 : y0 - 1;
-  const int row_next = y0 + h == ny ? 0 : y0 + h;
-  const int x = threadIdx.x, i = threadIdx.y;
-  const int tid = i * seg_w + x, threads = kBandRows * seg_w;
-  const size_t plane = static_cast<size_t>(ny) * nx;
-  const long long slot = slot_words(bands, segs, nx);
-  const int row_edge = kSpeeds * nx, col_edge = kSpeeds * kBandRows;
-  // offsets in a slot: the edge rows of band q (top, then bottom), the
-  // edge columns of block (q, g) (left, then right)
-  const int cols_at = 2 * bands * row_edge;
-  auto rows_of = [=](int q) { return q * 2 * row_edge; };
-  auto cols_of = [=](int q, int g) { return cols_at + (q * segs + g) * 2 * col_edge; };
-  auto wrap_x = [=](int g) { return g < 0 ? g + nx : (g >= nx ? g - nx : g); };
-
-  extern __shared__ float4 smem4[];
-  float* red = reinterpret_cast<float*>(smem4);  // [kBandRows][seg_w]
-  float* copy0 = red + kBandRows * seg_w;        // [9][kRows][pitch]
-  float* copy1 = copy0 + kSpeeds * kRows * pitch;
-  uint8_t* mcells = reinterpret_cast<uint8_t*>(copy1 + kSpeeds * kRows * pitch);
-
-  unsigned accel_rows = 0;
-  for (int lr = 0; lr < h + 2; ++lr) {
-    const int g = lr == 0 ? row_prev : (lr == h + 1 ? row_next : y0 + lr - 1);
-    if (g == ny - 2) accel_rows |= 1u << lr;
+// The accessor of one block's step: every value in a copy, by copy row
+// and column.
+template <int D, int SW>
+struct BandCells {
+  const float* cur;     // [9][kRows][kPitch]: the step's state
+  const uint8_t* mask;  // [kRows][kPitch]
+  unsigned accel_rows;  // bit r: copy row r is an image of row ny-2
+  __device__ __forceinline__ float f(int k, int r, int c) const {
+    return cur[(k * Band<D, SW>::kRows + r) * Band<D, SW>::kPitch + c];
   }
-  // The ghost values this thread gathers each step: value m = k * ghosts +
-  // p of the block's ghost cells p (the row above at columns -1 .. w, the
-  // row below likewise, the column left at rows 0 .. h-1, the column
-  // right likewise); where it lies in a slot, and where in a copy.
-  const int ghosts = 2 * (w + 2) + 2 * h;
-  int g_src[kGather], g_dst[kGather];
+  __device__ __forceinline__ bool obst(int r, int c) const {
+    return mask[r * Band<D, SW>::kPitch + c] != 0;
+  }
+  __device__ __forceinline__ bool accel(int r, int) const { return (accel_rows >> r) & 1u; }
+};
+
+// Where this thread's own cell goes in a slot, -1 where it does not: as
+// one of its band's first or last D rows, one of its block's first or
+// last D columns.
+struct EdgeSlots {
+  int row[2], col[2];
+};
+
+// One step of a round, E cells beyond the block's own ones: the rectangle
+// of local rows -E .. 8+E-1 and columns -E .. SW+E-1 from `st` into
+// `next`, each thread's cells (tid, tid + 512, ...) computed into
+// registers first.  Cells beyond the ragged band's h rows or segment's w
+// columns are stepped too, and not kept.  The ||u|| of the own 8 x SW
+// cells (0 off the grid and on obstacles) go to red; at E = 0, where the
+// thread's cell is its own one, its values of the new state go to `out`
+// (unless null), marked `tag`.
+template <int D, int SW, int E>
+__device__ __forceinline__ void band_step(const BandCells<D, SW>& st, float* next, float* red,
+                                          int h, int w, const lbm::StepConsts& c,
+                                          const EdgeSlots& edge, Word* out, int nx,
+                                          unsigned tag) {
+  using B = Band<D, SW>;
+  constexpr int kCols = SW + 2 * E;
+  constexpr int kCells = (kBandRows + 2 * E) * kCols;
+  constexpr int kPasses = (kCells + kBandThreads - 1) / kBandThreads;
+  const int tid = threadIdx.x;
+  float v[kPasses][kSpeeds], norm[kPasses];
+  int off[kPasses], own[kPasses];
 #pragma unroll
-  for (int q = 0; q < kGather; ++q) {
-    const int m = tid + q * threads;
-    const int k = m / ghosts, p = m % ghosts;
-    if (m >= kSpeeds * ghosts) {
-      g_src[q] = -1;
-    } else if (p < w + 2) {  // the row above: the bottom edge of band prev
-      g_src[q] = rows_of(prev) + row_edge + k * nx + wrap_x(x0 + p - 1);
-      g_dst[q] = (k * kRows) * pitch + p;
-    } else if (p < 2 * (w + 2)) {  // the row below: the top edge of band next
-      const int lc = p - (w + 2) - 1;
-      g_src[q] = rows_of(next) + k * nx + wrap_x(x0 + lc);
-      g_dst[q] = (k * kRows + h + 1) * pitch + lc + 1;
-    } else if (p < 2 * (w + 2) + h) {  // the column left: the right edge of segment left
-      const int r = p - 2 * (w + 2);
-      g_src[q] = cols_of(band, left) + col_edge + k * kBandRows + r;
-      g_dst[q] = (k * kRows + r + 1) * pitch;
-    } else {  // the column right: the left edge of segment right
-      const int r = p - 2 * (w + 2) - h;
-      g_src[q] = cols_of(band, right) + k * kBandRows + r;
-      g_dst[q] = (k * kRows + r + 1) * pitch + w + 1;
+  for (int j = 0; j < kPasses; ++j) {
+    const int i = tid + j * kBandThreads;
+    if ((j + 1) * kBandThreads <= kCells || i < kCells) {
+      const int lr = i / kCols - E, lc = i % kCols - E;
+      const int r = lr + D, cc = lc + D;
+      // cells beyond h + E rows or w + E columns are not kept: the ring
+      // below or right of a ragged block lies there
+      off[j] = lr < h + E && lc < w + E ? r * B::kPitch + cc : -1;
+      const bool obst = st.obst(r, cc);
+      const float u_sq = lbm::cell_step(st, r, cc, r - 1, r + 1, cc - 1, cc + 1, v[j], obst, c);
+      own[j] = static_cast<unsigned>(lr) < kBandRows && static_cast<unsigned>(lc) < SW
+                   ? lr * SW + lc : -1;
+      norm[j] = lr < h && lc < w && !obst ? sqrtf(u_sq) : 0.0f;
     }
   }
-  const bool live = i < h && x < w;
-  const bool top = i == 0, bottom = i == h - 1, west = x == 0, east = x == w - 1;
-  const bool edge = top || bottom || west || east;
-  // where this cell's values go in a slot, when it is on an edge
-  const int out_row = rows_of(band) + (top ? 0 : row_edge) + x0 + x;
-  const int out_col = cols_of(band, s) + (west ? 0 : col_edge) + i;
-
-  // state 0: the block's cells into copy 0, its edge values into slot 0;
-  // the mask of its cells and of their ghost rows and columns
-  if (live) {
 #pragma unroll
-    for (int k = 0; k < kSpeeds; ++k) {
-      const float v = a[k * plane + static_cast<size_t>(y0 + i) * nx + x0 + x];
-      copy0[(k * kRows + i + 1) * pitch + x + 1] = v;
-      if (top || bottom) ll_store(outbox + out_row + k * nx, v, 1);
-      if (top && bottom) ll_store(outbox + out_row + row_edge + k * nx, v, 1);
-      if (west || east) ll_store(outbox + out_col + k * kBandRows, v, 1);
-      if (west && east) ll_store(outbox + out_col + col_edge + k * kBandRows, v, 1);
+  for (int j = 0; j < kPasses; ++j) {
+    if ((j + 1) * kBandThreads <= kCells || tid + j * kBandThreads < kCells) {
+      if (off[j] >= 0) {
+#pragma unroll
+        for (int k = 0; k < kSpeeds; ++k) next[k * B::kPlane + off[j]] = v[j][k];
+      }
+      if (own[j] >= 0) red[own[j]] = norm[j];
     }
   }
-  for (int m = tid; m < (h + 2) * (w + 2); m += threads) {
-    const int lr = m / (w + 2), lc = m % (w + 2);
-    const int gy = lr == 0 ? row_prev : (lr == h + 1 ? row_next : y0 + lr - 1);
-    mcells[lr * pitch + lc] = mask[static_cast<size_t>(gy) * nx + wrap_x(x0 + lc - 1)];
-  }
-  __syncthreads();
-
-  // step t's ||u|| partial of each of the block's tiles, by the threads
-  // of row 0, from the values in `red` (block_sum's order over the tile,
-  // see the note above)
-  auto tile_partial = [&](int t) {
-    const float* r = red + x;
-    const float column = ((r[0] + r[4 * seg_w]) + (r[2 * seg_w] + r[6 * seg_w])) +
-                         ((r[seg_w] + r[5 * seg_w]) + (r[3 * seg_w] + r[7 * seg_w]));
-    const float total = lbm::warp_sum(column);
-    if (x % lbm::kTileX == 0 && x0 + x < nx) {
-      partials[(static_cast<size_t>(t) * bands + band) * num_tiles_x(nx) +
-               (x0 + x) / lbm::kTileX] = total;
-    }
-  };
-  for (int t = 0; t < n_steps; ++t) {
-    float* cur = (t % 2 == 0) ? copy0 : copy1;
-    float* nxt = (t % 2 == 0) ? copy1 : copy0;
-    Word* in = outbox + (t % 2) * slot;
-    Word* out = outbox + ((t + 1) % 2) * slot;
-    const SmemState st{cur, mcells, pitch, accel_rows};
-    // one step of this thread's cell: into the other copy, and an edge
-    // cell's values into the next slot, marked as state t+1
-    auto step_cell = [&]() {
-      const bool obst = st.obst(i + 1, x);
-      float v[kSpeeds];
-      const float u_sq = lbm::cell_step(st, i + 1, x, i, i + 2, x - 1, x + 1, v, obst, c);
+  if constexpr (E == 0) {
+    if (out != nullptr) {
 #pragma unroll
       for (int k = 0; k < kSpeeds; ++k) {
-        nxt[(k * kRows + i + 1) * pitch + x + 1] = v[k];
-        if (top || bottom) ll_store(out + out_row + k * nx, v[k], t + 2);
-        if (top && bottom) ll_store(out + out_row + row_edge + k * nx, v[k], t + 2);
-        if (west || east) ll_store(out + out_col + k * kBandRows, v[k], t + 2);
-        if (west && east) ll_store(out + out_col + col_edge + k * kBandRows, v[k], t + 2);
+        if (edge.row[0] >= 0) ll_store(out + edge.row[0] + k * nx, v[0][k], tag);
+        if (edge.row[1] >= 0) ll_store(out + edge.row[1] + k * nx, v[0][k], tag);
+        if (edge.col[0] >= 0) ll_store(out + edge.col[0] + k * kBandRows, v[0][k], tag);
+        if (edge.col[1] >= 0) ll_store(out + edge.col[1] + k * kBandRows, v[0][k], tag);
       }
-      return obst ? 0.0f : sqrtf(u_sq);
-    };
-    // The ghost values of state t: loads in flight while the inner cells,
-    // which need nothing of the neighbours, step and the last step's tile
-    // sums are taken; then each value is polled until it is marked t+1.
-    Word got[kGather];
-#pragma unroll
-    for (int q = 0; q < kGather; ++q) {
-      if (g_src[q] >= 0) got[q] = ll_load(in + g_src[q]);
-    }
-    float norm = 0.0f;
-    if (live && !edge) norm = step_cell();
-    if (i == 0 && t > 0) tile_partial(t - 1);
-#pragma unroll
-    for (int q = 0; q < kGather; ++q) {
-      if (g_src[q] < 0) continue;
-      for (int polls = 0; static_cast<unsigned>(got[q] >> 32) != static_cast<unsigned>(t + 1);
-           ++polls) {
-        if (polls >= kMaxPolls) __trap();
-        got[q] = ll_load(in + g_src[q]);
-      }
-      cur[g_dst[q]] = __uint_as_float(static_cast<unsigned>(got[q]));
-    }
-    __syncthreads();  // the ghosts are in
-    if (live && edge) norm = step_cell();
-    red[tid] = norm;
-    __syncthreads();  // every value of the step is in, every read of cur done
-  }
-  if (i == 0 && n_steps > 0) tile_partial(n_steps - 1);
-
-  // state n_steps back to its buffer: `a` for an even n_steps, else `b`
-  if (live) {
-    const float* last = (n_steps % 2 == 0) ? copy0 : copy1;
-    float* out = (n_steps % 2 == 0) ? a : b;
-#pragma unroll
-    for (int k = 0; k < kSpeeds; ++k) {
-      out[k * plane + static_cast<size_t>(y0 + i) * nx + x0 + x] =
-          last[(k * kRows + i + 1) * pitch + x + 1];
     }
   }
 }
 
+// The step of a round e cells beyond the own ones (e < D), by its
+// compile-time form.
+template <int D, int SW, int E = D - 1>
+__device__ __forceinline__ void band_step_at(int e, const BandCells<D, SW>& st, float* next,
+                                             float* red, int h, int w,
+                                             const lbm::StepConsts& c, const EdgeSlots& edge,
+                                             Word* out, int nx, unsigned tag) {
+  if constexpr (E > 0) {
+    if (e < E) {
+      band_step_at<D, SW, E - 1>(e, st, next, red, h, w, c, edge, out, nx, tag);
+      return;
+    }
+  }
+  band_step<D, SW, E>(st, next, red, h, w, c, edge, out, nx, tag);
+}
+
+// One block per (band, segment); blockDim = kBandThreads; rounds of D
+// steps.  outbox: two slots of slot_words each (see slot_words).
+template <int D, int SW>
+__global__ void __launch_bounds__(kBandThreads, 1)
+    resident_banded_kernel(float* a, float* b, const uint8_t* mask, float* partials,
+                           Word* outbox, int ny, int nx, int n_steps, lbm::StepConsts c) {
+  using B = Band<D, SW>;
+  const int segs = (nx + SW - 1) / SW;
+  const int bands = num_bands(ny);
+  const int band = blockIdx.x / segs, s = blockIdx.x % segs;
+  if (band >= bands) return;  // only a test's refused grid has more blocks
+  const int y0 = band * kBandRows, x0 = s * SW;
+  const int h = min(kBandRows, ny - y0), w = min(SW, nx - x0);
+  const int tid = threadIdx.x;
+  const size_t plane = static_cast<size_t>(ny) * nx;
+  const long long slot = slot_words(bands, segs, nx, D);
+  const int row_edge = kSpeeds * nx, col_edge = kSpeeds * kBandRows;
+  // offsets in a slot: the edge rows of band q, the edge columns of block
+  // (q, g)
+  const int cols_at = 2 * D * bands * row_edge;
+  auto rows_of = [=](int q) { return q * 2 * D * row_edge; };
+  auto cols_of = [=](int q, int g) { return cols_at + (q * segs + g) * 2 * D * col_edge; };
+
+  extern __shared__ float4 smem4[];
+  float* red = reinterpret_cast<float*>(smem4);                   // [2][D][8][SW]
+  int* src_tab = reinterpret_cast<int*>(red + 2 * B::kRed);       // [kGather][512]
+  int* dst_tab = src_tab + B::kGather * kBandThreads;             // [kGather][512]
+  float* copy0 = reinterpret_cast<float*>(dst_tab + B::kGather * kBandThreads);
+  float* copy1 = copy0 + kSpeeds * B::kPlane;                     // [9][kRows][kPitch] each
+  uint8_t* mcells = reinterpret_cast<uint8_t*>(copy1 + kSpeeds * B::kPlane);
+
+  // the mask of the block's cells and its ring (0 beyond them), and the
+  // copy rows that are images of row ny-2
+  unsigned accel_rows = 0;
+  for (int lr = -D; lr < h + D; ++lr) {
+    if (lbm::wrap(y0 + lr, ny) == ny - 2) accel_rows |= 1u << (lr + D);
+  }
+  for (int m = tid; m < B::kPlane; m += kBandThreads) {
+    const int lr = m / B::kPitch - D, lc = m % B::kPitch - D;
+    mcells[m] = lr < h + D && lc < w + D
+                    ? mask[static_cast<size_t>(lbm::wrap(y0 + lr, ny)) * nx +
+                           lbm::wrap(x0 + lc, nx)]
+                    : 0;
+  }
+  // The ring values this thread gathers each round, m = tid + q * 512 for
+  // q < kGather: value m = k * ring + p of the block's ring cells p (the
+  // D rows above at columns -D .. w+D-1, the D rows below likewise, the D
+  // columns left of rows 0 .. h-1, the D columns right likewise); where it
+  // lies in a slot (-1: none), and where in a copy.
+  {
+    const int rw = w + 2 * D;
+    const int ring = 2 * D * rw + 2 * h * D;
+    for (int q = 0; q < B::kGather; ++q) {
+      const int m = tid + q * kBandThreads;
+      int src = -1, dst = 0;
+      if (m < kSpeeds * ring) {
+        const int k = m / ring, p = m % ring;
+        int lr, lc;
+        if (p < 2 * D * rw) {  // a row above or below: an edge row of its band
+          const bool below = p >= D * rw;
+          const int pr = below ? p - D * rw : p;
+          lr = below ? h + pr / rw : pr / rw - D;
+          lc = pr % rw - D;
+          const int gy = lbm::wrap(y0 + lr, ny), q2 = gy / kBandRows;
+          const int hq = min(kBandRows, ny - q2 * kBandRows);
+          src = rows_of(q2) + edge_index(gy - q2 * kBandRows, hq, D) * row_edge + k * nx +
+                lbm::wrap(x0 + lc, nx);
+        } else {  // a column left or right: an edge column of its block
+          const int pc = p - 2 * D * rw;
+          const bool right = pc >= h * D;
+          const int pq = right ? pc - h * D : pc;
+          lr = pq / D;
+          lc = right ? w + pq % D : pq % D - D;
+          const int gx = lbm::wrap(x0 + lc, nx), g2 = gx / SW;
+          const int wg = min(SW, nx - g2 * SW);
+          src = cols_of(band, g2) + edge_index(gx - g2 * SW, wg, D) * col_edge +
+                k * kBandRows + lr;
+        }
+        dst = (k * B::kRows + lr + D) * B::kPitch + lc + D;
+      }
+      src_tab[q * kBandThreads + tid] = src;
+      dst_tab[q * kBandThreads + tid] = dst;
+    }
+  }
+  // This thread's own cell (the one it steps at E = 0) and where it goes
+  // in a slot.
+  const int olr = tid / SW, olc = tid % SW;
+  const bool own = olr < h && olc < w;  // false past the block's 8 x SW threads
+  EdgeSlots edge{{-1, -1}, {-1, -1}};
+  if (own) {
+    if (olr < D) edge.row[0] = rows_of(band) + olr * row_edge + x0 + olc;
+    if (olr >= h - D) edge.row[1] = rows_of(band) + (2 * D - h + olr) * row_edge + x0 + olc;
+    if (olc < D) edge.col[0] = cols_of(band, s) + olc * col_edge + olr;
+    if (olc >= w - D) edge.col[1] = cols_of(band, s) + (2 * D - w + olc) * col_edge + olr;
+  }
+
+  // state 0: the own cells into copy 0, their edge values into slot 0
+  if (own) {
+#pragma unroll
+    for (int k = 0; k < kSpeeds; ++k) {
+      const float v = a[k * plane + static_cast<size_t>(y0 + olr) * nx + x0 + olc];
+      copy0[(k * B::kRows + olr + D) * B::kPitch + olc + D] = v;
+      if (edge.row[0] >= 0) ll_store(outbox + edge.row[0] + k * nx, v, 1);
+      if (edge.row[1] >= 0) ll_store(outbox + edge.row[1] + k * nx, v, 1);
+      if (edge.col[0] >= 0) ll_store(outbox + edge.col[0] + k * kBandRows, v, 1);
+      if (edge.col[1] >= 0) ll_store(outbox + edge.col[1] + k * kBandRows, v, 1);
+    }
+  }
+  __syncthreads();
+
+  // round rr's ||u|| partials of each of the block's tiles and steps, one
+  // (step, tile) a warp, from red (block_sum's order over the tile, see
+  // the note above)
+  const int tiles_x = num_tiles_x(nx);
+  auto tile_partials = [&](int rr) {
+    const int t0 = rr * D, k = min(D, n_steps - t0);
+    const float* rd = red + (rr % 2) * B::kRed;
+    const int warp = tid >> 5, lane = tid & 31;
+    for (int item = warp; item < k * (SW / lbm::kTileX); item += kBandThreads / 32) {
+      const int j = item / (SW / lbm::kTileX), tt = item % (SW / lbm::kTileX);
+      const float* r = rd + j * kBandRows * SW + tt * lbm::kTileX + lane;
+      const float column = ((r[0] + r[4 * SW]) + (r[2 * SW] + r[6 * SW])) +
+                           ((r[SW] + r[5 * SW]) + (r[3 * SW] + r[7 * SW]));
+      const float total = lbm::warp_sum(column);
+      const int tx = x0 / lbm::kTileX + tt;
+      if (lane == 0 && tx < tiles_x) {
+        partials[(static_cast<size_t>(t0 + j) * bands + band) * tiles_x + tx] = total;
+      }
+    }
+  };
+  float* cur = copy0;
+  float* nxt = copy1;
+  const int rounds = (n_steps + D - 1) / D;
+  for (int r = 0; r < rounds; ++r) {
+    const int t = r * D, k = min(D, n_steps - t);
+    Word* in = outbox + (r % 2) * slot;
+    Word* out = r + 1 < rounds ? outbox + ((r + 1) % 2) * slot : nullptr;
+    // Round r-2's tile sums, then the ring of state t: every load in flight
+    // at once, each value marked t+1 into the copy that holds state t, and
+    // the others loaded again, all at once, until every one is.
+    if (r >= 2) tile_partials(r - 2);
+    Word got[B::kGather];
+    unsigned pending = 0;  // bit q: value q is still to come
+#pragma unroll
+    for (int q = 0; q < B::kGather; ++q) {
+      const int src = src_tab[q * kBandThreads + tid];
+      if (src >= 0) {
+        got[q] = ll_load(in + src);
+        pending |= 1u << q;
+      }
+    }
+    for (int polls = 0;; ++polls) {
+#pragma unroll
+      for (int q = 0; q < B::kGather; ++q) {
+        if (((pending >> q) & 1u) &&
+            static_cast<unsigned>(got[q] >> 32) == static_cast<unsigned>(t + 1)) {
+          cur[dst_tab[q * kBandThreads + tid]] = __uint_as_float(static_cast<unsigned>(got[q]));
+          pending &= ~(1u << q);
+        }
+      }
+      if (pending == 0) break;
+      if (polls >= kMaxPolls) __trap();
+#pragma unroll
+      for (int q = 0; q < B::kGather; ++q) {
+        if ((pending >> q) & 1u) got[q] = ll_load(in + src_tab[q * kBandThreads + tid]);
+      }
+    }
+    __syncthreads();  // the ring is in
+    // k steps, the last k of the D-step trapezoid: e = k-1 .. 0 cells
+    // beyond the own ones; the last one sends the own edge cells
+    float* rd = red + (r % 2) * B::kRed;
+    for (int e = k - 1; e >= 0; --e) {
+      band_step_at<D, SW>(e, BandCells<D, SW>{cur, mcells, accel_rows}, nxt,
+                          rd + (k - 1 - e) * kBandRows * SW, h, w, c, edge, out, nx, t + k + 1);
+      if (e > 0) __syncthreads();  // the step's values are in, its reads done
+      float* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
+  }
+  __syncthreads();  // the last round's ||u|| are in
+  if (rounds >= 2) tile_partials(rounds - 2);
+  if (rounds >= 1) tile_partials(rounds - 1);
+
+  // state n_steps back to its buffer: `a` for an even n_steps, else `b`
+  if (own) {
+    float* dst = (n_steps % 2 == 0) ? a : b;
+#pragma unroll
+    for (int k = 0; k < kSpeeds; ++k) {
+      dst[k * plane + static_cast<size_t>(y0 + olr) * nx + x0 + olc] =
+          cur[(k * B::kRows + olr + D) * B::kPitch + olc + D];
+    }
+  }
+}
 // ---- the cooperative form ---------------------------------------------------
 
 // A block of the cooperative form: 16 warps, one block per SM (its two
@@ -966,14 +1159,68 @@ cudaError_t num_sms(int* sms) {
   return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
+// Calls fn(std::integral_constant<int, SW>{}) for a segment of seg_w
+// columns (32 or 64): the one list of the banded kernels that are built,
+// resident_banded_kernel<band_depth(SW), SW>.
+template <class Fn>
+cudaError_t with_band(int seg_w, Fn fn) {
+  static_assert(kMaxSegTiles == 2, "the kernels built");
+  switch (seg_w) {
+    case lbm::kTileX: return fn(std::integral_constant<int, lbm::kTileX>{});
+    case 2 * lbm::kTileX: return fn(std::integral_constant<int, 2 * lbm::kTileX>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// blocks of the banded kernel of segment tiles that can be resident on one
+// SM, per device (0: not prepared)
+int g_band_per_sm[kMaxDevices][kMaxSegTiles + 1];
+
+// Sets the shared-memory limit of the banded kernel SW columns wide (at its
+// depth D = band_depth(SW)) on the current device and counts its blocks an
+// SM can hold, unless done; *per_sm gets them (0 where a block does not
+// fit the card).
+template <int SW>
+cudaError_t banded_prepared(int* per_sm) {
+  constexpr int D = band_depth(SW);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int& held = g_band_per_sm[dev][SW / lbm::kTileX];
+  if (held == 0) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    if (Band<D, SW>::kSmem > static_cast<size_t>(optin)) {
+      *per_sm = 0;
+      return cudaSuccess;
+    }
+    err = cudaFuncSetAttribute(resident_banded_kernel<D, SW>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(Band<D, SW>::kSmem));
+    if (err != cudaSuccess) return err;
+    int n = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, resident_banded_kernel<D, SW>,
+                                                        kBandThreads, Band<D, SW>::kSmem);
+    if (err != cudaSuccess) return err;
+    if (n < 1) {
+      *per_sm = 0;
+      return cudaSuccess;
+    }
+    held = n;
+  }
+  *per_sm = held;
+  return cudaSuccess;
+}
+
 // The banded form's limits on the current device for a grid nx wide: the
 // opt-in shared memory of a block, and the bands that can be co-resident
-// (the blocks of the widest segment that can be, occupancy x SMs, over
-// the segments a band needs at least; 0 where the kernel cannot take nx
-// at all).  Sets the kernel's dynamic shared-memory limit first, which
-// the occupancy query needs.
+// (the blocks of the widest segment that can be, occupancy x SMs, over the
+// segments a band needs at least; 0 where the kernel cannot take nx at
+// all).  A launch with narrower segments has one block an SM at most
+// (banded_geometry), and its block is the smaller.
 cudaError_t banded_limits(int nx, int* smem_optin, int* max_bands) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  int dev = 0, coop = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
@@ -983,24 +1230,28 @@ cudaError_t banded_limits(int nx, int* smem_optin, int* max_bands) {
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(resident_banded_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, *smem_optin);
-  if (err != cudaSuccess) return err;
   *max_bands = 0;
   if (nx < 1 || nx > kMaxBandCols) return cudaSuccess;
-  const int tiles = num_tiles_x(nx);
-  const int widest = (tiles < kMaxSegTiles ? tiles : kMaxSegTiles) * lbm::kTileX;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, resident_banded_kernel, widest * kBandRows, banded_launch_smem(widest));
+  int per_sm = 0;
+  err = with_band(widest_segment(nx),
+                  [&](auto sw) { return banded_prepared<decltype(sw)::value>(&per_sm); });
   if (err != cudaSuccess) return err;
   *max_bands = per_sm * sms / min_segments(nx);
   return cudaSuccess;
 }
 
-// The shape rule (ops/resident.py:banded_fits is the same rule in Python).
+// The dynamic shared memory of the widest block of a band nx wide, at its
+// depth.
+constexpr size_t widest_band_smem(int nx) {
+  return band_smem(band_depth(widest_segment(nx)), widest_segment(nx));
+}
+
+// The shape rule (ops/resident.py:banded_fits is the same rule in Python):
+// a block of the widest segment fits the card, and every band is
+// co-resident.
 bool banded_fits(int ny, int nx, int smem_optin, int max_bands) {
   return ny >= 1 && nx >= 1 && nx <= kMaxBandCols &&
-         band_smem_bytes(nx) <= static_cast<size_t>(smem_optin) &&
+         widest_band_smem(nx) <= static_cast<size_t>(smem_optin) &&
          num_bands(ny) <= max_bands;
 }
 
@@ -1010,12 +1261,12 @@ bool banded_fits(int ny, int nx, int smem_optin, int max_bands) {
 // them, checks that the device takes cooperative launches, and sets their
 // shared-memory limits.
 extern "C" int lbm_resident_prepare(void) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, resident_banded_kernel);
-  if (err != cudaSuccess) return lbm::status(err);
   int smem = 0, max_bands = 0;
-  err = banded_limits(1, &smem, &max_bands);
-  if (err != cudaSuccess) return lbm::status(err);
+  cudaError_t err = cudaSuccess;
+  for (int nx = lbm::kTileX; nx <= kMaxSegTiles * lbm::kTileX && err == cudaSuccess;
+       nx += lbm::kTileX) {
+    err = banded_limits(nx, &smem, &max_bands);  // the kernel of this width
+  }
   for (int k = 1; k <= kCoopMaxK && err == cudaSuccess; ++k) {
     err = with_coop_k(k, [](auto kk) {
       int blocks = 0;
@@ -1040,14 +1291,32 @@ extern "C" int lbm_resident_banded_fits(int ny, int nx) {
   return banded_fits(ny, nx, smem, max_bands) ? 1 : 0;
 }
 
+// The exchange depth the banded form runs an (ny, nx) grid at on the
+// current device, or a negative cudaError_t.
+extern "C" int lbm_resident_banded_depth(int ny, int nx) {
+  int sms = 0, seg_w = 0, segs = 0, depth = 0;
+  const cudaError_t err = num_sms(&sms);
+  if (err != cudaSuccess) return -lbm::status(err);
+  if (ny < 1 || nx < 1) return -static_cast<int>(cudaErrorInvalidValue);
+  banded_geometry(ny, nx, sms, &seg_w, &segs, &depth);
+  return depth;
+}
+
+// The dynamic shared memory of the widest block of a band nx wide, at its
+// depth, in bytes.
+extern "C" long long lbm_resident_banded_smem(int nx) {
+  return static_cast<long long>(widest_band_smem(nx));
+}
+
 // The scratch of a banded launch on the current device: the outbox, in
 // 64-bit words (two slots of edge values).
 extern "C" int lbm_resident_banded_scratch(int ny, int nx, long long* n_words) {
-  int sms = 0, seg_w = 0, segs = 0;
+  int sms = 0, seg_w = 0, segs = 0, depth = 0;
   const cudaError_t err = num_sms(&sms);
   if (err != cudaSuccess) return lbm::status(err);
-  banded_geometry(ny, nx, sms, &seg_w, &segs);
-  *n_words = 2 * slot_words(num_bands(ny), segs, nx);
+  if (ny < 1 || nx < 1 || nx > kMaxBandCols) return static_cast<int>(cudaErrorInvalidValue);
+  banded_geometry(ny, nx, sms, &seg_w, &segs, &depth);
+  *n_words = 2 * slot_words(num_bands(ny), segs, nx, depth);
   return 0;
 }
 
@@ -1155,22 +1424,31 @@ extern "C" int lbm_resident_banded_chunk(float* a, float* b, const uint8_t* mask
                                          float w1_omega, float w2_omega,
                                          float one_minus_omega, float accel_w1,
                                          float accel_w2, void* stream) {
-  int sms = 0, seg_w = 0, segs = 0;
+  int sms = 0, seg_w = 0, segs = 0, depth = 0;
   cudaError_t err = num_sms(&sms);
   if (err != cudaSuccess) return lbm::status(err);
-  if (nx < 1 || nx > kMaxBandCols || ny < 1) return static_cast<int>(cudaErrorInvalidValue);
-  banded_geometry(ny, nx, sms, &seg_w, &segs);
+  if (nx < 1 || nx > kMaxBandCols || ny < 1 || n_steps < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  banded_geometry(ny, nx, sms, &seg_w, &segs, &depth);
   const int bands = num_bands(ny);
   if (blocks <= 0) blocks = bands * segs;
   if (blocks < bands * segs) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(outbox, 0, sizeof(Word) * 2 * slot_words(bands, segs, nx), st);
+  err = cudaMemsetAsync(outbox, 0, sizeof(Word) * 2 * slot_words(bands, segs, nx, depth), st);
   if (err != cudaSuccess) return lbm::status(err);
   Word* box = static_cast<Word*>(outbox);
   lbm::StepConsts c{w0_omega,        w1_omega, w2_omega,
                     one_minus_omega, accel_w1, accel_w2};
   void* args[] = {&a, &b, &mask, &partials, &box, &ny, &nx, &n_steps, &c};
-  return lbm::status(cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(resident_banded_kernel), dim3(blocks),
-      dim3(seg_w, kBandRows), args, banded_launch_smem(seg_w), st));
+  return lbm::status(with_band(seg_w, [&](auto sw) {
+    constexpr int SW = decltype(sw)::value, D = band_depth(SW);
+    int per_sm = 0;
+    const cudaError_t e = banded_prepared<SW>(&per_sm);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;  // a block does not fit the card
+    return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(resident_banded_kernel<D, SW>),
+                                       dim3(blocks), dim3(kBandThreads), args,
+                                       Band<D, SW>::kSmem, st);
+  }));
 }

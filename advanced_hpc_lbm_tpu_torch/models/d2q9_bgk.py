@@ -85,8 +85,9 @@ WHOLE_RUN = ("resident", "pallask", "pallas2", "stream")
 # times on an H100 80GB HBM3 at 700 W (chip_smoke.py 3r/3k/3s, PERF.md,
 # Findings).  Where the resident kernel's banded form takes the grid (the
 # small decks, ``resident.takes_banded``), ``auto`` runs ``resident``
-# instead: 2.81 / 2.78 / 3.06 us per step at 64^2 / 128^2 / 256^2 against
-# pallask's 3.53 / 3.95 / 4.15 (K = 4, host-paced), as the JAX ``auto``
+# instead: 1.33 / 1.33 / 1.74 us per step at 64^2 / 128^2 / 256^2
+# (scripts/torch_resident_variants.py) against pallask's 3.53 / 3.95 /
+# 4.15 (K = 4, host-paced), as the JAX ``auto``
 # runs its resident kernel on small grids.  Elsewhere the K-step kernel is
 # the fastest path (15.96 us per step at 1024^2, K = 3, against 32.29 for
 # step and 25.14 for the resident kernel's cooperative form, which the JAX

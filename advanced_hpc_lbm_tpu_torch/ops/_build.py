@@ -130,6 +130,8 @@ def load() -> ctypes.CDLL:
                                        *consts, ptr], i32),
         "lbm_resident_banded_limits": ([i32, ctypes.POINTER(i32), ctypes.POINTER(i32)], i32),
         "lbm_resident_banded_fits": ([i32, i32], i32),
+        "lbm_resident_banded_depth": ([i32, i32], i32),
+        "lbm_resident_banded_smem": ([i32], i64),
         "lbm_resident_banded_scratch": ([i32, i32, ctypes.POINTER(i64)], i32),
         "lbm_kstep": ([ptr, ptr, ptr, ptr, i32, i32, i32, *consts, ptr], i32),
         "lbm_kstep_prepare": ([i32], i32),

@@ -9,11 +9,12 @@ once per chunk of at most ``chunk`` steps; on a CPU tensor it runs
 two forms, chosen by the grid's shape before the launch (:func:`form_of`:
 :func:`banded_fits` with the card's limits):
 
-* the banded form, for grids whose band of 8 rows fits in shared memory
-  (the small decks): blocks of a band's segment of columns keep their
-  cells in shared memory for the whole chunk and meet only their
-  neighbours, through edge values that carry their step, instead of a
-  grid barrier; each launch adds one to :data:`banded_launches`;
+* the banded form, for the small decks (:func:`banded_fits`): blocks of a
+  band's segment of columns keep their cells in shared memory for the
+  whole chunk, with a ring of ghost cells D deep (:func:`banded_depth`),
+  and meet only their neighbours, once every D steps, through edge values
+  that carry their step, instead of a grid barrier; each launch adds one
+  to :data:`banded_launches`;
 * the cooperative form, for every other grid: a block owns tiles, segments
   of a band's windows of 128 columns (:func:`coop_segments` cuts bands
   only where there are fewer bands than co-resident blocks, so that a
@@ -67,9 +68,12 @@ COOP_WINDOW_COLS = 4 * step_kernel.BLOCK_X
 # A band of the banded form is one row of the step kernel's tiles.
 BAND_ROWS = step_kernel.BLOCK_Y
 # The widest grid the banded form takes (kMaxBandCols in
-# csrc/resident_kernel.cu); the shared-memory rule bounds nx below it on an
-# H100 (318 columns at 232 448 B).
+# csrc/resident_kernel.cu).
 BAND_MAX_COLS = 320
+# A banded block: a segment of at most 2 tiles (64 columns) of a band,
+# stepped with its ring by 512 threads (kMaxSegTiles, kBandThreads).
+BAND_MAX_SEG_COLS = 2 * step_kernel.BLOCK_X
+BAND_THREADS = BAND_MAX_SEG_COLS * BAND_ROWS
 
 prepare_obstacles = step_kernel.prepare_obstacles
 
@@ -101,22 +105,86 @@ def band_partition(ny: int) -> list[tuple[int, int, int, int]]:
             for b in range(n)]
 
 
+def band_depth(seg_w: int) -> int:
+    """The exchange depth D of a banded block seg_w columns wide (32 or 64;
+    ``band_depth`` in csrc/resident_kernel.cu, which builds one kernel for
+    each): the steps between two exchanges with the neighbours, 4 for 32
+    columns, 2 for 64, of D = 1 .. 6 the fastest, or within 1% of it, at
+    64^2, 128^2 and 256x128 (32-column blocks: 1.33 us per step against
+    1.77 at D = 1) and at 256^2 (64-column ones: 1.74 against 2.05) on an
+    H100 80GB HBM3 at 700 W (scripts/torch_resident_variants.py; PERF.md,
+    Findings)."""
+    return 4 if seg_w == step_kernel.BLOCK_X else 2
+
+
+def banded_geometry(ny: int, nx: int, sms: int) -> tuple[int, int, int]:
+    """(seg_w, segs, D) of a banded launch on a card of ``sms`` SMs
+    (``banded_geometry`` in csrc/resident_kernel.cu): a band's width cut
+    into ``segs`` segments of ``seg_w`` columns (whole tiles, at most 2,
+    the last segment ragged), as many as give each SM one block, and their
+    exchange depth D, :func:`band_depth`.  On 132 SMs: 64^2 2 segments of
+    32 columns, 128^2 and 256x128 4 of 32, 256^2 4 of 64."""
+    tiles = -(-nx // step_kernel.BLOCK_X)
+    least = -(-tiles // (BAND_MAX_SEG_COLS // step_kernel.BLOCK_X))
+    target = max(min(sms // num_bands(ny), tiles), least)
+    seg_tiles = -(-tiles // target)
+    seg_w = seg_tiles * step_kernel.BLOCK_X
+    return seg_w, -(-tiles // seg_tiles), band_depth(seg_w)
+
+
+def banded_depth(ny: int, nx: int, sms: int) -> int:
+    """The banded form's exchange depth D for an (ny, nx) grid on a card of
+    ``sms`` SMs: a block meets its neighbours once every D steps (the C
+    query ``lbm_resident_banded_depth`` is the same rule on the current
+    device)."""
+    return banded_geometry(ny, nx, sms)[2]
+
+
+def band_seg_cols(nx: int) -> int:
+    """The widest block of a band nx wide: its whole tiles, at most 64
+    columns (``widest_segment`` in csrc/resident_kernel.cu)."""
+    return min(-(-nx // step_kernel.BLOCK_X) * step_kernel.BLOCK_X, BAND_MAX_SEG_COLS)
+
+
+def band_gather(depth: int, seg_w: int) -> int:
+    """Ring values each thread of a banded block seg_w columns wide gathers
+    a round, at most: 9 planes of the ring's D rows above and below (the
+    corners included) and D columns either side, over 512 threads."""
+    ring = 2 * depth * (seg_w + 2 * depth) + 2 * BAND_ROWS * depth
+    return -(-9 * ring // BAND_THREADS)
+
+
 def band_smem_bytes(nx: int) -> int:
-    """The shape rule's shared memory of one band: two ping-pong copies of
-    its 9 planes over its 8 rows and 2 ghost rows (float32), and its 10
-    mask rows (uint8).  A block of the kernel holds less: a segment of the
-    band, at most 64 columns wide."""
-    rows = BAND_ROWS + 2
-    return 2 * 9 * rows * nx * 4 + rows * nx
+    """The shape rule's shared memory: that of the widest block of a band
+    nx wide, at its exchange depth D = :func:`band_depth`
+    (``lbm_resident_banded_smem``): the ||u|| of two rounds of D steps of
+    its 8 x seg_w cells (float32), the table of its threads' ring values
+    (two int32 a value), two ping-pong copies of its 9 planes over its
+    cells and ring, (8 + 2D) x (seg_w + 2D) float32, and the mask of the
+    same cells (uint8).  A block of a narrower segment, which a launch runs
+    only where it has an SM to each block, is smaller."""
+    seg_w = band_seg_cols(nx)
+    depth = band_depth(seg_w)
+    cells = (BAND_ROWS + 2 * depth) * (seg_w + 2 * depth)
+    return (4 * (2 * depth * BAND_ROWS * seg_w + 2 * 9 * cells)
+            + 4 * 2 * band_gather(depth, seg_w) * BAND_THREADS + cells)
+
+
+def banded_rounds(n_steps: int, depth: int) -> int:
+    """Rounds (exchanges) of a banded launch of n_steps steps at depth D:
+    rounds of D steps and a last one of n mod D."""
+    return -(-n_steps // depth)
 
 
 def banded_fits(ny: int, nx: int, smem_bytes: int, max_bands: int) -> bool:
     """Whether the banded form takes an (ny, nx) grid on a card with
     ``smem_bytes`` of opt-in shared memory per block, where ``max_bands``
     bands nx wide can be co-resident (the banded kernel's occupancy x SMs,
-    over the blocks a band needs at least: one per 64 columns); the C
-    query ``lbm_resident_banded_fits`` is the same rule."""
-    return (1 <= nx <= BAND_MAX_COLS and ny >= 1 and band_smem_bytes(nx) <= smem_bytes
+    over the blocks a band needs at least: one per 64 columns): a block of
+    the widest segment fits the card, and every band is co-resident; the
+    C query ``lbm_resident_banded_fits`` is the same rule."""
+    return (1 <= nx <= BAND_MAX_COLS and ny >= 1
+            and band_smem_bytes(nx) <= smem_bytes
             and num_bands(ny) <= max_bands)
 
 
@@ -142,6 +210,12 @@ def takes_banded(ny: int, nx: int, device: torch.device | str) -> bool:
         return False
     index = device.index if device.index is not None else torch.cuda.current_device()
     return banded_fits(ny, nx, *_banded_limits(index, nx))
+
+
+def _sm_depth(ny: int, nx: int, device: torch.device) -> int:
+    """:func:`banded_depth` on a CUDA device's SMs."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return banded_depth(ny, nx, torch.cuda.get_device_properties(index).multi_processor_count)
 
 
 def coop_k(ny: int, nx: int) -> int:
@@ -353,7 +427,10 @@ def resident_run(
 
     Returns (f_final, av_vels[(n_iters,)]) on ``f0``'s device, like the
     JAX ``resident_run``.  The ``lbm.ops.loop`` span carries the form the
-    grid runs in (:func:`form_of`), its bands and its ``nx`` and ``ny``.
+    grid runs in (:func:`form_of`), its bands, its ``nx`` and ``ny``, the
+    steps between two exchanges with the neighbours (``depth``: the banded
+    form's D, the cooperative form's K, 1 for the plain version's steps)
+    and the exchanges of the run (``rounds``).
     """
     iters = params.max_iters if n_iters is None else n_iters
     mask = obstacles if obstacles.dtype == torch.uint8 else prepare_obstacles(obstacles)
@@ -367,12 +444,19 @@ def resident_run(
     step_kernel._validate(bufs[0], mask, bufs[1], partials)
 
     form = form_of(ny, nx, f0.device)
-    with (profiling.span("lbm.ops.loop", form=form, bands=num_bands(ny), nx=nx, ny=ny) as sp,
+    chunks = [min(rows, iters - t0) for t0 in range(0, iters, rows)]
+    if form == "cooperative":
+        depth = coop_k(ny, nx)
+        rounds = sum(len(coop_rounds(n, depth)) for n in chunks)
+    else:
+        depth = _sm_depth(ny, nx, f0.device) if form == "banded" else 1
+        rounds = sum(banded_rounds(n, depth) for n in chunks)
+    with (profiling.span("lbm.ops.loop", form=form, bands=num_bands(ny), nx=nx, ny=ny,
+                         depth=depth, rounds=rounds) as sp,
           torch.cuda.device(f0.device) if f0.is_cuda else contextlib.nullcontext()):
         before = launches + banded_launches
         run_chunk = _chunk_launcher(bufs[0], mask, params)
-        for t0 in range(0, iters, rows):
-            n = min(rows, iters - t0)
+        for t0, n in zip(range(0, iters, rows), chunks):
             # the chunk starts on the buffer that holds step t0's state
             run_chunk((bufs[t0 % 2], bufs[(t0 + 1) % 2]), n, partials)
             torch.sum(partials[:n], dim=1, out=av[t0:t0 + n])

@@ -573,6 +573,7 @@ def check_banded_rule(card: str) -> None:
 
     lib = step_kernel._library()
     dev = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for ny, nx in RULE_SHAPES:
         smem, blocks = resident._banded_limits(dev, nx)
@@ -581,7 +582,15 @@ def check_banded_rule(card: str) -> None:
         if c_rule != int(py_rule):
             fail(f"[3r resident] {ny}x{nx}: the C rule says {c_rule}, banded_fits {py_rule} "
                  f"(smem {smem} B, {blocks} co-resident blocks)")
-        rows.append(f"{ny}x{nx} {resident.form_of(ny, nx, 'cuda')} ({blocks} bands co-resident)")
+        c_depth = lib.lbm_resident_banded_depth(ny, nx)
+        if c_depth != resident.banded_depth(ny, nx, sms):
+            fail(f"[3r resident] {ny}x{nx}: the C depth {c_depth}, banded_depth "
+                 f"{resident.banded_depth(ny, nx, sms)}")
+        if lib.lbm_resident_banded_smem(nx) != resident.band_smem_bytes(nx):
+            fail(f"[3r resident] nx {nx}: C shared memory {lib.lbm_resident_banded_smem(nx)} B, "
+                 f"band_smem_bytes {resident.band_smem_bytes(nx)} B")
+        rows.append(f"{ny}x{nx} {resident.form_of(ny, nx, 'cuda')} ({blocks} bands co-resident, "
+                    f"D={c_depth})")
     for ny, nx in BANDED_DECKS:
         if not resident.takes_banded(ny, nx, "cuda"):
             fail(f"[3r resident] {ny}x{nx} does not take the banded form")
@@ -590,13 +599,13 @@ def check_banded_rule(card: str) -> None:
             fail(f"[3r resident] {ny}x{nx} takes the {resident.form_of(ny, nx, 'cuda')} form, "
                  f"expected the cooperative one")
     smem = resident._banded_limits(dev, 64)[0]
-    say(f"[3r resident] form by shape, C rule = banded_fits at {smem} B of opt-in shared "
-        f"memory: {', '.join(rows)}; band bytes (2*9*10*nx*4 + 10*nx): nx=64 "
-        f"{resident.band_smem_bytes(64)}, 128 {resident.band_smem_bytes(128)}, 256 "
-        f"{resident.band_smem_bytes(256)} | ptxas: "
+    say(f"[3r resident] form by shape, C rule = banded_fits and C depth = banded_depth at "
+        f"{smem} B of opt-in shared memory: {', '.join(rows)}; a block's bytes: 32 columns "
+        f"{resident.band_smem_bytes(32)} (D = {resident.band_depth(32)}), 64 "
+        f"{resident.band_smem_bytes(64)} (D = {resident.band_depth(64)}) "
+        "| ptxas: "
         + " | ".join(ptxas_report("resident")) + f" | {card}")
     # the cooperative form: its C queries against the Python rules
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     coop = []
     for k in resident.COOP_K:
         c_smem, max_blocks = resident._coop_limits(dev, k)

@@ -6,8 +6,8 @@ Each variant is a copy of ``advanced_hpc_lbm_tpu_torch/`` under
 edits applied.  Each copy builds its own kernel library and is timed in a
 process of its own, one after another: 50 steps against the step kernel
 (the number of differing values; the diagnostic variants differ on
-purpose) and two timings of 1000 steps of ``resident_run`` (us per step)
-at 64^2, 128^2 and 256^2 (the banded form's variants), or of the
+purpose) and two timings of one 1000-step launch (us per step) of the
+banded form at 64^2, 128^2, 256x128 and 256^2 (ny x nx), or of the
 cooperative form at K = 2, 3 and 4 at 512^2 and 1024^2 (``coop_*``).  Run
 from the root of a checkout on a CUDA card:
 
@@ -18,15 +18,20 @@ variant (``{size K=k: ...}`` for the cooperative form).  The variants of
 the banded form:
 
   kernel       the kernel as it is
-  nowait       ghost values used without waiting for their step
+  nowait       ring values used without waiting for their step
                (diagnostic: wrong results; what the exchange's wait costs)
   nocompute    the cell step replaced by a copy (diagnostic: what the cell
                step's latency costs)
-  late_gather  the ghost loads issued after the inner cells' step
+  early_gather the ring's loads issued before the tile sums of two rounds
+               back, not after (the sums then run while the loads fly)
+  serial_poll  values that were not there yet loaded again one at a time
+               (the first one still to come), not all at once
   relaxed      outbox words through cuda::atomic_ref relaxed loads and
                stores instead of volatile accesses
-  wide         segments of up to 128 columns, 1024 threads of up to 64
-               registers
+  wide         segments of 64 columns wherever the band has them (fewer
+               blocks, a smaller ring per cell)
+  depth_<d>    every block at exchange depth d (1 .. 6) in place of
+               band_depth's 4 for 32 columns and 2 for 64
 
 and of the cooperative form (the diagnostic ones give wrong results):
 
@@ -50,14 +55,18 @@ ROOT = Path.cwd()
 PKG = ROOT / "advanced_hpc_lbm_tpu_torch"
 OUT = ROOT / "build" / "scratch" / "var"
 
-LOADS = """    Word got[kGather];
+LOADS = """    Word got[B::kGather];
+    unsigned pending = 0;  // bit q: value q is still to come
 #pragma unroll
-    for (int q = 0; q < kGather; ++q) {
-      if (g_src[q] >= 0) got[q] = ll_load(in + g_src[q]);
+    for (int q = 0; q < B::kGather; ++q) {
+      const int src = src_tab[q * kBandThreads + tid];
+      if (src >= 0) {
+        got[q] = ll_load(in + src);
+        pending |= 1u << q;
+      }
     }
 """
-INNER = """    float norm = 0.0f;
-    if (live && !edge) norm = step_cell();
+SUMS = """    if (r >= 2) tile_partials(r - 2);
 """
 
 
@@ -67,19 +76,28 @@ def replace(s: str, old: str, new: str) -> str:
 
 
 def nowait(s: str) -> str:
-    return replace(s, "for (int polls = 0; static_cast<unsigned>(got[q] >> 32) != "
-                      "static_cast<unsigned>(t + 1);", "for (int polls = 0; false;")
+    return replace(s, "static_cast<unsigned>(got[q] >> 32) == static_cast<unsigned>(t + 1)) {",
+                   "true) {")
+
+
+def serial_poll(s: str) -> str:
+    return replace(s, "        if ((pending >> q) & 1u) got[q] = ll_load(in + src_tab[q * "
+                      "kBandThreads + tid]);",
+                   "        if ((pending >> q) & 1u) {\n"
+                   "          got[q] = ll_load(in + src_tab[q * kBandThreads + tid]);\n"
+                   "          break;\n"
+                   "        }")
 
 
 def nocompute(s: str) -> str:
-    return replace(s, "      const float u_sq = lbm::cell_step(st, i + 1, x, i, i + 2, "
-                      "x - 1, x + 1, v, obst, c);",
+    return replace(s, "      const float u_sq = lbm::cell_step(st, r, cc, r - 1, r + 1, cc - 1, "
+                      "cc + 1, v[j], obst, c);",
                    "      const float u_sq = 0.0f;\n"
-                   "      for (int k = 0; k < kSpeeds; ++k) v[k] = st.f(k, i + 1, x);")
+                   "      for (int k = 0; k < kSpeeds; ++k) v[j][k] = st.f(k, r, cc);")
 
 
-def late_gather(s: str) -> str:
-    return replace(s, LOADS + INNER, INNER + LOADS)
+def early_gather(s: str) -> str:
+    return replace(s, SUMS + LOADS, LOADS + SUMS)
 
 
 def relaxed(s: str) -> str:
@@ -95,8 +113,13 @@ def relaxed(s: str) -> str:
 
 
 def wide(s: str) -> str:
-    s = replace(s, "constexpr int kMaxSegTiles = 2;", "constexpr int kMaxSegTiles = 4;")
-    return replace(s, "__launch_bounds__(kMaxBandThreads, 1)", "__launch_bounds__(kMaxBandThreads)")
+    return replace(s, "  int target = sms / num_bands(ny);", "  int target = 1;")
+
+
+def depth(d: int):
+    def edit(s: str) -> str:
+        return replace(s, "  return seg_w == lbm::kTileX ? 4 : 2;", f"  return {d};")
+    return edit
 
 
 def coop_nowait(s: str) -> str:
@@ -128,7 +151,8 @@ def coop_nostore(s: str) -> str:
 
 
 VARIANTS = {"kernel": [], "nowait": [nowait], "nocompute": [nocompute],
-            "late_gather": [late_gather], "relaxed": [relaxed], "wide": [wide],
+            "early_gather": [early_gather], "serial_poll": [serial_poll], "relaxed": [relaxed],
+            "wide": [wide], **{f"depth_{d}": [depth(d)] for d in range(1, 7)},
             "coop": [], "coop_nowait": [coop_nowait],
             "coop_nostep": [coop_nostep], "coop_nostore": [coop_nostore],
             "coop_nocopy": [coop_nocopy], "coop_t768": [coop_threads(768)],
@@ -136,20 +160,23 @@ VARIANTS = {"kernel": [], "nowait": [nowait], "nocompute": [nocompute],
 
 TIMER = r'''
 import sys, json
+import torch
 sys.path.append({root!r})
 import chip_smoke as c
 from advanced_hpc_lbm_tpu_torch.ops import _build, resident, step_kernel
 assert str(_build.CSRC).startswith({pkgdir!r}), _build.CSRC
 _build.build()
 out = {{}}
-for n in (64, 128, 256):
-    params, mask, f = c.on_card(n, n, 200 + n)
-    fr, _ = resident.resident_run(f, mask, params, n_iters=50)
+for ny, nx in ((64, 64), (128, 128), (256, 128), (256, 256)):
+    params, mask, f = c.on_card(ny, nx, 200 + ny + nx)
+    tiles = step_kernel.num_partials(ny, nx)
     fs, _ = step_kernel.run(f, mask, params, n_iters=50)
-    diff = int((fr != fs).sum().item())
-    ms = [c.time_ms(lambda: resident.resident_run(f, mask, params, n_iters=1000), 3) / 1000
-          for _ in range(2)]
-    out[n] = (diff, [m * 1e3 for m in ms])
+    launch = resident._chunk_launcher(f, mask, params)
+    bufs, part = (f.clone(), torch.empty_like(f)), torch.empty(1000, tiles, device="cuda")
+    launch(bufs, 50, part)
+    diff = int((bufs[0] != fs).sum().item())
+    ms = [c.time_ms(lambda: launch(bufs, 1000, part), 3) / 1000 for _ in range(2)]
+    out[f"{{ny}}x{{nx}}"] = (diff, [m * 1e3 for m in ms])
 print("RESULT", {name!r}, json.dumps(out), flush=True)
 '''
 

@@ -153,10 +153,12 @@ def readings(rec: profiling.Recorder, traces: list[str], deck) -> dict:
         "io.av_vels_bytes": total("lbm.io.av_vels", "bytes"),
         "ops.launches": per_solve("lbm.ops.loop", lambda s: s.attrs["launches"]),
         "ops.tiles_bulk_share": bulk_share(spans("lbm.ops.loop")),
-        # the resident path's loops: (form, bands, nx, ny) of each grid it ran
+        # the resident path's loops: (form, bands, nx, ny, depth) of each
+        # grid it ran, and its exchanges with the neighbours a solve
         "ops.resident_grids": sorted({(s.attrs["form"], s.attrs["bands"], s.attrs["nx"],
-                                       s.attrs["ny"]) for s in spans("lbm.ops.loop")
-                                      if "form" in s.attrs}),
+                                       s.attrs["ny"], s.attrs.get("depth"))
+                                      for s in spans("lbm.ops.loop") if "form" in s.attrs}),
+        "ops.resident_rounds": total("lbm.ops.loop", "rounds"),
         "io.quirk_clipped": total("lbm.io.final_state", "quirk_clipped"),
         "setup.libraries_s": sum(s.seconds for s in setup),
         "setup.libraries": {s.name: [s.seconds, s.attrs] for s in setup},

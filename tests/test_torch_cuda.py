@@ -142,38 +142,48 @@ def _chunked_partials(launcher, f, n, chunk, tiles):
     return bufs[n % 2], part
 
 
+@pytest.mark.parametrize("n,chunk", [(17, 6), (5, 1), (24, 12)])
 @pytest.mark.parametrize("ny,nx", [(8, 32), (16, 32), (17, 23), (64, 64), (128, 256),
-                                   (256, 256)])
-def test_banded_resident_matches_step_kernel_bitwise(ny, nx):
-    """One band, two bands, a ragged band, the mini deck and two reference
-    decks: 17 steps in chunks of 6 (the outbox reset between launches), 0
-    differing values in f and bitwise-equal partials against the step
-    kernel, and the cooperative form's state on the same input."""
+                                   (256, 256), (256, 128), (19, 99), (1001, 50)])
+def test_banded_resident_matches_step_kernel_bitwise(ny, nx, n, chunk):
+    """One band and one segment (8 x 32: a block is its own neighbour both
+    ways), two bands, a ragged last band of 1 row and of 3 (17 x 23, 1001 x
+    50, 19 x 99: shorter than D), a ragged last segment of 3 columns (19 x
+    99), blocks of 64 columns at D = 2 (256 x 256, 1001 x 50, one segment),
+    the others of 32 at D = 4, the mini deck and three reference decks: 17
+    steps in chunks of 6 (rounds of D and of n mod D, the outbox reset
+    between launches), chunks of 1 step (fewer than D) and 24 steps in
+    chunks of 12 (multiples of both D); 0 differing values in f and
+    bitwise-equal partials against the step kernel, and the cooperative
+    form's state on the same input."""
     params, mask, f = _on_card(ny, nx, seed=ny + nx)
     mask = step_kernel.prepare_obstacles(mask)
     assert resident.takes_banded(ny, nx, "cuda")
     tiles = step_kernel.num_partials(ny, nx)
     before = _resident_counts()
-    fb, pb = _chunked_partials(resident._chunk_launcher(f, mask, params), f, 17, 6, tiles)
+    launcher = resident._chunk_launcher(f, mask, params)
+    fb, pb = _chunked_partials(launcher, f, n, chunk, tiles)
     torch.cuda.synchronize()
-    assert _moved(before) == {"cooperative": 0, "banded": 3}
+    assert _moved(before) == {"cooperative": 0, "banded": -(-n // chunk)}
     bufs = [f.clone(), torch.empty_like(f)]
-    ps = torch.empty(17, tiles, device="cuda")
-    for t in range(17):
+    ps = torch.empty(n, tiles, device="cuda")
+    for t in range(n):
         step_kernel.step(bufs[t % 2], mask, params, out=bufs[(t + 1) % 2], partials=ps[t])
-    assert int((fb != bufs[1]).sum()) == 0
+    assert int((fb != bufs[n % 2]).sum()) == 0
     assert int((pb != ps).sum()) == 0
-    fc, pc = _chunked_partials(resident._chunk_launcher(f, mask, params, form="cooperative"),
-                               f, 17, 6, tiles)
-    assert int((fb != fc).sum()) == 0 and int((pb != pc).sum()) == 0
+    if n == 17:
+        fc, pc = _chunked_partials(
+            resident._chunk_launcher(f, mask, params, form="cooperative"), f, n, chunk, tiles)
+        assert int((fb != fc).sum()) == 0 and int((pb != pc).sum()) == 0
 
 
 def test_reference_128x256_deck_runs_banded_on_card():
     """The reference's 128x256 deck (fluid across the periodic top/bottom
     wrap) on ``auto``: the resident backend, one ``lbm.ops.loop`` span of
-    the banded form, 32 bands, nx 128 and ny 256; 1200 steps in two chunks
-    with 0 differing values against the step kernel, av within the file's
-    rtol 1e-5."""
+    the banded form, 32 bands, nx 128 and ny 256, the rule's depth D > 1
+    and its rounds, ceil(1000 / D) + ceil(200 / D); 1200 steps in two
+    chunks with 0 differing values against the step kernel, av within the
+    file's rtol 1e-5."""
     import os
 
     from advanced_hpc_lbm_tpu_torch.utils import profiling
@@ -188,7 +198,11 @@ def test_reference_128x256_deck_runs_banded_on_card():
     (run,) = rec.named("lbm.model.run")
     assert run.attrs == {"backend": "resident"}
     (loop,) = rec.named("lbm.ops.loop")
-    assert loop.attrs == {"form": "banded", "bands": 32, "nx": 128, "ny": 256, "launches": 2}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    depth = resident.banded_depth(256, 128, sms)
+    assert depth > 1
+    assert loop.attrs == {"form": "banded", "bands": 32, "nx": 128, "ny": 256, "depth": depth,
+                          "rounds": -(-1000 // depth) + -(-200 // depth), "launches": 2}
     step = Simulation.from_decks(base + ".params", base + ".obstacles.dat", backend="step",
                                  device="cuda").run(n_iters=1200)
     assert int((res.f_final != step.f_final).sum()) == 0
@@ -271,13 +285,20 @@ def test_cooperative_rules_in_c_equal_python(k):
 
 
 @pytest.mark.parametrize("ny,nx", [(8, 32), (64, 64), (256, 256), (1056, 64), (1064, 64),
-                                   (64, 318), (64, 319), (512, 512), (1024, 1024)])
+                                   (64, 318), (64, 319), (512, 512), (1024, 1024), (256, 128),
+                                   (208, 320), (216, 320)])
 def test_banded_rule_in_c_equals_python(ny, nx):
+    """The banded form's C queries against its Python rules on the card:
+    which grids it takes, the exchange depth, the widest block's shared
+    memory."""
     lib = step_kernel._library()
     smem, blocks = resident._banded_limits(torch.cuda.current_device(), nx)
     assert smem >= resident.band_smem_bytes(256)
     assert (blocks >= 1) is (nx <= resident.BAND_MAX_COLS)  # 0: the kernel cannot take nx
     assert lib.lbm_resident_banded_fits(ny, nx) == int(resident.banded_fits(ny, nx, smem, blocks))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert lib.lbm_resident_banded_depth(ny, nx) == resident.banded_depth(ny, nx, sms)
+    assert lib.lbm_resident_banded_smem(nx) == resident.band_smem_bytes(nx)
 
 
 @pytest.mark.parametrize("ny,nx", [(64, 64), (512, 512)])

@@ -129,16 +129,24 @@ H100_SMEM = 232_448  # opt-in shared memory per block
 H100_BANDS = 132  # bands that can be co-resident: 132 SMs x 1 block each
 
 
+def h100_bands(nx: int) -> int:
+    """Bands nx wide that an H100 holds at once: one block an SM, a band
+    needing a block per 64 columns (lbm_resident_banded_limits)."""
+    return H100_BANDS // -(-nx // resident.BAND_MAX_SEG_COLS)
+
+
 @pytest.mark.parametrize("ny,nx,banded", [
     (64, 64, True), (128, 128, True), (128, 256, True), (256, 128, True), (256, 256, True),
-    (8, 32, True), (17, 23, True), (512, 512, False), (1024, 1024, False), (64, 320, False),
-    (256, 318, True), (256, 319, False),
+    (8, 32, True), (17, 23, True), (512, 512, False), (1024, 1024, False), (64, 320, True),
+    (256, 318, False), (256, 319, False), (208, 320, True), (216, 320, False), (64, 321, False),
 ])
 def test_banded_rule_at_h100_limits(ny, nx, banded):
     """The reference's small decks and the mini deck go to the banded form;
-    512^2, 1024^2 and any band wider than 318 columns (its 2 x 9 x 10 x nx
-    floats and 10 x nx mask bytes above 232 448 B) do not."""
-    assert resident.banded_fits(ny, nx, H100_SMEM, H100_BANDS) is banded
+    512^2, 1024^2 and any grid wider than 320 columns do not, nor one with
+    more bands than the card holds at once (26 bands of 257-320 columns,
+    each cut into 5 blocks).  A block holds at most 64 columns of its band,
+    so its shared memory bounds no width."""
+    assert resident.banded_fits(ny, nx, H100_SMEM, h100_bands(nx)) is banded
 
 
 @pytest.mark.parametrize("ny,max_bands,banded", [
@@ -150,8 +158,61 @@ def test_banded_rule_needs_every_band_co_resident(ny, max_bands, banded):
 
 
 def test_band_smem_bytes():
-    assert resident.band_smem_bytes(64) == 2 * 9 * 10 * 64 * 4 + 10 * 64
-    assert resident.band_smem_bytes(318) <= H100_SMEM < resident.band_smem_bytes(319)
+    """The widest block of a band, at its depth.  64 columns at D = 2: two
+    rounds' ||u|| (2 x 2 x 8 x 64 floats), the ring table (6 values a
+    thread, two ints each, 512 threads), two copies of 9 planes over 12 x
+    68 cells, their mask.  32 columns at D = 4: 2 x 4 x 8 x 32 floats, 7
+    values a thread, 16 x 40 cells.  The narrower block is the smaller, and
+    both fit an H100."""
+    assert resident.band_smem_bytes(64) == (4 * 2 * 2 * 8 * 64 + 4 * 2 * 9 * 12 * 68
+                                            + 4 * 2 * 6 * 512 + 12 * 68) == 92_336
+    assert resident.band_smem_bytes(32) == (4 * 2 * 4 * 8 * 32 + 4 * 2 * 9 * 16 * 40
+                                            + 4 * 2 * 7 * 512 + 16 * 40) == 83_584
+    assert resident.band_smem_bytes(256) == resident.band_smem_bytes(320) == 92_336
+    assert resident.band_smem_bytes(23) == resident.band_smem_bytes(32)
+    assert resident.band_smem_bytes(32) < resident.band_smem_bytes(64) <= H100_SMEM
+
+
+@pytest.mark.parametrize("seg_w,depth", [(32, 4), (64, 2)])
+def test_band_depth(seg_w, depth):
+    """The exchange depth of each banded kernel: 4 steps a round for blocks
+    of 32 columns, 2 for blocks of 64."""
+    assert resident.band_depth(seg_w) == depth
+
+
+@pytest.mark.parametrize("depth,seg_w,values", [
+    (1, 32, 2), (1, 64, 3), (2, 64, 6), (3, 64, 9), (4, 32, 7), (4, 64, 12),
+])
+def test_band_gather(depth, seg_w, values):
+    """Ring values a thread gathers a round: 9 x (2D (seg_w + 2D) + 16 D)
+    over 512 threads, rounded up."""
+    assert resident.band_gather(depth, seg_w) == values
+
+
+@pytest.mark.parametrize("ny,nx,geometry", [
+    (64, 64, (32, 2, 4)), (128, 128, (32, 4, 4)), (256, 128, (32, 4, 4)),
+    (256, 256, (64, 4, 2)), (8, 32, (32, 1, 4)), (17, 23, (32, 1, 4)), (19, 99, (32, 4, 4)),
+    (1001, 50, (64, 1, 2)), (1056, 64, (64, 1, 2)), (208, 320, (64, 5, 2)),
+])
+def test_banded_geometry_and_depth_rule(ny, nx, geometry):
+    """(segment columns, segments, D) on an H100's 132 SMs: one block an
+    SM where the grid leaves SMs to spare, blocks of 32 columns stepping
+    4 steps a round and blocks of 64 columns 2; the reference's small
+    decks and the mini deck meet their neighbours less often than once a
+    step."""
+    assert resident.banded_geometry(ny, nx, H100_BANDS) == geometry
+    assert resident.banded_depth(ny, nx, H100_BANDS) == geometry[2] == resident.band_depth(
+        geometry[0])
+    seg_w, segs, _ = geometry
+    assert seg_w <= resident.band_seg_cols(nx) and (segs - 1) * seg_w < nx <= segs * seg_w
+
+
+@pytest.mark.parametrize("n,depth,rounds", [
+    (1000, 4, 250), (1000, 3, 334), (17, 4, 5), (3, 4, 1), (0, 4, 0), (5, 1, 5),
+])
+def test_banded_rounds(n, depth, rounds):
+    """Rounds of D steps and a last one of n mod D: one exchange each."""
+    assert resident.banded_rounds(n, depth) == rounds
 
 
 @pytest.mark.parametrize("ny,bands", [

@@ -360,14 +360,16 @@ def test_final_state_span_counts_the_clipped_lines(ny, nx, clipped, codec, monke
 
 def test_the_resident_loop_names_its_form_and_grid():
     """The resident path's ``lbm.ops.loop`` on the reference's 128x256 deck:
-    the plain form off CUDA, 32 bands of 8 rows, nx and ny."""
+    the plain form off CUDA, 32 bands of 8 rows, nx and ny, and one step
+    between exchanges, so as many rounds as steps."""
     decks = os.path.join(ROOT, "decks", "reference_128x256")
     sim = Simulation.from_decks(decks + ".params", decks + ".obstacles.dat",
                                 backend="resident", device="cpu")
     with profiling.recording() as rec:
         sim.run(n_iters=3)
     (loop,) = rec.named("lbm.ops.loop")
-    assert loop.attrs == {"form": "plain", "bands": 32, "nx": 128, "ny": 256, "launches": 0}
+    assert loop.attrs == {"form": "plain", "bands": 32, "nx": 128, "ny": 256, "depth": 1,
+                          "rounds": 3, "launches": 0}
     assert resident.num_bands(256) == 32
 
 
