@@ -10,8 +10,9 @@ distribution tensor on an explicit ``torch.device``.
 Layout:
   models/  — the simulation "model": state container + end-to-end run
   ops/     — lattice constants, reference ops, fused step, the CUDA
-             kernels' wrappers (step, resident, K-step, stream) and their
-             build-at-first-use
+             kernels' wrappers (step, resident, K-step, stream, local),
+             the one run loop under the single-device ones, and the
+             kernel library's boundary and build-at-first-use
   csrc/    — CUDA C++ sources of the kernels
   parallel/ — device meshes (across processes too), the halo-exchanged
              sharded runners, the multi-process bootstrap, batches of

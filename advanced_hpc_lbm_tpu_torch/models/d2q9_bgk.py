@@ -5,14 +5,16 @@ backend selection, the main loop on one device, diagnostics (the Reynolds
 number) and output writing.  The argv and timing scaffolding lives in
 :mod:`advanced_hpc_lbm_tpu_torch.cli`.
 
-Backends (each CUDA kernel runs its plain PyTorch version on the CPU):
+Backends (each CUDA kernel runs its plain PyTorch version on the CPU; the
+single-device ones are the entries of ``BACKEND_TABLE``):
   step      one launch of the hand-written CUDA step kernel per timestep
             (ops/step_kernel.py)
   pallas    the JAX package's name for the per-step kernel: runs ``step``
-  resident  the whole run in one cooperative launch per chunk of steps
-            (ops/resident.py): the banded form on the small decks, the
-            cooperative form (K = 3 steps per round; bands cut into
-            segments where they are fewer than the SMs) on every other grid
+  resident  the whole run in one launch per chunk of steps
+            (ops/resident.py): the banded form where it takes the grid
+            (the small decks), else the cooperative form (K = 3 steps per
+            round; bands cut into segments where they are fewer than the
+            SMs)
   pallask   K steps per launch on ghost-zone windows, K = best_k(ny, nx),
             the last iters % K steps on the step kernel (ops/kstep_kernel.py)
   pallas2   the same at K = 2
@@ -34,7 +36,8 @@ Backends (each CUDA kernel runs its plain PyTorch version on the CPU):
             whatever the backend, as in the JAX package
 
 ``--debug`` on a whole-run backend (resident, pallask, pallas2, stream)
-runs the step kernel's loop, which collects the per-step densities: the
+runs the step kernel's loop, which collects the per-step densities
+(``Simulation._runs``; the gate, the warm-up and the run all take it): the
 counterpart of the JAX package falling back to ``fused`` there.  On the
 sharded path the densities are each step's shard sums, added in shard
 order.
@@ -62,6 +65,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
+from collections.abc import Callable
 
 import numpy as np
 import torch
@@ -77,8 +81,6 @@ from advanced_hpc_lbm_tpu_torch.utils.checkpoint import CheckpointManager
 
 BACKENDS = ("auto", "step", "pallas", "resident", "pallask", "pallas2", "stream",
             "fused", "pipeline", "sharded")
-# the backends that run a whole run per launch (or K steps per launch)
-WHOLE_RUN = ("resident", "pallask", "pallas2", "stream")
 
 
 # ``auto``'s backend wherever its two state buffers fit, from this port's
@@ -102,6 +104,62 @@ AUTO_BACKEND = "pallask"
 # Share of the card's memory a run may plan to use, as the JAX package's
 # HBM gate plans with 0.9 of the TPU's.
 FIT_MARGIN = 0.9
+
+
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    """A single-device backend: the device mask it reads (a Simulation
+    property), its run ``(f0, mask, params, iters, debug) -> (f, av[,
+    densities])``, its device bytes, the modules whose ``prepare`` the
+    warm-up calls (and the K-step kernel's at K = ``k(ny, nx)``), and
+    whether ``--debug`` runs it on the step kernel's loop (whole-run)."""
+
+    mask: str
+    run: Callable
+    need: Callable[[LBMParams], int]
+    kernels: tuple = ()
+    k: Callable[[int, int], int] | None = None
+    whole_run: bool = False
+
+
+def _state_bytes(p: LBMParams) -> int:
+    return 4 * 9 * p.ny * p.nx
+
+
+def _two_states(p: LBMParams) -> int:
+    """Two states and the mask: the kernel loops (they donate the first)."""
+    return 2 * _state_bytes(p) + p.ny * p.nx
+
+
+def _kstep(k) -> Backend:
+    return Backend("_mask", lambda f0, m, p, n, debug: kstep_kernel.run(
+        f0, m, p, n_iters=n, k=k(p.ny, p.nx), donate=True), _two_states, (step_kernel,), k=k,
+        whole_run=True)
+
+
+def _plain(step_fn) -> Backend:
+    # three states, as the JAX gate models its scan (in, out, one transient)
+    return Backend("_obst", lambda f0, m, p, n, debug: fused.run_simulation(
+        f0, m, p, n_iters=n, step_fn=step_fn, collect_density=debug),
+        lambda p: 3 * _state_bytes(p))
+
+
+BACKEND_TABLE = {
+    "step": Backend("_mask", lambda f0, m, p, n, debug: step_kernel.run(
+        f0, m, p, n_iters=n, collect_density=debug, donate=True), _two_states, (step_kernel,)),
+    "resident": Backend("_mask", lambda f0, m, p, n, debug: resident.resident_run(
+        f0, m, p, n_iters=n, donate=True), _two_states, (step_kernel, resident), whole_run=True),
+    "pallask": _kstep(kstep_kernel.best_k),
+    "pallas2": _kstep(lambda ny, nx: 2),
+    # in place, one state: the least the stream backend needs
+    "stream": Backend("_enc", lambda f0, m, p, n, debug: stream_kernel.run(
+        f0, m, p, n_iters=n, donate=True), lambda p: stream_kernel.tier_bytes(p.ny, p.nx),
+        (step_kernel, stream_kernel), whole_run=True),
+    "fused": _plain(fused.fused_step),
+    "pipeline": _plain(fused.pipeline_step),
+}
+# the backends that run a whole run per launch (or K steps per launch)
+WHOLE_RUN = tuple(name for name, b in BACKEND_TABLE.items() if b.whole_run)
 
 
 def _device_memory_bytes(device: torch.device | str) -> int | None:
@@ -270,8 +328,8 @@ class Simulation:
                 return "resident"
             mem = _device_memory_bytes(self.device)
             if (mem is not None
-                    and self._need_bytes(AUTO_BACKEND, False) > FIT_MARGIN * mem
-                    and self._need_bytes("stream", False) <= FIT_MARGIN * mem):
+                    and BACKEND_TABLE[AUTO_BACKEND].need(self.params) > FIT_MARGIN * mem
+                    and BACKEND_TABLE["stream"].need(self.params) <= FIT_MARGIN * mem):
                 # pallask's two state buffers do not fit, the in-place
                 # stream tier does: the fall-through of the JAX auto rule
                 return "stream"
@@ -287,31 +345,21 @@ class Simulation:
 
     def _k(self) -> int:
         """K of the K-step backends."""
-        return 2 if self.backend == "pallas2" else kstep_kernel.best_k(self.params.ny, self.params.nx)
+        return BACKEND_TABLE[self.backend].k(self.params.ny, self.params.nx)
 
-    def _state_bytes(self) -> int:
-        return 4 * 9 * self.params.ny * self.params.nx
-
-    def _need_bytes(self, backend: str, debug: bool) -> int:
-        """Device memory of a run: the in-place stream tier's (the least
-        the stream backend needs); two state buffers and the mask for the
-        kernel loops (the run starts in the initial state's own buffer);
-        three states for the plain PyTorch backends, as the JAX gate
-        models its scan (in, out, one transient)."""
-        ny, nx = self.params.ny, self.params.nx
-        if backend == "stream" and not debug:
-            return stream_kernel.tier_bytes(ny, nx)
-        if backend in ("fused", "pipeline"):
-            return 3 * self._state_bytes()
-        return 2 * self._state_bytes() + ny * nx
+    def _runs(self, debug: bool) -> str:
+        """The entry of ``BACKEND_TABLE`` a single-device run takes: the
+        backend's, or under ``debug`` the step kernel's loop for a whole-run
+        backend (it collects the per-step densities)."""
+        return "step" if debug and BACKEND_TABLE[self.backend].whole_run else self.backend
 
     def _stream_tail_fits(self) -> bool:
         """Whether a second state (and the step kernel's mask) fits beside
         the in-place stream tier, as the step kernel's tail needs."""
         mem = _device_memory_bytes(self.device)
         ny, nx = self.params.ny, self.params.nx
-        return mem is None or (self._need_bytes("stream", False) + self._state_bytes()
-                               + ny * nx <= FIT_MARGIN * mem)
+        return mem is None or (BACKEND_TABLE["stream"].need(self.params)
+                               + _state_bytes(self.params) + ny * nx <= FIT_MARGIN * mem)
 
     def _check_single_chip_fit(self, debug: bool = False, lengths: tuple[int, ...] = ()) -> None:
         """Fail with an actionable message on grids whose run would not fit
@@ -323,21 +371,21 @@ class Simulation:
         mem = _device_memory_bytes(self.device)
         if mem is None:
             return
-        need = self._need_bytes(self.backend, debug)
+        runs = self._runs(debug)
+        need = BACKEND_TABLE[runs].need(self.params)
         if need <= FIT_MARGIN * mem:
-            if self.backend == "stream" and not debug and not self._stream_tail_fits():
+            if runs == "stream" and not self._stream_tail_fits():
                 for n in lengths:
                     stream_kernel.refuse_tail(n)
             return
         ny, nx = self.params.ny, self.params.nx
         # suggest the streaming tier only where its own need fits
-        stream_fits = self._need_bytes("stream", False) <= FIT_MARGIN * mem
+        stream_fits = BACKEND_TABLE["stream"].need(self.params) <= FIT_MARGIN * mem
         stream_helps = not debug and self.backend != "stream" and stream_fits
         # with --debug every backend runs the step kernel's two-buffer
         # loop, so the fix is dropping the flag, not switching kernels
         debug_helps = debug and stream_fits
-        label = ("streaming" if self.backend == "stream" and not debug
-                 else "two state buffers and the mask")
+        label = "streaming" if runs == "stream" else "two state buffers and the mask"
         raise ValueError(
             f"grid {ny}x{nx} needs ~{need / 2**30:.1f} GB of device memory ({label}), "
             f"exceeding {FIT_MARGIN:.0%} of this card's {mem / 2**30:.0f} GB"
@@ -407,31 +455,12 @@ class Simulation:
     def _run_on_device(self, iters: int, debug: bool,
                        f0: torch.Tensor | None = None) -> tuple[torch.Tensor, ...]:
         """The run from ``f0`` (default: the initial state), a contiguous
-        state on the device that the kernel loops take as their first
-        buffer (donate), so that a run holds two states at most, and stream
-        without a tail one."""
+        state on the device, on the backend's entry of ``BACKEND_TABLE``."""
         if f0 is None:
             with profiling.span("lbm.model.initial_state"):
                 f0 = self.initial_state()
-        if self.backend == "resident" and not debug:
-            return resident.resident_run(f0, self._mask, self.params, n_iters=iters,
-                                         donate=True)
-        if self.backend in ("pallask", "pallas2") and not debug:
-            return kstep_kernel.run(f0, self._mask, self.params, n_iters=iters, k=self._k(),
-                                    donate=True)
-        if self.backend == "stream" and not debug:
-            return stream_kernel.run(f0, self._enc, self.params, n_iters=iters, donate=True)
-        if self.backend == "step" or self.backend in WHOLE_RUN:
-            # debug mode needs per-step densities: the step kernel's loop
-            return step_kernel.run(
-                f0, self._mask, self.params, n_iters=iters, collect_density=debug,
-                donate=True,
-            )
-        step_fn = fused.fused_step if self.backend == "fused" else fused.pipeline_step
-        return fused.run_simulation(
-            f0, self._obst, self.params, n_iters=iters, step_fn=step_fn,
-            collect_density=debug,
-        )
+        backend = BACKEND_TABLE[self._runs(debug)]
+        return backend.run(f0, getattr(self, backend.mask), self.params, iters, debug)
 
     def _sync(self, devices=None) -> None:
         with profiling.span("lbm.model.sync"):
@@ -501,15 +530,12 @@ class Simulation:
             self._check_single_chip_fit(debug, lengths)
             # one process builds the kernels
             with profiling.span("lbm.ops.prepare"), multihost.primary_first():
-                if self.backend == "step" or self.backend in WHOLE_RUN:
-                    step_kernel.prepare(self.device)
-                    if self.backend == "resident":
-                        resident.prepare(self.device)
-                    elif self.backend == "stream":
-                        stream_kernel.prepare(self.device)
-                    elif self.backend in WHOLE_RUN:
-                        kstep_kernel.prepare(self.device, self._k())
-                else:
+                backend = BACKEND_TABLE[self._runs(debug)]
+                for module in backend.kernels:
+                    module.prepare(self.device)
+                if backend.k is not None:
+                    kstep_kernel.prepare(self.device, self._k())
+                if not backend.kernels:  # PyTorch's kernels: one throwaway step
                     self._run_on_device(1, False)
             self._sync()
 

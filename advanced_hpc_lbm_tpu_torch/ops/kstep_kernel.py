@@ -27,24 +27,19 @@ from __future__ import annotations
 
 import collections
 import contextlib
-import ctypes
-import functools
 
 import torch
 
-from advanced_hpc_lbm_tpu_torch.ops import kernel_common, lattice, step_kernel
+from advanced_hpc_lbm_tpu_torch.ops import kernel_common, lattice, library, loop, step_kernel
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
-from advanced_hpc_lbm_tpu_torch.utils import profiling
 
 # Own cells of one tile (kTx, kTy in csrc/kstep_kernel.cu; _library()
 # checks that the two agree).
 TILE_X, TILE_Y = 32, 16
+_library = library.checked(("lbm_kstep_tile_shape", (TILE_X, TILE_Y), "kernel tile"))
 
 # The K the kernel is built for (the JAX kernel's range, pallas_k.py:135).
 K_RANGE = range(2, 9)
-
-# Steps of ||u|| partials held before they are summed, as step_kernel.run.
-CHUNK = step_kernel.CHUNK
 
 # Kernel launches made by this module since the count was last reset, and
 # the same launches by K (K = 2 is the port of pallas_multi's _kernel2).
@@ -162,19 +157,8 @@ def plain_multi_step(
     out.copy_(tiles[:, :ny, :nx])
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = step_kernel._library()
-    tx, ty = ctypes.c_int(), ctypes.c_int()
-    lib.lbm_kstep_tile_shape(ctypes.byref(tx), ctypes.byref(ty))
-    if (tx.value, ty.value) != (TILE_X, TILE_Y):
-        raise RuntimeError(
-            f"kernel tile {tx.value}x{ty.value} != wrapper's {TILE_X}x{TILE_Y}"
-        )
-    return lib
-
-
-def _check_k(k: int) -> None:
+def check_k(k: int) -> None:
+    """Raise unless the kernel is built for K = ``k``."""
     if k not in K_RANGE:
         raise ValueError(f"K must be in 2..8, got {k}")
 
@@ -182,14 +166,9 @@ def _check_k(k: int) -> None:
 def prepare(device: torch.device | str, k: int) -> None:
     """Build and load the kernel library and load the kernel for K onto
     ``device`` without launching it."""
-    _check_k(k)
-    device = torch.device(device)
-    if device.type != "cuda":
-        return
-    lib = _library()
-    with torch.cuda.device(device):
-        torch.zeros(1, device=device)  # create the context first
-        step_kernel._raise_on(lib, lib.lbm_kstep_prepare(k), f"loading the K={k} kernel")
+    check_k(k)
+    library.on_device(device, lambda: _library().lbm_kstep_prepare(k),
+                      f"loading the K={k} kernel")
 
 
 def _launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams, k: int):
@@ -204,7 +183,7 @@ def _launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams, k: int):
         raise ValueError(f"no K-step kernel for device {f.device}")
     lib = _library()
     _, ny, nx = f.shape
-    consts = step_kernel._consts(params)
+    consts = library.consts(params)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     mask_ptr = mask.data_ptr()
 
@@ -212,7 +191,7 @@ def _launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams, k: int):
         global launches
         err = lib.lbm_kstep(src.data_ptr(), dst.data_ptr(), mask_ptr, part.data_ptr(),
                             ny, nx, k, *consts, stream)
-        step_kernel._raise_on(lib, err, f"K={k} kernel launch")
+        library.check(err, f"K={k} kernel launch")
         launches += 1
         launches_by_k[k] += 1
     return one
@@ -231,14 +210,8 @@ def kstep(
     ``partials`` ((k, num_tiles(ny, nx)) float32) the per-step, per-tile
     ||u|| sums.  Launches the kernel for a CUDA tensor, runs
     :func:`plain_multi_step` for a CPU one."""
-    _check_k(k)
-    step_kernel._validate(f, mask, out, partials)
-    _, ny, nx = f.shape
-    if out.shape != f.shape or out.dtype != f.dtype or not out.is_contiguous():
-        raise ValueError("out must be a contiguous tensor shaped like f")
-    if (partials.shape != (k, num_tiles(ny, nx)) or partials.dtype != torch.float32
-            or not partials.is_contiguous()):
-        raise ValueError(f"partials must be ({k}, {num_tiles(ny, nx)}) float32")
+    check_k(k)
+    library.validate_pass(f, mask, out, partials, (k, num_tiles(*f.shape[1:])))
     with torch.cuda.device(f.device) if f.is_cuda else contextlib.nullcontext():
         _launcher(f, mask, params, k)(f, out, partials)
 
@@ -253,7 +226,7 @@ def multi_step(
     """Advance K timesteps in one pass; returns (f_next, av_k (k,)), like
     the JAX ``pallas_k.multi_step``.  Takes a bool or a prepared uint8
     mask."""
-    mask = obstacles if obstacles.dtype == torch.uint8 else prepare_obstacles(obstacles)
+    mask = prepare_obstacles(obstacles)
     out = torch.empty_like(f)
     partials = torch.empty((k, num_tiles(*f.shape[1:])), dtype=torch.float32,
                            device=f.device)
@@ -280,47 +253,31 @@ def run(
     *,
     n_iters: int | None = None,
     k: int = 4,
-    chunk: int = CHUNK,
+    chunk: int = loop.CHUNK,
     donate: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the main loop at K steps per pass, ping-ponging two state
     buffers; the last ``iters % k`` steps run on the step kernel in the
     same two buffers, as the JAX ``pallas_k.run`` and ``pallas_multi.run``
     run them on the 1-step kernel.  ``f0`` is not modified, unless
-    ``donate`` (see :func:`step_kernel.buffers`).
+    ``donate`` (see :func:`.library.buffers`).
 
-    Returns (f_final, av_vels[(n_iters,)]) on ``f0``'s device.
+    Returns (f_final, av_vels[(n_iters,)]) on ``f0``'s device; the span
+    counts the tiles fed by the bulk copy and by wrapped copies.
     """
-    _check_k(k)
+    check_k(k)
     iters = params.max_iters if n_iters is None else n_iters
-    mask = obstacles if obstacles.dtype == torch.uint8 else prepare_obstacles(obstacles)
+    mask = prepare_obstacles(obstacles)
     _, ny, nx = f0.shape
-    n_fluid = (mask == 0).sum().to(torch.float32)
-    bufs = step_kernel.buffers(f0, donate)
-    passes, tail = divmod(iters, k)
+    bufs = library.buffers(f0, donate)
+    library.validate(bufs[0], mask, bufs[1])
+    passes = iters // k
     aligned = all(b.data_ptr() % 16 == 0 for b in bufs) and mask.data_ptr() % 4 == 0
     bulk = bulk_tiles(ny, nx, k) if aligned else 0
-    rows = max(1, min(chunk // k, passes))  # passes of partials per chunk
-    partials = torch.empty((rows, k, num_tiles(ny, nx)), dtype=torch.float32,
-                           device=f0.device)
-    av = torch.empty(iters, dtype=torch.float32, device=f0.device)
-    step_kernel._validate(bufs[0], mask, bufs[1], partials)
-
-    with (profiling.span("lbm.ops.loop") as sp,
-          torch.cuda.device(f0.device) if f0.is_cuda else contextlib.nullcontext()):
-        before = launches
-        one = _launcher(bufs[0], mask, params, k)
-        for p in range(passes):
-            one(bufs[p % 2], bufs[(p + 1) % 2], partials[p % rows])
-            if (p + 1) % rows == 0 or p + 1 == passes:
-                p0 = p - p % rows
-                torch.sum(partials[: p + 1 - p0], dim=2,
-                          out=av[p0 * k:(p + 1) * k].view(-1, k))
-        sp.set(launches=launches - before, tiles_bulk=passes * bulk,
-               tiles_wrap=passes * (num_tiles(ny, nx) - bulk))
-    av[: passes * k] /= n_fluid
-    f = bufs[passes % 2]
-    if tail:
-        f, av[passes * k:] = step_kernel.run(f, mask, params, n_iters=tail, donate=True,
-                                             spare=bufs[(passes + 1) % 2])
-    return f, av
+    return loop.run_passes(
+        bufs, lambda: _launcher(bufs[0], mask, params, k), iters,
+        (mask == 0).sum().to(torch.float32), tiles=num_tiles(ny, nx), counter=lambda: launches,
+        steps=k, chunk=chunk,
+        tail=lambda f, spare, n: step_kernel.run(f, mask, params, n_iters=n, donate=True,
+                                                 spare=spare),
+        tiles_bulk=passes * bulk, tiles_wrap=passes * (num_tiles(ny, nx) - bulk))

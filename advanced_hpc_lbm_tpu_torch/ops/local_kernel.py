@@ -43,18 +43,19 @@ pre-collision moments.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from advanced_hpc_lbm_tpu_torch.ops import kernel_common, kstep_kernel, lattice, step_kernel
+from advanced_hpc_lbm_tpu_torch.ops import (
+    kernel_common, kstep_kernel, lattice, library, step_kernel,
+)
 from advanced_hpc_lbm_tpu_torch.ops.stream_kernel import FORCING, OBSTACLE
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
 
 BLOCK_X, BLOCK_Y = step_kernel.BLOCK_X, step_kernel.BLOCK_Y
 TILE_X, TILE_Y = kstep_kernel.TILE_X, kstep_kernel.TILE_Y
 K_RANGE = kstep_kernel.K_RANGE
+_library = library.checked(("lbm_local_block_shape", (BLOCK_X, BLOCK_Y), "local kernel block"),
+                           ("lbm_kstep_tile_shape", (TILE_X, TILE_Y), "kernel tile"))
 
 # Kernel launches made by this module since the counts were last reset:
 # the 1-D and 2-D step forms, and the K-step form.
@@ -104,7 +105,7 @@ def plain_local_step(
     own_obst = obst[1:1 + ly, c0:c0 + lx]
     new, u_sq = kernel_common.collide(streamed, own_obst, params)
     out.copy_(torch.stack(new))
-    partials.copy_(step_kernel._block_sums(torch.where(own_obst, 0.0, torch.sqrt(u_sq))))
+    partials.copy_(step_kernel.block_sums(torch.where(own_obst, 0.0, torch.sqrt(u_sq))))
 
 
 def plain_local_ca_steps(
@@ -132,21 +133,9 @@ def plain_local_ca_steps(
     for s in range(k):
         u_sq = kernel_common.lean_window_step(src, dst, obst, accel, params, h, nx)
         norm = torch.where(own_obst, 0.0, torch.sqrt(u_sq[k:k + ly]))
-        partials[s] = step_kernel._block_sums(norm, TILE_Y, TILE_X)
+        partials[s] = step_kernel.block_sums(norm, TILE_Y, TILE_X)
         src, dst = dst, src
     out.copy_(src[:, k:k + ly])
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = kstep_kernel._library()
-    bx, by = ctypes.c_int(), ctypes.c_int()
-    lib.lbm_local_block_shape(ctypes.byref(bx), ctypes.byref(by))
-    if (bx.value, by.value) != (BLOCK_X, BLOCK_Y):
-        raise RuntimeError(
-            f"local kernel block {bx.value}x{by.value} != wrapper's {BLOCK_X}x{BLOCK_Y}"
-        )
-    return lib
 
 
 def prepare(device: torch.device | str, ks: tuple[int, ...] = ()) -> None:
@@ -155,13 +144,8 @@ def prepare(device: torch.device | str, ks: tuple[int, ...] = ()) -> None:
     them."""
     for k in ks:
         kstep_kernel.prepare(device, k)
-    device = torch.device(device)
-    if device.type != "cuda":
-        return
-    lib = _library()
-    with torch.cuda.device(device):
-        torch.zeros(1, device=device)  # create the context first
-        step_kernel._raise_on(lib, lib.lbm_local_prepare(), "loading the local kernel")
+    library.on_device(device, lambda: _library().lbm_local_prepare(),
+                      "loading the local kernel")
 
 
 def _span(t: torch.Tensor) -> tuple[int, int]:
@@ -224,14 +208,14 @@ def step_launcher(window: torch.Tensor, mask: torch.Tensor, params: LBMParams,
     stream = torch.cuda.current_stream(window.device).cuda_stream
     head = (window.data_ptr(), window.stride(0), window.stride(1), mask.data_ptr(),
             mask.stride(0), accel_rows.data_ptr(), out.data_ptr(), out.stride(0), out.stride(1))
-    tail = (ly, lx, int(torus), *step_kernel._consts(params), stream)
+    tail = (ly, lx, int(torus), *library.consts(params), stream)
     what = f"local {'2-D ' if torus else ''}kernel launch"
 
     def one(partials: torch.Tensor) -> None:
         global launches, launches_2d
         with torch.cuda.device(window.device):  # the stream's device
             err = lib.lbm_local_step(*head, partials.data_ptr(), *tail)
-        step_kernel._raise_on(lib, err, what)
+        library.check(err, what)
         if torus:
             launches_2d += 1
         else:
@@ -244,7 +228,7 @@ def ca_launcher(window: torch.Tensor, mask: torch.Tensor, params: LBMParams, k: 
                 out: torch.Tensor):
     """A function ``(partials) -> None`` that runs K steps of the K-step
     kernel's local form from ``window`` into ``out``, validated once."""
-    kstep_kernel._check_k(k)
+    kstep_kernel.check_k(k)
     _, h, nx = window.shape
     ly = h - 2 * k
     if ly < 1:
@@ -261,13 +245,13 @@ def ca_launcher(window: torch.Tensor, mask: torch.Tensor, params: LBMParams, k: 
     lib = _library()
     stream = torch.cuda.current_stream(window.device).cuda_stream
     head = (window.data_ptr(), window.stride(0), out.data_ptr(), out.stride(0), mask.data_ptr())
-    tail = (ly, nx, k, *step_kernel._consts(params), stream)
+    tail = (ly, nx, k, *library.consts(params), stream)
 
     def one(partials: torch.Tensor) -> None:
         global ca_launches
         with torch.cuda.device(window.device):  # the stream's device
             err = lib.lbm_local_ca(*head, partials.data_ptr(), *tail)
-        step_kernel._raise_on(lib, err, f"local K={k} kernel launch")
+        library.check(err, f"local K={k} kernel launch")
         ca_launches += 1
     return _checked(one, shape, window.device)
 

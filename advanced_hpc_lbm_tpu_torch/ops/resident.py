@@ -3,9 +3,10 @@ CUDA kernels, their wrapper and their plain PyTorch version.
 
 The port's counterpart of ``advanced_hpc_lbm_tpu.ops.resident``
 (``resident_run`` and its kernel ``_chunk_kernel``).  :func:`resident_run`
-is the wrapper: on a CUDA tensor it launches ``csrc/resident_kernel.cu``
-once per chunk of at most ``chunk`` steps; on a CPU tensor it runs
-:func:`plain_run`, a loop of ``step_kernel.plain_step``.  The kernel has
+is the wrapper: under :func:`.loop.run_passes`, on a CUDA tensor it
+launches ``csrc/resident_kernel.cu`` once per chunk of at most ``chunk``
+steps; on a CPU tensor it runs :func:`plain_run`, a loop of
+``step_kernel.plain_step``.  The kernel has
 two forms, chosen by the grid's shape before the launch (:func:`form_of`:
 :func:`banded_fits` with the card's limits):
 
@@ -41,18 +42,16 @@ partials buffer.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 
 import torch
 
-from advanced_hpc_lbm_tpu_torch.ops import step_kernel
+from advanced_hpc_lbm_tpu_torch.ops import library, loop, step_kernel
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
-from advanced_hpc_lbm_tpu_torch.utils import profiling
 
 # Steps per launch: bounds the partials buffer (16 MB at 1024x1024).
-CHUNK = 1000
+CHUNK = loop.CHUNK
 
 # Kernel launches made by this module since the count was last reset: of
 # the cooperative form and of the banded form.
@@ -76,6 +75,9 @@ BAND_MAX_SEG_COLS = 2 * step_kernel.BLOCK_X
 BAND_THREADS = BAND_MAX_SEG_COLS * BAND_ROWS
 
 prepare_obstacles = step_kernel.prepare_obstacles
+# both forms write the step kernel's partials, one per 32x8 tile
+_library = library.checked(("lbm_step_block_shape", (step_kernel.BLOCK_X, step_kernel.BLOCK_Y),
+                            "kernel tile"))
 
 
 def prepare(device: torch.device | str) -> None:
@@ -83,13 +85,8 @@ def prepare(device: torch.device | str) -> None:
     resident kernel onto ``device`` without launching them (setting their
     shared-memory limits); raises if the device takes no cooperative
     launches."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return
-    lib = step_kernel._library()
-    with torch.cuda.device(device):
-        torch.zeros(1, device=device)  # create the context first
-        step_kernel._raise_on(lib, lib.lbm_resident_prepare(), "loading the resident kernel")
+    library.on_device(device, lambda: _library().lbm_resident_prepare(),
+                      "loading the resident kernel")
 
 
 def num_bands(ny: int) -> int:
@@ -192,12 +189,9 @@ def banded_fits(ny: int, nx: int, smem_bytes: int, max_bands: int) -> bool:
 def _banded_limits(device_index: int, nx: int) -> tuple[int, int]:
     """(opt-in shared memory per block, bands nx wide that can be
     co-resident) on a CUDA device, from the kernel library."""
-    lib = step_kernel._library()
     smem, bands = ctypes.c_int(), ctypes.c_int()
-    with torch.cuda.device(device_index):
-        torch.zeros(1, device=f"cuda:{device_index}")  # create the context first
-        step_kernel._raise_on(lib, lib.lbm_resident_banded_limits(
-            nx, ctypes.byref(smem), ctypes.byref(bands)), "querying the banded kernel")
+    library.on_device(f"cuda:{device_index}", lambda: _library().lbm_resident_banded_limits(
+        nx, ctypes.byref(smem), ctypes.byref(bands)), "querying the banded kernel")
     return smem.value, bands.value
 
 
@@ -210,12 +204,6 @@ def takes_banded(ny: int, nx: int, device: torch.device | str) -> bool:
         return False
     index = device.index if device.index is not None else torch.cuda.current_device()
     return banded_fits(ny, nx, *_banded_limits(index, nx))
-
-
-def _sm_depth(ny: int, nx: int, device: torch.device) -> int:
-    """:func:`banded_depth` on a CUDA device's SMs."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    return banded_depth(ny, nx, torch.cuda.get_device_properties(index).multi_processor_count)
 
 
 def coop_k(ny: int, nx: int) -> int:
@@ -329,12 +317,9 @@ def _coop_limits(device_index: int, k: int) -> tuple[int, int]:
     """(dynamic shared memory of a block, blocks that can be co-resident)
     of the cooperative form at K = k on a CUDA device, from the kernel
     library."""
-    lib = step_kernel._library()
     smem, blocks = ctypes.c_int(), ctypes.c_int()
-    with torch.cuda.device(device_index):
-        torch.zeros(1, device=f"cuda:{device_index}")  # create the context first
-        step_kernel._raise_on(lib, lib.lbm_resident_coop_limits(
-            k, ctypes.byref(smem), ctypes.byref(blocks)), f"preparing the K={k} resident kernel")
+    library.on_device(f"cuda:{device_index}", lambda: _library().lbm_resident_coop_limits(
+        k, ctypes.byref(smem), ctypes.byref(blocks)), f"preparing the K={k} resident kernel")
     return smem.value, blocks.value
 
 
@@ -371,17 +356,17 @@ def _chunk_launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams,
         raise ValueError(f"no resident kernel for device {f.device}")
     if form not in (None, "banded", "cooperative"):
         raise ValueError(f"unknown form {form!r}")
-    lib = step_kernel._library()
+    lib = _library()
     _, ny, nx = f.shape
-    consts = step_kernel._consts(params)
+    consts = library.consts(params)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     mask_ptr = mask.data_ptr()
 
     form = form or form_of(ny, nx, f.device)
     if form == "banded":
         words = ctypes.c_longlong()
-        step_kernel._raise_on(lib, lib.lbm_resident_banded_scratch(
-            ny, nx, ctypes.byref(words)), "sizing the banded kernel's outbox")
+        library.check(lib.lbm_resident_banded_scratch(ny, nx, ctypes.byref(words)),
+                      "sizing the banded kernel's outbox")
         # the blocks' edge values of two steps, each with its step (the
         # launch resets it)
         outbox = torch.empty(words.value, dtype=torch.int64, device=f.device)
@@ -391,7 +376,7 @@ def _chunk_launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams,
             err = lib.lbm_resident_banded_chunk(
                 bufs[0].data_ptr(), bufs[1].data_ptr(), mask_ptr, part.data_ptr(),
                 outbox.data_ptr(), ny, nx, n, blocks, *consts, stream)
-            step_kernel._raise_on(lib, err, "resident kernel launch")
+            library.check(err, "resident kernel launch")
             banded_launches += 1
         return banded
 
@@ -407,7 +392,7 @@ def _chunk_launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams,
         err = lib.lbm_resident_chunk(bufs[0].data_ptr(), bufs[1].data_ptr(), mask_ptr,
                                      part.data_ptr(), flags.data_ptr(), ny, nx, n, blocks, k,
                                      *consts, stream)
-        step_kernel._raise_on(lib, err, "resident kernel launch")
+        library.check(err, "resident kernel launch")
         launches += 1
     return chunk
 
@@ -423,7 +408,7 @@ def resident_run(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the whole main loop, one launch per chunk of at most ``chunk``
     steps.  ``f0`` is not modified, unless ``donate`` (see
-    :func:`step_kernel.buffers`).
+    :func:`.library.buffers`).
 
     Returns (f_final, av_vels[(n_iters,)]) on ``f0``'s device, like the
     JAX ``resident_run``.  The ``lbm.ops.loop`` span carries the form the
@@ -433,33 +418,28 @@ def resident_run(
     and the exchanges of the run (``rounds``).
     """
     iters = params.max_iters if n_iters is None else n_iters
-    mask = obstacles if obstacles.dtype == torch.uint8 else prepare_obstacles(obstacles)
+    mask = prepare_obstacles(obstacles)
     _, ny, nx = f0.shape
-    n_fluid = (mask == 0).sum().to(torch.float32)
-    bufs = step_kernel.buffers(f0, donate)
-    rows = max(1, min(chunk, iters))
-    partials = torch.empty((rows, step_kernel.num_partials(ny, nx)),
-                           dtype=torch.float32, device=f0.device)
-    av = torch.empty(iters, dtype=torch.float32, device=f0.device)
-    step_kernel._validate(bufs[0], mask, bufs[1], partials)
+    bufs = library.buffers(f0, donate)
+    library.validate(bufs[0], mask, bufs[1])
 
     form = form_of(ny, nx, f0.device)
+    rows = max(1, min(chunk, iters))
     chunks = [min(rows, iters - t0) for t0 in range(0, iters, rows)]
     if form == "cooperative":
         depth = coop_k(ny, nx)
         rounds = sum(len(coop_rounds(n, depth)) for n in chunks)
     else:
-        depth = _sm_depth(ny, nx, f0.device) if form == "banded" else 1
+        depth = 1 if form == "plain" else banded_depth(
+            ny, nx, torch.cuda.get_device_properties(f0.device).multi_processor_count)
         rounds = sum(banded_rounds(n, depth) for n in chunks)
-    with (profiling.span("lbm.ops.loop", form=form, bands=num_bands(ny), nx=nx, ny=ny,
-                         depth=depth, rounds=rounds) as sp,
-          torch.cuda.device(f0.device) if f0.is_cuda else contextlib.nullcontext()):
-        before = launches + banded_launches
+
+    def launcher():
         run_chunk = _chunk_launcher(bufs[0], mask, params)
-        for t0, n in zip(range(0, iters, rows), chunks):
-            # the chunk starts on the buffer that holds step t0's state
-            run_chunk((bufs[t0 % 2], bufs[(t0 + 1) % 2]), n, partials)
-            torch.sum(partials[:n], dim=1, out=av[t0:t0 + n])
-        sp.set(launches=launches + banded_launches - before)
-    av /= n_fluid
-    return bufs[iters % 2], av
+        return lambda src, dst, part: run_chunk((src, dst), len(part), part)
+
+    return loop.run_passes(bufs, launcher, iters, (mask == 0).sum().to(torch.float32),
+                           tiles=step_kernel.num_partials(ny, nx),
+                           counter=lambda: launches + banded_launches, whole=True, chunk=chunk,
+                           form=form, bands=num_bands(ny), nx=nx, ny=ny, depth=depth,
+                           rounds=rounds)

@@ -34,26 +34,26 @@ more).
 from __future__ import annotations
 
 import contextlib
-import ctypes
-import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from advanced_hpc_lbm_tpu_torch.ops import kernel_common, lattice, reference, step_kernel
+from advanced_hpc_lbm_tpu_torch.ops import (
+    kernel_common, lattice, library, loop, reference, step_kernel,
+)
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
-from advanced_hpc_lbm_tpu_torch.utils import profiling
 
 K = 8  # steps per pass = ghost depth
 # Own rows and columns of a kernel block (kSlab, kSeg in
 # csrc/stream_kernel.cu; _library() checks that the two agree).
 SLAB, SEGMENT = 80, 1024
+_library = library.checked(("lbm_stream_geometry", (K, SLAB, SEGMENT),
+                            "kernel geometry (K, slab, segment)"))
 
 OBSTACLE, FORCING, EXCLUDED = 1, 2, 4
 
-# Passes of ||u|| partials held before they are summed: CHUNK steps.
-CHUNK = step_kernel.CHUNK
+CHUNK = loop.CHUNK
 
 # Kernel launches made by this module since the counts were last reset:
 # passes, and the ghost snapshots that precede them.
@@ -180,29 +180,11 @@ def plain_multi_step(
     out.copy_(src[:, :, own].reshape(lattice.NSPEEDS, ns * SLAB, nx)[:, :ny])
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = step_kernel._library()
-    got = [ctypes.c_int() for _ in range(3)]
-    lib.lbm_stream_geometry(*map(ctypes.byref, got))
-    if tuple(g.value for g in got) != (K, SLAB, SEGMENT):
-        raise RuntimeError(
-            f"kernel geometry (K, slab, segment) {tuple(g.value for g in got)} "
-            f"!= wrapper's {(K, SLAB, SEGMENT)}"
-        )
-    return lib
-
-
 def prepare(device: torch.device | str) -> None:
     """Build and load the kernel library and load the snapshot and stream
     kernels onto ``device`` without launching them."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return
-    lib = _library()
-    with torch.cuda.device(device):
-        torch.zeros(1, device=device)  # create the context first
-        step_kernel._raise_on(lib, lib.lbm_stream_prepare(), "loading the stream kernel")
+    library.on_device(device, lambda: _library().lbm_stream_prepare(),
+                      "loading the stream kernel")
 
 
 def _launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams):
@@ -223,37 +205,21 @@ def _launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams):
                        device=f.device)
     rows_ptr = side.data_ptr()
     cols_ptr = side[lattice.NSPEEDS * rows_n:].data_ptr()
-    consts = step_kernel._consts(params)
+    consts = library.consts(params)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     mask_ptr = mask.data_ptr()
 
     def one(src, dst, part):
         global launches, snapshot_launches
         err = lib.lbm_stream_snapshot(src.data_ptr(), rows_ptr, cols_ptr, ny, nx, stream)
-        step_kernel._raise_on(lib, err, "stream snapshot launch")
+        library.check(err, "stream snapshot launch")
         snapshot_launches += 1
         err = lib.lbm_stream(src.data_ptr(), dst.data_ptr(), mask_ptr, rows_ptr, cols_ptr,
                              part.data_ptr(), ny, nx, *consts, stream)
-        step_kernel._raise_on(lib, err, "stream kernel launch")
+        library.check(err, "stream kernel launch")
         launches += 1
     one.side = side  # the side buffer lives as long as the launcher
     return one
-
-
-def _validate(f: torch.Tensor, mask: torch.Tensor, out: torch.Tensor,
-              partials: torch.Tensor) -> None:
-    """f and mask as the step kernel takes them; ``out`` is f (in place) or
-    a separate contiguous tensor shaped like it; ``partials`` (K, tiles)."""
-    _, ny, nx = f.shape
-    if out is f:
-        step_kernel._validate(f, mask, partials)
-    else:
-        step_kernel._validate(f, mask, out, partials)
-        if out.shape != f.shape or out.dtype != f.dtype or not out.is_contiguous():
-            raise ValueError("out must be f or a contiguous tensor shaped like it")
-    if (partials.shape != (K, num_tiles(ny, nx)) or partials.dtype != torch.float32
-            or not partials.is_contiguous()):
-        raise ValueError(f"partials must be ({K}, {num_tiles(ny, nx)}) float32")
 
 
 def stream_pass(
@@ -269,10 +235,10 @@ def stream_pass(
     num_tiles(ny, nx)) float32) gets the per-step, per-tile ||u|| sums.
     Launches the kernel for a CUDA tensor, runs :func:`plain_multi_step`
     for a CPU one."""
-    out = f if out is None else out
-    _validate(f, mask, out, partials)
+    library.validate_pass(f, mask, None if out is None or out is f else out, partials,
+                          (K, num_tiles(*f.shape[1:])))
     with torch.cuda.device(f.device) if f.is_cuda else contextlib.nullcontext():
-        _launcher(f, mask, params)(f, out, partials)
+        _launcher(f, mask, params)(f, f if out is None else out, partials)
 
 
 def window_ca_steps(
@@ -336,31 +302,6 @@ def multi_step(
     return out, partials.sum(dim=1) / n_fluid
 
 
-def _run_passes(bufs: tuple[torch.Tensor, torch.Tensor], mask: torch.Tensor,
-                params: LBMParams, passes: int, av: torch.Tensor,
-                chunk: int) -> torch.Tensor:
-    """``passes`` passes from ``bufs[0]``, pass p from ``bufs[p % 2]`` into
-    ``bufs[(p + 1) % 2]`` (one tensor twice: in place); the per-step ||u||
-    sums into ``av[:passes * K]``.  Returns the buffer of the last state."""
-    _, ny, nx = bufs[0].shape
-    rows = max(1, min(chunk // K, passes))  # passes of partials per chunk
-    partials = torch.empty((rows, K, num_tiles(ny, nx)), dtype=torch.float32,
-                           device=bufs[0].device)
-    _validate(bufs[0], mask, bufs[1], partials[0])
-    with (profiling.span("lbm.ops.loop") as sp,
-          torch.cuda.device(bufs[0].device) if bufs[0].is_cuda else contextlib.nullcontext()):
-        before = launches + snapshot_launches
-        one = _launcher(bufs[0], mask, params)
-        for p in range(passes):
-            one(bufs[p % 2], bufs[(p + 1) % 2], partials[p % rows])
-            if (p + 1) % rows == 0 or p + 1 == passes:
-                p0 = p - p % rows
-                torch.sum(partials[: p + 1 - p0], dim=2,
-                          out=av[p0 * K:(p + 1) * K].view(-1, K))
-        sp.set(launches=launches + snapshot_launches - before)
-    return bufs[passes % 2]
-
-
 def run(
     f0: torch.Tensor,
     obstacles: torch.Tensor,
@@ -376,30 +317,31 @@ def run(
     the step kernel, as the JAX ``pallas_stream.run`` runs them on the
     1-step kernel (a second state buffer then exists for those steps).
     ``f0`` is not modified, unless ``donate``: then the run starts in its
-    storage (see :func:`step_kernel.buffers`).
+    storage (see :func:`.library.buffers`).
 
     Returns (f_final, av_vels[(n_iters,)]) on ``f0``'s device.
     """
     iters = params.max_iters if n_iters is None else n_iters
     mask = _encoded(obstacles)
     n_fluid = fluid_cells(mask)
-    passes, tail = divmod(iters, K)
     if inplace:
         f = f0 if donate else f0.clone(memory_format=torch.contiguous_format)
         if not f.is_contiguous():
             raise ValueError("a donated f0 must be contiguous")
         bufs = (f, f)
     else:
-        bufs = step_kernel.buffers(f0, donate)
-    av = torch.empty(iters, dtype=torch.float32, device=f0.device)
-    f = _run_passes(bufs, mask, params, passes, av, chunk)
-    av[: passes * K] /= n_fluid
-    if tail:
-        spare = None if inplace else bufs[(passes + 1) % 2]
-        step_mask = (mask & OBSTACLE).contiguous()
-        f, av[passes * K:] = step_kernel.run(f, step_mask, params, n_iters=tail,
-                                             donate=True, spare=spare)
-    return f, av
+        bufs = library.buffers(f0, donate)
+    library.validate(bufs[0], mask, *(() if inplace else bufs[1:]))
+    _, ny, nx = f0.shape
+
+    def tail(f, spare, n):
+        return step_kernel.run(f, (mask & OBSTACLE).contiguous(), params, n_iters=n,
+                               donate=True, spare=spare)
+
+    return loop.run_passes(bufs, lambda: _launcher(bufs[0], mask, params), iters, n_fluid,
+                           tiles=num_tiles(ny, nx),
+                           counter=lambda: launches + snapshot_launches, steps=K,
+                           chunk=chunk, tail=tail)
 
 
 def refuse_tail(n_iters: int) -> None:

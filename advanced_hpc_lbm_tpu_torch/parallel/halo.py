@@ -99,7 +99,7 @@ import torch
 import torch.distributed as dist
 
 from advanced_hpc_lbm_tpu_torch.ops import (
-    kernel_common, lattice, local_kernel, reference, step_kernel, stream_kernel,
+    kernel_common, kstep_kernel, lattice, local_kernel, reference, step_kernel, stream_kernel,
 )
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
 from advanced_hpc_lbm_tpu_torch.parallel import multihost
@@ -825,7 +825,7 @@ class ShardedRunner:
                 "(the K-step local kernel assumes an unsharded periodic x axis); use "
                 "kernel='jnp' or a 1-D mesh")
         if kernel == "pallas" and ca_steps > 1:
-            local_kernel.kstep_kernel._check_k(ca_steps)
+            kstep_kernel.check_k(ca_steps)
         ly, lx = ny // my, nx // mx
         if kernel == "stream":
             if ca_steps not in (1, stream_kernel.K):

@@ -569,9 +569,9 @@ def check_banded_rule(card: str) -> None:
     the card's limits; the small decks take the banded form, 512^2 and
     1024^2 the cooperative one; the cooperative form's C queries equal its
     Python rules."""
-    from advanced_hpc_lbm_tpu_torch.ops import resident, step_kernel
+    from advanced_hpc_lbm_tpu_torch.ops import library, resident
 
-    lib = step_kernel._library()
+    lib = library.load()
     dev = torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
@@ -611,8 +611,8 @@ def check_banded_rule(card: str) -> None:
         c_smem, max_blocks = resident._coop_limits(dev, k)
         words = ctypes.c_longlong()
         for ny, nx in RULE_SHAPES + TILED_GRIDS + TIMED_SQUARES:
-            step_kernel._raise_on(lib, lib.lbm_resident_coop_scratch(
-                ny, nx, ctypes.byref(words)), "sizing the cooperative outbox")
+            library.check(lib.lbm_resident_coop_scratch(ny, nx, ctypes.byref(words)),
+                          "sizing the cooperative outbox")
             grid = lib.lbm_resident_coop_grid(ny, nx, k)
             segs = lib.lbm_resident_coop_segments(ny, nx, k)
             want = (resident.coop_flag_words(ny, nx), resident.coop_blocks(ny, nx, max_blocks),

@@ -27,7 +27,7 @@ import torch
 from advanced_hpc_lbm_tpu_torch import Simulation
 from advanced_hpc_lbm_tpu_torch.models import d2q9_bgk
 from advanced_hpc_lbm_tpu_torch.ops import (
-    kstep_kernel, local_kernel, reference, resident, step_kernel, stream_kernel,
+    kstep_kernel, library, local_kernel, reference, resident, step_kernel, stream_kernel,
 )
 from advanced_hpc_lbm_tpu_torch.parallel import halo
 from advanced_hpc_lbm_tpu_torch.params import LBMParams
@@ -266,7 +266,7 @@ def test_cooperative_rules_in_c_equal_python(k):
     card: K by shape, the segments a band (one at 1024^2, 2048^2, 4096^2),
     the grid (one block per tile up to the co-resident limit), the
     outbox's flag words, the shared memory of a block."""
-    lib = step_kernel._library()
+    lib = library.load()
     smem, max_blocks = resident._coop_limits(torch.cuda.current_device(), k)
     assert smem == resident.coop_smem_bytes(k)
     assert max_blocks >= torch.cuda.get_device_properties(0).multi_processor_count
@@ -291,7 +291,7 @@ def test_banded_rule_in_c_equals_python(ny, nx):
     """The banded form's C queries against its Python rules on the card:
     which grids it takes, the exchange depth, the widest block's shared
     memory."""
-    lib = step_kernel._library()
+    lib = library.load()
     smem, blocks = resident._banded_limits(torch.cuda.current_device(), nx)
     assert smem >= resident.band_smem_bytes(256)
     assert (blocks >= 1) is (nx <= resident.BAND_MAX_COLS)  # 0: the kernel cannot take nx
@@ -362,7 +362,7 @@ def test_kstep_persistent_grid_matches_step_on_card(ny, nx, k):
     steps) and fewer (64^2: 8 tiles): 0 differing values against the step
     kernel over two passes and a tail."""
     params, mask, f = _on_card(ny, nx, seed=20 + k)
-    blocks = _persistent_blocks(kstep_kernel._library().lbm_kstep_blocks_per_sm(k, 0))
+    blocks = _persistent_blocks(library.load().lbm_kstep_blocks_per_sm(k, 0))
     tiles = kstep_kernel.num_tiles(ny, nx)
     assert (tiles > blocks) == (ny == 1024) and blocks >= 132
     n = 2 * k + 1
@@ -381,7 +381,7 @@ def test_local_ca_persistent_grid_matches_plain_on_card(k):
     ly, nx = 512, 2048
     params, win, enc = _local_window(ly + 2 * k, nx, 30 + k, (ly + k - 3,))
     assert local_kernel.num_tiles(ly, nx) > _persistent_blocks(
-        kstep_kernel._library().lbm_kstep_blocks_per_sm(k, 1))
+        library.load().lbm_kstep_blocks_per_sm(k, 1))
     outs = []
     for fn in (local_kernel.local_ca_steps, local_kernel.plain_local_ca_steps):
         out = torch.empty(9, ly, nx, device="cuda")
@@ -403,7 +403,7 @@ def test_stream_pipeline_in_place_matches_step_on_card(ny, nx):
     kernel."""
     params, mask, f = _on_card(ny, nx, seed=40)
     items = stream_kernel.num_tiles(ny, nx)
-    blocks = _persistent_blocks(stream_kernel._library().lbm_stream_blocks_per_sm())
+    blocks = _persistent_blocks(library.load().lbm_stream_blocks_per_sm())
     assert (items > blocks) == (ny == 11000)
     n = 2 * stream_kernel.K
     fk, avk = stream_kernel.run(f, mask, params, n_iters=n, inplace=True)

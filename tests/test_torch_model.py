@@ -194,6 +194,27 @@ def test_unknown_backend_and_bad_mask_raise():
         Simulation(params, mask[:-1], device="cpu")
 
 
+@pytest.mark.parametrize("name", d2q9_bgk.BACKENDS)
+def test_every_backend_resolves_to_one_table_entry(name):
+    """Every backend name is an entry of the model's table, an alias (auto,
+    pallas) or the sharded path; under ``debug`` a whole-run backend runs
+    the step kernel's entry, every other entry its own."""
+    params, mask = _small_deck()
+    sim = Simulation(params, mask, backend=name, device="cpu")
+    table = d2q9_bgk.BACKEND_TABLE
+    if name in ("auto", "pallas", "sharded"):
+        assert name not in table
+        assert sim.backend == {"auto": "pallask", "pallas": "step"}.get(name, name)
+    else:
+        assert sim.backend == name and name in table
+    if sim.backend == "sharded":
+        return
+    whole = sim.backend in ("resident", "pallask", "pallas2", "stream")
+    assert (sim.backend in d2q9_bgk.WHOLE_RUN) is whole
+    assert sim._runs(False) == sim.backend
+    assert sim._runs(True) == ("step" if whole else sim.backend)
+
+
 def test_run_without_fetch_then_collate():
     params, mask = _small_deck()
     sim = Simulation(params, mask, device="cpu")

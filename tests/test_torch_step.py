@@ -123,7 +123,7 @@ def test_periodic_wrap_rows_match_pallas():
 def test_partials_are_per_block_sums(ny, nx):
     rng = np.random.RandomState(0)
     norm = rng.rand(ny, nx).astype(np.float32)
-    got = step_kernel._block_sums(torch.from_numpy(norm)).numpy()
+    got = step_kernel.block_sums(torch.from_numpy(norm)).numpy()
     gy, gx = -(-ny // step_kernel.BLOCK_Y), -(-nx // step_kernel.BLOCK_X)
     assert got.shape == (step_kernel.num_partials(ny, nx),) == (gy * gx,)
     want = [
