@@ -4,15 +4,23 @@
  * inner): "%d %d %.12E %.12E %.12E %.12E %d\n" of (ii, jj, u_x, u_y, |u|,
  * pressure, obstacle column), the reference writer's format.  The lines are
  * cut into blocks of BLOCK_LINES.  Each of up to T threads claims the next
- * block, formats it with libc's snprintf into a buffer of its own, waits
- * for its turn and writes the block, so the file holds the blocks in order
- * whatever the thread count, and memory stays at T buffers whatever the
- * grid.  av_vels.dat holds "%ld:\t%.12E\n" per step.  Obstacle decks are
- * "x y 1" lines, read into a (ny, nx) byte mask.
+ * block, formats it into a buffer of its own, waits for its turn and writes
+ * the block, so the file holds the blocks in order whatever the thread
+ * count, and memory stays at T buffers whatever the grid.  av_vels.dat
+ * holds "%ld:\t%.12E\n" per step.  Obstacle decks are "x y 1" lines, read
+ * into a (ny, nx) byte mask.
+ *
+ * The lines are built here, not by printf: integers by a digit loop, and
+ * each number by put_e12, which makes printf's "%.12E" digits exactly with
+ * integer arithmetic where the value has a float32's 24-bit significand and
+ * lies in about [1e-32, 1e13), as every value of both files does (float32
+ * planes and float32 averages, widened), and hands any other number to
+ * libc's snprintf.  The bytes are printf's either way.
  *
  * Both writers fill a stats struct where the caller passes one (NULL: none):
  * blocks, threads, nanoseconds formatting, writing and waiting for a turn
- * (CLOCK_MONOTONIC, a few reads a block), and bytes written.
+ * (CLOCK_MONOTONIC, a few reads a block), bytes written, and the numbers
+ * handed to snprintf.
  *
  * Bound through ctypes by advanced_hpc_lbm_tpu_torch/utils/native.py, which
  * builds it with: cc -O2 -shared -fPIC -pthread -o libfastio_<hash>.so fastio.c
@@ -27,6 +35,7 @@
 #include <stdint.h>
 #include <stdio.h>
 #include <stdlib.h>
+#include <string.h>
 #include <time.h>
 #include <unistd.h>
 
@@ -52,15 +61,140 @@ static int write_all(int fd, const char *p, size_t n) {
 
 /* What lbm_write_final_state did: blocks formatted, threads that formatted
  * at least one, nanoseconds formatting and writing (summed over threads)
- * and waiting for a turn to write, and bytes written. */
+ * and waiting for a turn to write, bytes written, and numbers handed to
+ * snprintf. */
 typedef struct {
-  int64_t blocks, threads, format_ns, write_ns, wait_ns, bytes;
+  int64_t blocks, threads, format_ns, write_ns, wait_ns, bytes, fallback;
 } lbm_final_state_stats;
 
-/* What lbm_write_av_vels did: nanoseconds formatting and writing, bytes. */
+/* What lbm_write_av_vels did: nanoseconds formatting and writing, bytes,
+ * and numbers handed to snprintf. */
 typedef struct {
-  int64_t format_ns, write_ns, bytes;
+  int64_t format_ns, write_ns, bytes, fallback;
 } lbm_av_vels_stats;
+
+static const char DIGIT_PAIRS[] =
+    "00010203040506070809101112131415161718192021222324252627282930313233343536373839"
+    "40414243444546474849505152535455565758596061626364656667686970717273747576777879"
+    "8081828384858687888990919293949596979899";
+
+/* Write the two digits of v < 100. */
+static char *put2(char *out, unsigned v) {
+  memcpy(out, DIGIT_PAIRS + 2 * v, 2);
+  return out + 2;
+}
+
+/* Write the six digits of v < 10^6, leading zeros included. */
+static char *put6(char *out, uint32_t v) {
+  out = put2(out, v / 10000);
+  v %= 10000;
+  out = put2(out, v / 100);
+  return put2(out, v % 100);
+}
+
+/* Write v as printf's "%ld" does. */
+static char *put_long(char *out, long v) {
+  char tmp[24];
+  int n = 0;
+  unsigned long u = v < 0 ? 0UL - (unsigned long)v : (unsigned long)v;
+  do {
+    tmp[n++] = (char)('0' + u % 10);
+    u /= 10;
+  } while (u);
+  if (v < 0) *out++ = '-';
+  while (n) *out++ = tmp[--n];
+  return out;
+}
+
+#ifdef __SIZEOF_INT128__
+typedef unsigned __int128 u128;
+
+/* 5^0 .. 5^27, the powers of five that fit 64 bits */
+static const uint64_t POW5[28] = {
+    1ULL, 5ULL, 25ULL, 125ULL, 625ULL, 3125ULL, 15625ULL, 78125ULL, 390625ULL, 1953125ULL,
+    9765625ULL, 48828125ULL, 244140625ULL, 1220703125ULL, 6103515625ULL, 30517578125ULL,
+    152587890625ULL, 762939453125ULL, 3814697265625ULL, 19073486328125ULL,
+    95367431640625ULL, 476837158203125ULL, 2384185791015625ULL, 11920928955078125ULL,
+    59604644775390625ULL, 298023223876953125ULL, 1490116119384765625ULL,
+    7450580596923828125ULL};
+
+#define TEN12 1000000000000ULL
+#define TEN13 10000000000000ULL
+#define MAX_K 44 /* m * 5^k < 2^127 for every 24-bit m */
+
+/* floor(m * 2^e * 10^k) into *q, and whether the rest is below, at or
+ * above a half (-1, 0, 1) into *half; 0, or -1 where the shift does not
+ * fit 128 bits.  0 <= k <= MAX_K. */
+static int scale(uint64_t m, int e, int k, u128 *q, int *half) {
+  u128 y = (u128)m * (k <= 27 ? POW5[k] : POW5[k - 27]);
+  if (k > 27) y *= POW5[27];
+  int s = -(k + e); /* m * 2^e * 10^k = y * 2^-s */
+  if (s <= 0) {     /* an integer, below 10^14 wherever the caller asks */
+    *q = y << -s;
+    *half = -1;
+    return 0;
+  }
+  if (s > 127) return -1;
+  u128 r = y & (((u128)1 << s) - 1), h = (u128)1 << (s - 1);
+  *q = y >> s;
+  *half = r < h ? -1 : r > h;
+  return 0;
+}
+
+/* The "%.12E" of m * 2^e (2^23 <= m < 2^24, the sign apart) into out, or
+ * NULL where the value lies outside what scale() can make exactly. */
+static char *put_e12_exact(char *out, uint64_t m, int e) {
+  int p = e + 23; /* 2^p <= value < 2^(p+1) */
+  /* floor(p * log10(2)), exact for |p| < 1650: the decimal exponent E of
+   * the value, or E - 1 */
+  int d = p >= 0 ? (p * 78913) >> 18 : -((-p * 78913 + (1 << 18) - 1) >> 18);
+  int k = 12 - d; /* digits = value * 10^k, rounded */
+  u128 q;
+  int half;
+  if (k < 0 || k > MAX_K || scale(m, e, k, &q, &half) != 0) return NULL;
+  if (q >= TEN13) { /* d was E - 1 */
+    if (k == 0 || scale(m, e, --k, &q, &half) != 0) return NULL;
+  }
+  /* ties to even; never up to 10^13, as no float32 lies within 5e-14 of a
+   * power of ten it is not (the nearest is 1.8e-10 off, relatively) */
+  uint64_t n = (uint64_t)q + (half > 0 || (half == 0 && (q & 1)));
+  uint64_t rest = n % TEN12;
+  *out++ = (char)('0' + n / TEN12);
+  *out++ = '.';
+  out = put6(out, (uint32_t)(rest / 1000000));
+  out = put6(out, (uint32_t)(rest % 1000000));
+  int x = 12 - k;
+  *out++ = 'E';
+  *out++ = x < 0 ? '-' : '+';
+  return put2(out, (unsigned)(x < 0 ? -x : x)); /* -32 <= x <= 12 */
+}
+#endif
+
+/* Write x as printf's "%.12E" does, at most 20 bytes: exactly in integer
+ * arithmetic where x is 0 or has at most 24 significant bits and a value
+ * put_e12_exact can make, else by snprintf, counted in *fallback. */
+static char *put_e12(char *out, double x, int64_t *fallback) {
+#ifdef __SIZEOF_INT128__
+  uint64_t bits;
+  memcpy(&bits, &x, sizeof bits);
+  int be = (int)(bits >> 52) & 0x7ff;
+  uint64_t frac = bits & ((1ULL << 52) - 1);
+  if (be == 0 && frac == 0) { /* signed zero */
+    if (bits >> 63) *out++ = '-';
+    memcpy(out, "0.000000000000E+00", 18);
+    return out + 18;
+  }
+  if (be != 0 && be != 0x7ff && (frac & ((1ULL << 29) - 1)) == 0) {
+    char *start = out;
+    if (bits >> 63) *out++ = '-';
+    char *end = put_e12_exact(out, (frac >> 29) | (1ULL << 23), be - 1023 - 23);
+    if (end) return end;
+    out = start;
+  }
+#endif
+  (*fallback)++;
+  return out + snprintf(out, 21, "%.12E", x);
+}
 
 static int64_t now_ns(void) {
   struct timespec t;
@@ -82,9 +216,10 @@ typedef struct {
   lbm_final_state_stats stats;
 } final_state_job;
 
-/* Format block b of the job into buf; its length, or -1 where a line does
- * not fit LINE_BYTES. */
-static long format_block(const final_state_job *job, long b, char *buf) {
+/* Format block b of the job into buf, counting the numbers handed to
+ * snprintf in *fallback; its length, or -1 where a line does not fit
+ * LINE_BYTES. */
+static long format_block(const final_state_job *job, long b, char *buf, int64_t *fallback) {
   long first = b * BLOCK_LINES, last = first + BLOCK_LINES;
   if (last > job->n) last = job->n;
   char *out = buf;
@@ -92,11 +227,22 @@ static long format_block(const final_state_job *job, long b, char *buf) {
     long jj = i / job->nx, ii = i - jj * job->nx;
     long k = job->quirk ? ii * job->nx + jj : i;
     if (k > job->n - 1) k = job->n - 1;
-    int len = snprintf(out, LINE_BYTES, "%d %d %.12E %.12E %.12E %.12E %d\n", (int)ii,
-                       (int)jj, (double)job->ux[i], (double)job->uy[i], (double)job->u[i],
-                       (double)job->p[i], (int)job->obst[k]);
-    if (len < 0 || len >= LINE_BYTES) return -1;
-    out += len;
+    char *line = out;
+    out = put_long(out, (int)ii);
+    *out++ = ' ';
+    out = put_long(out, (int)jj);
+    *out++ = ' ';
+    out = put_e12(out, (double)job->ux[i], fallback);
+    *out++ = ' ';
+    out = put_e12(out, (double)job->uy[i], fallback);
+    *out++ = ' ';
+    out = put_e12(out, (double)job->u[i], fallback);
+    *out++ = ' ';
+    out = put_e12(out, (double)job->p[i], fallback);
+    *out++ = ' ';
+    out = put_long(out, (int)job->obst[k]);
+    *out++ = '\n';
+    if (out - line >= LINE_BYTES) return -1;
   }
   return out - buf;
 }
@@ -111,7 +257,7 @@ static void *final_state_worker(void *arg) {
     long b = job->next_claim++;
     pthread_mutex_unlock(&job->lock);
     int64_t t0 = now_ns();
-    long len = format_block(job, b, buf);
+    long len = format_block(job, b, buf, &mine.fallback);
     int64_t t1 = now_ns();
     mine.format_ns += t1 - t0;
     mine.blocks++;
@@ -139,6 +285,7 @@ static void *final_state_worker(void *arg) {
   job->stats.write_ns += mine.write_ns;
   job->stats.wait_ns += mine.wait_ns;
   job->stats.bytes += mine.bytes;
+  job->stats.fallback += mine.fallback;
   pthread_mutex_unlock(&job->lock);
   free(buf);
   return NULL;
@@ -193,7 +340,13 @@ int lbm_write_av_vels(const char *path, const double *av, long n, lbm_av_vels_st
     long last = first + BLOCK_LINES < n ? first + BLOCK_LINES : n;
     char *out = buf;
     int64_t t0 = now_ns();
-    for (long i = first; i < last; i++) out += snprintf(out, LINE_BYTES, "%ld:\t%.12E\n", i, av[i]);
+    for (long i = first; i < last; i++) {
+      out = put_long(out, i);
+      *out++ = ':';
+      *out++ = '\t';
+      out = put_e12(out, av[i], &mine.fallback);
+      *out++ = '\n';
+    }
     int64_t t1 = now_ns();
     if (write_all(fd, buf, (size_t)(out - buf)) != 0)
       rc = 2;

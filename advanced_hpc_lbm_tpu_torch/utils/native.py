@@ -1,7 +1,8 @@
 """ctypes bridge to the port's host-side codec (``csrc/fastio.c``).
 
-Formatting a 4096x4096 ``final_state.dat`` is ~16.8M printf lines, which
-C does many times faster than Python, and on several threads faster again.
+Formatting a 4096x4096 ``final_state.dat`` is ~16.8M lines of printf's
+format, which C does many times faster than Python, and on several threads
+faster again; the codec makes the digits itself, not through printf.
 The codec is optional: when ``cc`` is missing or the build fails, every
 caller (``utils/io.py``) takes its pure-Python path, which writes the same
 bytes many times slower, and the process says so once on stderr, with the
@@ -81,13 +82,15 @@ class FinalStateStats(ctypes.Structure):
     """``lbm_final_state_stats``: what a final_state.dat write did."""
 
     _fields_ = [(name, ctypes.c_int64) for name in
-                ("blocks", "threads", "format_ns", "write_ns", "wait_ns", "bytes")]
+                ("blocks", "threads", "format_ns", "write_ns", "wait_ns", "bytes",
+                 "fallback")]
 
 
 class AvVelsStats(ctypes.Structure):
     """``lbm_av_vels_stats``: what an av_vels.dat write did."""
 
-    _fields_ = [(name, ctypes.c_int64) for name in ("format_ns", "write_ns", "bytes")]
+    _fields_ = [(name, ctypes.c_int64) for name in ("format_ns", "write_ns", "bytes",
+                                                     "fallback")]
 
 
 def _as_dict(stats: ctypes.Structure) -> dict[str, int]:
@@ -153,7 +156,10 @@ def write_final_state(path: str | os.PathLike, planes, obstacles: np.ndarray, *,
     :func:`default_threads`).  The bytes do not depend on ``threads``.
     Returns the codec's counts (:class:`FinalStateStats`): blocks of 64 Ki
     lines, threads that formatted one or more, nanoseconds formatting and
-    writing (summed over the threads) and waiting for a turn, bytes."""
+    writing (summed over the threads) and waiting for a turn, bytes, and
+    the numbers handed to libc's ``snprintf`` (``fallback``: those the
+    codec's own ``%.12E`` cannot make exactly; 0 for float32 values in
+    about [1e-32, 1e13) and zeros)."""
     lib = _require()
     obst = np.ascontiguousarray(obstacles, dtype=bool)
     ny, nx = obst.shape
@@ -173,7 +179,8 @@ def write_final_state(path: str | os.PathLike, planes, obstacles: np.ndarray, *,
 
 def write_av_vels(path: str | os.PathLike, av: np.ndarray) -> dict[str, int]:
     """Write av_vels.dat; returns the codec's counts (:class:`AvVelsStats`):
-    nanoseconds formatting and writing, bytes."""
+    nanoseconds formatting and writing, bytes, and the numbers handed to
+    ``snprintf`` (as :func:`write_final_state`'s ``fallback``)."""
     lib = _require()
     av = np.ascontiguousarray(av, dtype=np.float64).reshape(-1)
     stats = AvVelsStats()

@@ -151,6 +151,12 @@ def readings(rec: profiling.Recorder, traces: list[str], deck) -> dict:
         "io.av_vels_format_s": total("lbm.io.av_vels", "format_ns", 1e-9),
         "io.av_vels_write_s": total("lbm.io.av_vels", "write_ns", 1e-9),
         "io.av_vels_bytes": total("lbm.io.av_vels", "bytes"),
+        # numbers the codec handed to snprintf over the numbers both files
+        # hold: 4 a final-state line, 1 an av line
+        "io.codec_fallback_share": ((total("lbm.io.final_state", "fallback")
+                                     + total("lbm.io.av_vels", "fallback"))
+                                    / (4 * deck.nx * deck.ny + deck.max_iters))
+        if codec else None,
         "ops.launches": per_solve("lbm.ops.loop", lambda s: s.attrs["launches"]),
         "ops.tiles_bulk_share": bulk_share(spans("lbm.ops.loop")),
         # the resident path's loops: (form, bands, nx, ny, depth) of each
@@ -215,6 +221,7 @@ def checks(r: dict, counted: float) -> dict:
         out["codec_parallelism_within_threads"] = (r["io.codec_parallelism"]
                                                    <= native.default_threads())
         out["codec_blocks_of_64ki_lines"] = r["io.codec_blocks"] == -(-r["cells"] // 65536)
+        out["codec_fallback_share_is_0"] = r["io.codec_fallback_share"] == 0
     if "device.idle_share" in r:
         out["loop_and_gate_within_idle"] = (r["device.loop_idle_share"]
                                             + r["device.gate_idle_share"]

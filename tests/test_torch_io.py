@@ -11,6 +11,7 @@ held to the reference, the codec at every thread count.
 
 import hashlib
 import os
+import subprocess
 import tomllib
 from pathlib import Path
 
@@ -175,6 +176,108 @@ def test_native_writers_match_jax_bytes(tmp_path, port_codec, jax_final_states, 
     port_codec.write_av_vels(tmp_path / "port_av.dat", av)
     jio.write_av_vels(tmp_path / "jax_av.dat", av)
     assert (tmp_path / "port_av.dat").read_bytes() == (tmp_path / "jax_av.dat").read_bytes()
+
+
+def _floats(bits) -> np.ndarray:
+    """float32 bit patterns as the doubles they widen to."""
+    f = np.asarray(bits, dtype=np.int64).astype(np.uint32).view(np.float32)
+    with np.errstate(invalid="ignore"):  # signalling NaNs come out quiet
+        return f.astype(np.float64)
+
+
+def _e12_values(case: str) -> np.ndarray:
+    rng = np.random.default_rng(24)
+    if case == "zeros":
+        return np.array([0.0, -0.0])
+    if case == "powers_of_two":  # 2^-149 .. 2^127, each with both float neighbours
+        p = np.array([2.0 ** e for e in range(-149, 128)], dtype=np.float32)
+        b = p.view(np.uint32).astype(np.int64)
+        return _floats(np.concatenate([b - 1, b, b + 1]))
+    if case == "powers_of_ten":  # 20 floats on either side: rounding up moves E
+        t = np.array([float(f"1e{n}") for n in range(-45, 39)], dtype=np.float32)
+        b = (t.view(np.uint32).astype(np.int64)[:, None] + np.arange(-20, 21)).ravel()
+        return _floats(np.unique(b[b >= 0]))
+    if case == "extremes":  # subnormals of both signs, +-FLT_MAX, +inf, +NaN
+        sub = [1, 2, 3, 0x1234, 0x400000, 0x7FFFFE, 0x7FFFFF]
+        return _floats(sub + [b | 0x80000000 for b in sub]
+                       + [0x7F7FFFFF, 0xFF7FFFFF, 0x7F800000, 0x7FC00000])
+    if case == "random_bits":
+        b = rng.integers(0, 2**32, 2**20, dtype=np.int64)
+        # glibc prints a NaN's sign ("-NAN") and Python does not: keep them +
+        nan = ((b & 0x7F800000) == 0x7F800000) & ((b & 0x7FFFFF) != 0)
+        b[nan] &= 0x7FFFFFFF
+        return _floats(b)
+    assert case == "not_float32"  # doubles of more than 24 significant bits
+    v = rng.random(4096) * 10.0 ** rng.integers(-30, 12, 4096)
+    return np.where(rng.random(4096) < 0.5, -v, v)
+
+
+def _fallback_bounds(v: np.ndarray) -> tuple[int, int]:
+    """The fewest and the most numbers of v the codec may hand to
+    snprintf: the exact path must take every float32 value (and zero)
+    with 1e-31 <= |v| < 1e12 and must refuse what is not finite, not
+    float32 or nonzero under 1e-33 or at least 1e13; between those bands
+    either path is right."""
+    a = np.abs(v)
+    with np.errstate(over="ignore", invalid="ignore"):
+        f32 = v.astype(np.float32).astype(np.float64) == v
+    exact = (v == 0) | (f32 & (a >= 1e-31) & (a < 1e12))
+    refused = ~np.isfinite(v) | ~f32 | ((v != 0) & (a < 1e-33)) | (a >= 1e13)
+    return int(refused.sum()), int(v.size - exact.sum())
+
+
+E12_CASES = ["zeros", "powers_of_two", "powers_of_ten", "extremes", "random_bits",
+             "not_float32"]
+
+
+@pytest.mark.parametrize("case", E12_CASES)
+def test_codec_numbers_are_printf_e12(tmp_path, port_codec, case):
+    """The codec's own ``%.12E`` against Python's, which rounds exactly as
+    glibc does, through both writers: av_vels.dat takes the doubles as
+    they are, final_state.dat as the u_x plane of a one-row grid (float32,
+    so a double that is not one arrives rounded), the other planes 0.  The
+    ``fallback`` counts lie within what the values allow: 0 where every
+    value is a float32 in the exact range."""
+    v = _e12_values(case)
+    stats = port_codec.write_av_vels(tmp_path / "av.dat", v)
+    want = "".join(f"{i}:\t{x:.12E}\n" for i, x in enumerate(v.tolist()))
+    assert (tmp_path / "av.dat").read_bytes() == want.encode()
+    av_lo, av_hi = _fallback_bounds(v)
+    assert av_lo <= stats["fallback"] <= av_hi
+    ux = v.astype(np.float32).reshape(1, -1)
+    zero = np.zeros_like(ux)
+    stats = port_codec.write_final_state(tmp_path / "fs.dat", (ux, zero, zero, zero),
+                                         np.zeros(ux.shape, dtype=bool))
+    z = f"{0.0:.12E}"
+    want = "".join(f"{i} 0 {x:.12E} {z} {z} {z} 0\n"
+                   for i, x in enumerate(ux[0].astype(np.float64).tolist()))
+    assert (tmp_path / "fs.dat").read_bytes() == want.encode()
+    lo, hi = _fallback_bounds(ux[0].astype(np.float64))
+    assert lo <= stats["fallback"] <= hi
+    if case == "zeros":
+        assert av_hi == hi == 0
+    else:
+        assert av_lo > 0  # each other case holds numbers only snprintf may print
+
+
+@pytest.mark.parametrize("stride", [pytest.param(1, marks=pytest.mark.slow, id="every"),
+                                    pytest.param(65521, id="sampled")])
+def test_codec_e12_over_float32_bit_patterns(tmp_path, port_codec, stride):
+    """Every float32 bit pattern (every 65521st in the quick case), widened,
+    through the codec's ``%.12E`` and libc's ``snprintf`` in C
+    (``tests/codec_e12_exhaustive.c``) on every core: no mismatch.  All
+    2^32 take minutes."""
+    exe = tmp_path / "e12"
+    subprocess.run([os.environ.get("CC", "cc"), "-O2", "-pthread", "-I",
+                    str(port_codec.SRC.parent), "-o", str(exe),
+                    str(Path(__file__).with_name("codec_e12_exhaustive.c"))], check=True)
+    threads = len(os.sched_getaffinity(0))
+    out = subprocess.run([str(exe), str(threads), str(stride)], check=True,
+                         capture_output=True, text=True).stdout.split()
+    counts = dict(zip(out[::2], out[1::2]))
+    assert int(counts["patterns"]) == -(-2**32 // stride)
+    assert int(counts["mismatches"]) == 0, counts["first_bad"]
+    assert 0 < int(counts["exact"]) < int(counts["patterns"])
 
 
 @pytest.mark.parametrize("ny,nx", [(256, 256), (512, 256), (300, 257)],

@@ -9,6 +9,7 @@ import math
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -320,7 +321,40 @@ def test_codec_writes_the_same_bytes_without_stats(tmp_path):
     assert (tmp_path / "av_with.dat").read_bytes() == (tmp_path / "av_without.dat").read_bytes()
     assert stats["bytes"] == (tmp_path / "av_with.dat").stat().st_size
     assert stats["format_ns"] > 0 and stats["write_ns"] >= 0
-    assert ctypes.sizeof(native.FinalStateStats) == 6 * 8
+    assert ctypes.sizeof(native.FinalStateStats) == 7 * 8
+
+
+def _spans_script():
+    import importlib.util
+
+    path = os.path.join(ROOT, "scripts", "torch_spans.py")
+    spec = importlib.util.spec_from_file_location("torch_spans", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_codec_spans_count_the_numbers_handed_to_snprintf(tmp_path):
+    """``fallback`` on both codec spans of a mini-deck run: 0, every number
+    being a float32 the codec prints itself, and so the spans script's
+    ``io.codec_fallback_share``; a double that is no float32 counts 1."""
+    script = _spans_script()
+    steps = 13
+    with profiling.recording() as rec:
+        with profiling.span(script.SOLVE, window=True, profiled=False):
+            sim = Simulation.from_decks(*MINI, backend="pallask", device="cpu")
+            sim.run(n_iters=steps, fetch=False).write(tmp_path)
+    (fs,) = rec.named("lbm.io.final_state")
+    (av,) = rec.named("lbm.io.av_vels")
+    assert fs.attrs["fallback"] == av.attrs["fallback"] == 0
+    deck = types.SimpleNamespace(nx=64, ny=64, max_iters=steps)
+    r = script.readings(rec, [], deck)
+    assert r["io.codec_fallback_share"] == 0
+    assert script.checks(r, r["ops.launches"])["codec_fallback_share_is_0"]
+    with profiling.recording() as rec:
+        io.write_av_vels(tmp_path / "av.dat", np.array([0.5, 0.1, 0.25]))
+    (av,) = rec.named("lbm.io.av_vels")
+    assert av.attrs["fallback"] == 1
 
 
 @pytest.mark.parametrize("ny,nx", [(256, 128), (128, 256), (13, 11), (11, 13), (7, 7),
