@@ -12,7 +12,10 @@ order its command line takes it (``cli._main``):
    program's writer and codec, into the null device.
 
 Set-up runs one warm solve; the window then runs solves back to back and
-ends at the first solve boundary past ``seconds``.  Once the window is
+ends at the first solve boundary past ``seconds``.  A traced run records
+the program's spans (``utils/profiling.recording``) over the warm solve
+and the window, each solve under a root span ``SOLVE``; an untraced run
+never enters the recorder.  Once the window is
 closed, the last solve's result is written again through the same writer,
 into real files, which are judged: the disk's cost stays out of every
 timed solve alike.  The seed's
@@ -42,7 +45,8 @@ import numpy as np
 import torch
 
 from advanced_hpc_lbm_tpu_torch.models.d2q9_bgk import Simulation
-from portbench import inputs, judge, trace
+from advanced_hpc_lbm_tpu_torch.utils import profiling
+from portbench import inputs, judge, spans, trace
 from portbench.reference import lbm
 
 BENCH = Path(__file__).resolve().parent
@@ -137,7 +141,8 @@ class Solve:
 
 @dataclasses.dataclass
 class Run:
-    """What the metric readers read."""
+    """What the metric readers read: with ``spans`` the program's span
+    recorder of a traced run (``spans.py`` reads it), None untraced."""
 
     cell: Cell
     device_name: str
@@ -145,6 +150,7 @@ class Run:
     window_s: float
     solves: list[Solve]
     trace: dict | None
+    spans: profiling.Recorder | None = None
 
 
 class Seeded(Simulation):
@@ -240,28 +246,41 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, traced: bool, device,
     tmp = tempfile.mkdtemp(prefix="portbench-")
     try:
         solver = Solver(cell, f0, device, tmp)
-        before = launch_counts()
-        solver.solve()  # the warm solve
-        after = launch_counts()
-        log(f"launches per solve: { {k: after[k] - before[k] for k in after} }")
-        if device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(device)
-        return _measure(cell, solver, seed=seed, seconds=seconds, traced=traced,
-                        t_process=t_process, tmp=tmp, log=log)
+        with profiling.recording() if traced else contextlib.nullcontext() as rec:
+            before = launch_counts()
+            _solve(solver, window=False, profiled=False)  # the warm solve
+            after = launch_counts()
+            log(f"launches per solve: { {k: after[k] - before[k] for k in after} }")
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+            t_window = time.perf_counter()
+            solves = _window(solver, t_window + seconds, profiled=cell.plan["profiled_solves"]
+                             if traced and device.type == "cuda" else 0)
+            window_s = time.perf_counter() - t_window
+        return _measure(cell, solver, solves, seed=seed, setup_s=t_window - t_process,
+                        window_s=window_s, traced=traced, recorder=rec, tmp=tmp, log=log)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _measure(cell, solver, *, seed, seconds, traced, t_process, tmp, log) -> dict:
-    device = solver.device
-    profiled = cell.plan["profiled_solves"] if traced and device.type == "cuda" else 0
-    t_window = time.perf_counter()
-    setup_s = t_window - t_process
-    deadline = t_window + seconds
+def _solve(solver: Solver, *, window: bool, profiled: bool) -> Solve:
+    """One solve under its root span (a no-op where nothing records)."""
+    with profiling.span(spans.SOLVE, window=window, profiled=profiled):
+        return solver.solve(profile=profiled)
+
+
+def _window(solver: Solver, deadline: float, *, profiled: int) -> list[Solve]:
+    """Solves back to back up to the first solve boundary past
+    ``deadline``; the first ``profiled`` have their Compute profiled."""
     solves = []
     while not solves or time.perf_counter() < deadline:
-        solves.append(solver.solve(profile=len(solves) < profiled))
-    window_s = time.perf_counter() - t_window
+        solves.append(_solve(solver, window=True, profiled=len(solves) < profiled))
+    return solves
+
+
+def _measure(cell, solver, solves, *, seed, setup_s, window_s, traced, recorder, tmp,
+             log) -> dict:
+    device = solver.device
     files = solver.write_files(os.path.join(tmp, "judged"))  # after the window
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     summary = solver.trace_summary()
@@ -300,7 +319,7 @@ def _measure(cell, solver, *, seed, seconds, traced, t_process, tmp, log) -> dic
         f"{time.perf_counter() - t_ref:.3f} s")
 
     run = Run(cell=cell, device_name=_device_name(device), setup_s=setup_s,
-              window_s=window_s, solves=solves, trace=summary)
+              window_s=window_s, solves=solves, trace=summary, spans=recorder)
     wanted = cell.per_layer if traced else cell.end_to_end
     metrics = {}
     for m in wanted:

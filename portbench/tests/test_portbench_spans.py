@@ -1,34 +1,70 @@
-"""The program's span recorder as the harness stands: neither an untraced
-nor a traced run enters it, so the program's spans cost each run one
-global check per span and nothing more; and a solve recorded from outside
-the harness gives every span a per-layer reader of the window would read."""
+"""The program's span recorder as the harness stands: an untraced run
+never enters it, so the program's spans cost each measured run one global
+check per span and nothing more, and a traced run enters it once; and a
+solve recorded from outside the harness gives every span a per-layer
+reader of the window would read."""
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import pytest
 
 import torch
 
-from portbench import harness
+from portbench import harness, spans
 
 from advanced_hpc_lbm_tpu_torch.utils import profiling
 
 SEED = 2**31 + 17
 
 
-def test_runs_never_enter_the_recorder(tree, monkeypatch):
+@pytest.mark.parametrize("traced", [False, True], ids=["untraced", "traced-once"])
+def test_runs_never_enter_the_recorder(tree, monkeypatch, traced):
+    """Untraced: never.  Traced: one recording, over the warm solve and the
+    window, each solve under its root span."""
+    entered = []
+    recording = profiling.recording
+
+    def counted():
+        if not traced:
+            raise AssertionError("the recorder was entered")
+        entered.append(1)
+        return recording()
+
     def refuse(*args, **kwargs):
-        raise AssertionError("the recorder was entered")
-    monkeypatch.setattr(profiling, "recording", refuse)
-    monkeypatch.setattr(profiling, "_Active", refuse)
+        raise AssertionError("a span was recorded")
+    monkeypatch.setattr(profiling, "recording", counted)
+    if not traced:
+        monkeypatch.setattr(profiling, "_Active", refuse)
     cell = harness.load_cell("mini.deck", tree)
-    for traced in (False, True):
-        out = harness.run_cell(cell, seed=SEED, seconds=0.2, traced=traced, device="cpu",
-                               t_process=time.perf_counter(), log=lambda m: None)
-        assert out["correct"] is True
+    out = harness.run_cell(cell, seed=SEED, seconds=0.2, traced=traced, device="cpu",
+                           t_process=time.perf_counter(), log=lambda m: None)
+    assert out["correct"] is True
     assert profiling._recorder is None
+    assert len(entered) == int(traced)
+
+
+def test_a_traced_run_records_every_solve(tree, monkeypatch):
+    recorders = []
+    recording = profiling.recording
+
+    @contextlib.contextmanager
+    def kept():
+        with recording() as rec:
+            recorders.append(rec)
+            yield rec
+    monkeypatch.setattr(profiling, "recording", kept)
+    cell = harness.load_cell("mini.deck", tree)
+    out = harness.run_cell(cell, seed=SEED, seconds=0.2, traced=True, device="cpu",
+                           t_process=time.perf_counter(), log=lambda m: None)
+    (rec,) = recorders
+    roots = [s for s in rec.spans if s.parent is None]
+    assert all(r.name == spans.SOLVE for r in roots)
+    # the warm solve, then the window's (none profiled without a card)
+    assert [(r.attrs["window"], r.attrs["profiled"]) for r in roots] == (
+        [(False, False)] + [(True, False)] * out["attempted"])
 
 
 def test_a_recorded_solve_has_every_layer(tree):
