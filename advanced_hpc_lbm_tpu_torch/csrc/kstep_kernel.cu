@@ -62,14 +62,35 @@
 // * Forcing.  A pull is forced where its source row is an image of row
 //   ny-2 (row bits of the window, by ballot), the guard at the source cell;
 //   a window holding no image of it steps without the test.
-// * Launches.  A pass is launched as a programmatic dependent of the one
-//   before it in the stream: its blocks start on the SMs the previous pass
-//   leaves while that pass ends, and the producer waits (griddepcontrol)
-//   for it to be done before its first load.  The CUtensorMaps
+// * Launches.  A launch is a programmatic dependent of the one before it
+//   in the stream: its blocks start on the SMs the previous launch leaves
+//   while that one ends, and the producer waits (griddepcontrol) for it to
+//   be done before its first load.  The CUtensorMaps
 //   (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so
 //   that the library links no libcuda) are made once per (buffer, shape,
 //   box) and kept in a small table: a ping-pong run uses four (a load and
-//   a store map of each buffer); a pass looks them up.
+//   a store map of each buffer); a launch looks them up.
+// * Walks.  On a grid of whole tiles, at most kWalkTilesPerSm a pass per
+//   SM, whose buffers both bulk copies take (walks), one launch walks the
+//   run loop's chunk of passes (333 at K = 3): pass i reads one buffer and
+//   writes the other, and the launch's items are the (pass, tile) pairs in
+//   order, block b taking items b, b + grid, ... as it takes tiles in a
+//   pass, pass i its tiles row-major from tile row i mod tiles_y on
+//   (item_tile), so that the first tiles of a pass hold only tiles stored
+//   early in the pass before.  Each tile has a flag, base + 1 + the last
+//   pass it stored (base: the run's passes before the launch; the run
+//   zeroes the flags once).  Before a window of pass i > 0 loads, the
+//   producer waits until its tile and the 8 around it have stored pass
+//   i - 1 (wait_stored): the window's reads follow their writes, and the
+//   tile's own store follows their windows' reads of its cells in pass
+//   i - 1, each loaded before it stored.  A team says an item stored
+//   (flag_stored: cp.async.bulk.wait_group, a proxy fence, a release) once
+//   its next store is issued, or before it waits for a window not yet
+//   there, or at the end, so that nothing waits in a cycle.  Its blocks
+//   wait for each other, so a walk is launched cooperative (co-resident).
+//   A walk is its own instantiation (kWalk), so that the one-pass kernel
+//   keeps none of its code.  Elsewhere, and always in the local form, a
+//   pass is a launch.
 //
 // Bound on this card: device memory moves (9 x 4 + 1) B per cell in and
 // 36 B out per pass, 24.3 B per cell and step at K = 3 and 18.25 at K = 4
@@ -78,13 +99,15 @@
 // shared-memory loads and 9 stores; SASS), and the ghost ring is stepped
 // redundantly (1844 cell steps per 1536 own ones at K = 3, 2680 per 2048 at
 // K = 4).  On an H100 80GB HBM3 at 700 W (chip_smoke.py 3k): K = 3 runs
-// 187-190 us per step at 4096^2 and 15.4-15.9 at 1024^2, where the design
-// before (3 blocks of 256 threads per SM, two windows each, every thread
-// issuing copies and stores) ran 237-241 and 18.8-19.1.  At 1024^2 a
-// launch is ~2.4 us per tile of an SM plus ~9 us of its start (the
-// producers of 132 SMs asking for 3 windows each at once: a team's first
-// window lands 3-7 us after the pass before ends) and of the 68 SMs whose
-// 16th tile runs on one team alone (~6 us).
+// 187-190 us per step at 4096^2 and 15.4-15.9 at 1024^2 a launch a pass,
+// where the design before (3 blocks of 256 threads per SM, two windows
+// each, every thread issuing copies and stores) ran 237-241 and 18.8-19.1.
+// At 1024^2 a launch of one pass is ~2.4 us per tile of an SM plus ~9 us
+// of its start (the producers of 132 SMs asking for 3 windows each at
+// once: a team's first window lands 3-7 us after the pass before ends)
+// and of the 68 SMs whose 16th tile runs on one team alone (~6 us); a
+// walk pays neither but its items more (kWalkTilesPerSm): 13.8 against
+// 15.2 us a step at 1024^2, 5.5 against 5.9 at 512^2.
 //
 // The local form (kLocal, `lbm_local_ca`) replaces
 // advanced_hpc_lbm_tpu/ops/pallas_local.py `_local_ca_kernel`, behind
@@ -183,6 +206,8 @@ struct Shape {
 struct Args {
   CUtensorMap src_map;  // (nx, src_rows, 9) floats, box (kW, kH, 9)
   CUtensorMap out_map;  // (nx, rows, 9) floats, box (kTx, kTy, 9)
+  // a walk's odd passes read `out` and write `f`: src_map of out, out_map of f
+  CUtensorMap src_map_odd, out_map_odd;
   const float* f;
   long long f_plane;
   int src_rows;
@@ -190,17 +215,57 @@ struct Args {
   long long out_plane;
   const uint8_t* mask;
   float* partials;
-  int rows, nx, bulk_load, bulk_store;
+  int* flags;  // the walk's: a tile's is base + 1 + the last pass it stored
+  int rows, nx, bulk_load, bulk_store, passes, base;
   lbm::StepConsts c;
   __device__ __forceinline__ int tiles_x() const { return (nx + kTx - 1) / kTx; }
-  __device__ __forceinline__ int tiles() const { return tiles_x() * ((rows + kTy - 1) / kTy); }
+  __device__ __forceinline__ int tiles_y() const { return (rows + kTy - 1) / kTy; }
+  __device__ __forceinline__ int tiles() const { return tiles_x() * tiles_y(); }
   // row and column of tile t's own cell (0, 0)
   __device__ __forceinline__ void origin(int t, int& y0, int& x0) const {
     const int ty = t / tiles_x();
     y0 = ty * kTy;
     x0 = (t - ty * tiles_x()) * kTx;
   }
+  __device__ __forceinline__ int item(int j, int& i) const;
 };
+
+// Item j of a launch on a grid of tx x ty tiles: pass i = j / tiles, and
+// the tile at position j mod tiles of that pass, whose tile rows start at
+// row i mod ty, so that the first tiles of a pass need only tiles that the
+// pass before stored early (lbm_kstep_item).
+__host__ __device__ __forceinline__ int item_tile(int tx, int ty, int j, int& i) {
+  const int n = tx * ty;
+  i = j / n;
+  const int pos = j - i * n, r = pos / tx;
+  int row = r + i % ty;
+  if (row >= ty) row -= ty;
+  return row * tx + (pos - r * tx);
+}
+
+__device__ __forceinline__ int Args::item(int j, int& i) const {
+  return item_tile(tiles_x(), tiles_y(), j, i);
+}
+
+// A walk pays on grids of at most this many tiles a pass per SM: it saves
+// a launch's start and tail, ~9 us a pass, and costs its items: at 512^2
+// and 1024^2 (4 and 16 tiles an SM) it ran 7% and 9% faster than a launch
+// a pass; at 2048^2 and 4096^2 (62 and 248) 12-14% slower even with its
+// blocks paced to one band of tile rows (unpaced, they drifted apart over
+// the walk, L2 lost the ghost rows, and 4096^2 ran 300 against 194 us a
+// step).
+constexpr int kWalkTilesPerSm = 16;
+
+// Whether a launch of `passes` passes walks them all on a card of `sms`
+// SMs (else one launch a pass): the periodic form, buffers that both bulk
+// copies take, a grid of whole tiles, so that a window's cells lie in its
+// tile and the 8 around it, and at most kWalkTilesPerSm tiles a pass per
+// SM (lbm_kstep_walks).
+template <bool kLocal>
+__host__ __device__ __forceinline__ bool walks(int rows, int nx, bool bulk, int sms) {
+  return !kLocal && bulk && rows % kTy == 0 && nx % kTx == 0 &&
+         (rows / kTy) * (nx / kTx) <= kWalkTilesPerSm * sms;
+}
 
 // Whether the window of the tile at (y0, x0) lies inside its source rows
 // and columns (no wrap): such a window is one box of the source.  The rule
@@ -291,6 +356,66 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// ... all but the last one.
+__device__ __forceinline__ void bulk_wait_prior() {
+  asm volatile("cp.async.bulk.wait_group 1;\n" ::: "memory");
+}
+
+// Whether the phase of parity `parity` of the mbarrier has completed (no wait).
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// ---- the walk's flags ---------------------------------------------------------------
+
+constexpr int kMaxPolls = 1 << 24;  // ~10 s of polling: a fault, not a wait
+
+// Sets tile t's flag to `value` once this thread's bulk store of it is done
+// (cp.async.bulk.wait_group): the proxy fence orders the store's writes
+// (async proxy) before the flag's release (generic proxy).
+__device__ __forceinline__ void flag_stored(const Args& a, int t, int value) {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  asm volatile("st.release.gpu.b32 [%0], %1;\n" ::"l"(a.flags + t), "r"(value) : "memory");
+}
+
+// Before the calling warp copies tile t of the launch's pass i > 0, it
+// waits until t and the 8 tiles around it (wrapped) have stored pass
+// i - 1 (their flags are at base + i).  Then the warp's copies and the
+// bulk copy after it read what those stores wrote, and overwrite nothing
+// their windows had still to read: each of them loaded its window, which
+// holds the cells of t's tile, before it stored.  A poll that exceeds
+// kMaxPolls (~10 s of polling; a pass takes at most milliseconds, so only
+// a fault, or the card taken from the process for that long, gets there)
+// traps, so that a fault ends the run with an error instead of a hang.
+__device__ __forceinline__ void wait_stored(const Args& a, int t, int i, int lane) {
+  // every lane polls a flag (lanes past 8 repeat lanes 0-8's) and the
+  // loop's exit is a vote: no branch of the warp diverges, which keeps the
+  // producer in its 24 registers (a loop of lanes 0-8 alone spilled 216
+  // bytes a thread)
+  const int tx = a.tiles_x(), ty = a.tiles_y();
+  const int e = lane % 9, r = t / tx, c = t - r * tx;
+  int y = r + e / 3 - 1, x = c + e % 3 - 1;
+  y = y < 0 ? y + ty : y >= ty ? y - ty : y;
+  x = x < 0 ? x + tx : x >= tx ? x - tx : x;
+  const int* const flag = a.flags + y * tx + x;
+  const int want = a.base + i;
+  for (int polls = 0;; ++polls) {
+    int v;
+    asm volatile("ld.acquire.gpu.b32 %0, [%1];\n" : "=r"(v) : "l"(flag) : "memory");
+    if (__all_sync(0xffffffffu, v >= want)) break;
+    if (polls >= kMaxPolls) __trap();
+  }
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // A consumer team's 256 threads and their named barrier.  Its in-place
 // steps' barriers also hold the team until its last bulk store has read
 // the staging tile (thread 0 issued it), which the step after them
@@ -330,8 +455,8 @@ struct LastBarrier : TeamBarrier {
 // window row y0 of a shard's ghost window (whose own rows start K rows
 // down).
 template <int K, bool kLocal>
-__device__ __forceinline__ void load_window(uint8_t* buf, const Args& a, int t, int pt,
-                                            uint32_t full) {
+__device__ __forceinline__ void load_window(uint8_t* buf, const Args& a, int t, bool odd,
+                                            int pt, uint32_t full) {
   using S = Shape<K>;
   using G = typename S::Geo;
   int y0, x0;
@@ -340,6 +465,7 @@ __device__ __forceinline__ void load_window(uint8_t* buf, const Args& a, int t, 
   float* const wf = reinterpret_cast<float*>(buf);
   uint8_t* const wm = buf + S::kPlaneBytes;
   const size_t fp = static_cast<size_t>(a.f_plane);
+  const float* const src = odd ? a.out : a.f;  // a walk's odd pass reads out
   const bool bulk = a.bulk_load && window_inside<K, kLocal>(y0, x0, a.src_rows, a.nx);
   if (a.bulk_load) {
     // 16-byte groups of 4 columns: xorg and nx are multiples of 4, so no
@@ -353,7 +479,7 @@ __device__ __forceinline__ void load_window(uint8_t* buf, const Args& a, int t, 
       const int j = r * S::kW + 4 * q;
       if (!bulk) {
 #pragma unroll
-        for (int k = 0; k < 9; ++k) lbm::cp_async16(wf + k * G::kPlane + j, a.f + k * fp + g);
+        for (int k = 0; k < 9; ++k) lbm::cp_async16(wf + k * G::kPlane + j, src + k * fp + g);
       }
       lbm::cp_async4(wm + j, a.mask + g);
     }
@@ -387,7 +513,7 @@ __device__ __forceinline__ void load_window(uint8_t* buf, const Args& a, int t, 
       // the stage's earlier writes (by 16-byte copies) before the bulk copy's
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       mbar_arrive_expect_tx(full, S::kPlaneBytes);
-      tma_load(wf, &a.src_map, xorg, yorg, full);
+      tma_load(wf, odd ? &a.src_map_odd : &a.src_map, xorg, yorg, full);
     } else {
       mbar_arrive(full);
     }
@@ -417,25 +543,42 @@ __device__ __forceinline__ void steps(const lbm::Window<Shape<K>::kH, Shape<K>::
   }
 }
 
-// One team's tiles: the block's n-th tiles for n = team, team + kTeams, ...
-template <int K, bool kLocal>
+// One team's items: the block's n-th items for n = team, team + kTeams, ...
+// In a walk, thread 0 says that an item is stored (its flag) once its bulk
+// store is done: after the team's next store was issued, or before it
+// waits for a window that is not there yet, or at the end; `held` (shared)
+// keeps the flag and value of the item it has not yet said.  So no flag is
+// held back while the team waits, and nothing waits in a cycle: items are
+// taken in increasing order, and each waits only on items of the pass
+// before.
+template <int K, bool kLocal, bool kWalk>
 __device__ __forceinline__ void consume(const Args& a, uint8_t* ring, float* staged,
                                         uint32_t full0, uint32_t empty0,
-                                        float (*sums)[K][kTeamWarps], int team, int tt) {
+                                        float (*sums)[K][kTeamWarps], int* held, int team,
+                                        int tt) {
   using S = Shape<K>;
   const int lane = tt & 31, warp = tt >> 5;
   const TeamBarrier bar{tt, 1 + team};
-  const int tiles = a.tiles();
-  for (int i = 0;; ++i) {
-    const int n = team + i * S::kTeams;
-    const int t = blockIdx.x + n * static_cast<int>(gridDim.x);
-    if (t >= tiles) break;
+  const int tiles = a.tiles(), items = kWalk ? tiles * a.passes : tiles;
+  if (kWalk && tt == 0) held[0] = -1;
+  for (int m = 0;; ++m) {
+    const int n = team + m * S::kTeams;
+    const int g = blockIdx.x + n * static_cast<int>(gridDim.x);  // the item
+    if (g >= items) break;
+    int i = 0;  // its pass of the launch
+    const int t = kWalk ? a.item(g, i) : g;
     const int s = n % S::kStages;
-    mbar_wait(full0 + 8 * s, (n / S::kStages) & 1);
+    const uint32_t phase = (n / S::kStages) & 1;
+    if (kWalk && tt == 0 && held[0] >= 0 && !mbar_test(full0 + 8 * s, phase)) {
+      bulk_wait();
+      flag_stored(a, held[0], held[1]);
+      held[0] = -1;
+    }
+    mbar_wait(full0 + 8 * s, phase);
     uint8_t* const buf = ring + s * S::kStageBytes;
     float* const planes = reinterpret_cast<float*>(buf);
     const uint8_t* const wm = buf + S::kPlaneBytes;
-    float(*wsum)[kTeamWarps] = sums[i & 1];
+    float(*wsum)[kTeamWarps] = sums[m & 1];
     int y0, x0;
     a.origin(t, y0, x0);
     // own cells inside the grid: rows [K, K + own_h), columns [kA, kA + own_w)
@@ -466,7 +609,21 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* ring, float* sta
     }
     if (tt == 0) {
       mbar_arrive(empty0 + 8 * s);  // the stage is free
-      if (a.bulk_store) tma_store(&a.out_map, x0, y0, staged);
+      if (a.bulk_store) {
+        if (kWalk && (i & 1)) {
+          tma_store(&a.out_map_odd, x0, y0, staged);
+        } else {
+          tma_store(&a.out_map, x0, y0, staged);
+        }
+      }
+      if (kWalk) {
+        if (held[0] >= 0) {
+          bulk_wait_prior();
+          flag_stored(a, held[0], held[1]);
+        }
+        held[0] = t;
+        held[1] = a.base + i + 1;
+      }
     }
     if (!a.bulk_store) {
       const size_t op = static_cast<size_t>(a.out_plane);
@@ -483,13 +640,17 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* ring, float* sta
       float total = 0.0f;
 #pragma unroll
       for (int w = 0; w < kTeamWarps; ++w) total = total + wsum[tt][w];
-      a.partials[static_cast<size_t>(tt) * tiles + t] = total;
+      a.partials[(static_cast<size_t>(i) * K + tt) * tiles + t] = total;
     }
   }
-  if (tt == 0) bulk_wait();
+  if (tt == 0) {
+    bulk_wait();
+    if (kWalk && held[0] >= 0) flag_stored(a, held[0], held[1]);
+  }
 }
 
-template <int K, bool kLocal>
+// kWalk: a launch that walks its passes (walks); else one pass.
+template <int K, bool kLocal, bool kWalk>
 __global__ void __launch_bounds__(Shape<K>::kThreads, 1)
     kstep_kernel(const __grid_constant__ Args a) {
   using S = Shape<K>;
@@ -515,6 +676,7 @@ __global__ void __launch_bounds__(Shape<K>::kThreads, 1)
   // leaves and set up while it ends, then wait (below) for it to be done
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
+  __shared__ int held[S::kTeams][2];  // each team's (see consume)
   const int team = threadIdx.x / kTeamThreads;
   if (team == S::kTeams) {  // the producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
@@ -522,19 +684,27 @@ __global__ void __launch_bounds__(Shape<K>::kThreads, 1)
     // its writes are visible: every access of device memory of this grid
     // follows this wait (the consumers' follow the windows' loads)
     asm volatile("griddepcontrol.wait;\n" ::: "memory");
-    const int pt = threadIdx.x - S::kTeams * kTeamThreads, tiles = a.tiles();
+    const int pt = threadIdx.x - S::kTeams * kTeamThreads;
+    const int items = kWalk ? a.tiles() * a.passes : a.tiles();
     for (int n = 0;; ++n) {
-      const int t = blockIdx.x + n * static_cast<int>(gridDim.x);
-      if (t >= tiles) break;
+      const int j = blockIdx.x + n * static_cast<int>(gridDim.x);
+      if (j >= items) break;
+      int i = 0;
+      const int t = kWalk ? a.item(j, i) : j;
       const int s = n % S::kStages;
+      // in a walk, pass i > 0 of the launch loads once the tiles its
+      // window holds have stored pass i - 1 (pass 0 follows the launch
+      // before, by griddepcontrol.wait)
+      if (kWalk && i > 0) wait_stored(a, t, i, pt & 31);
       if (n >= S::kStages) mbar_wait(empty0 + 8 * s, (n / S::kStages - 1) & 1);
-      load_window<K, kLocal>(ring + s * S::kStageBytes, a, t, pt, full0 + 8 * s);
+      uint8_t* const buf = ring + s * S::kStageBytes;
+      load_window<K, kLocal>(buf, a, t, kWalk && (i & 1), pt, full0 + 8 * s);
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::kConsumerRegs));
-    consume<K, kLocal>(a, ring, staged + team * (S::kOutBytes / 4), full0, empty0,
-                       sums[team], team, threadIdx.x % kTeamThreads);
+    consume<K, kLocal, kWalk>(a, ring, staged + team * (S::kOutBytes / 4), full0, empty0,
+                              sums[team], held[team], team, threadIdx.x % kTeamThreads);
   }
 }
 
@@ -552,26 +722,37 @@ cudaError_t current_device(int* dev) {
   return *dev < kMaxDevices ? cudaSuccess : cudaErrorInvalidDevice;
 }
 
-// Sets the kernel's shared-memory limit on device `dev` (the current
-// device) and checks from the occupancy query that a block fits an SM.
-template <int K, bool kLocal>
-cudaError_t prepare_on(int dev) {
-  const auto kernel = kstep_kernel<K, kLocal>;
+// Sets one kernel's shared-memory limit on the current device and sets
+// *per_sm from the occupancy query; fails where a block fits no SM or
+// starts with other than kLaunchRegs registers.
+template <int K, bool kLocal, bool kWalk>
+cudaError_t prepare_kernel(int* per_sm) {
+  const auto kernel = kstep_kernel<K, kLocal, kWalk>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(Shape<K>::kSmemBytes));
-  int per_sm = 0, sms = 0;
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Shape<K>::kThreads,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, Shape<K>::kThreads,
                                                         Shape<K>::kSmemBytes);
   }
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaFuncAttributes attr{};
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;  // a block does not fit on an SM
+  if (*per_sm < 1) return cudaErrorInvalidConfiguration;  // a block does not fit on an SM
   // the consumers' setmaxnreg.inc takes what the producer gives back of
   // the launch's registers: with fewer at launch it would wait for ever
   if (attr.numRegs != Shape<K>::kLaunchRegs) return cudaErrorInvalidConfiguration;
+  return cudaSuccess;
+}
+
+// Prepares the form's kernels (the periodic form's walk too) on device
+// `dev`, the current device, and records its blocks per SM and SMs.
+template <int K, bool kLocal>
+cudaError_t prepare_on(int dev) {
+  int per_sm = 0, walk_per_sm = 0, sms = 0;
+  cudaError_t err = prepare_kernel<K, kLocal, false>(&per_sm);
+  if (err == cudaSuccess && !kLocal) err = prepare_kernel<K, false, true>(&walk_per_sm);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
   g_sms[dev] = sms;
   g_per_sm[dev][K][kLocal] = per_sm;
   return cudaSuccess;
@@ -664,10 +845,15 @@ cudaError_t tensor_map(const float* p, long long plane, int rows, int nx, int bo
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// `passes` passes from f (pass i reads what pass i - 1 wrote, pass 0 f, and
+// writes the other of f and out), partials[pass][K][tile]: one launch that
+// walks them (`flags` the run's, `base` its passes before this launch), or
+// where the grid does not walk (walks) one launch a pass.  The local form
+// takes one pass.
 template <int K, bool kLocal>
 cudaError_t launch(const float* f, long long f_plane, int src_rows, float* out,
-                   long long out_plane, const uint8_t* mask, float* partials,
-                   int rows, int nx, const lbm::StepConsts& c,
+                   long long out_plane, const uint8_t* mask, float* partials, int* flags,
+                   int passes, int base, int rows, int nx, const lbm::StepConsts& c,
                    cudaStream_t stream) {
   using S = Shape<K>;
   int dev = 0;
@@ -678,10 +864,23 @@ cudaError_t launch(const float* f, long long f_plane, int src_rows, float* out,
   const bool bulk_load = nx % 4 == 0 && f_plane % 4 == 0 && aligned16(f) &&
                          reinterpret_cast<uintptr_t>(mask) % 4 == 0;
   const bool bulk_store = nx % 4 == 0 && out_plane % 4 == 0 && aligned16(out);
+  if (passes > 1 && !walks<kLocal>(rows, nx, bulk_load && bulk_store, g_sms[dev])) {
+    float* const buf[2] = {const_cast<float*>(f), out};
+    for (int i = 0; i < passes && err == cudaSuccess; ++i) {
+      err = launch<K, kLocal>(buf[i & 1], f_plane, src_rows, buf[(i + 1) & 1], out_plane,
+                              mask, partials + static_cast<size_t>(i) * K * tiles, nullptr,
+                              1, 0, rows, nx, c, stream);
+    }
+    return err;
+  }
   Args args{};
   if (bulk_load) err = tensor_map(f, f_plane, src_rows, nx, S::kW, S::kH, &args.src_map);
   if (err == cudaSuccess && bulk_store) {
     err = tensor_map(out, out_plane, rows, nx, kTx, kTy, &args.out_map);
+  }
+  if (err == cudaSuccess && passes > 1) {
+    err = tensor_map(out, out_plane, rows, nx, S::kW, S::kH, &args.src_map_odd);
+    if (err == cudaSuccess) err = tensor_map(f, f_plane, rows, nx, kTx, kTy, &args.out_map_odd);
   }
   if (err != cudaSuccess) return err;
   args.f = f;
@@ -691,23 +890,30 @@ cudaError_t launch(const float* f, long long f_plane, int src_rows, float* out,
   args.out_plane = out_plane;
   args.mask = mask;
   args.partials = partials;
+  args.flags = flags;
   args.rows = rows;
   args.nx = nx;
   args.bulk_load = bulk_load ? 1 : 0;
   args.bulk_store = bulk_store ? 1 : 0;
+  args.passes = passes;
+  args.base = base;
   args.c = c;
-  // launched as a programmatic dependent of the launch before it
-  cudaLaunchAttribute chain{};
-  chain.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  chain.val.programmaticStreamSerializationAllowed = 1;
+  // launched as a programmatic dependent of the launch before it; a walk's
+  // blocks wait for each other's flags, so it is launched co-resident
+  cudaLaunchAttribute attrs[2]{};
+  attrs[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[0].val.programmaticStreamSerializationAllowed = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
   cudaLaunchConfig_t cfg{};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(S::kThreads);
   cfg.dynamicSmemBytes = S::kSmemBytes;
   cfg.stream = stream;
-  cfg.attrs = &chain;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kstep_kernel<K, kLocal>, args);
+  cfg.attrs = attrs;
+  if (kLocal || passes == 1) return cudaLaunchKernelEx(&cfg, kstep_kernel<K, kLocal, false>, args);
+  cfg.numAttrs = 2;
+  return cudaLaunchKernelEx(&cfg, kstep_kernel<K, false, true>, args);
 }
 
 // Calls fn(std::integral_constant<int, K>{}) for K = k, the one list of
@@ -789,22 +995,47 @@ extern "C" int lbm_kstep_blocks_per_sm(int k, int local) {
   return per_sm;
 }
 
-// K steps: out = step^K(f).  `partials` receives K x tiles floats,
-// tiles = ceil(ny/16) * ceil(nx/32), in row-major tile order.  Launches on
-// `stream`; returns the launch's cudaError_t (0 = launched).
+// `passes` passes of K steps: pass i reads f (i even) or out (i odd) and
+// writes the other, so the state ends in out after an odd count of passes
+// and in f after an even one.  `partials` receives passes x K x tiles
+// floats, tiles = ceil(ny/16) * ceil(nx/32), in row-major tile order.  On a
+// grid that walks (lbm_kstep_walks) one launch runs every pass, on `flags`
+// (tiles ints, zero at the start of a run, which this launch's passes
+// continue after `base` passes); elsewhere one launch runs each pass
+// (`flags` unused, may be null for one pass).  Launches on `stream`;
+// returns the launches' cudaError_t (0 = launched).
 extern "C" int lbm_kstep(const float* f, float* out, const uint8_t* mask,
-                         float* partials, int ny, int nx, int k,
-                         float w0_omega, float w1_omega, float w2_omega,
+                         float* partials, int* flags, int ny, int nx, int k, int passes,
+                         int base, float w0_omega, float w1_omega, float w2_omega,
                          float one_minus_omega, float accel_w1,
                          float accel_w2, void* stream) {
+  if (passes < 1 || (passes > 1 && flags == nullptr)) {
+    return lbm::status(cudaErrorInvalidValue);
+  }
   const lbm::StepConsts c{w0_omega,        w1_omega, w2_omega,
                           one_minus_omega, accel_w1, accel_w2};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long plane = static_cast<long long>(ny) * nx;
   return lbm::status(with_k(k, [&](auto kk) {
     return launch<decltype(kk)::value, false>(f, plane, ny, out, plane, mask, partials,
-                                              ny, nx, c, st);
+                                              flags, passes, base, ny, nx, c, st);
   }));
+}
+
+// Whether lbm_kstep walks a launch's passes in one launch on the (ny, nx)
+// grid with 16-byte aligned state and 4-byte aligned mask buffers on the
+// current device (else it launches once a pass): the kernel's rule
+// (walks); 0 where the device cannot be prepared.
+extern "C" int lbm_kstep_walks(int ny, int nx) {
+  int dev = 0;
+  if (lbm::status(prepared<3, false>(&dev)) != 0) return 0;
+  return walks<false>(ny, nx, nx % 4 == 0, g_sms[dev]);
+}
+
+// The tile of item j of a walk on the (ny, nx) grid, and its pass in *pass
+// (item_tile).
+extern "C" int lbm_kstep_item(int ny, int nx, int j, int* pass) {
+  return item_tile((nx + kTx - 1) / kTx, (ny + kTy - 1) / kTy, j, *pass);
 }
 
 // K steps of one shard: out = the own rows of step^K(win), win the
@@ -824,6 +1055,6 @@ extern "C" int lbm_local_ca(const float* win, long long win_plane, float* out,
   return lbm::status(with_k(k, [&](auto kk) {
     constexpr int K = decltype(kk)::value;
     return launch<K, true>(win, win_plane, ly + 2 * K, out, out_plane, mask, partials,
-                           ly, nx, c, st);
+                           nullptr, 1, 0, ly, nx, c, st);
   }));
 }

@@ -133,12 +133,14 @@ def load() -> ctypes.CDLL:
         "lbm_resident_banded_depth": ([i32, i32], i32),
         "lbm_resident_banded_smem": ([i32], i64),
         "lbm_resident_banded_scratch": ([i32, i32, ctypes.POINTER(i64)], i32),
-        "lbm_kstep": ([ptr, ptr, ptr, ptr, i32, i32, i32, *consts, ptr], i32),
+        "lbm_kstep": ([ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, *consts, ptr], i32),
         "lbm_kstep_prepare": ([i32], i32),
         "lbm_kstep_tile_shape": ([ctypes.POINTER(i32)] * 2, None),
         "lbm_kstep_blocks_per_sm": ([i32, i32], i32),
         "lbm_kstep_schedule": ([i32, ctypes.POINTER(i32), ctypes.POINTER(i32)], i32),
         "lbm_kstep_bulk_tiles": ([i32, i32, i32], i32),
+        "lbm_kstep_walks": ([i32, i32], i32),
+        "lbm_kstep_item": ([i32, i32, i32, ctypes.POINTER(i32)], i32),
         "lbm_local_ca": ([ptr, i64, ptr, i64, ptr, ptr, i32, i32, i32, *consts, ptr], i32),
         "lbm_local_step": ([ptr, i64, i32, ptr, i32, ptr, ptr, i64, i32, ptr, i32, i32,
                             i32, *consts, ptr], i32),

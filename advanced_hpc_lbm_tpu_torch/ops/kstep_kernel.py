@@ -20,7 +20,10 @@ where it does not, and stepped K times by a team of consumer warps
 builds the same windows with periodic index gathers and runs K calls of
 :func:`kernel_common.lean_window_step` on them.  A pass writes the next
 state out of place and one ||u|| partial per step and tile,
-``partials[s, tile]``, tiles in row-major order.
+``partials[s, tile]``, tiles in row-major order.  On a grid of whole tiles,
+a few a pass per SM (:func:`walks`), one launch walks a run's chunk of
+passes (:func:`item`), each tile's window loading once the tiles it holds
+(:func:`deps`) have stored the pass before.
 """
 
 from __future__ import annotations
@@ -107,6 +110,53 @@ def schedule(ny: int, nx: int, k: int, sms: int) -> list[list[int]]:
     return out
 
 
+# A walk pays on grids of at most this many tiles a pass per SM
+# (kWalkTilesPerSm in csrc/kstep_kernel.cu).
+WALK_TILES_PER_SM = 16
+
+
+def walks(ny: int, nx: int, sms: int | None = None) -> bool:
+    """Whether one launch walks several passes on the (ny, nx) grid (its
+    buffers aligned as PyTorch allocates them) on a card of ``sms`` SMs,
+    the kernel's rule (``lbm_kstep_walks``): a grid of whole tiles, so that
+    every cell a tile's window holds lies in the tile or the 8 around it,
+    and at most WALK_TILES_PER_SM tiles a pass per SM, where saving a
+    launch's start and tail outweighs what the flags cost each tile.
+    Elsewhere a pass is a launch.  ``sms`` None: the grid's
+    rule alone (the CPU's plain version has no SMs)."""
+    whole = ny % TILE_Y == 0 and nx % TILE_X == 0
+    return whole and (sms is None or num_tiles(ny, nx) <= WALK_TILES_PER_SM * sms)
+
+
+def card_sms(device) -> int | None:
+    """The SMs of a CUDA ``device``, None for another device."""
+    device = torch.device(device)
+    return (torch.cuda.get_device_properties(device).multi_processor_count
+            if device.type == "cuda" else None)
+
+
+def item(ny: int, nx: int, j: int) -> tuple[int, int]:
+    """(pass, tile) of item j of a launch that walks its passes
+    (``lbm_kstep_item``): pass i = j // tiles takes its tiles row-major
+    from tile row i mod tiles_y on, so that pass i + 1 begins with tiles
+    whose windows hold only tiles that pass i stored early.  Block b of
+    the launch takes items b, b + grid, ... (:func:`schedule`)."""
+    tx, ty = -(-nx // TILE_X), -(-ny // TILE_Y)
+    i, pos = divmod(j, tx * ty)
+    r, c = divmod(pos, tx)
+    return i, (r + i) % ty * tx + c
+
+
+def deps(ny: int, nx: int, t: int) -> list[int]:
+    """The tiles whose flags tile t's window waits for in a walk (the
+    kernel's ``wait_stored``): t and the 8 around it, wrapped (repeats on
+    a grid under 3 tiles wide).  The relation is symmetric: they are also
+    the tiles whose windows hold t's cells."""
+    tx, ty = -(-nx // TILE_X), -(-ny // TILE_Y)
+    r, c = divmod(t, tx)
+    return [(r + dy) % ty * tx + (c + dx) % tx for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+
+
 def _windows(ny: int, nx: int, k: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     """Global rows (tiles_y, TILE_Y + 2k) and columns (tiles_x, TILE_X + 2k)
     of every tile's ghosted window, wrapped periodically."""
@@ -172,12 +222,17 @@ def prepare(device: torch.device | str, k: int) -> None:
 
 
 def _launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams, k: int):
-    """A function ``(src, dst, partials) -> None`` that runs one pass on
-    tensors shaped like ``f``: the kernel on CUDA, the plain version on the
-    CPU.  Arguments are validated by the caller, once."""
+    """A function ``(src, dst, partials) -> None`` that runs the next
+    ``len(partials)`` passes of a run on tensors shaped like ``f``, ``src``
+    into ``dst`` and back (``partials`` (n, k, tiles)): the kernel on CUDA,
+    in one launch where the grid walks (:func:`walks`), else one a pass;
+    the plain version pass by pass on the CPU.  Arguments are validated by
+    the caller, once."""
     if f.device.type == "cpu":
         def one(src, dst, part):
-            plain_multi_step(src, mask, params, k, out=dst, partials=part)
+            for i in range(part.shape[0]):
+                plain_multi_step(src, mask, params, k, out=dst, partials=part[i])
+                src, dst = dst, src
         return one
     if f.device.type != "cuda":
         raise ValueError(f"no K-step kernel for device {f.device}")
@@ -186,14 +241,24 @@ def _launcher(f: torch.Tensor, mask: torch.Tensor, params: LBMParams, k: int):
     consts = library.consts(params)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     mask_ptr = mask.data_ptr()
+    # each tile's last stored pass of the run, counted from 1: a launch
+    # walks its passes on from the run's passes before it
+    flags = torch.zeros(num_tiles(ny, nx), dtype=torch.int32, device=f.device)
+    done = 0
+    walk_grid = walks(ny, nx, card_sms(f.device))
 
     def one(src, dst, part):
         global launches
+        nonlocal done
+        n = part.shape[0]
         err = lib.lbm_kstep(src.data_ptr(), dst.data_ptr(), mask_ptr, part.data_ptr(),
-                            ny, nx, k, *consts, stream)
+                            flags.data_ptr(), ny, nx, k, n, done, *consts, stream)
         library.check(err, f"K={k} kernel launch")
-        launches += 1
-        launches_by_k[k] += 1
+        walk = (walk_grid and src.data_ptr() % 16 == 0 and dst.data_ptr() % 16 == 0
+                and mask_ptr % 4 == 0)
+        done += n
+        launches += 1 if walk else n
+        launches_by_k[k] += 1 if walk else n
     return one
 
 
@@ -208,12 +273,12 @@ def kstep(
 ) -> None:
     """K steps, out of place: ``out`` gets the state K steps on and
     ``partials`` ((k, num_tiles(ny, nx)) float32) the per-step, per-tile
-    ||u|| sums.  Launches the kernel for a CUDA tensor, runs
+    ||u|| sums.  Launches the kernel (one pass) for a CUDA tensor, runs
     :func:`plain_multi_step` for a CPU one."""
     check_k(k)
     library.validate_pass(f, mask, out, partials, (k, num_tiles(*f.shape[1:])))
     with torch.cuda.device(f.device) if f.is_cuda else contextlib.nullcontext():
-        _launcher(f, mask, params, k)(f, out, partials)
+        _launcher(f, mask, params, k)(f, out, partials[None])
 
 
 def multi_step(
@@ -257,13 +322,15 @@ def run(
     donate: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the main loop at K steps per pass, ping-ponging two state
-    buffers; the last ``iters % k`` steps run on the step kernel in the
-    same two buffers, as the JAX ``pallas_k.run`` and ``pallas_multi.run``
-    run them on the 1-step kernel.  ``f0`` is not modified, unless
-    ``donate`` (see :func:`.library.buffers`).
+    buffers, a chunk of passes a launch where the grid walks
+    (:func:`walks`); the last ``iters % k`` steps run on the step kernel in
+    the same two buffers, as the JAX ``pallas_k.run`` and
+    ``pallas_multi.run`` run them on the 1-step kernel.  ``f0`` is not
+    modified, unless ``donate`` (see :func:`.library.buffers`).
 
     Returns (f_final, av_vels[(n_iters,)]) on ``f0``'s device; the span
-    counts the tiles fed by the bulk copy and by wrapped copies.
+    carries the passes a launch and counts the tiles fed by the bulk copy
+    and by wrapped copies.
     """
     check_k(k)
     iters = params.max_iters if n_iters is None else n_iters
@@ -274,10 +341,13 @@ def run(
     passes = iters // k
     aligned = all(b.data_ptr() % 16 == 0 for b in bufs) and mask.data_ptr() % 4 == 0
     bulk = bulk_tiles(ny, nx, k) if aligned else 0
+    walk = walks(ny, nx, card_sms(f0.device)) and aligned
+    per = loop.chunk_passes(passes, k, chunk) if walk else 1
     return loop.run_passes(
         bufs, lambda: _launcher(bufs[0], mask, params, k), iters,
         (mask == 0).sum().to(torch.float32), tiles=num_tiles(ny, nx), counter=lambda: launches,
-        steps=k, chunk=chunk,
+        steps=k, whole=True, chunk=chunk,
         tail=lambda f, spare, n: step_kernel.run(f, mask, params, n_iters=n, donate=True,
                                                  spare=spare),
+        passes_per_launch=per,
         tiles_bulk=passes * bulk, tiles_wrap=passes * (num_tiles(ny, nx) - bulk))

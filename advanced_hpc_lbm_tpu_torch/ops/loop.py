@@ -17,6 +17,13 @@ from advanced_hpc_lbm_tpu_torch.utils import profiling
 CHUNK = 1000
 
 
+def chunk_passes(passes: int, steps: int, chunk: int = CHUNK) -> int:
+    """Passes of ``steps`` steps whose partials a chunk holds: ``chunk //
+    steps``, or the run's ``passes`` where fewer, and at least one.  A
+    ``whole`` launch of :func:`run_passes` takes a chunk's passes."""
+    return max(1, min(chunk // steps, passes))
+
+
 def run_passes(
     bufs: tuple[torch.Tensor, torch.Tensor],
     launcher: Callable[[], Callable],
@@ -35,18 +42,21 @@ def run_passes(
 
     A pass takes the state ``steps`` steps on from one buffer into the
     other (one tensor twice: in place), writing ``tiles`` ||u|| partials
-    a step.  ``launcher()`` (under the device guard) gives ``launch(src,
-    dst, partials)``: a pass, ``partials`` (tiles,) or (steps, tiles); with
-    ``whole``, a chunk of n 1-step passes, ``partials`` (n, tiles).  A
-    chunk's partials stay on the device until it is full, so the loop
-    neither syncs nor allocates.  The last ``iters % steps`` steps run on
-    ``tail(f, spare, n) -> (f, av)``, the step kernel's run with the other
-    buffer spare (None in place).  The span carries ``attrs`` and, as
-    ``launches``, the growth of ``counter()``, the module's launch counts.
+    a step.  ``launcher()`` (under the device guard, once a run) gives
+    ``launch(src, dst, partials)``: a pass, ``partials`` (tiles,) or
+    (steps, tiles); with ``whole``, the next n passes of a chunk
+    (:func:`chunk_passes`), ``src`` into ``dst`` and back, ``partials`` (n,
+    tiles) or (n, steps, tiles): the resident kernels' 1-step passes, the
+    K-step kernel's K-step ones.  A chunk's partials stay on the device
+    until it is full, so the loop neither syncs nor allocates.  The last
+    ``iters % steps`` steps run on ``tail(f, spare, n) -> (f, av)``, the
+    step kernel's run with the other buffer spare (None in place).  The
+    span carries ``attrs`` and, as ``launches``, the growth of
+    ``counter()``, the module's launch counts.
     """
     device = bufs[0].device
     passes = iters // steps
-    rows = max(1, min(chunk // steps, passes))  # passes of partials per chunk
+    rows = chunk_passes(passes, steps, chunk)
     per = rows if whole else 1  # passes per launch
     partials = torch.empty((rows, tiles) if steps == 1 else (rows, steps, tiles),
                            dtype=torch.float32, device=device)

@@ -36,13 +36,17 @@ non-zero and prints no result:
              best_k, the K pallask runs there) against the step kernel (0
              differing values) and its plain version at 4096^2, 1024^2,
              256^2, 128x256, 64^2, 100x130 and 17x23, 1 pass and 3 passes
-             with a guard-failing row, its C rules against their Python
-             restatements on each (lbm_kstep_bulk_tiles against
-             kstep_kernel.bulk_tiles, the teams a block), and a recorded
-             run's lbm.ops.loop span (tiles_bulk, tiles_wrap) at 1024^2;
-             then its time per step for K = 2..6, 8 at 4096^2 down to 64^2,
-             beside the step and resident kernels, and at best_k a step and
-             a launch beside the design before (KSTEP_BEFORE_US)
+             (one launch that walks them on grids of whole tiles, up to 16
+             tiles a pass per SM) with a guard-failing row, its C rules
+             against their Python restatements on each
+             (lbm_kstep_bulk_tiles against kstep_kernel.bulk_tiles, the
+             teams a block, lbm_kstep_walks and lbm_kstep_item), and a
+             recorded run's lbm.ops.loop span
+             (launches, passes_per_launch, tiles_bulk, tiles_wrap) at
+             1024^2; then its time per step for K = 2..6, 8 at 4096^2 down
+             to 64^2, beside the step and resident kernels, and at best_k a
+             step, a pass and the launches of a timed run beside the design
+             before (KSTEP_BEFORE_US)
   3s. stream the stream kernel, in place and out of place, against the step
              kernel (0 differing values) and its plain version at 8192^2,
              4096^2, 1024^2, 256^2, 64^2 (the mini deck), 100x130 and
@@ -227,10 +231,10 @@ RUN_STEPS = 1000  # steps per timed run of the kernel
 KSTEP_TIMED_STEPS = 480  # a multiple of every timed K
 TIMED_K = (2, 3, 4, 5, 6, 8)
 STREAM_TIMED_STEPS = 96  # a multiple of 8 and of every best_k
-# The K-step kernel's us a step and a launch at best_k (K = 3) before the
-# warp-specialised design: chip_smoke 3k at 4096^2 and 1024^2 (the
-# benchmark's 1024^2 deck read 53.97 us a launch in its trace)
-KSTEP_BEFORE_US = {4096: (236.85, 710.55), 1024: (19.26, 57.78)}
+# The K-step kernel's us a step and a pass at best_k (K = 3) in the design
+# before launches walked many passes (one launch a pass): chip_smoke 3k at
+# 4096^2 and 1024^2
+KSTEP_BEFORE_US = {4096: (200.02, 600.06), 1024: (15.96, 47.88)}
 
 # The card's published peaks (H100 SXM data sheet) for the bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -838,7 +842,9 @@ def plain_kstep(f, mask, params, k, passes):
 
 def check_feed(ny: int, nx: int, k: int, tag: str) -> str:
     """The kernel's C rules for the (ny, nx) grid at K against their Python
-    restatements: the tiles the bulk tensor copy feeds, the teams a block."""
+    restatements: the tiles the bulk tensor copy feeds, the teams a block,
+    whether a launch walks its passes and the (pass, tile) of the items of
+    a walk of 3 passes."""
     from advanced_hpc_lbm_tpu_torch.ops import _build, kstep_kernel
 
     lib = _build.load()
@@ -851,7 +857,18 @@ def check_feed(ny: int, nx: int, k: int, tag: str) -> str:
             or teams.value != kstep_kernel.teams(k) or stages.value < 3):
         fail(f"{tag}: lbm_kstep_schedule {teams.value} teams, {stages.value} stages; "
              f"the rule's {kstep_kernel.teams(k)} teams")
-    return (f"bulk {bulk} / wrap {kstep_kernel.num_tiles(ny, nx) - bulk} tiles, "
+    walks = bool(lib.lbm_kstep_walks(ny, nx))
+    rule = kstep_kernel.walks(ny, nx, kstep_kernel.card_sms("cuda"))
+    if walks != rule:
+        fail(f"{tag}: lbm_kstep_walks {walks} != the rule's {rule}")
+    pass_ = ctypes.c_int()
+    for j in range(3 * kstep_kernel.num_tiles(ny, nx)):
+        t = lib.lbm_kstep_item(ny, nx, j, ctypes.byref(pass_))
+        if (pass_.value, t) != kstep_kernel.item(ny, nx, j):
+            fail(f"{tag}: lbm_kstep_item({j}) {(pass_.value, t)} != the rule's "
+                 f"{kstep_kernel.item(ny, nx, j)}")
+    return (f"{'walks' if walks else 'a launch a pass'}, "
+            f"bulk {bulk} / wrap {kstep_kernel.num_tiles(ny, nx) - bulk} tiles, "
             f"{teams.value} teams, {stages.value} stages")
 
 
@@ -869,7 +886,7 @@ def check_loop_span(ny: int, nx: int) -> None:
     torch.cuda.synchronize()
     loop = [sp for sp in rec.spans if sp.name == "lbm.ops.loop"]
     bulk = _build.load().lbm_kstep_bulk_tiles(ny, nx, k)
-    want = {"launches": passes, "tiles_bulk": passes * bulk,
+    want = {"launches": 1, "passes_per_launch": passes, "tiles_bulk": passes * bulk,
             "tiles_wrap": passes * (kstep_kernel.num_tiles(ny, nx) - bulk)}
     got = {key: loop[0].attrs.get(key) for key in want} if len(loop) == 1 else None
     if got != want:
@@ -899,8 +916,9 @@ def phase_kstep(card: str, res_times: dict) -> tuple[float, dict]:
                 kstep_kernel.launches = 0
                 fk, avk = kstep_kernel.run(f, mask, params, n_iters=n, k=k)
                 torch.cuda.synchronize()
-                if kstep_kernel.launches != passes:
-                    fail(f"{tag}: {kstep_kernel.launches} launches, expected {passes}")
+                want = 1 if kstep_kernel.walks(ny, nx, kstep_kernel.card_sms("cuda")) else passes
+                if kstep_kernel.launches != want:
+                    fail(f"{tag}: {kstep_kernel.launches} launches, expected {want}")
                 fs, avs = step_kernel.run(f, mask, params, n_iters=n)
                 fp, avp = plain_kstep(f, mask, params, k, passes)
                 torch.cuda.synchronize()
@@ -944,11 +962,13 @@ def time_kstep(card: str) -> dict:
             f"{s_ms * 1e3:.2f} us ({size * size / s_ms / 1e6:.3f} GLUPS){plain} | {card}")
         if size in KSTEP_BEFORE_US:
             k = kstep_kernel.best_k(size, size)
-            step_us, launch_us = KSTEP_BEFORE_US[size]
+            step_us, pass_us = KSTEP_BEFORE_US[size]
+            kstep_kernel.launches = 0
+            kstep_kernel.run(f, mask, params, n_iters=n, k=k)
             say(f"[3k kstep] {size}x{size} K={k}: {row[k] * 1e3:.2f} us a step, "
-                f"{row[k] * k * 1e3:.2f} us a launch; before this design {step_us:.2f} us "
-                f"a step, {launch_us:.2f} us a launch ({row[k] * 1e3 / step_us - 1:+.1%}) "
-                f"| {card}")
+                f"{row[k] * k * 1e3:.2f} us a pass, {kstep_kernel.launches} launch(es) for "
+                f"{n // k} passes; a launch a pass before {step_us:.2f} us a step, "
+                f"{pass_us:.2f} us a pass ({row[k] * 1e3 / step_us - 1:+.1%}) | {card}")
     return times
 
 

@@ -341,7 +341,9 @@ def test_kstep_matches_step_and_plain_on_card(ny, nx, k):
     before = (kstep_kernel.launches, step_kernel.launches)
     fk, avk = kstep_kernel.run(f, mask, params, n_iters=n, k=k)
     torch.cuda.synchronize()
-    assert (kstep_kernel.launches - before[0], step_kernel.launches - before[1]) == (3, 1)
+    # a grid of whole tiles walks its 3 passes in one launch
+    walked = 1 if kstep_kernel.walks(ny, nx, kstep_kernel.card_sms("cuda")) else 3
+    assert (kstep_kernel.launches - before[0], step_kernel.launches - before[1]) == (walked, 1)
     fs, avs = step_kernel.run(f, mask, params, n_iters=n)
     assert int((fk != fs).sum()) == 0
     torch.testing.assert_close(avk, avs, rtol=1e-5, atol=0.0)
@@ -352,6 +354,48 @@ def test_kstep_matches_step_and_plain_on_card(ny, nx, k):
 
 def _persistent_blocks(per_sm: int) -> int:
     return per_sm * torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.parametrize("k", [2, 3, 4])
+@pytest.mark.parametrize("per", [1, 2, 6])
+@pytest.mark.parametrize("ny,nx", [(64, 64), (64, 128), (48, 96), (100, 130), (17, 23),
+                                   (1024, 1024)])
+def test_kstep_passes_per_launch_match_step_on_card(ny, nx, per, k):
+    """6 passes in launches of 1, 2 and 6 passes (a walk where the grid is
+    whole tiles, else a launch a pass): the state equals the step kernel's
+    with 0 differing values, and every pass's partials are the same bits
+    whatever a launch runs; a run of 6 passes and a 1-step tail with a
+    chunk of ``per`` passes has the step kernel's state and its av history
+    within rtol 1e-5."""
+    params, mask, f = _on_card(ny, nx, seed=50 + k)
+    m = step_kernel.prepare_obstacles(mask)
+    tiles = kstep_kernel.num_tiles(ny, nx)
+    launched = 6 // per if kstep_kernel.walks(ny, nx, kstep_kernel.card_sms("cuda")) else 6
+
+    def passes(per):
+        bufs = (f.clone(), torch.empty_like(f))
+        part = torch.empty(6, k, tiles, device="cuda")
+        launch = kstep_kernel._launcher(bufs[0], m, params, k)
+        before = kstep_kernel.launches
+        for p in range(0, 6, per):
+            launch(bufs[p % 2], bufs[(p + 1) % 2], part[p:p + per])
+        torch.cuda.synchronize()
+        return bufs[0], part, kstep_kernel.launches - before
+
+    fk, pk, n_launches = passes(per)
+    f1, p1, _ = passes(1)
+    assert n_launches == launched
+    fs, avs = step_kernel.run(f, mask, params, n_iters=6 * k)
+    assert int((fk != fs).sum()) == 0 and int((f1 != fs).sum()) == 0
+    assert int((pk != p1).sum()) == 0
+    n = 6 * k + 1
+    before = kstep_kernel.launches
+    fr, avr = kstep_kernel.run(f, mask, params, n_iters=n, k=k, chunk=per * k)
+    torch.cuda.synchronize()
+    assert kstep_kernel.launches - before == launched
+    fs, avs = step_kernel.run(f, mask, params, n_iters=n)
+    assert int((fr != fs).sum()) == 0
+    torch.testing.assert_close(avr, avs, rtol=1e-5, atol=0.0)
 
 
 @pytest.mark.parametrize("k", [3, 4, 8])

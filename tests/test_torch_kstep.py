@@ -297,6 +297,167 @@ def test_run_sets_the_feed_on_its_loop_span():
         loop = [s for s in rec.named("lbm.ops.loop") if "tiles_bulk" in s.attrs]
         assert len(loop) == 1
         bulk = kstep_kernel.bulk_tiles(ny, nx, k)
-        assert loop[0].attrs == {"launches": 0, "tiles_bulk": passes * bulk,
+        # 48 x 96 walks its 2 passes in one launch, 17 x 23 launches each
+        per = passes if kstep_kernel.walks(ny, nx) else 1
+        assert loop[0].attrs == {"launches": 0, "passes_per_launch": per,
+                                 "tiles_bulk": passes * bulk,
                                  "tiles_wrap": passes * (kstep_kernel.num_tiles(ny, nx) - bulk)}
     assert kstep_kernel.bulk_tiles(48, 96, 3) == 1  # the middle tile of 3 x 3
+    assert kstep_kernel.walks(48, 96) and not kstep_kernel.walks(17, 23)
+
+
+# ---- a launch that walks many passes (the Python restatement of its rules) ---------
+
+# 1024^2; 3 x 3 tiles whose windows wrap in both directions (48 x 96); 2 x 2
+# (32 x 64), where a window holds each tile row and column twice over; one
+# tile whose window wraps onto itself (16 x 32)
+WALK_CASES = [(1024, 1024, 3), (48, 96, 3), (32, 64, 8), (16, 32, 4)]
+
+
+def _holders(ny, nx, k):
+    """For each tile, the tiles whose own cells its window holds (the
+    kernel's load_window: K rows and kA = K rounded up to 4 columns around
+    the tile, wrapped)."""
+    a = -(-k // 4) * 4
+    tx, ty = nx // kstep_kernel.TILE_X, ny // kstep_kernel.TILE_Y
+    out = []
+    for t in range(tx * ty):
+        y0, x0 = t // tx * kstep_kernel.TILE_Y, t % tx * kstep_kernel.TILE_X
+        rows = {(y0 - k + r) % ny // kstep_kernel.TILE_Y
+                for r in range(kstep_kernel.TILE_Y + 2 * k)}
+        cols = {(x0 - a + c) % nx // kstep_kernel.TILE_X
+                for c in range(kstep_kernel.TILE_X + 2 * a)}
+        out.append({r * tx + c for r in rows for c in cols})
+    return out
+
+
+@pytest.mark.parametrize("ny,nx,k", WALK_CASES)
+def test_deps_order_every_read_and_every_write(ny, nx, k):
+    """deps(t) is exactly the set of tiles whose cells t's window holds, and
+    the set of tiles whose windows hold t's cells: waiting for them to
+    store pass i orders t's reads at pass i + 1 after their writes (read
+    after write) and t's writes at pass i + 1, into the buffer pass i read,
+    after their windows' loads of pass i (write after read).  Grids of
+    ragged tiles do not walk."""
+    assert kstep_kernel.walks(ny, nx)
+    holders = _holders(ny, nx, k)
+    for t, held in enumerate(holders):
+        dep = kstep_kernel.deps(ny, nx, t)
+        assert len(dep) == 9 and set(dep) == held
+        assert {u for u, h in enumerate(holders) if t in h} == held
+    for ny, nx in ((100, 130), (17, 23), (1009, 1024), (1024, 1026), (5, 3)):
+        assert not kstep_kernel.walks(ny, nx)
+
+
+@pytest.mark.parametrize("ny,nx,k", WALK_CASES)
+def test_walk_takes_each_item_once_in_pass_order(ny, nx, k):
+    """Each pass takes every tile once; a block's items, and so each
+    team's, come in increasing order; the first pass is schedule()'s; and a
+    tile's deps of the pass before come earlier: at 1024^2 by the tiles of
+    a pass less three tile rows plus one (a tile of column 0 waits for the
+    last column two rows on), more than 132 blocks' rings of 5 windows
+    hold, so the first tiles of a pass need only tiles stored early in the
+    pass before."""
+    tiles, passes = kstep_kernel.num_tiles(ny, nx), 4
+    order = {kstep_kernel.item(ny, nx, j): j for j in range(passes * tiles)}
+    assert sorted(order) == [(i, t) for i in range(passes) for t in range(tiles)]
+    assert [kstep_kernel.item(ny, nx, j)[1] for j in range(tiles)] == list(range(tiles))
+    grid, teams = min(tiles, 132), kstep_kernel.teams(k)
+    blocks = [[kstep_kernel.item(ny, nx, j)[1] for j in range(b, tiles, grid)]
+              for b in range(grid)]
+    assert kstep_kernel.schedule(ny, nx, k, 132) == [
+        block[j::teams] for block in blocks for j in range(teams)]
+    lag = min(order[(i, t)] - order[(i - 1, d)] for i in range(1, passes)
+              for t in range(tiles) for d in kstep_kernel.deps(ny, nx, t))
+    assert lag > 0
+    if (ny, nx) == (1024, 1024):
+        assert lag == tiles - 3 * (nx // kstep_kernel.TILE_X) + 1 > 132 * 5
+
+
+def _simulate(ny, nx, k, blocks, stages, passes, seed):
+    """Every block's producer and teams on a ring of ``stages`` windows, as
+    the kernel runs them: the producer loads the block's next item once its
+    stage is empty and deps() have flagged the pass before; a team steps
+    its next loaded item and stores it, and flags the store before it once
+    it has stored the next one, or at once where the next is not loaded
+    (it would wait), or at the end.  Each round every actor that can move
+    does so with probability 1/2 (drawn from ``seed``), at least one, so
+    that blocks drift apart as on the card.  Each load checks that every
+    tile it reads has stored the pass before and not yet the pass after
+    (read after write), each store that every window holding the tile's
+    cells has loaded the pass before, whose source buffer it overwrites
+    (write after read).  Raises where no actor can move (a wait cycle)."""
+    rng = np.random.RandomState(seed)
+    tiles = kstep_kernel.num_tiles(ny, nx)
+    grid, J = min(tiles, blocks), kstep_kernel.teams(k)
+    holders = _holders(ny, nx, k)
+    readers = [[u for u in range(tiles) if t in holders[u]] for t in range(tiles)]
+    dep = [set(kstep_kernel.deps(ny, nx, t)) for t in range(tiles)]
+    mine = [[kstep_kernel.item(ny, nx, j) for j in range(b, passes * tiles, grid)]
+            for b in range(grid)]
+    stored = [0] * tiles      # 1 + the last pass stored
+    flag = [0] * tiles        # 1 + the last pass flagged
+    loaded = [-1] * tiles     # the last pass loaded
+    load_n = [0] * grid
+    team_n = [list(range(J)) for _ in range(grid)]
+    held = [[None] * J for _ in range(grid)]  # a team's store not yet flagged
+    state = [[0] * len(m) for m in mine]  # 0 waiting, 1 loaded, 2 stepped
+
+    def say(b, j):
+        i, t = mine[b][held[b][j]]
+        assert flag[t] == i
+        flag[t], held[b][j] = i + 1, None
+
+    def enabled(b, a):
+        m, st = mine[b], state[b]
+        if a == 0:
+            n = load_n[b]
+            if n >= len(m):
+                return False
+            i, t = m[n]
+            return (n < stages or st[n - stages] == 2) and all(flag[d] >= i for d in dep[t])
+        n = team_n[b][a - 1]
+        return (n < len(m) and st[n] == 1) or held[b][a - 1] is not None
+
+    def move(b, a):
+        m, st = mine[b], state[b]
+        if a == 0:
+            n = load_n[b]
+            i, t = m[n]
+            assert all(stored[d] in (i, i + 1) for d in holders[t])
+            assert loaded[t] == i - 1
+            loaded[t], st[n], load_n[b] = i, 1, n + 1
+            return
+        j = a - 1
+        n = team_n[b][j]
+        if n < len(m) and st[n] == 1:
+            i, t = m[n]
+            assert all(loaded[u] >= i - 1 for u in readers[t])
+            assert stored[t] == i
+            stored[t], st[n], team_n[b][j] = i + 1, 2, n + J
+            if held[b][j] is not None:
+                say(b, j)
+            held[b][j] = n
+        else:  # the next item is not loaded (or there is none): flag the last
+            say(b, j)
+
+    actors = [(b, a) for b in range(grid) for a in range(J + 1)]
+    while True:
+        ready = [ba for ba in actors if enabled(*ba)]
+        if not ready:
+            break
+        go = [ba for ba in ready if rng.random_sample() < 0.5] or ready[:1]
+        for ba in go:
+            if enabled(*ba):
+                move(*ba)
+    assert flag == [passes] * tiles, "no actor can move: a wait cycle"
+
+
+@pytest.mark.parametrize("ny,nx,k,stages,passes", [
+    (1024, 1024, 3, 5, 3), (48, 96, 3, 5, 6), (32, 64, 8, 3, 5), (16, 32, 4, 5, 4)])
+def test_simulated_walk_of_132_blocks_never_waits_in_a_cycle(ny, nx, k, stages, passes):
+    """132 blocks (fewer where a pass has fewer tiles), each at its own
+    random pace, walk a launch of several passes to its end, every read
+    after the write it needs and every write after the reads of the pass
+    before."""
+    _simulate(ny, nx, k, 132, stages, passes, seed=ny + nx + k)
